@@ -5,24 +5,41 @@
 
 Phases; any failure stops the run with a non-zero exit:
 
-1. Print the card, build the CUDA kernels from ``src/`` (``nvcc``, sm_90a),
-   print the build seconds and ``-Xptxas -v`` registers/shared memory/spills.
+1. Print the card, build the CUDA kernels from ``src/`` (one ``nvcc`` per
+   source, all started together, sm_90a), print the build seconds and
+   ``-Xptxas -v`` registers/shared memory/spills.
 2. Hold each kernel against its plain PyTorch version on the card (atol and
-   rtol 1e-5): the padded kernel at the full-graph shapes of cora and
-   pubmed, the bucket kernel on every degree bucket of skewed-powerlaw,
-   plus edge cases (ragged R, empty bucket, W=1, fully-masked rows that
-   must be exactly 0, a mask with holes, an out-of-range index -> NaN).
+   rtol 1e-5). GAT: the padded kernel at the full-graph shapes of cora and
+   pubmed, the bucket kernel on every degree bucket of skewed-powerlaw.
+   SpMM: the padded kernel on cora at F 256/32/7, the bucket kernel on every
+   bucket of the GCN training plan's skewed-powerlaw layout (max_degree 128,
+   2 chunks) at F 32/16. Plus edge cases for both (ragged R, empty bucket,
+   W=1, rows that must be exactly 0, an out-of-range index -> NaN row).
 3. Serve cora through ``repro_torch.launch.serve_gnn.run`` with the kernel
    backend (4 stages, 4 chunks, 50 q/s for 3 s, ``--verify`` at 1e-5): every
-   query answered, 0 mismatches, and the padded kernel's launch count equal
-   to 2 GAT layers x chunks x eval calls (+2 for the full-graph verify).
+   query answered, 0 mismatches, and the padded GAT kernel's launch count
+   equal to 2 GAT layers x chunks x eval calls (+2 for the full-graph verify).
 4. Run the paper GAT forward over the degree-bucketed layout of
    skewed-powerlaw with the kernel backend and hold it against the padded
    backend's forward; the bucket kernel must have launched for every
    non-empty bucket of both GAT layers.
 5. Time each kernel's main-path work with CUDA events over CUDA-graph
-   replays, beside its plain version and its bound (bytes over 3.35 TB/s
-   or fp32 operations over 67 TFLOP/s, whichever is larger).
+   replays, beside its plain version, its bound (bytes over 3.35 TB/s or
+   fp32 operations over 67 TFLOP/s, whichever is larger) and, for SpMM,
+   ``torch.sparse.mm`` on a CSR matrix built once from (nbr, norm).
+6. Train the paper GAT on cora through ``repro_torch.launch.train.run_gnn``
+   (4 stages, 4 halo chunks, fill_drain, ``--backend pallas``): the loss
+   stays finite and falls, and the bucket GAT kernel launches 2 (forward +
+   recompute) x 2 GAT layers x buckets x 4 chunks per step.
+7. Train the GCN of ``benchmarks/fig3.py`` ``_sparse_bench`` on
+   skewed-powerlaw (max_degree 128, hidden 32, depth 2, balance (2, 2), 2
+   sequential chunks, adam(1e-2), host engine): one kernel-backend step
+   matches the padded backend within 2e-4; fill_drain, 1f1b and zb-h1 give
+   bit-identical updates under deterministic algorithms; the bucket SpMM
+   kernel launches 2 x 2 GCN layers x 6 buckets x 2 chunks = 48 times per
+   fill_drain step; the single-device ``train()`` and ``make_eval`` of the
+   same GCN launch the padded SpMM kernel. Step times and the kernel's share
+   of the step's device time (``torch.profiler``) are printed.
 
 The last three lines are the card's name and power limit, the ``kernels``
 JSON line, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -32,21 +49,44 @@ no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import os
+import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
+
+# deterministic cuBLAS for phase 7's bit-identity check; read when CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 ATOL = RTOL = 1e-5
+GCN_MATCH_ATOL = 2e-4  # benchmarks/fig3.py: bucket concat reorders f32 edge sums
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
-SOURCE = "src/repro_torch/kernels/gat_edge/csrc/gat_edge.cu"
+GAT_SOURCE = "src/repro_torch/kernels/gat_edge/csrc/gat_edge.cu"
+SPMM_SOURCE = "src/repro_torch/kernels/spmm/csrc/spmm.cu"
+SOURCES = {
+    "gat_aggregate_kernel": GAT_SOURCE,
+    "bucket_gat_kernel": GAT_SOURCE,
+    "padded_spmm_kernel": SPMM_SOURCE,
+    "bucket_spmm_kernel": SPMM_SOURCE,
+}
 REPLACES = {
     "gat_aggregate_kernel": "src/repro/kernels/gat_edge/kernel.py:70",
     "bucket_gat_kernel": "src/repro/kernels/gat_edge/kernel.py:164",
+    "padded_spmm_kernel": "src/repro/kernels/spmm/kernel.py:86",
+    "bucket_spmm_kernel": "src/repro/kernels/spmm/kernel.py:99",
 }
+TRAIN_GAT_ARGS = [
+    "--mode", "gnn", "--dataset", "cora", "--stages", "4", "--chunks", "4",
+    "--strategy", "halo", "--schedule", "fill_drain", "--backend", "pallas",
+    "--device", "cuda", "--epochs", "5", "--log-every", "0",
+]
+GCN_STEPS = 4  # timed steps per backend in phase 7 (the first is dropped)
 SERVE_ARGS = [
     "--dataset", "cora", "--backend", "kernel", "--engine", "host",
     "--stages", "4", "--chunks", "4", "--qps", "50", "--duration", "3",
@@ -70,9 +110,10 @@ class Harness:
     """Shared state of the phases: the torch module, the kernel module and
     per-kernel records for the final ``kernels`` line."""
 
-    def __init__(self, torch, K, dev, card_line):
+    def __init__(self, torch, K, S, dev, card_line):
         self.torch = torch
-        self.K = K
+        self.K = K  # the GAT kernel wrappers
+        self.S = S  # the SpMM kernel wrappers
         self.dev = dev
         self.card = card_line
         self.gen = torch.Generator(device=self.dev).manual_seed(0)
@@ -101,6 +142,21 @@ class Harness:
             got = K.bucket_gat_kernel(hw, s_src, s_dst, nbr, mask, row)
         t.cuda.synchronize()
         want = gat_edge_ref(hw, s_src, s_dst, nbr, mask, row)
+        return self._held(name, label, got, want, zero_rows,
+                          f"R={nbr.shape[0]:6d} W={nbr.shape[1]:4d} H={hw.shape[1]} F={hw.shape[2]:3d}")
+
+    def compare_spmm(self, name, label, hw, nbr, norm, zero_rows=None):
+        """SpMM kernel vs its plain version on the same card inputs."""
+        from repro_torch.kernels.spmm.ref import padded_spmm_ref
+
+        got = getattr(self.S, name)(hw, nbr, norm)
+        self.torch.cuda.synchronize()
+        want = padded_spmm_ref(hw, nbr, norm)
+        return self._held(name, label, got, want, zero_rows,
+                          f"R={nbr.shape[0]:6d} W={nbr.shape[1]:4d} F={hw.shape[1]:3d}")
+
+    def _held(self, name, label, got, want, zero_rows, shape):
+        t = self.torch
         if got.shape != want.shape:
             raise AssertionError(f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
         err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -108,10 +164,9 @@ class Harness:
             raise AssertionError(f"{label}: kernel disagrees with plain version, max |err| {err:.3g}")
         if zero_rows is not None and bool(zero_rows.any()):
             if not bool((got[zero_rows] == 0).all()):
-                raise AssertionError(f"{label}: fully-masked rows are not exactly 0")
+                raise AssertionError(f"{label}: rows that must be 0 are not exactly 0")
         self.err[name] = max(self.err[name], err)
-        log(f"[compare] {name:21s} {label:44s} R={nbr.shape[0]:6d} W={nbr.shape[1]:4d} "
-            f"H={hw.shape[1]} F={hw.shape[2]:2d} max|err|={err:.3g}")
+        log(f"[compare] {name:21s} {label:46s} {shape} max|err|={err:.3g}")
         return got
 
     # ------------------------------------------------------------ timing --
@@ -202,7 +257,80 @@ class Harness:
                 f"F={c[0].shape[2]:2d} live={int(c[4].sum()):7d}: kernel {one_ms:.6f} ms, "
                 f"bound {one_bound:.6f} ms, share of bound {one_bound / one_ms:.3f}")
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "calls": len(calls)}
+                "library_ms": None, "calls": len(calls)}
+
+    def spmm_bound(self, calls):
+        """(bound_ms, bound_by, bytes, ops) for SpMM launches ``(hw, nbr,
+        norm)``: indices and norms read once, the feature rows a nonzero
+        norm needs read once, the output written once; a multiply-add (2
+        operations) per feature of each nonzero-norm slot."""
+        t = self.torch
+        total_bytes = total_ops = 0
+        for hw, nbr, norm in calls:
+            f = hw.shape[1]
+            r, w = nbr.shape
+            live = norm != 0
+            used = int(t.unique(nbr[live]).numel())
+            total_bytes += r * w * (4 + 4) + used * f * 4 + r * f * 4
+            total_ops += 2 * f * int(live.sum())
+        t_bytes = total_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = total_ops / FP32_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), total_bytes, total_ops
+
+    def csr(self, hw, nbr, norm):
+        """The (R, N) CSR matrix of one (nbr, norm) tile: the library call's
+        operand, built once outside any timed region."""
+        t = self.torch
+        r, w = nbr.shape
+        rows = t.arange(r, device=nbr.device).repeat_interleave(w)
+        live = norm.reshape(-1) != 0
+        idx = t.stack([rows[live], nbr.reshape(-1).long()[live]])
+        with warnings.catch_warnings():  # CSR's "beta" notice
+            warnings.simplefilter("ignore", UserWarning)
+            coo = t.sparse_coo_tensor(idx, norm.reshape(-1)[live], (r, hw.shape[0]),
+                                      check_invariants=True).coalesce()
+            return coo.to_sparse_csr()
+
+    def record_spmm_timing(self, name, label, calls, per_call=False):
+        """Time ``calls`` (``(hw, nbr, norm)`` tuples) through the kernel
+        wrapper, the plain version and ``torch.sparse.mm`` on CSR."""
+        t = self.torch
+        from repro_torch.kernels.spmm.ref import padded_spmm_ref
+
+        kernel = getattr(self.S, name)
+        mats = [(self.csr(*c), c[0]) for c in calls]
+        for (a, hw), c in zip(mats, calls):  # the library computes the same function
+            if not t.allclose(t.sparse.mm(a, hw), padded_spmm_ref(*c), atol=ATOL, rtol=RTOL):
+                raise AssertionError(f"{label}: torch.sparse.mm disagrees with the plain version")
+
+        def kernel_all():
+            for c in calls:
+                kernel(*c)
+
+        def plain_all():
+            for c in calls:
+                padded_spmm_ref(*c)
+
+        def library_all():
+            for a, hw in mats:
+                t.sparse.mm(a, hw)
+
+        ms = self.time_ms(kernel_all)
+        plain_ms = self.time_ms(plain_all)
+        library_ms = self.time_ms(library_all)
+        bound_ms, bound_by, nbytes, nops = self.spmm_bound(calls)
+        log(f"[timing] {name} {label}: {len(calls)} launches, kernel {ms:.6f} ms, "
+            f"plain {plain_ms:.6f} ms, torch.sparse.mm {library_ms:.6f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops), "
+            f"share of bound {bound_ms / ms:.3f} [{self.card}]")
+        for c in calls if per_call else ():
+            one_ms = self.time_ms(lambda c=c: kernel(*c))
+            one_bound = self.spmm_bound([c])[0]
+            log(f"[timing]   {name} R={c[1].shape[0]:5d} W={c[1].shape[1]:4d} "
+                f"F={c[0].shape[1]:3d} live={int((c[2] != 0).sum()):7d}: kernel {one_ms:.6f} ms, "
+                f"bound {one_bound:.6f} ms, share of bound {one_bound / one_ms:.3f}")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "calls": len(calls)}
 
 
 def layer_inputs(torch, p, h):
@@ -227,6 +355,83 @@ def gat_calls(torch, model, params, g, nbr, mask, rows):
                 calls += [(hw, s_src, s_dst, n, m, r) for n, m, r in zip(nbr, mask, rows)]
             h = layer.apply(params[i], g, h, None, False)
     return calls
+
+
+def gcn_calls(torch, model, params, g, tiles):
+    """SpMM-call inputs ``(hw, nbr, norm)`` of every GCN layer of ``model``
+    over ``g``: one entry per (layer, tile), ``tiles`` a list of (nbr, norm)."""
+    calls = []
+    with torch.inference_mode():
+        h = g.features
+        for i, layer in enumerate(model.layers):
+            if layer.name.startswith("gcn"):
+                hw = (h @ params[i]["w"]).contiguous()
+                calls += [(hw, nbr, norm) for nbr, norm in tiles]
+            h = layer.apply(params[i], g, h, None, False)
+    return calls
+
+
+def gcn_plan_layout(dev):
+    """The fig3 sparse-bench GCN's training inputs: skewed-powerlaw at
+    max_degree 128, its 2-chunk sequential plan and the plan's bucketed
+    layout (shared capacities) on the card."""
+    from repro_torch.core.microbatch import make_plan
+    from repro_torch.graphs import bucketize_stacked, load_dataset
+
+    g = load_dataset("skewed-powerlaw", max_degree=128)
+    plan = make_plan(g, 2, strategy="sequential")
+    return g, plan, bucketize_stacked(plan.stacked().graph).to(dev)
+
+
+def phase_compare_spmm(H, torch):
+    import numpy as np
+
+    from repro_torch.graphs import load_dataset, pad_graph, subgraph
+
+    dev, gen = H.dev, H.gen
+    cora = load_dataset("cora").to(dev)
+    for f in (256, 32, 7):
+        hw = torch.randn((cora.num_nodes, f), generator=gen, device=dev)
+        H.compare_spmm("padded_spmm_kernel", f"cora full graph F={f}", hw, cora.neighbors, cora.norm)
+
+    _, plan, layout = gcn_plan_layout(dev)
+    log(f"[compare] GCN plan layout, skewed-powerlaw max_degree 128, 2 chunks: (chunks, rows, "
+        f"width) {[tuple(b.neighbors.shape) for b in layout.buckets]}")
+    for f in (32, 16):
+        for c in range(plan.chunks):
+            hw = torch.randn((plan.stacked().n_pad, f), generator=gen, device=dev)
+            for b in layout.chunk(c).buckets:
+                zero = (b.norm == 0).all(dim=1)
+                H.compare_spmm("bucket_spmm_kernel", f"skewed chunk {c} bucket W={b.width} F={f}",
+                               hw, b.neighbors, b.norm, zero_rows=zero)
+
+    # edge cases
+    b = layout.chunk(0).buckets[0]
+    hw = torch.randn((plan.stacked().n_pad, 16), generator=gen, device=dev)
+    H.compare_spmm("bucket_spmm_kernel", "ragged R=37", hw, b.neighbors[:37].contiguous(),
+                   b.norm[:37].contiguous())
+    before = H.S.bucket_spmm_kernel.launches
+    empty = H.compare_spmm("bucket_spmm_kernel", "empty bucket R=0", hw, b.neighbors[:0],
+                           b.norm[:0])
+    if empty.shape != (0, 16) or H.S.bucket_spmm_kernel.launches != before:
+        raise AssertionError("empty bucket must return (0, F) without a launch")
+    hw = torch.randn((cora.num_nodes, 32), generator=gen, device=dev)
+    H.compare_spmm("padded_spmm_kernel", "W=1 (self-loops only)", hw,
+                   cora.neighbors[:, :1].contiguous(), cora.norm[:, :1].contiguous())
+    padded = pad_graph(subgraph(cora, np.arange(0, cora.num_nodes, 3)), 1000, cora.max_degree)
+    zero = (padded.norm == 0).all(dim=1)
+    if int(zero.sum()) < 50:
+        raise AssertionError("expected all-zero-norm padding rows")
+    H.compare_spmm("padded_spmm_kernel", f"holed mask, {int(zero.sum())} all-zero-norm rows",
+                   torch.randn((1000, 7), generator=gen, device=dev), padded.neighbors,
+                   padded.norm, zero_rows=zero)
+    bad_nbr = cora.neighbors.clone()
+    bad_nbr[5, 3] = cora.num_nodes  # out of range (the kernel has no mask)
+    out = H.S.padded_spmm_kernel(hw, bad_nbr, cora.norm)
+    torch.cuda.synchronize()
+    if not (bool(out[5].isnan().all()) and bool(out[6].isfinite().all())):
+        raise AssertionError("out-of-range index must give a NaN row and leave others")
+    log("[compare] spmm out-of-range index -> NaN row: ok")
 
 
 def phase_compare(H, torch):
@@ -383,6 +588,174 @@ def phase_timing(H, torch, bucketed):
         "bucket_gat_kernel", f"skewed-powerlaw forward ({len(tiles)} buckets x 2 layers)",
         b_calls, per_call=True)
 
+    # the GCN training path's SpMM work (phase 7's model and params)
+    from repro_torch.models.gnn.net import build_gnn
+
+    g, plan, layout = gcn_plan_layout(H.dev)
+    gcn = build_gnn("gcn", g.num_features, g.num_classes, hidden=32, depth=2, backend="kernel")
+    gcn_params = gcn.init_params(0, device=H.dev)
+    gd = g.to(H.dev)
+    H.timing["padded_spmm_kernel"] = H.record_spmm_timing(
+        "padded_spmm_kernel", "skewed-powerlaw single-device forward (2 GCN layers, F 32 and 16)",
+        gcn_calls(torch, gcn, gcn_params, gd, [(gd.neighbors, gd.norm)]), per_call=True)
+    b_calls = []
+    for c in range(plan.chunks):
+        chunk = layout.chunk(c)
+        tiles = [(b.neighbors, b.norm) for b in chunk.buckets if b.rows]
+        b_calls += gcn_calls(torch, gcn, gcn_params, chunk, tiles)
+    H.timing["bucket_spmm_kernel"] = H.record_spmm_timing(
+        "bucket_spmm_kernel", f"one forward of the GCN plan ({plan.chunks} chunks x 2 layers x "
+        f"{len(layout.buckets)} buckets)", b_calls, per_call=True)
+
+
+def phase_train_gat(H, torch):
+    from repro_torch.core.microbatch import make_plan
+    from repro_torch.graphs import bucketize_stacked, load_dataset
+    from repro_torch.launch.train import build_parser, run_gnn
+
+    args = build_parser().parse_args(TRAIN_GAT_ARGS)
+    plan = make_plan(load_dataset("cora"), args.chunks, strategy=args.strategy, halo_hops=2)
+    layout = bucketize_stacked(plan.stacked().graph)
+    tiles = sum(1 for b in layout.buckets if b.rows)
+    per_step = 2 * 2 * tiles * args.chunks  # (fwd + recompute) x GAT layers x tiles x chunks
+    H.K.bucket_gat_kernel.launches = 0
+    out = run_gnn(args)
+    launched = H.K.bucket_gat_kernel.launches
+    losses = out["epoch_losses"]
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        raise AssertionError(f"GAT training: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"GAT training: loss did not fall {losses}")
+    if launched != per_step * args.epochs:
+        raise AssertionError(f"GAT training: bucket kernel launched {launched}, want "
+                             f"{per_step} x {args.epochs} epochs")
+    H.launches["bucket_gat_kernel"] = launched
+    log(f"[train-gat] cora, 4 stages x 4 halo chunks, fill_drain, pallas: losses "
+        f"{[round(x, 6) for x in losses]}, val_acc {out['val_acc']}, median_epoch_s "
+        f"{out['median_epoch_s']}, first_epoch_s {out['first_epoch_s']}, bubble_fraction "
+        f"{out['bubble_fraction']}, bucket-GAT launches {launched} ({per_step} per step = 2 x 2 "
+        f"GAT layers x {tiles} buckets x {args.chunks} chunks) [{H.card}]")
+
+
+def phase_train_gcn(H, torch):
+    from repro_torch.core.pipeline import GPipeConfig, make_engine
+    from repro_torch.models.gnn.net import build_gnn
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.loop import synchronize, train
+
+    S, dev = H.S, H.dev
+    g, plan, layout = gcn_plan_layout(dev)
+    tiles = sum(1 for b in layout.buckets if b.rows)
+    per_step = 2 * 2 * tiles * plan.chunks
+
+    def slots(norms):  # (all slots, padding slots): what each backend's backward scatters
+        total = sum(n.numel() for n in norms)
+        return total, total - sum(int((n != 0).sum()) for n in norms)
+
+    log(f"[train-gcn] slots (all, padding): padded chunks {slots([plan.stacked().graph.norm])}, "
+        f"bucketed tiles {slots([b.norm for b in layout.buckets])}, full graph "
+        f"{slots([g.norm])}")
+    models = {b: build_gnn("gcn", g.num_features, g.num_classes, hidden=32, depth=2, backend=b)
+              for b in ("padded", "kernel")}
+    opt = opt_lib.adam(1e-2)
+    params0 = models["kernel"].init_params(0, device=dev)
+
+    def engine(backend, schedule):
+        return make_engine(models[backend], GPipeConfig(
+            balance=(2, 2), chunks=plan.chunks, schedule=schedule, backend=backend,
+            device=str(dev)))
+
+    def one_step(backend, schedule):
+        S.bucket_spmm_kernel.launches = 0
+        p, _, loss = engine(backend, schedule).train_step(params0, opt.init(params0), plan, 1, opt)
+        synchronize(dev)
+        return p, float(loss), S.bucket_spmm_kernel.launches
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        p_k, loss_k, launched = one_step("kernel", "fill_drain")
+        p_p, loss_p, _ = one_step("padded", "fill_drain")
+        diff = max(float((p_k[i][k] - p_p[i][k]).abs().max()) for i in range(len(p_k)) for k in p_k[i])
+        if not diff <= GCN_MATCH_ATOL:
+            raise AssertionError(f"GCN step: kernel vs padded backend differ by {diff:.3g}")
+        if launched != per_step:
+            raise AssertionError(f"GCN step: bucket SpMM launched {launched}, want {per_step}")
+        H.launches["bucket_spmm_kernel"] = launched
+        counts = {"fill_drain": launched}
+        for schedule in ("1f1b", "zb-h1"):
+            p_s, _, counts[schedule] = one_step("kernel", schedule)
+            if not all(torch.equal(p_s[i][k], p_k[i][k]) for i in range(len(p_k)) for k in p_k[i]):
+                raise AssertionError(f"GCN step: {schedule} update is not bit-identical to fill_drain")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[train-gcn] skewed-powerlaw fig3 GCN, one step from the same params: kernel vs padded "
+        f"max |update diff| {diff:.3g} (limit {GCN_MATCH_ATOL}), loss {loss_k} vs {loss_p}; "
+        f"fill_drain/1f1b/zb-h1 bit-identical under deterministic algorithms; bucket-SpMM "
+        f"launches per step {counts} (fill_drain: 2 x 2 GCN layers x {tiles} buckets x "
+        f"{plan.chunks} chunks) [{H.card}]")
+
+    # step times, the two backends in turns (host clock to a device sync)
+    times = {"padded": [], "kernel": []}
+    engines = {b: engine(b, "fill_drain") for b in times}
+    state = {b: (params0, opt.init(params0)) for b in times}
+    for step in range(GCN_STEPS):
+        for b in (("padded", "kernel") if step % 2 == 0 else ("kernel", "padded")):
+            t0 = time.perf_counter()
+            p, o, _ = engines[b].train_step(*state[b], plan, step, opt)
+            synchronize(dev)
+            times[b].append(time.perf_counter() - t0)
+            state[b] = (p, o)
+    med = {b: statistics.median(v[1:]) for b, v in times.items()}
+    log(f"[train-gcn] fill_drain step, median of {GCN_STEPS - 1} after a warm-up: padded "
+        f"{med['padded'] * 1e3:.3f} ms, kernel {med['kernel'] * 1e3:.3f} ms; all "
+        f"{ {b: [round(x * 1e3, 3) for x in v] for b, v in times.items()} } ms [{H.card}]")
+    H.gcn_step_ms = {b: v * 1e3 for b, v in med.items()}
+    profile_gcn_step(H, torch, engines["kernel"], state["kernel"], plan, opt)
+
+    # the single-device loop and full-graph eval launch the padded kernel
+    gd = g.to(dev)
+    S.padded_spmm_kernel.launches = 0
+    # from init_params(0): the same params as params0
+    res = train(models["kernel"], gd, epochs=3, lr=1e-2, weight_decay=0.0, seed=0)
+    synchronize(dev)
+    launched = S.padded_spmm_kernel.launches
+    if launched != 2 * 3 + 2 or not (res.train_loss == res.train_loss):
+        raise AssertionError(f"GCN train(): padded SpMM launched {launched}, want 8; "
+                             f"train_loss {res.train_loss}")
+    H.launches["padded_spmm_kernel"] = launched
+    log(f"[train-gcn] single-device train() 3 epochs + make_eval: padded-SpMM launches "
+        f"{launched} (2 GCN layers x 4 forwards), train_loss {res.train_loss}, val_acc "
+        f"{res.val_acc}, epoch times {[round(x * 1e3, 3) for x in res.epoch_times_s]} ms "
+        f"[{H.card}]")
+
+
+def profile_gcn_step(H, torch, engine, state, plan, opt):
+    """The SpMM kernel's share of a kernel-backend GCN step's device time,
+    and the device's busy share of the step's wall time, from
+    ``torch.profiler`` over 3 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.loop import synchronize
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for step in range(3):
+            params, opt_state, _ = engine.train_step(*state, plan, 100 + step, opt)
+            state = (params, opt_state)
+        synchronize(H.dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    spmm_ms = sum(e.self_device_time_total for e in kernels if "spmm_kernel" in e.key) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    if device_ms <= 0:
+        raise AssertionError("torch.profiler recorded no device time for the GCN step")
+    log(f"[profile] kernel-backend GCN step x3 (profiled): wall {wall_ms:.3f} ms, device busy "
+        f"{device_ms:.3f} ms ({device_ms / wall_ms:.3f} of wall), bucket SpMM kernel "
+        f"{spmm_ms:.3f} ms ({spmm_ms / device_ms:.3f} of device time) [{H.card}]")
+    for e in top:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
+
 
 def main() -> int:
     import torch
@@ -404,27 +777,37 @@ def main() -> int:
     log(f"[card] {card_line}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"python {sys.version.split()[0]}")
     from repro_torch.kernels.gat_edge import kernel as K
+    from repro_torch.kernels.spmm import kernel as S
 
-    built = K.library()
-    log(f"[build] {built.path.name}: nvcc {built.build_seconds:.3f} s")
-    for line in built.ptxas_log.splitlines():
-        if line.strip():
-            log(f"[build] {line.strip()}")
+    # one nvcc per source, started together
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        builds = [pool.submit(mod.library) for mod in (K, S)]
+        built_libs = [b.result() for b in builds]
+    for built in built_libs:
+        log(f"[build] {built.path.name}: nvcc {built.build_seconds:.3f} s")
+        for line in built.ptxas_log.splitlines():
+            if line.strip():
+                log(f"[build] {line.strip()}")
 
-    H = Harness(torch, K, torch.device("cuda"), card_line)
+    H = Harness(torch, K, S, torch.device("cuda"), card_line)
     phase_compare(H, torch)  # phase 2
+    phase_compare_spmm(H, torch)  # phase 2, SpMM
     phase_serve(H, torch)  # phase 3
     bucketed = phase_bucketed(H, torch)  # phase 4
     phase_timing(H, torch, bucketed)  # phase 5
+    phase_train_gat(H, torch)  # phase 6
+    phase_train_gcn(H, torch)  # phase 7
 
     kernels = []
     for name, replaces in REPLACES.items():
         tm = H.timing[name]
+        if not H.launches.get(name):
+            raise AssertionError(f"{name} was not launched on its main path")
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": replaces,
             "launches": H.launches[name], "max_abs_err": H.err[name],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-            "bound_by": tm["bound_by"], "library_ms": None,
+            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
         })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card_line}")

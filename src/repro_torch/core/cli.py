@@ -5,8 +5,8 @@ set on a parser and ``PipelineCLIConfig`` is the parsed bundle with its
 ``gpipe_config()`` translation. The flag names and spellings are the JAX
 package's, so its command lines carry over; ``--device`` (default
 ``cuda``) is new. Flags whose machinery is not ported yet (``--auto``,
-``--placement``, ``--data-parallel``, ``--overlap``, ``--partition
-profiled``) are declared and raise by name when set.
+``--partition profiled``, ``--data-parallel``, ``--overlap``) are declared
+and raise by name, with their ROADMAP queue 1 item, when set.
 """
 
 from __future__ import annotations
@@ -16,9 +16,9 @@ import dataclasses
 import torch
 
 from repro_torch.core.pipeline import GPipeConfig
+from repro_torch.core.schedule import Placement
 
 ENGINE_CHOICES = ("host", "compiled")
-# accepted so the JAX command lines parse; eval does not read the schedule
 SCHEDULE_CHOICES = ("fill_drain", "gpipe", "1f1b", "interleaved", "zb-h1", "zb-v")
 PARTITION_CHOICES = ("uniform", "profiled")
 BACKEND_CHOICES = ("padded", "kernel", "pallas")
@@ -59,12 +59,17 @@ def add_pipeline_args(
                     help="pipeline schedule (read by training; serving's eval ignores it)")
     ap.add_argument("--stages", type=int, default=stages)
     ap.add_argument("--chunks", type=int, default=chunks)
+    ap.add_argument("--pipe-devices", type=int, default=None,
+                    help="interleaved/zb-v: devices the timeline places stages on "
+                         "(virtual stages = stages/devices; default 2)")
     ap.add_argument("--partition", default="uniform", choices=list(PARTITION_CHOICES),
                     help="stage balance: layer-count split ('profiled' not ported yet)")
-    ap.add_argument("--placement", default=None, help="not ported yet")
+    ap.add_argument("--placement", default=None,
+                    help="stage->device ring placement as comma ints, e.g. '1,2,3,0'")
     ap.add_argument("--backend", default=backend, choices=list(BACKEND_CHOICES),
-                    help="GAT aggregation: plain padded gathers, or the hand-written "
-                         "CUDA kernel ('pallas' is an alias of 'kernel')")
+                    help="aggregation: plain padded gathers, or the hand-written CUDA "
+                         "kernels over the degree-bucketed layout ('pallas' is an "
+                         "alias of 'kernel')")
     ap.add_argument("--data-parallel", type=int, default=1, help="not ported yet")
     ap.add_argument("--overlap", default="off", choices=list(OVERLAP_CHOICES),
                     help="not ported yet")
@@ -86,6 +91,7 @@ class PipelineCLIConfig:
     stages: int = 1
     partition: str = "uniform"
     placement: str | None = None
+    pipe_devices: int | None = None
     backend: str = "padded"
     data_parallel: int = 1
     overlap: str = "off"
@@ -95,16 +101,15 @@ class PipelineCLIConfig:
     device: str = "cuda"
 
     def __post_init__(self):
-        not_ported = {
-            "--auto": self.auto,
-            "--auto-budget": self.auto_budget is not None,
-            "--dry-run": self.dry_run,
-            "--placement": self.placement is not None,
-            "--data-parallel": self.data_parallel != 1,
-            "--overlap": self.overlap != "off",
-            "--partition profiled": self.partition != "uniform",
+        not_ported = {  # flag -> (set?, ROADMAP queue 1 item)
+            "--auto": (self.auto, 10),
+            "--auto-budget": (self.auto_budget is not None, 10),
+            "--dry-run": (self.dry_run, 10),
+            "--partition profiled": (self.partition != "uniform", 10),
+            "--data-parallel": (self.data_parallel != 1, 12),
+            "--overlap": (self.overlap != "off", 13),
         }
-        named = [flag for flag, is_set in not_ported.items() if is_set]
+        named = [f"{flag} (item {item})" for flag, (is_set, item) in not_ported.items() if is_set]
         if named:
             raise NotImplementedError(
                 f"{', '.join(named)}: not ported to repro_torch yet (see ROADMAP queue 1)"
@@ -116,6 +121,21 @@ class PipelineCLIConfig:
         fall back to the defaults)."""
         d = {f.name: getattr(args, f.name, f.default) for f in dataclasses.fields(cls)}
         return cls(**d)
+
+    @property
+    def resolved_pipe_devices(self) -> int | None:
+        """--pipe-devices with the round-robin default applied: interleaved
+        and zb-v place V = stages/2 virtual stages on 2 devices unless told
+        otherwise."""
+        if self.schedule in ("interleaved", "zb-v") and self.pipe_devices is None:
+            return 2
+        return self.pipe_devices
+
+    def parsed_placement(self) -> Placement | None:
+        """The --placement comma string as a ``Placement``."""
+        if not self.placement:
+            return None
+        return Placement(tuple(int(x) for x in self.placement.split(",")))
 
     def uniform_balance(self) -> tuple[int, ...]:
         """The layer-count split of the 6-layer paper model for --stages."""
@@ -132,6 +152,10 @@ class PipelineCLIConfig:
         return GPipeConfig(
             balance=tuple(balance if balance is not None else self.uniform_balance()),
             chunks=self.chunks,
+            schedule=self.schedule,
+            num_devices=self.resolved_pipe_devices,
+            placement=self.parsed_placement(),
             engine=self.engine,
+            backend=self.backend,
             device=str(resolve_device(self.device)),
         )

@@ -1,5 +1,5 @@
-"""Graph substrate: padded/bucketed batch layouts, the paper datasets and
-the serving slice's halo/ego/bucket helpers."""
+"""Graph substrate: padded/bucketed batch layouts, the paper datasets, the
+chunk partitioners and the halo/ego/bucket helpers."""
 
 from repro_torch.graphs.data import (
     BucketedGraphBatch,
@@ -13,6 +13,7 @@ from repro_torch.graphs.data import (
 )
 from repro_torch.graphs.datasets import DATASETS, SKEWED_DATASETS, load_dataset
 from repro_torch.graphs.partition import (
+    bucketize_stacked,
     degree_bucket_widths,
     degree_bucketed_layout,
     ego_subgraph,
@@ -35,4 +36,5 @@ __all__ = [
     "ego_subgraph",
     "degree_bucket_widths",
     "degree_bucketed_layout",
+    "bucketize_stacked",
 ]

@@ -11,7 +11,8 @@ Slot 0 holds the self-loop. Construction (``build_graph_batch``,
 ``subgraph``) runs in numpy on the host and computes ``norm`` in float64
 before the cast, exactly as the JAX package does, so the arrays are equal
 bit for bit. ``stack_graphs`` adds a leading chunk axis to equal-shape
-batches; ``GraphBatch.chunk`` takes one back out.
+batches; ``GraphBatch.chunk`` (and ``BucketedGraphBatch.chunk`` for a
+stacked degree-bucketed layout) takes one back out.
 """
 
 from __future__ import annotations
@@ -112,6 +113,10 @@ class DegreeBucket:
         """The same bucket on ``device``."""
         return DegreeBucket(*(t.to(device) for t in dataclasses.astuple(self)))
 
+    def chunk(self, i: int) -> "DegreeBucket":
+        """Chunk ``i`` of a chunk-stacked bucket."""
+        return DegreeBucket(*(t[i] for t in dataclasses.astuple(self)))
+
 
 @dataclasses.dataclass(frozen=True)
 class BucketedGraphBatch:
@@ -136,6 +141,17 @@ class BucketedGraphBatch:
             self.base.to(device),
             tuple(b.to(device) for b in self.buckets),
             self.gather_rows.to(device),
+        )
+
+    def chunk(self, i: int) -> "BucketedGraphBatch":
+        """Chunk ``i`` of a chunk-stacked layout (``bucketize_stacked``):
+        base batch, every bucket tile and ``gather_rows`` alike. Defined
+        here because attribute fall-through would otherwise hand back the
+        base batch's chunk and drop the buckets."""
+        return BucketedGraphBatch(
+            self.base.chunk(i),
+            tuple(b.chunk(i) for b in self.buckets),
+            self.gather_rows[i],
         )
 
 

@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import takes_kernel
+from repro_torch.kernels import check_tensor, takes_kernel
 from repro_torch.kernels._build import BuiltLibrary, load_library
 from repro_torch.kernels.gat_edge.ref import gat_edge_ref
 
@@ -43,25 +43,16 @@ def library() -> BuiltLibrary:
     return built
 
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel takes {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: kernel takes contiguous tensors")
-
-
 def _launch(hw, s_src, s_dst, neighbors, mask, row_node, negative_slope):
     n, h, f = hw.shape
     r, w = neighbors.shape
-    _check("hw", hw, torch.float32, (n, h, f))
-    _check("s_src", s_src, torch.float32, (n, h))
-    _check("s_dst", s_dst, torch.float32, (n, h))
-    _check("neighbors", neighbors, torch.int32, (r, w))
-    _check("mask", mask, torch.bool, (r, w))
+    check_tensor("hw", hw, torch.float32, (n, h, f))
+    check_tensor("s_src", s_src, torch.float32, (n, h))
+    check_tensor("s_dst", s_dst, torch.float32, (n, h))
+    check_tensor("neighbors", neighbors, torch.int32, (r, w))
+    check_tensor("mask", mask, torch.bool, (r, w))
     if row_node is not None:
-        _check("row_node", row_node, torch.int32, (r,))
+        check_tensor("row_node", row_node, torch.int32, (r,))
     if w < 1 or h < 1 or f < 1:
         raise ValueError(f"empty width/heads/features: W={w} H={h} F={f}")
     out = torch.empty((r, h, f), dtype=torch.float32, device=hw.device)

@@ -19,19 +19,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import plain_vjp
 from repro_torch.kernels.gat_edge.kernel import bucket_gat_kernel, gat_aggregate_kernel
 from repro_torch.kernels.gat_edge.ref import gat_edge_ref
 
 
 def _contiguous(*ts):
     return tuple(t.contiguous() for t in ts)
-
-
-def _plain_vjp(fn, primals, ct):
-    with torch.enable_grad():
-        leaves = [p.detach().requires_grad_(True) for p in primals]
-        out = fn(*leaves)
-        return torch.autograd.grad(out, leaves, ct)
 
 
 class _GatAggregate(torch.autograd.Function):
@@ -47,7 +41,7 @@ class _GatAggregate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         hw, s_src, s_dst, neighbors, mask = ctx.saved_tensors
-        grads = _plain_vjp(
+        grads = plain_vjp(
             lambda a, b, c: gat_edge_ref(
                 a, b, c, neighbors, mask, negative_slope=ctx.negative_slope
             ),
@@ -86,7 +80,7 @@ class _BucketedGatAggregate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        grads = _plain_vjp(
+        grads = plain_vjp(
             lambda a, b, c: _bucketed_forward(
                 gat_edge_ref, a, b, c, *ctx.layout, ctx.negative_slope
             ),

@@ -3,7 +3,9 @@
 ``jax.random`` bits cannot be reproduced with ``torch.Generator``s, so
 cross-framework comparisons start from the JAX model's own init: its
 ``GNNModel.init_params`` leaves, taken as numpy arrays, become the port's
-params unchanged (same names, same shapes, float32).
+params unchanged (same names, same shapes, float32): GAT leaves (``w``,
+``a_src``, ``a_dst``, ``b``), GCN leaves (``w``, ``b``) and the empty dicts
+of the parameter-free layers alike.
 """
 
 from __future__ import annotations

@@ -1,13 +1,17 @@
-"""GAT layer over the padded-neighbor layout, with two aggregation backends.
+"""GCN and GAT layers over the padded-neighbor layout, with two aggregation
+backends.
 
-Counterpart of ``repro.models.gnn.layers`` (the GAT slice). Layers are an
-``init_*`` returning a dict of tensors plus a plain ``*_layer`` function:
+Counterpart of ``repro.models.gnn.layers`` (GCN and GAT; GraphConv,
+GatedGraphConv and the ``dense`` backend are queued in ROADMAP queue 1,
+item 5). Layers are an ``init_*`` returning a dict of tensors plus a plain
+``*_layer`` function:
 
   * ``padded`` — gather neighbors along the (n, max_deg) layout with plain
     tensor ops (the reference semantics);
-  * ``kernel`` — the hand-written CUDA aggregation kernel through
-    ``repro_torch.kernels.gat_edge.ops`` (padded layout, or the
-    degree-bucketed one when the graph is a ``BucketedGraphBatch``).
+  * ``kernel`` — the hand-written CUDA aggregation kernels through
+    ``repro_torch.kernels.gat_edge.ops`` (GAT) and
+    ``repro_torch.kernels.spmm.ops`` (GCN): padded layout, or the
+    degree-bucketed one when the graph is a ``BucketedGraphBatch``.
     ``pallas`` is accepted as its alias so the JAX command lines carry over.
 
 The GAT layer follows the paper §2.1 / Veličković et al.: ``alpha_ij ∝
@@ -56,6 +60,31 @@ def dropout(
         return x
     keep = torch.rand(x.shape, generator=generator, device=generator.device) >= rate
     return torch.where(keep.to(x.device), x / (1.0 - rate), torch.zeros_like(x))
+
+
+def init_gcn(in_dim: int, out_dim: int, *, generator: torch.Generator | None = None) -> dict:
+    """Params with the JAX package's shapes: ``w`` (in, out), ``b`` (out,)."""
+    return {"w": glorot((in_dim, out_dim), generator), "b": torch.zeros((out_dim,))}
+
+
+def gcn_layer(
+    params: dict, g: GraphBatch, h: torch.Tensor, *, backend: str = "padded"
+) -> torch.Tensor:
+    """H' = Â H W + b with symmetric normalization (Kipf & Welling)."""
+    backend = canonical_backend(backend)
+    hw = h @ params["w"]
+    if backend == "kernel":
+        from repro_torch.kernels.spmm.ops import bucketed_spmm, padded_spmm
+
+        if isinstance(g, BucketedGraphBatch):
+            nbrs = tuple(b.neighbors for b in g.buckets)
+            nrms = tuple(b.norm for b in g.buckets)
+            agg = bucketed_spmm(hw, nbrs, nrms, g.gather_rows)
+        else:
+            agg = padded_spmm(hw, g.neighbors, g.norm)
+    else:
+        agg = torch.einsum("nd,ndo->no", g.norm, hw[g.neighbors.long()])
+    return agg + params["b"]
 
 
 def init_gat(

@@ -33,14 +33,19 @@ def test_no_jax_or_repro_imports(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"serve_gnn.py", "pipeline.py", "kernel.py", "chip_smoke.py"} <= names
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "gat_edge" / "csrc" / "gat_edge.cu").exists()
+    assert {"serve_gnn.py", "pipeline.py", "kernel.py", "chip_smoke.py", "train.py",
+            "schedule.py", "microbatch.py", "optimizer.py", "loop.py"} <= names
+    port = ROOT / "src" / "repro_torch"
+    assert (port / "kernels" / "gat_edge" / "csrc" / "gat_edge.cu").exists()
+    assert (port / "kernels" / "spmm" / "csrc" / "spmm.cu").exists()
+    assert (port / "launch" / "train.py").exists()
 
 
 def test_every_port_module_imports():
     import repro_torch
 
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
-    assert "repro_torch.launch.serve_gnn" in names
+    assert {"repro_torch.launch.serve_gnn", "repro_torch.launch.train",
+            "repro_torch.kernels.spmm.ops", "repro_torch.core.schedule"} <= set(names)
     for name in names:
         importlib.import_module(name)

@@ -214,7 +214,7 @@ def test_no_card_means_raise_unless_cpu_is_asked(monkeypatch):
 
 @pytest.mark.parametrize("flags, name", [
     (["--auto"], "--auto"),
-    (["--placement", "1,2,3,0"], "--placement"),
+    (["--auto-budget", "5"], "--auto-budget"),
     (["--data-parallel", "2"], "--data-parallel"),
     (["--overlap", "double-buffer"], "--overlap"),
     (["--partition", "profiled"], "--partition profiled"),
@@ -229,9 +229,9 @@ def test_compiled_engine_and_train_step_raise_with_roadmap_item():
     m = build_paper_gat(34, 2)
     with pytest.raises(NotImplementedError, match="item 9"):
         make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, engine="compiled", device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, data_parallel=2, device="cpu"))
     eng = make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eng.train_step()
     with pytest.raises(ValueError, match="balance"):
         make_engine(m, GPipeConfig(balance=(2, 2), chunks=2, device="cpu"))
     assert [eng.stage_params(list(range(6)), s) for s in range(4)] == [[0, 1], [2], [3], [4, 5]]
