@@ -10,11 +10,14 @@ Phases; any failure stops the run with a non-zero exit:
    ``-Xptxas -v`` registers/shared memory/spills.
 2. Hold each kernel against its plain PyTorch version on the card (atol and
    rtol 1e-5). GAT: the padded kernel at the full-graph shapes of cora and
-   pubmed, the bucket kernel on every degree bucket of skewed-powerlaw.
-   SpMM: the padded kernel on cora at F 256/32/7, the bucket kernel on every
-   bucket of the GCN training plan's skewed-powerlaw layout (max_degree 128,
-   2 chunks) at F 32/16. Plus edge cases for both (ragged R, empty bucket,
-   W=1, rows that must be exactly 0, an out-of-range index -> NaN row).
+   pubmed; the bucket kernel on every degree bucket of skewed-powerlaw and
+   on every tile of every chunk of phase 6's cora training plan, at both GAT
+   layers' own inputs and on unit-scale random features (F 8 and 7). SpMM: the padded kernel on cora at F 256/32/7 and at
+   both layers' own inputs of phase 7's single-device GCN on skewed-powerlaw
+   (F 32/16); the bucket kernel on every bucket of the GCN training plan's
+   skewed-powerlaw layout (max_degree 128, 2 chunks) at F 32/16. Plus edge
+   cases for both (ragged R, empty bucket, W=1, rows that must be exactly 0,
+   an out-of-range index -> NaN row).
 3. Serve cora through ``repro_torch.launch.serve_gnn.run`` with the kernel
    backend (4 stages, 4 chunks, 50 q/s for 3 s, ``--verify`` at 1e-5): every
    query answered, 0 mismatches, and the padded GAT kernel's launch count
@@ -24,9 +27,11 @@ Phases; any failure stops the run with a non-zero exit:
    backend's forward; the bucket kernel must have launched for every
    non-empty bucket of both GAT layers.
 5. Time each kernel's main-path work with CUDA events over CUDA-graph
-   replays, beside its plain version, its bound (bytes over 3.35 TB/s or
-   fp32 operations over 67 TFLOP/s, whichever is larger) and, for SpMM,
-   ``torch.sparse.mm`` on a CSR matrix built once from (nbr, norm).
+   replays (the bucket GAT kernel on one forward of phase 6's plan, and
+   per launch on skewed-powerlaw), beside its plain version, its bound
+   (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is
+   larger) and, for SpMM, ``torch.sparse.mm`` on a CSR matrix built once
+   from (nbr, norm).
 6. Train the paper GAT on cora through ``repro_torch.launch.train.run_gnn``
    (4 stages, 4 halo chunks, fill_drain, ``--backend pallas``): the loss
    stays finite and falls, and the bucket GAT kernel launches 2 (forward +
@@ -34,8 +39,11 @@ Phases; any failure stops the run with a non-zero exit:
 7. Train the GCN of ``benchmarks/fig3.py`` ``_sparse_bench`` on
    skewed-powerlaw (max_degree 128, hidden 32, depth 2, balance (2, 2), 2
    sequential chunks, adam(1e-2), host engine): one kernel-backend step
-   matches the padded backend within 2e-4; fill_drain, 1f1b and zb-h1 give
-   bit-identical updates under deterministic algorithms; the bucket SpMM
+   matches the padded backend: loss and update within 2e-4, and each leaf
+   of the reduced gradients handed to Adam within 1e-5 of that leaf's
+   largest gradient; fill_drain, 1f1b and zb-h1
+   give bit-identical losses, gradients and updates under deterministic
+   algorithms; the bucket SpMM
    kernel launches 2 x 2 GCN layers x 6 buckets x 2 chunks = 48 times per
    fill_drain step; the single-device ``train()`` and ``make_eval`` of the
    same GCN launch the padded SpMM kernel. Step times and the kernel's share
@@ -65,6 +73,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 ROOT = Path(__file__).resolve().parent
 ATOL = RTOL = 1e-5
 GCN_MATCH_ATOL = 2e-4  # benchmarks/fig3.py: bucket concat reorders f32 edge sums
+# the two backends' reduced gradients, per leaf: max |diff| over max |grad|
+GCN_GRAD_RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 GAT_SOURCE = "src/repro_torch/kernels/gat_edge/csrc/gat_edge.cu"
@@ -383,6 +393,32 @@ def gcn_plan_layout(dev):
     return g, plan, bucketize_stacked(plan.stacked().graph).to(dev)
 
 
+def gat_plan_layout(dev):
+    """The GAT training phase's inputs: cora, its plan under
+    ``TRAIN_GAT_ARGS`` (4 halo chunks, 2 hops as ``run_gnn`` builds it) and
+    the plan's bucketed layout (shared capacities) on the card."""
+    from repro_torch.core.microbatch import make_plan
+    from repro_torch.graphs import bucketize_stacked, load_dataset
+    from repro_torch.launch.train import build_parser
+
+    args = build_parser().parse_args(TRAIN_GAT_ARGS)
+    plan = make_plan(load_dataset("cora"), args.chunks, strategy=args.strategy, halo_hops=2,
+                     seed=args.seed)
+    return plan, bucketize_stacked(plan.stacked().graph).to(dev)
+
+
+def bucket_gat_plan_calls(torch, model, params, layout, chunks):
+    """Bucket-kernel inputs of one forward of the paper GAT over every
+    chunk of a stacked bucketed layout: per (chunk, GAT layer, tile)."""
+    calls = []
+    for c in range(chunks):
+        chunk = layout.chunk(c)
+        tiles = [b for b in chunk.buckets if b.rows]
+        calls += gat_calls(torch, model, params, chunk, [b.neighbors for b in tiles],
+                           [b.mask for b in tiles], [b.row_node for b in tiles])
+    return calls
+
+
 def phase_compare_spmm(H, torch):
     import numpy as np
 
@@ -394,7 +430,17 @@ def phase_compare_spmm(H, torch):
         hw = torch.randn((cora.num_nodes, f), generator=gen, device=dev)
         H.compare_spmm("padded_spmm_kernel", f"cora full graph F={f}", hw, cora.neighbors, cora.norm)
 
-    _, plan, layout = gcn_plan_layout(dev)
+    from repro_torch.models.gnn.net import build_gnn
+
+    g, plan, layout = gcn_plan_layout(dev)
+    gd = g.to(dev)
+    gcn = build_gnn("gcn", g.num_features, g.num_classes, hidden=32, depth=2, backend="kernel")
+    zero = (gd.norm == 0).all(dim=1)
+    for hw, nbr, norm in gcn_calls(torch, gcn, gcn.init_params(0, device=dev), gd,
+                                   [(gd.neighbors, gd.norm)]):
+        H.compare_spmm("padded_spmm_kernel", f"skewed single-device GCN layer F={hw.shape[1]}",
+                       hw, nbr, norm, zero_rows=zero)
+
     log(f"[compare] GCN plan layout, skewed-powerlaw max_degree 128, 2 chunks: (chunks, rows, "
         f"width) {[tuple(b.neighbors.shape) for b in layout.buckets]}")
     for f in (32, 16):
@@ -456,6 +502,24 @@ def phase_compare(H, torch):
             zero = ~b.mask.any(dim=1)
             H.compare("bucket_gat_kernel", f"skewed-powerlaw bucket W={b.width} F={f}",
                       *x, b.neighbors, b.mask, b.row_node, zero_rows=zero)
+
+    from repro_torch.models.gnn.net import build_paper_gat
+
+    plan, layout = gat_plan_layout(dev)
+    model = build_paper_gat(layout.num_features, layout.num_classes, backend="kernel")
+    log(f"[compare] GAT plan layout, cora 4 halo chunks: (chunks, rows, width) "
+        f"{[tuple(b.neighbors.shape) for b in layout.buckets]}")
+    per_chunk = 2 * sum(1 for b in layout.buckets if b.rows)
+    for i, (hw, s_src, s_dst, nbr, mask, row) in enumerate(bucket_gat_plan_calls(
+            torch, model, model.init_params(0, device=dev), layout, plan.chunks)):
+        H.compare("bucket_gat_kernel", f"cora plan chunk {i // per_chunk} W={nbr.shape[1]} "
+                  f"F={hw.shape[2]}", hw, s_src, s_dst, nbr, mask, row, zero_rows=~mask.any(dim=1))
+    for f in (8, 7):  # the same tiles on unit-scale features
+        x = H.features(layout.features.shape[1], 8, f)
+        for c in range(plan.chunks):
+            for b in layout.chunk(c).buckets:
+                H.compare("bucket_gat_kernel", f"cora plan chunk {c} W={b.width} F={f} randn", *x,
+                          b.neighbors, b.mask, b.row_node, zero_rows=~b.mask.any(dim=1))
 
     # edge cases
     cora = load_dataset("cora").to(dev)
@@ -580,13 +644,17 @@ def phase_timing(H, torch, bucketed):
     full_calls = gat_calls(torch, model, params, full, [full.neighbors], [full.mask], [None])
     H.record_timing("gat_aggregate_kernel", "cora full graph (verify forward)", full_calls)
 
+    plan, gat_layout = gat_plan_layout(H.dev)
+    H.timing["bucket_gat_kernel"] = H.record_timing(
+        "bucket_gat_kernel", f"one forward of the cora GAT training plan ({plan.chunks} chunks x "
+        f"2 layers x {sum(1 for b in gat_layout.buckets if b.rows)} buckets)",
+        bucket_gat_plan_calls(torch, model, params, gat_layout, plan.chunks))
     model_k, params_k, skew, layout = bucketed
     tiles = [b for b in layout.buckets if b.rows]
     b_calls = gat_calls(torch, model_k, params_k, skew, [b.neighbors for b in tiles],
                         [b.mask for b in tiles], [b.row_node for b in tiles])
-    H.timing["bucket_gat_kernel"] = H.record_timing(
-        "bucket_gat_kernel", f"skewed-powerlaw forward ({len(tiles)} buckets x 2 layers)",
-        b_calls, per_call=True)
+    H.record_timing("bucket_gat_kernel", f"skewed-powerlaw forward ({len(tiles)} buckets x "
+                    "2 layers)", b_calls, per_call=True)
 
     # the GCN training path's SpMM work (phase 7's model and params)
     from repro_torch.models.gnn.net import build_gnn
@@ -609,13 +677,10 @@ def phase_timing(H, torch, bucketed):
 
 
 def phase_train_gat(H, torch):
-    from repro_torch.core.microbatch import make_plan
-    from repro_torch.graphs import bucketize_stacked, load_dataset
     from repro_torch.launch.train import build_parser, run_gnn
 
     args = build_parser().parse_args(TRAIN_GAT_ARGS)
-    plan = make_plan(load_dataset("cora"), args.chunks, strategy=args.strategy, halo_hops=2)
-    layout = bucketize_stacked(plan.stacked().graph)
+    _, layout = gat_plan_layout(H.dev)
     tiles = sum(1 for b in layout.buckets if b.rows)
     per_step = 2 * 2 * tiles * args.chunks  # (fwd + recompute) x GAT layers x tiles x chunks
     H.K.bucket_gat_kernel.launches = 0
@@ -666,33 +731,62 @@ def phase_train_gcn(H, torch):
             device=str(dev)))
 
     def one_step(backend, schedule):
+        """(params, loss, the reduced gradients Adam was handed, launches)."""
+        seen = []
+
+        def update(grads, state, params):
+            seen.append(opt_lib.tree_map(torch.clone, grads))
+            return opt.update(grads, state, params)
+
         S.bucket_spmm_kernel.launches = 0
-        p, _, loss = engine(backend, schedule).train_step(params0, opt.init(params0), plan, 1, opt)
+        p, _, loss = engine(backend, schedule).train_step(
+            params0, opt.init(params0), plan, 1, opt_lib.Optimizer(init=opt.init, update=update))
         synchronize(dev)
-        return p, float(loss), S.bucket_spmm_kernel.launches
+        return p, loss, seen[0], S.bucket_spmm_kernel.launches
+
+    def leaves(tree):
+        return [(f"{i}.{k}", v) for i, p in enumerate(tree) for k, v in p.items()]
+
+    def max_diff(a, b):
+        return max(float((x - y).abs().max()) for (_, x), (_, y) in zip(leaves(a), leaves(b)))
+
+    def grad_rel(a, b):  # per leaf: max |diff| / max |grad of b|
+        return {name: float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                for (name, x), (_, y) in zip(leaves(a), leaves(b))}
 
     torch.use_deterministic_algorithms(True)
     try:
-        p_k, loss_k, launched = one_step("kernel", "fill_drain")
-        p_p, loss_p, _ = one_step("padded", "fill_drain")
-        diff = max(float((p_k[i][k] - p_p[i][k]).abs().max()) for i in range(len(p_k)) for k in p_k[i])
-        if not diff <= GCN_MATCH_ATOL:
-            raise AssertionError(f"GCN step: kernel vs padded backend differ by {diff:.3g}")
+        p_k, loss_k, g_k, launched = one_step("kernel", "fill_drain")
+        p_p, loss_p, g_p, _ = one_step("padded", "fill_drain")
+        diffs = {"loss": abs(float(loss_k) - float(loss_p)), "update": max_diff(p_k, p_p)}
+        rel = grad_rel(g_k, g_p)
+        if not all(d <= GCN_MATCH_ATOL for d in diffs.values()):
+            raise AssertionError(f"GCN step: kernel vs padded backend differ by {diffs}")
+        if not all(r <= GCN_GRAD_RTOL for r in rel.values()):
+            raise AssertionError(f"GCN step: kernel vs padded gradients differ, per leaf "
+                                 f"max |diff| / max |grad| {rel}")
         if launched != per_step:
             raise AssertionError(f"GCN step: bucket SpMM launched {launched}, want {per_step}")
         H.launches["bucket_spmm_kernel"] = launched
         counts = {"fill_drain": launched}
         for schedule in ("1f1b", "zb-h1"):
-            p_s, _, counts[schedule] = one_step("kernel", schedule)
-            if not all(torch.equal(p_s[i][k], p_k[i][k]) for i in range(len(p_k)) for k in p_k[i]):
-                raise AssertionError(f"GCN step: {schedule} update is not bit-identical to fill_drain")
+            p_s, loss_s, g_s, counts[schedule] = one_step("kernel", schedule)
+            same = torch.equal(loss_s, loss_k) and all(
+                torch.equal(x, y) for a, b in ((p_s, p_k), (g_s, g_k))
+                for (_, x), (_, y) in zip(leaves(a), leaves(b)))
+            if not same:
+                raise AssertionError(f"GCN step: {schedule} loss, gradients or update not "
+                                     "bit-identical to fill_drain")
     finally:
         torch.use_deterministic_algorithms(False)
-    log(f"[train-gcn] skewed-powerlaw fig3 GCN, one step from the same params: kernel vs padded "
-        f"max |update diff| {diff:.3g} (limit {GCN_MATCH_ATOL}), loss {loss_k} vs {loss_p}; "
-        f"fill_drain/1f1b/zb-h1 bit-identical under deterministic algorithms; bucket-SpMM "
-        f"launches per step {counts} (fill_drain: 2 x 2 GCN layers x {tiles} buckets x "
-        f"{plan.chunks} chunks) [{H.card}]")
+    log(f"[train-gcn] skewed-powerlaw fig3 GCN, one step from the same params, kernel vs padded "
+        f"backend: max |diff| {diffs} (limit {GCN_MATCH_ATOL}); loss {float(loss_k)} vs "
+        f"{float(loss_p)}; gradients per leaf max |diff| / max |grad| {rel} (limit "
+        f"{GCN_GRAD_RTOL}), max |grad| {dict((n, float(v.abs().max())) for n, v in leaves(g_p))}; "
+        f"fill_drain/1f1b/"
+        f"zb-h1 losses, gradients and updates bit-identical under deterministic algorithms; "
+        f"bucket-SpMM launches per step {counts} (fill_drain: 2 x 2 GCN layers x {tiles} "
+        f"buckets x {plan.chunks} chunks) [{H.card}]")
 
     # step times, the two backends in turns (host clock to a device sync)
     times = {"padded": [], "kernel": []}

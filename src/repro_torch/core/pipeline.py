@@ -60,8 +60,6 @@ class GPipeConfig:
     # (``bucketize_stacked``). Must match the backend the model was built with.
     backend: str = "padded"
     device: str = "cuda"
-    data_parallel: int = 1  # >1 comes with the data-parallel slice
-    overlap: str = "off"  # wire double-buffering comes with the overlap slice
 
     @property
     def num_stages(self) -> int:
@@ -461,16 +459,6 @@ def make_engine(model: GNNModel, config: GPipeConfig) -> PipelineEngine:
         raise NotImplementedError(
             "engine 'compiled' comes with a later slice (ROADMAP queue 1, item 9: "
             "compiled single-program engine); use engine 'host'"
-        )
-    if config.data_parallel != 1:
-        raise NotImplementedError(
-            f"data_parallel={config.data_parallel} comes with a later slice "
-            "(ROADMAP queue 1, item 12: streamed graphs and data parallelism)"
-        )
-    if config.overlap != "off":
-        raise NotImplementedError(
-            f"overlap={config.overlap!r} comes with a later slice (ROADMAP queue 1, "
-            "item 13: overlap)"
         )
     try:
         cls = ENGINES[config.engine]

@@ -229,8 +229,6 @@ def test_compiled_engine_and_train_step_raise_with_roadmap_item():
     m = build_paper_gat(34, 2)
     with pytest.raises(NotImplementedError, match="item 9"):
         make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, engine="compiled", device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, data_parallel=2, device="cpu"))
     eng = make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, device="cpu"))
     with pytest.raises(ValueError, match="balance"):
         make_engine(m, GPipeConfig(balance=(2, 2), chunks=2, device="cpu"))
