@@ -5,9 +5,10 @@
 
 Phases; any failure stops the run with a non-zero exit:
 
-1. Print the card, build the CUDA kernels from ``src/`` (one ``nvcc`` per
-   source, all started together, sm_90a), print the build seconds and
-   ``-Xptxas -v`` registers/shared memory/spills.
+1. Print the card, build the four CUDA kernels from ``src/`` (GAT, SpMM,
+   flash attention, SSD; one ``nvcc`` per source, all started together,
+   sm_90a), print the build seconds and ``-Xptxas -v`` registers/shared
+   memory/spills.
 2. Hold each kernel against its plain PyTorch version on the card (atol and
    rtol 1e-5). GAT: the padded kernel at the full-graph shapes of cora and
    pubmed; the bucket kernel on every degree bucket of skewed-powerlaw and
@@ -17,7 +18,12 @@ Phases; any failure stops the run with a non-zero exit:
    (F 32/16); the bucket kernel on every bucket of the GCN training plan's
    skewed-powerlaw layout (max_degree 128, 2 chunks) at F 32/16. Plus edge
    cases for both (ragged R, empty bucket, W=1, rows that must be exactly 0,
-   an out-of-range index -> NaN row).
+   an out-of-range index -> NaN row). Flash attention at atol/rtol 1e-5: the
+   codeqwen prefill's launch shape (4 x 512 tokens, 32 heads of 128,
+   causal), GQA 32/16 and 8/1, window 128, softcap 50, ragged S 64/200/513,
+   hd_v != hd, and bf16 at 2e-2. SSD, y and final state at atol 1e-4: the
+   mamba2-130m prefill's launch shape (4 x 512, 24 heads, P 64, N 128,
+   chunk 128), ragged S 64 and 200, chunk 32.
 3. Serve cora through ``repro_torch.launch.serve_gnn.run`` with the kernel
    backend (4 stages, 4 chunks, 50 q/s for 3 s, ``--verify`` at 1e-5): every
    query answered, 0 mismatches, and the padded GAT kernel's launch count
@@ -31,7 +37,9 @@ Phases; any failure stops the run with a non-zero exit:
    per launch on skewed-powerlaw), beside its plain version, its bound
    (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is
    larger) and, for SpMM, ``torch.sparse.mm`` on a CSR matrix built once
-   from (nbr, norm).
+   from (nbr, norm); the flash and SSD kernels at their prefill launch
+   shapes, flash beside ``scaled_dot_product_attention(is_causal=True)`` on
+   the same fp32 tensors.
 6. Train the paper GAT on cora through ``repro_torch.launch.train.run_gnn``
    (4 stages, 4 halo chunks, fill_drain, ``--backend pallas``): the loss
    stays finite and falls, and the bucket GAT kernel launches 2 (forward +
@@ -48,6 +56,18 @@ Phases; any failure stops the run with a non-zero exit:
    fill_drain step; the single-device ``train()`` and ``make_eval`` of the
    same GCN launch the padded SpMM kernel. Step times and the kernel's share
    of the step's device time (``torch.profiler``) are printed.
+8. Serve codeqwen1.5-7b at full width (8.19e9 fp32 params) through
+   ``repro_torch.launch.serve`` (``--full-arch --prompt-len 512
+   --decode-steps 16 --batch 8 --chunks 2``): the flash kernel launches 32
+   layers x 2 micro-batches = 64 times in the prefill; each layer's own q,
+   k, v and output from micro-batch 0, captured on the way, are held against
+   the plain version at 1e-5; the first decode step's logits are held
+   against a fresh 513-token prefill at 1e-3 (cuBLAS may take other
+   algorithms for 1 row than for 513). Prefill and decode times, tokens/s,
+   peak memory, and ``torch.profiler`` breakdowns of a prefill and two
+   decode steps are printed.
+9. The same for mamba2-130m at full width: the SSD kernel launches 24 x 2 =
+   48 times, each layer's captured inputs held at 1e-4 (y and final state).
 
 The last three lines are the card's name and power limit, the ``kernels``
 JSON line, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -77,19 +97,29 @@ GCN_MATCH_ATOL = 2e-4  # benchmarks/fig3.py: bucket concat reorders f32 edge sum
 GCN_GRAD_RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+FLASH_ATOL = FLASH_RTOL = 1e-5  # fp32 attention, kernel vs plain (bf16: 2e-2)
+FLASH_BF16_TOL = 2e-2
+SSD_ATOL = 1e-4  # the JAX package's own SSD tolerance (tests/test_kernels.py)
+DECODE_VS_PREFILL_ATOL = 1e-3  # cuBLAS may take other algorithms for 1 row than for 513
 GAT_SOURCE = "src/repro_torch/kernels/gat_edge/csrc/gat_edge.cu"
 SPMM_SOURCE = "src/repro_torch/kernels/spmm/csrc/spmm.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/flash/csrc/flash.cu"
+SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 SOURCES = {
     "gat_aggregate_kernel": GAT_SOURCE,
     "bucket_gat_kernel": GAT_SOURCE,
     "padded_spmm_kernel": SPMM_SOURCE,
     "bucket_spmm_kernel": SPMM_SOURCE,
+    "flash_attention_kernel": FLASH_SOURCE,
+    "ssd_kernel": SSD_SOURCE,
 }
 REPLACES = {
     "gat_aggregate_kernel": "src/repro/kernels/gat_edge/kernel.py:70",
     "bucket_gat_kernel": "src/repro/kernels/gat_edge/kernel.py:164",
     "padded_spmm_kernel": "src/repro/kernels/spmm/kernel.py:86",
     "bucket_spmm_kernel": "src/repro/kernels/spmm/kernel.py:99",
+    "flash_attention_kernel": "src/repro/kernels/flash/kernel.py:74",
+    "ssd_kernel": "src/repro/kernels/ssd/kernel.py:65",
 }
 TRAIN_GAT_ARGS = [
     "--mode", "gnn", "--dataset", "cora", "--stages", "4", "--chunks", "4",
@@ -101,6 +131,10 @@ SERVE_ARGS = [
     "--dataset", "cora", "--backend", "kernel", "--engine", "host",
     "--stages", "4", "--chunks", "4", "--qps", "50", "--duration", "3",
     "--verify", "--verify-atol", "1e-5", "--device", "cuda",
+]
+LM_SERVE_ARGS = [  # phases 8-9: the LM serving driver at full width, one card
+    "--full-arch", "--prompt-len", "512", "--decode-steps", "16", "--batch", "8",
+    "--chunks", "2", "--device", "cuda",
 ]
 
 
@@ -120,10 +154,12 @@ class Harness:
     """Shared state of the phases: the torch module, the kernel module and
     per-kernel records for the final ``kernels`` line."""
 
-    def __init__(self, torch, K, S, dev, card_line):
+    def __init__(self, torch, K, S, dev, card_line, FK=None, DK=None):
         self.torch = torch
         self.K = K  # the GAT kernel wrappers
         self.S = S  # the SpMM kernel wrappers
+        self.FK = FK  # the flash-attention kernel wrapper
+        self.DK = DK  # the SSD kernel wrapper
         self.dev = dev
         self.card = card_line
         self.gen = torch.Generator(device=self.dev).manual_seed(0)
@@ -165,17 +201,17 @@ class Harness:
         return self._held(name, label, got, want, zero_rows,
                           f"R={nbr.shape[0]:6d} W={nbr.shape[1]:4d} F={hw.shape[1]:3d}")
 
-    def _held(self, name, label, got, want, zero_rows, shape):
+    def _held(self, name, label, got, want, zero_rows, shape, atol=ATOL, rtol=RTOL):
         t = self.torch
         if got.shape != want.shape:
             raise AssertionError(f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
-        err = float((got - want).abs().max()) if got.numel() else 0.0
-        if not t.allclose(got, want, atol=ATOL, rtol=RTOL):
+        err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+        if not t.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
             raise AssertionError(f"{label}: kernel disagrees with plain version, max |err| {err:.3g}")
         if zero_rows is not None and bool(zero_rows.any()):
             if not bool((got[zero_rows] == 0).all()):
                 raise AssertionError(f"{label}: rows that must be 0 are not exactly 0")
-        self.err[name] = max(self.err[name], err)
+        self.err[name] = max(self.err.get(name, 0.0), err)
         log(f"[compare] {name:21s} {label:46s} {shape} max|err|={err:.3g}")
         return got
 
@@ -851,6 +887,291 @@ def profile_gcn_step(H, torch, engine, state, plan, opt):
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
 
 
+# ------------------------------------------------- LM serving (phases 2, 5, 8, 9) --
+
+
+def flash_pairs(sq, skv, window):
+    """(query, key) pairs that causal (windowed) attention needs, per head."""
+    total = 0
+    for i in range(sq):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += max(0, min(i, skv - 1) - lo + 1)
+    return total
+
+
+def flash_bound(q, k, v, window=0):
+    """(bound_ms, bound_by, bytes, ops) of one flash launch: q, k, v read
+    once and the output written once; per needed (query, key) pair a
+    hd-long dot product and a hd_v-long multiply-add (2 operations each)
+    plus 4 softmax operations (max, subtract, exp, sum), at the fp32 rate."""
+    b, sq, h, hd = q.shape
+    hd_v = v.shape[-1]
+    nbytes = (q.numel() + k.numel() + v.numel() + b * sq * h * hd_v) * q.element_size()
+    ops = b * h * flash_pairs(sq, k.shape[1], window) * (2 * hd + 2 * hd_v + 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def ssd_bound(x, B, chunk):
+    """(bound_ms, bound_by, bytes, ops) of one SSD launch: x, dt, loga, B, C
+    read once, y and the final state written once; per chunk and head the
+    causal half of C·Bᵀ and of G·(x·dt), C·Hᵀ and the state update, as
+    multiply-adds (2 operations), at the fp32 rate."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nbytes = 4 * (2 * x.numel() + 2 * b * s * h + 2 * b * s * n + b * h * p * n)
+    ops = 0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)  # the last chunk's padding does no needed work
+        tri = q * (q + 1) // 2
+        ops += b * h * 2 * (tri * n + tri * p + 2 * q * p * n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def flash_inputs(H, b, s, h, kv, hd, hd_v=None, dtype=None):
+    t = H.torch
+    dtype = t.float32 if dtype is None else dtype
+    shapes = ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd if hd_v is None else hd_v))
+    return tuple(t.randn(sh, generator=H.gen, device=H.dev).to(dtype) for sh in shapes)
+
+
+def ssd_inputs(H, b, s, h, p, n):
+    """SSD inputs at the JAX SSD tests' scales; loga = A·dt as the op forms it."""
+    t = H.torch
+    x = t.randn((b, s, h, p), generator=H.gen, device=H.dev) * 0.5
+    dt = t.nn.functional.softplus(t.randn((b, s, h), generator=H.gen, device=H.dev)) * 0.1
+    A = -t.exp(t.linspace(0.0, 2.0, h, device=H.dev))
+    B = t.randn((b, s, n), generator=H.gen, device=H.dev) * 0.3
+    C = t.randn((b, s, n), generator=H.gen, device=H.dev) * 0.3
+    return x, dt, (dt * A).contiguous(), B, C
+
+
+def compare_flash(H, label, q, k, v, window=0, softcap=0.0, tol=FLASH_ATOL, out=None):
+    """Flash kernel vs its plain version on the same card inputs (``out``:
+    the kernel's output from the main path, else launched here). bf16
+    errors are kept apart from the fp32 ones the ``kernels`` line reports."""
+    from repro_torch.kernels.flash.ref import flash_attention_ref
+
+    got = H.FK.flash_attention_kernel(q, k, v, window=window, softcap=softcap) if out is None \
+        else out
+    H.torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    b, s, h, hd = q.shape
+    key = "flash_attention_kernel" + ("" if q.dtype == H.torch.float32 else " bf16")
+    return H._held(key, label, got, want, None,
+                   f"B={b} S={s:4d} H={h:2d} KV={k.shape[2]:2d} hd={hd:3d} hd_v={v.shape[-1]:3d} "
+                   f"win={window} cap={softcap} {str(q.dtype)[6:]}", atol=tol, rtol=tol)
+
+
+def compare_ssd(H, label, x, dt, loga, B, C, chunk, out=None):
+    """SSD kernel vs its plain version, y and final state, on the same card
+    inputs (``out``: the kernel's (y, state) from the main path)."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_scan
+
+    got = H.DK.ssd_kernel(x, dt, loga, B, C, chunk=chunk) if out is None else out
+    H.torch.cuda.synchronize()
+    want = ssd_chunk_scan(x, dt, loga, B, C, chunk=chunk)
+    b, s, h, p = x.shape
+    shape = f"b={b} S={s:4d} h={h:2d} P={p:3d} N={B.shape[-1]:3d} chunk={chunk:3d}"
+    for part, g, w in (("y", got[0], want[0]), ("state", got[1], want[1])):
+        H._held("ssd_kernel", f"{label} {part}", g, w, None, shape, atol=SSD_ATOL, rtol=0.0)
+    return got
+
+
+def phase_compare_lm(H, torch):
+    """Phase 2 for the LM kernels: main-path shapes and edge cases."""
+    compare_flash(H, "codeqwen prefill launch shape", *flash_inputs(H, 4, 512, 32, 32, 128))
+    compare_flash(H, "GQA 32/16", *flash_inputs(H, 2, 256, 32, 16, 128))
+    compare_flash(H, "GQA 8/1", *flash_inputs(H, 2, 256, 8, 1, 64))
+    compare_flash(H, "window 128", *flash_inputs(H, 2, 512, 8, 4, 128), window=128)
+    compare_flash(H, "softcap 50", *flash_inputs(H, 2, 256, 8, 4, 128), softcap=50.0)
+    for s in (64, 200, 513):
+        compare_flash(H, f"ragged S {s}", *flash_inputs(H, 2, s, 8, 8, 128))
+    compare_flash(H, "hd_v != hd", *flash_inputs(H, 2, 192, 8, 2, 96, hd_v=64))
+    compare_flash(H, "S 300, GQA 8/2", *flash_inputs(H, 2, 300, 8, 2, 128, dtype=torch.bfloat16),
+                  tol=FLASH_BF16_TOL)
+    compare_ssd(H, "mamba2-130m prefill launch shape", *ssd_inputs(H, 4, 512, 24, 64, 128), 128)
+    for s in (64, 200):
+        compare_ssd(H, f"ragged S {s}", *ssd_inputs(H, 4, s, 24, 64, 128), 128)
+    compare_ssd(H, "chunk 32", *ssd_inputs(H, 4, 512, 24, 64, 128), 32)
+
+
+def phase_timing_lm(H, torch):
+    """Phase 5 for the LM kernels at their main-path launch shapes: kernel,
+    plain version, bound and (flash) ``scaled_dot_product_attention`` on the
+    same fp32 tensors with TF32 off."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash.ref import flash_attention_ref
+    from repro_torch.kernels.ssd.ref import ssd_chunk_scan
+
+    q, k, v = flash_inputs(H, 4, 512, 32, 32, 128)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
+    if not torch.allclose(lib, flash_attention_ref(q, k, v), atol=FLASH_ATOL, rtol=FLASH_RTOL):
+        raise AssertionError("scaled_dot_product_attention disagrees with the plain version")
+    ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v))
+    plain_ms = H.time_ms(lambda: flash_attention_ref(q, k, v))
+    library_ms = H.time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    bound_ms, bound_by, nbytes, nops = flash_bound(q, k, v)
+    H.timing["flash_attention_kernel"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                          "bound_by": bound_by, "library_ms": library_ms}
+    log(f"[timing] flash_attention_kernel one codeqwen prefill launch (4 x 512 tokens, 32 heads, "
+        f"hd 128, causal, fp32): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+        f"scaled_dot_product_attention {library_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+        f"{nbytes} B, {nops} ops), share of bound {bound_ms / ms:.3f}, achieved "
+        f"{nops / ms / 1e9:.3f} TFLOP/s [{H.card}]")
+
+    x, dt, loga, B, C = ssd_inputs(H, 4, 512, 24, 64, 128)
+    ms = H.time_ms(lambda: H.DK.ssd_kernel(x, dt, loga, B, C, chunk=128))
+    plain_ms = H.time_ms(lambda: ssd_chunk_scan(x, dt, loga, B, C, chunk=128))
+    bound_ms, bound_by, nbytes, nops = ssd_bound(x, B, 128)
+    H.timing["ssd_kernel"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": None}
+    log(f"[timing] ssd_kernel one mamba2-130m prefill launch (4 x 512 tokens, 24 heads, P 64, "
+        f"N 128, chunk 128): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, library none (no "
+        f"single PyTorch call), bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops), "
+        f"share of bound {bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s [{H.card}]")
+
+
+def profile_steps(H, torch, label, served, key):
+    """Device busy share of one prefill's and of two decode steps' wall time
+    and the named kernel's share of the prefill's device time, from
+    ``torch.profiler`` (the decode cache is zeros: a step's work does not
+    depend on its contents)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models.transformer.model import init_cache, make_prefill_step, make_serve_step
+
+    b, plen = served.prompt.shape
+    pshape = ShapeConfig("profile", plen, b, "prefill")
+    dshape = ShapeConfig("profile", plen + 32, b, "decode")
+    prefill = make_prefill_step(served.cfg, served.topo, pshape)
+    decode = make_serve_step(served.cfg, served.topo, dshape)
+    tok = served.prompt[:, -1].to(torch.int32)
+
+    def traced(fn, cache, steps):
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                         ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                fn(i, cache)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        if device_ms <= 0:
+            raise AssertionError(f"torch.profiler recorded no device time for {label}")
+        return wall_ms, device_ms, kernels
+
+    pcache = init_cache(served.cfg, served.topo, pshape, device=H.dev)
+    wall_ms, device_ms, kernels = traced(
+        lambda i, c: prefill(served.params, c, {"tokens": served.prompt}), pcache, 1)
+    del pcache
+    mine_ms = sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3
+    log(f"[profile] {label} prefill (profiled): wall {wall_ms:.3f} ms, device busy "
+        f"{device_ms:.3f} ms ({device_ms / wall_ms:.3f} of wall), {key} {mine_ms:.3f} ms "
+        f"({mine_ms / device_ms:.3f} of device time) [{H.card}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
+
+    dcache = init_cache(served.cfg, served.topo, dshape, device=H.dev)
+    step = lambda i, c: decode(served.params, c, {"tokens": tok, "pos": plen + i})
+    with torch.inference_mode():
+        step(0, dcache)  # warm-up
+    wall_ms, device_ms, kernels = traced(lambda i, c: step(i + 1, c), dcache, 2)
+    del dcache
+    log(f"[profile] {label} decode, 2 steps (profiled): wall {wall_ms:.3f} ms, device busy "
+        f"{device_ms:.3f} ms ({device_ms / wall_ms:.3f} of wall) [{H.card}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
+
+
+def phase_serve_lm(H, torch, arch, name):
+    """Phases 8-9: serve ``arch`` at full width through
+    ``repro_torch.launch.serve``; ``name``'s wrapper must launch once per
+    layer and micro-batch in the prefill. Each layer's own kernel inputs and
+    output from micro-batch 0 are captured on the way and held against the
+    plain version; the first decode step's logits are held against a fresh
+    prefill over the prompt plus the first token."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.serve import build_parser, serve
+    from repro_torch.models.transformer.model import init_cache, make_prefill_step
+
+    args = build_parser().parse_args(["--arch", arch, *LM_SERVE_ARGS])
+    ops = flash_ops if name == "flash_attention_kernel" else ssd_ops
+    wrapper = getattr(ops, name)
+    layers = get_arch(arch).num_layers
+    captured = []
+
+    def capture(*a, **kw):  # the op's own call, recorded for micro-batch 0
+        out = wrapper(*a, **kw)
+        if len(captured) < layers:
+            captured.append((a, kw, out))
+        return out
+
+    setattr(ops, name, capture)
+    wrapper.launches = 0
+    try:
+        served = serve(args)
+    finally:
+        setattr(ops, name, wrapper)
+    torch.cuda.synchronize()
+    launched = wrapper.launches
+    summary, gen = served.summary, served.generation
+    want = layers * args.chunks
+    if launched != want:
+        raise AssertionError(f"{arch}: {name} launched {launched} times in the prefill, want "
+                             f"{want} ({layers} layers x {args.chunks} micro-batches)")
+    H.launches[name] = launched
+    if gen.tokens.shape != (args.batch, args.decode_steps + 1):
+        raise AssertionError(f"{arch}: generated tokens {gen.tokens.shape}")
+    for logits in (gen.prefill_logits, gen.first_decode_logits):
+        if logits.shape != (args.batch, served.cfg.vocab_size) or not bool(logits.isfinite().all()):
+            raise AssertionError(f"{arch}: logits of shape {tuple(logits.shape)} or non-finite")
+
+    for i, (a, kw, out) in enumerate(captured):
+        label = f"{arch} layer {i:2d} micro-batch 0"
+        if name == "flash_attention_kernel":
+            compare_flash(H, label, *a, window=kw["window"], softcap=kw["softcap"], out=out)
+        else:
+            compare_ssd(H, label, *a, kw["chunk"], out=out)
+    del captured
+
+    # decode vs prefill: the logits at position prompt_len, two ways
+    b, plen = served.prompt.shape
+    tok0 = torch.from_numpy(gen.tokens[:, 0]).to(H.dev, torch.int64)
+    longer = torch.cat([served.prompt, tok0[:, None]], dim=1)
+    shape = ShapeConfig("check", plen + 1, b, "prefill")
+    with torch.inference_mode():
+        fresh, _ = make_prefill_step(served.cfg, served.topo, shape)(
+            served.params, init_cache(served.cfg, served.topo, shape, device=H.dev),
+            {"tokens": longer})
+    torch.cuda.synchronize()
+    err = float((gen.first_decode_logits - fresh).abs().max())
+    agree = int((gen.first_decode_logits.argmax(-1) == fresh.argmax(-1)).sum())
+    if not err <= DECODE_VS_PREFILL_ATOL:
+        raise AssertionError(f"{arch}: decoded logits at position {plen} differ from a fresh "
+                             f"{plen + 1}-token prefill by {err:.3g} (limit "
+                             f"{DECODE_VS_PREFILL_ATOL})")
+    log(f"[serve-lm] {arch} full width ({summary['params']} params, fp32), batch {b}, prompt "
+        f"{plen}, {args.decode_steps} decode steps, {args.chunks} micro-batches: prefill_s "
+        f"{summary['prefill_s']}, decode_s_per_tok {summary['decode_s_per_tok']}, tokens_per_s "
+        f"{summary['tokens_per_s']}, peak_mem_gb {summary['peak_mem_gb']}, sample "
+        f"{summary['sample']}; {name} launches {launched} ({layers} layers x {args.chunks}); "
+        f"decode vs fresh {plen + 1}-token prefill: max |logit diff| {err:.6g} (limit "
+        f"{DECODE_VS_PREFILL_ATOL}), argmax agree {agree}/{b} [{H.card}]")
+    profile_steps(H, torch, arch, served, "flash_kernel" if name == "flash_attention_kernel"
+                  else "ssd_kernel")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -870,12 +1191,14 @@ def main() -> int:
     card_line = card()
     log(f"[card] {card_line}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"python {sys.version.split()[0]}")
+    from repro_torch.kernels.flash import kernel as FK
     from repro_torch.kernels.gat_edge import kernel as K
     from repro_torch.kernels.spmm import kernel as S
+    from repro_torch.kernels.ssd import kernel as DK
 
     # one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
-        builds = [pool.submit(mod.library) for mod in (K, S)]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+        builds = [pool.submit(mod.library) for mod in (K, S, FK, DK)]
         built_libs = [b.result() for b in builds]
     for built in built_libs:
         log(f"[build] {built.path.name}: nvcc {built.build_seconds:.3f} s")
@@ -883,14 +1206,19 @@ def main() -> int:
             if line.strip():
                 log(f"[build] {line.strip()}")
 
-    H = Harness(torch, K, S, torch.device("cuda"), card_line)
+    H = Harness(torch, K, S, torch.device("cuda"), card_line, FK=FK, DK=DK)
     phase_compare(H, torch)  # phase 2
     phase_compare_spmm(H, torch)  # phase 2, SpMM
+    phase_compare_lm(H, torch)  # phase 2, flash attention and SSD
     phase_serve(H, torch)  # phase 3
     bucketed = phase_bucketed(H, torch)  # phase 4
     phase_timing(H, torch, bucketed)  # phase 5
+    phase_timing_lm(H, torch)  # phase 5, flash attention and SSD
     phase_train_gat(H, torch)  # phase 6
     phase_train_gcn(H, torch)  # phase 7
+    phase_serve_lm(H, torch, "codeqwen1.5-7b", "flash_attention_kernel")  # phase 8
+    torch.cuda.empty_cache()
+    phase_serve_lm(H, torch, "mamba2-130m", "ssd_kernel")  # phase 9
 
     kernels = []
     for name, replaces in REPLACES.items():

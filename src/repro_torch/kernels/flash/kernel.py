@@ -1,0 +1,87 @@
+"""Wrapper of the hand-written CUDA flash-attention kernel.
+
+``flash_attention_kernel`` replaces ``repro/kernels/flash/kernel.py``
+``flash_attention_kernel`` (``pallas_call`` at ``:102``). It takes the
+model's layout — q (B, Sq, H, hd), k (B, Skv, KV, hd), v (B, Skv, KV, hd_v),
+float32 or bfloat16 — and returns (B, Sq, H, hd_v) in q's dtype: causal
+attention with optional sliding ``window`` and tanh ``softcap``, query and
+key positions both 0-based row indices. On CUDA tensors it launches
+``csrc/flash.cu`` (and counts the launch in ``.launches``); on CPU tensors
+it returns the plain version ``ref.flash_attention_ref``, whose KV block is
+``kv_block`` (the kernel tiles by 64 whatever it is). Anything else raises:
+a wrong device, dtype, shape, head grouping or a non-contiguous tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import check_tensor, takes_kernel
+from repro_torch.kernels._build import BuiltLibrary, load_library
+from repro_torch.kernels.flash.ref import flash_attention_ref
+from repro_torch.models.transformer.attention import softmax_scale
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash.cu"
+MAX_HEAD_DIM = 256  # the kernel's shared-memory tiles fit up to 256
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def library() -> BuiltLibrary:
+    """The built and loaded kernel library (compiled at the first call)."""
+    built = load_library("flash", [SOURCE])
+    fn = built.lib.flash_forward
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return built
+
+
+def flash_attention_kernel(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, KV, hd)
+    v: torch.Tensor,  # (B, Skv, KV, hd_v)
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    kv_block: int = 512,
+) -> torch.Tensor:  # (B, Sq, H, hd_v)
+    """Causal (windowed, softcapped) GQA attention."""
+    if not takes_kernel(q, k, v):
+        return flash_attention_ref(q, k, v, window=window, softcap=softcap, kv_block=kv_block)
+    b, sq, h, hd = q.shape
+    _, skv, kv, _ = k.shape
+    hd_v = v.shape[-1]
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q: dtype {q.dtype}, kernel takes float32 or bfloat16")
+    check_tensor("q", q, q.dtype, (b, sq, h, hd))
+    check_tensor("k", k, q.dtype, (b, skv, kv, hd))
+    check_tensor("v", v, q.dtype, (b, skv, kv, hd_v))
+    if kv < 1 or h % kv:
+        raise ValueError(f"{h} query heads do not group onto {kv} kv heads")
+    if not (1 <= hd <= MAX_HEAD_DIM and 1 <= hd_v <= MAX_HEAD_DIM):
+        raise ValueError(f"head dims hd={hd} hd_v={hd_v}: the kernel takes 1..{MAX_HEAD_DIM}")
+    out = torch.empty((b, sq, h, hd_v), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    if skv == 0:
+        raise ValueError("no keys: Skv = 0")
+    lib = library().lib
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPES[q.dtype],
+            b, sq, skv, h, kv, hd, hd_v, softmax_scale(hd), int(window), float(softcap), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash kernel launch failed: cudaError_t {err}")
+    flash_attention_kernel.launches += 1
+    return out
+
+
+flash_attention_kernel.launches = 0

@@ -1,0 +1,84 @@
+"""Wrapper of the hand-written CUDA SSD chunk-scan kernel.
+
+``ssd_kernel`` replaces ``repro/kernels/ssd/kernel.py`` ``ssd_kernel``
+(``pallas_call`` at ``:84``). It takes the model's layout — x (b, S, h, P),
+dt and ``loga = A·dt`` (b, S, h), B and C (b, S, N), all float32 — and
+returns ``(y (b, S, h, P), final state (b, h, P, N))`` from a zero initial
+state. On CUDA tensors it launches ``csrc/ssd.cu`` (and counts the launch
+in ``.launches``); on CPU tensors it returns the plain version
+``ref.ssd_chunk_scan``. Anything else raises: a wrong device, dtype, shape,
+a non-contiguous tensor, or a (P, N, chunk) whose tiles exceed a block's
+shared memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import check_tensor, takes_kernel
+from repro_torch.kernels._build import BuiltLibrary, load_library
+from repro_torch.kernels.ssd.ref import ssd_chunk_scan
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
+MAX_SMEM_BYTES = 232_448  # what one block may opt into on Hopper
+
+
+@functools.cache
+def library() -> BuiltLibrary:
+    """The built and loaded kernel library (compiled at the first call)."""
+    built = load_library("ssd", [SOURCE])
+    fn = built.lib.ssd_forward
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    built.lib.ssd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    built.lib.ssd_smem_bytes.restype = ctypes.c_longlong
+    return built
+
+
+def ssd_kernel(
+    x: torch.Tensor,  # (b, S, h, P)
+    dt: torch.Tensor,  # (b, S, h)
+    loga: torch.Tensor,  # (b, S, h)
+    B: torch.Tensor,  # (b, S, N)
+    C: torch.Tensor,  # (b, S, N)
+    *,
+    chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan from a zero state -> (y, final state)."""
+    if not takes_kernel(x, dt, loga, B, C):
+        return ssd_chunk_scan(x, dt, loga, B, C, chunk=chunk)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    check_tensor("x", x, torch.float32, (b, s, h, p))
+    check_tensor("dt", dt, torch.float32, (b, s, h))
+    check_tensor("loga", loga, torch.float32, (b, s, h))
+    check_tensor("B", B, torch.float32, (b, s, n))
+    check_tensor("C", C, torch.float32, (b, s, n))
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk} < 1")
+    y = torch.empty_like(x)
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y, state
+    lib = library().lib
+    smem = lib.ssd_smem_bytes(p, n, chunk)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"P={p} N={n} chunk={chunk} needs {smem} B of shared memory, "
+                         f"a block has {MAX_SMEM_BYTES}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_forward(
+            x.data_ptr(), dt.data_ptr(), loga.data_ptr(), B.data_ptr(), C.data_ptr(),
+            y.data_ptr(), state.data_ptr(), b, s, h, p, n, chunk, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssd kernel launch failed: cudaError_t {err}")
+    ssd_kernel.launches += 1
+    return y, state
+
+
+ssd_kernel.launches = 0

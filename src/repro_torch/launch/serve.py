@@ -1,0 +1,186 @@
+"""Batched LM serving driver: prefill a request batch, then decode greedily
+through the pipelined serve step. Counterpart of ``repro.launch.serve``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
+        --prompt-len 64 --decode-steps 16 --batch 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \\
+        --full-arch --prompt-len 512 --decode-steps 16 --batch 8
+
+The flags are the JAX driver's, plus ``--device`` (default ``cuda``, which
+raises without a card; ``cpu`` asks for the CPU). Weights are random, drawn
+on the device from ``--seed``; ``--full-arch`` takes the published widths
+and depth, else the arch's smoke config. On the card the prefill's
+attention runs the hand-written flash kernel and Mamba's scan the SSD
+kernel. The prefill fills a prompt-width cache, which is spliced into the
+wider decode cache (the JAX driver's host-side splice), and each decode
+step feeds back its argmax token. The printed result carries the JAX
+driver's keys plus ``tokens_per_s`` (tokens generated over prefill + decode
+wall time), ``peak_mem_gb`` (the card's peak allocation; None on the CPU),
+``params`` and the device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ArchConfig, ShapeConfig, get_arch
+from repro_torch.core.cli import resolve_device
+from repro_torch.data.tokens import token_batch
+from repro_torch.models.transformer.model import (
+    Topology, check_supported, init_cache, init_params, make_prefill_step, make_serve_step,
+)
+
+
+@dataclasses.dataclass
+class Generation:
+    """What a greedy generation produced: tokens (B, decode_steps + 1) —
+    the prefill's argmax first — the prefill's last-token logits, the first
+    decode step's logits (the next position's; None without decode steps),
+    and host wall seconds of the prefill and of all decode steps, each
+    ended by a device synchronize."""
+
+    tokens: np.ndarray
+    prefill_logits: torch.Tensor
+    first_decode_logits: torch.Tensor | None
+    prefill_s: float
+    decode_s: float
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def splice(dst: dict, src: dict) -> dict:
+    """Copy a prefill cache into a wider decode cache, in place: KV-like
+    leaves (num_stages, num_micro, slots, b_mb, W, ...) fill their first W
+    ring slots; other leaves are copied whole (``repro.launch.serve``'s
+    splice)."""
+    for name, d in dst.items():
+        s = src[name]
+        if d.ndim >= 5 and s.ndim == d.ndim and s.shape[:3] == d.shape[:3]:
+            d[:, :, :, :, :s.shape[4]].copy_(s)
+        else:
+            d.copy_(s)
+    return dst
+
+
+@torch.inference_mode()
+def generate(cfg: ArchConfig, topo: Topology, params: dict, prompt: torch.Tensor,
+             decode_steps: int) -> Generation:
+    """Prefill ``prompt`` (B, S) and decode ``decode_steps`` greedy tokens
+    on the prompt's device."""
+    dev = prompt.device
+    b, plen = prompt.shape
+    pshape = ShapeConfig("serve_prefill", plen, b, "prefill")
+    dshape = ShapeConfig("serve_decode", plen + decode_steps + 16, b, "decode")
+    prefill = make_prefill_step(cfg, topo, pshape)
+    step = make_serve_step(cfg, topo, dshape)
+
+    pcache = init_cache(cfg, topo, pshape, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, pcache = prefill(params, pcache, {"tokens": prompt})
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    dcache = splice(init_cache(cfg, topo, dshape, device=dev), pcache)
+    del pcache
+    tok = logits.argmax(dim=-1).to(torch.int32)
+    generated, first = [tok], None
+    _sync(dev)
+    t0 = time.perf_counter()
+    for i in range(decode_steps):
+        tok, dcache, step_logits = step(params, dcache, {"tokens": tok, "pos": plen + i})
+        first = step_logits if i == 0 else first
+        generated.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    tokens = torch.stack(generated, dim=1).cpu().numpy()
+    return Generation(tokens, logits, first, t_prefill, t_decode)
+
+
+@dataclasses.dataclass
+class Served:
+    """One ``serve`` run: the printed summary and what produced it."""
+
+    summary: dict
+    cfg: ArchConfig
+    topo: Topology
+    params: dict
+    prompt: torch.Tensor
+    generation: Generation
+
+
+def serve(args) -> Served:
+    """Build the model on ``--device``, serve one batch, summarize."""
+    cfg = get_arch(args.arch, smoke=not args.full_arch)
+    check_supported(cfg)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    topo = Topology(num_stages=max(args.stages, 1), num_micro=args.chunks)
+    params = init_params(cfg, seed=args.seed, num_stages=topo.num_stages, device=device)
+    prompt = torch.from_numpy(token_batch(
+        batch=args.batch, seq=args.prompt_len, vocab=cfg.vocab_size, seed=args.seed,
+    )[:, :-1][:, :args.prompt_len].astype(np.int64)).to(device)
+
+    gen = generate(cfg, topo, params, prompt, args.decode_steps)
+    n_tokens = int(gen.tokens.size)
+    summary = {
+        "arch": cfg.name,
+        "batch": args.batch,
+        "prefill_s": gen.prefill_s,
+        "decode_s_per_tok": gen.decode_s / max(args.decode_steps, 1),
+        "tokens_generated": n_tokens,
+        "sample": gen.tokens[0][:8].tolist(),
+        "tokens_per_s": n_tokens / (gen.prefill_s + gen.decode_s),
+        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9
+        if device.type == "cuda" else None,
+        "params": sum(int(p.numel()) for p in _leaves(params)),
+        "device": str(device),
+        "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+    }
+    return Served(summary, cfg, topo, params, prompt, gen)
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def run(args) -> dict:
+    """Serve one batch and print the summary dict (the JAX driver's
+    ``run``)."""
+    out = serve(args).summary
+    print(out)
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX serving driver's flags plus ``--device``."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="codeqwen1.5-7b")
+    ap.add_argument("--full-arch", action="store_true")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--decode-steps", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--stages", type=int, default=1)
+    ap.add_argument("--chunks", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="device to run on: cuda (default; raises without a card) or cpu")
+    return ap
+
+
+def main(argv=None):
+    run(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

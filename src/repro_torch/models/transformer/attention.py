@@ -1,0 +1,123 @@
+"""Attention: blocked online-softmax (flash-style, plain PyTorch) and the
+single-token decode path. Counterpart of
+``repro.models.transformer.attention``.
+
+``blocked_attention`` walks KV blocks with a running (max, sum, acc), so the
+(Sq, Skv) score square is never held whole. It handles GQA head grouping,
+sliding windows, the attention softcap and arbitrary query/key positions.
+It is the plain version of the flash-attention kernel
+(``repro_torch.kernels.flash``), which the prefill runs on the card.
+``naive_attention`` is the quadratic oracle the tests hold both against.
+
+``decode_attention`` attends one new token against a KV cache. The JAX
+version's mesh ``axis`` (flash-decoding over a sequence-sharded cache) is
+not carried over: the port serves from one card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.transformer.common import softcap as _softcap
+
+_NEG = -2.0e38  # large negative for f32 masking (avoids inf - inf NaNs)
+
+
+def softmax_scale(hd: int) -> float:
+    """1/sqrt(hd) rounded to float32, as the JAX code computes it."""
+    return float(torch.tensor(1.0) / torch.sqrt(torch.tensor(float(hd))))
+
+
+def _mask_ok(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int) -> torch.Tensor:
+    """(Sq, Skv) bool: causal, and within ``window`` when it is > 0."""
+    ok = kv_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        ok = ok & ((q_pos[:, None] - kv_pos[None, :]) < window)
+    return ok
+
+
+def blocked_attention(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, KV, hd)
+    v: torch.Tensor,  # (B, Skv, KV, hd_v)
+    *,
+    q_pos: torch.Tensor,  # (Sq,)
+    kv_pos: torch.Tensor,  # (Skv,)
+    window: int = 0,
+    attn_softcap: float = 0.0,
+    kv_block: int = 512,
+) -> torch.Tensor:
+    """Causal attention, O(Sq · kv_block) live scores. Returns
+    (B, Sq, H, hd_v) in ``q``'s dtype; K and V head dims may differ."""
+    b, sq, h, hd = q.shape
+    skv, kv_heads = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
+    g = h // kv_heads
+    qg = q.reshape(b, sq, kv_heads, g, hd).float() * softmax_scale(hd)
+
+    m = torch.full((b, kv_heads, g, sq), _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kv_heads, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kv_heads, g, sq, hd_v), dtype=torch.float32, device=q.device)
+    for c0 in range(0, max(skv, 1), kv_block):
+        k_i = k[:, c0:c0 + kv_block].float()
+        v_i = v[:, c0:c0 + kv_block].float()
+        ok = _mask_ok(q_pos, kv_pos[c0:c0 + kv_block], window)  # (Sq, c)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qg, k_i)
+        s = _softcap(s, attn_softcap)
+        s = s + torch.where(ok, 0.0, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None]) * ok
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqc,bckd->bkgqd", p, v_i)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B, KV, G, Sq, hd_v)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd_v).to(q.dtype)
+
+
+def naive_attention(q, k, v, *, q_pos, kv_pos, window: int = 0, attn_softcap: float = 0.0):
+    """The O(S²)-memory oracle (``repro.kernels.flash.ref.naive_attention``).
+    Shapes as ``blocked_attention``."""
+    b, sq, h, hd = q.shape
+    kv_heads = k.shape[2]
+    g = h // kv_heads
+    qg = q.reshape(b, sq, kv_heads, g, hd).float()
+    s = torch.einsum("bikgd,bjkd->bkgij", qg, k.float()) / math.sqrt(hd)
+    s = _softcap(s, attn_softcap)
+    ok = _mask_ok(q_pos, kv_pos, window)
+    s = torch.where(ok, s, -1e30)
+    a = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgij,bjkd->bikgd", a, v.float())
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, H, hd) — one new token
+    k_cache: torch.Tensor,  # (B, W, KV, hd)
+    v_cache: torch.Tensor,  # (B, W, KV, hd_v)
+    kv_pos: torch.Tensor,  # (W,) positions; < 0 marks empty slots
+    cur_pos: int,  # position of the new token
+    *,
+    window: int = 0,
+    attn_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Single-token attention against a ring-buffer cache -> (B, H, hd_v)."""
+    b, h, hd = q.shape
+    kv_heads = k_cache.shape[2]
+    g = h // kv_heads
+    qg = q.reshape(b, kv_heads, g, hd).float() * softmax_scale(hd)
+
+    s = torch.einsum("bkgd,bckd->bkgc", qg, k_cache.float())
+    s = _softcap(s, attn_softcap)
+    ok = (kv_pos >= 0) & (kv_pos <= cur_pos)
+    if window > 0:
+        ok = ok & ((cur_pos - kv_pos) < window)
+    s = torch.where(ok, s, _NEG)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]) * ok
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgc,bckd->bkgd", p, v_cache.float())
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, v_cache.shape[-1]).to(q.dtype)

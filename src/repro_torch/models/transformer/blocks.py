@@ -1,0 +1,215 @@
+"""Per-architecture transformer blocks (one layer slot), the serving half:
+init, prefill and decode. Counterpart of ``repro.models.transformer.blocks``.
+
+A block takes its slot's ``ex`` — ``{"active": float, "window": int}``, plain
+Python numbers — and its slice of the stacked params. A padding slot
+(``active == 0``) is the identity: it returns its input and leaves its cache
+as it was. Unlike the JAX blocks, which return new caches, the port writes
+a layer's cache entries in place into the cache view it is given (a slice
+of the model's stacked cache) and returns that view: a 7B model's cache is
+gigabytes, and decoding copies none of it.
+
+Only GQA attention with rope and Mamba2 blocks build here; MoE, MLA and
+m-rope wait for ROADMAP queue 1 item 16 (``model.check_supported`` says so
+before any block is built). ``block_train`` waits for the LM-training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash.ops import flash_attention
+from repro_torch.models.transformer.attention import decode_attention
+from repro_torch.models.transformer.common import apply_rope, normal_init, rms_norm
+from repro_torch.models.transformer.ffn import ffn_apply, ffn_init
+from repro_torch.models.transformer.ssm import mamba2_apply, mamba2_init
+
+
+# ------------------------------------------------------------------ init --
+
+
+def init_attn_params(cfg: ArchConfig, gen: torch.Generator, *, lead=(), dtype=torch.float32) -> dict:
+    """GQA projections (and QKV biases), each with leading dims ``lead``."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lead = tuple(lead)
+    p = {
+        "w_q": normal_init(gen, (*lead, d, h * hd), dtype=dtype),
+        "w_k": normal_init(gen, (*lead, d, kv * hd), dtype=dtype),
+        "w_v": normal_init(gen, (*lead, d, kv * hd), dtype=dtype),
+        "w_o": normal_init(gen, (*lead, h * hd, d), dtype=dtype),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("b_q", h * hd), ("b_k", kv * hd), ("b_v", kv * hd)):
+            p[name] = torch.zeros((*lead, width), dtype=dtype, device=gen.device)
+    return p
+
+
+def init_block(cfg: ArchConfig, gen: torch.Generator, *, lead=(), dtype=torch.float32) -> dict:
+    """One attention + FFN layer slot (stacked over ``lead``)."""
+    d = cfg.d_model
+    zeros = lambda: torch.zeros((*lead, d), dtype=dtype, device=gen.device)
+    p = {"ln1": zeros(), "ln2": zeros(), "attn": init_attn_params(cfg, gen, lead=lead, dtype=dtype)}
+    if cfg.sandwich_norms:
+        p["ln1_post"], p["ln2_post"] = zeros(), zeros()
+    p["ffn"] = ffn_init(gen, d, cfg.d_ff, kind=cfg.mlp_kind, lead=lead, dtype=dtype)
+    return p
+
+
+def init_mamba_block(cfg: ArchConfig, gen: torch.Generator, *, lead=(), dtype=torch.float32) -> dict:
+    return {
+        "ln1": torch.zeros((*lead, cfg.d_model), dtype=dtype, device=gen.device),
+        "mamba": mamba2_init(
+            gen, cfg.d_model, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+            n_state=cfg.ssm_state, conv_width=cfg.ssm_conv_width, lead=lead, dtype=dtype,
+        ),
+    }
+
+
+# ------------------------------------------------------------ attention --
+
+
+def _project_qkv(cfg: ArchConfig, p: dict, h_in: torch.Tensor, positions: torch.Tensor):
+    """-> (q (B,S,H,hd), k (B,S,KV,hd), v (B,S,KV,hd), cache entry {'k','v'}),
+    k post-rope."""
+    b, s, _ = h_in.shape
+    hd = cfg.head_dim
+    q, k, v = h_in @ p["w_q"], h_in @ p["w_k"], h_in @ p["w_v"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
+    q = q.reshape(b, s, cfg.num_heads, hd)
+    k = k.reshape(b, s, cfg.num_kv_heads, hd)
+    v = v.reshape(b, s, cfg.num_kv_heads, hd)
+    if cfg.rope_kind == "rope":
+        q = apply_rope(q, positions, theta=cfg.rope_theta)
+        k = apply_rope(k, positions, theta=cfg.rope_theta)
+    return q, k, v, {"k": k, "v": v}
+
+
+def attn_apply(cfg: ArchConfig, p: dict, h_in: torch.Tensor, *, positions: torch.Tensor,
+               window: int, kv_block: int = 512, return_cache: bool = False):
+    """Full-sequence causal attention through the flash op: the hand-written
+    kernel on the card, ``blocked_attention`` (KV blocks of ``kv_block``) on
+    the CPU. ``positions`` must be ``arange(S)`` (the flash op's own)."""
+    b, s, _ = h_in.shape
+    q, k, v, entry = _project_qkv(cfg, p, h_in, positions)
+    out = flash_attention(q, k, v, window, cfg.attn_softcap, kv_block)
+    out = out.reshape(b, s, -1) @ p["w_o"]
+    return (out, entry) if return_cache else out
+
+
+def ring_positions(cur_pos: int, w_local: int, *, device=None) -> torch.Tensor:
+    """Global positions held by ring-buffer slots, derived (not stored):
+    slot i holds p_i = cur_pos - ((cur_pos - i) mod W); p_i < 0 ⇒ empty.
+    Valid because serving fills positions contiguously 0..cur_pos."""
+    idx = torch.arange(w_local, dtype=torch.int64, device=device)
+    return cur_pos - torch.remainder(cur_pos - idx, w_local)
+
+
+def attn_decode_apply(cfg: ArchConfig, p: dict, h_in: torch.Tensor, cache: dict, *,
+                      cur_pos: int, window: int):
+    """One new token (h_in (B, 1, d)) against a ring-buffer cache
+    ({'k','v'} of (B, W, KV, hd)); writes its k/v into slot cur_pos mod W in
+    place. -> (out (B, 1, d), cache)."""
+    b = h_in.shape[0]
+    pos = torch.full((1,), cur_pos, dtype=torch.int64, device=h_in.device)
+    q, k_new, v_new, _ = _project_qkv(cfg, p, h_in, pos)
+    w = cache["k"].shape[1]
+    slot = cur_pos % w
+    cache["k"][:, slot] = k_new[:, 0]
+    cache["v"][:, slot] = v_new[:, 0]
+    kv_pos = ring_positions(cur_pos, w, device=h_in.device)
+    out = decode_attention(q[:, 0], cache["k"], cache["v"], kv_pos, cur_pos, window=window,
+                           attn_softcap=cfg.attn_softcap)
+    return out.reshape(b, 1, -1) @ p["w_o"], cache
+
+
+def init_attn_cache(cfg: ArchConfig, mb: int, w_local: int, *, dtype=torch.float32,
+                    device=None) -> dict:
+    """One layer's decode cache. Positions are implicit (ring_positions)."""
+    shape = (mb, w_local, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------- blocks --
+
+
+def _ffn_tail(cfg: ArchConfig, lp: dict, h: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Residual attention output, then the residual FFN (sandwich norms on
+    gemma2)."""
+    if cfg.sandwich_norms:
+        a = rms_norm(a, lp["ln1_post"], eps=cfg.norm_eps)
+    h = h + a
+    f = ffn_apply(lp["ffn"], rms_norm(h, lp["ln2"], eps=cfg.norm_eps), kind=cfg.mlp_kind)
+    if cfg.sandwich_norms:
+        f = rms_norm(f, lp["ln2_post"], eps=cfg.norm_eps)
+    return h + f
+
+
+def block_prefill(cfg: ArchConfig, lp: dict, ex: dict, h: torch.Tensor, cache: dict, *,
+                  positions: torch.Tensor, kv_block: int = 512):
+    """Full-sequence forward that also writes this layer's KV entries into
+    ``cache`` (width == seq_len). -> (h, cache)."""
+    if not ex["active"] > 0:
+        return h, cache
+    a, entry = attn_apply(
+        cfg, lp["attn"], rms_norm(h, lp["ln1"], eps=cfg.norm_eps), positions=positions,
+        window=int(ex["window"]), kv_block=kv_block, return_cache=True,
+    )
+    for name, value in entry.items():
+        cache[name].copy_(value)
+    return _ffn_tail(cfg, lp, h, a), cache
+
+
+def block_decode(cfg: ArchConfig, lp: dict, ex: dict, h: torch.Tensor, cache: dict, *,
+                 cur_pos: int):
+    """One-token forward against this layer's cache (updated in place)."""
+    if not ex["active"] > 0:
+        return h, cache
+    a, cache = attn_decode_apply(
+        cfg, lp["attn"], rms_norm(h, lp["ln1"], eps=cfg.norm_eps), cache,
+        cur_pos=cur_pos, window=int(ex["window"]),
+    )
+    return _ffn_tail(cfg, lp, h, a), cache
+
+
+def _mamba(cfg: ArchConfig, lp: dict, h: torch.Tensor, **kw):
+    return mamba2_apply(
+        lp["mamba"], rms_norm(h, lp["ln1"], eps=cfg.norm_eps), expand=cfg.ssm_expand,
+        head_dim=cfg.ssm_head_dim, n_state=cfg.ssm_state, chunk=cfg.ssm_chunk, **kw,
+    )
+
+
+def mamba_block_prefill(cfg: ArchConfig, lp: dict, ex: dict, h: torch.Tensor, cache: dict):
+    """Full-sequence mamba forward from a zero state; writes the final
+    recurrent and conv states into ``cache`` ({'ssm','conv'})."""
+    if not ex["active"] > 0:
+        return h, cache
+    y, (ssm, conv) = _mamba(cfg, lp, h)
+    cache["ssm"].copy_(ssm)
+    cache["conv"].copy_(conv)
+    return h + y, cache
+
+
+def mamba_block_decode(cfg: ArchConfig, lp: dict, ex: dict, h: torch.Tensor, cache: dict):
+    """One-token mamba step from ``cache`` (updated in place)."""
+    if not ex["active"] > 0:
+        return h, cache
+    y, (ssm, conv) = _mamba(cfg, lp, h, ssm_state=cache["ssm"], conv_state=cache["conv"],
+                            decode=True)
+    cache["ssm"].copy_(ssm)
+    cache["conv"].copy_(conv)
+    return h + y, cache
+
+
+def init_mamba_cache(cfg: ArchConfig, mb: int, *, dtype=torch.float32, device=None) -> dict:
+    d_in = cfg.ssm_expand * cfg.d_model
+    h = d_in // cfg.ssm_head_dim
+    conv_dim = d_in + 2 * cfg.ssm_state
+    return {
+        "ssm": torch.zeros((mb, h, cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros((mb, cfg.ssm_conv_width - 1, conv_dim),
+                            dtype=dtype, device=device),
+    }

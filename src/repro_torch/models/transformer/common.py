@@ -1,0 +1,56 @@
+"""Shared transformer primitives: norms, rope, initializers.
+
+Counterpart of ``repro.models.transformer.common`` (m-rope waits for the
+VLM frontend, ROADMAP queue 1 item 16).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with a zero-centred scale (``x · rsqrt(mean x² + eps) ·
+    (1 + scale)``), computed in float32 and cast back to ``x``'s dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap) if cap > 0 else x
+
+
+def normal_init(
+    gen: torch.Generator, shape, *, scale: float = 0.02, dtype=torch.float32, device=None
+) -> torch.Tensor:
+    """``scale``-scaled standard normals drawn from ``gen`` on ``device``
+    (the generator's own device when None), scaled in place so a large leaf
+    costs one allocation."""
+    device = gen.device if device is None else device
+    out = torch.randn(tuple(shape), generator=gen, device=device, dtype=torch.float32)
+    return out.mul_(scale).to(dtype)
+
+
+# ------------------------------------------------------------------ rope --
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """(head_dim/2,) inverse frequencies."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, hd); positions: broadcastable to
+    (..., S) integers. Rotates the full head_dim (half-split convention)."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
+    ang = positions[..., None].float() * inv  # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,117 @@
+"""Flash attention in the port against the JAX package.
+
+The port's plain version (``repro_torch.kernels.flash.ref``, the route a CPU
+tensor takes through the kernel wrapper and the op) is held against the JAX
+flash op itself (its Pallas kernel in interpret mode), the JAX
+``blocked_attention`` and ``naive_attention``, and the port's own quadratic
+oracle. Inputs are numpy draws from a seed, handed to both frameworks.
+Tolerance 1e-5 (float32; the blocked and naive forms sum in other orders).
+The CUDA kernel itself is held against the plain version on the card
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash.ops import flash_attention as jax_flash
+from repro.kernels.flash.ref import naive_attention as jax_naive
+from repro.models.transformer.attention import blocked_attention as jax_blocked
+from repro_torch.kernels.flash import kernel as K
+from repro_torch.kernels.flash.ops import flash_attention
+from repro_torch.kernels.flash.ref import flash_attention_ref
+from repro_torch.models.transformer.attention import blocked_attention, naive_attention
+
+ATOL = RTOL = 1e-5
+
+
+def qkv(b, s, h, kv, hd, hd_v=None, seed=0):
+    rng = np.random.default_rng(seed)
+    hd_v = hd if hd_v is None else hd_v
+    return (rng.standard_normal((b, s, h, hd)).astype(np.float32),
+            rng.standard_normal((b, s, kv, hd)).astype(np.float32),
+            rng.standard_normal((b, s, kv, hd_v)).astype(np.float32))
+
+
+def t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+def close(got, want, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=atol, rtol=RTOL)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window,cap", [
+    (1, 128, 4, 2, 32, 0, 0.0),
+    (2, 256, 2, 1, 16, 64, 0.0),
+    (1, 128, 4, 4, 32, 0, 50.0),
+])
+def test_plain_matches_jax_pallas_op(b, s, h, kv, hd, window, cap):
+    q, k, v = qkv(b, s, h, kv, hd, seed=s + h)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window, cap, 128, 128)
+    close(flash_attention(*t(q, k, v), window, cap), want)
+
+
+# every (H, KV) grouping, window, softcap and ragged S, each met twice
+@pytest.mark.parametrize("h,kv,window,cap,s", [
+    (4, 4, 0, 0.0, 64), (4, 2, 16, 0.0, 45), (8, 1, 0, 50.0, 100), (4, 2, 24, 30.0, 100),
+    (8, 1, 16, 0.0, 64), (4, 4, 0, 50.0, 45), (4, 2, 0, 0.0, 100), (8, 1, 24, 30.0, 45),
+])
+def test_plain_matches_oracles(h, kv, window, cap, s):
+    q, k, v = qkv(2, s, h, kv, 16, seed=h * 10 + kv + s)
+    pos = np.arange(s, dtype=np.int32)
+    got = flash_attention_ref(*t(q, k, v), window=window, softcap=cap, kv_block=32)
+    tp = torch.from_numpy(pos).long()
+    close(got, naive_attention(*t(q, k, v), q_pos=tp, kv_pos=tp, window=window, attn_softcap=cap))
+    jq, jk, jv, jpos = map(jnp.asarray, (q, k, v, pos))
+    close(got, jax_naive(jq, jk, jv, q_pos=jpos, kv_pos=jpos, window=window, attn_softcap=cap))
+    close(got, jax_blocked(jq, jk, jv, q_pos=jpos, kv_pos=jpos, window=window,
+                           attn_softcap=cap, kv_block=32))
+
+
+def test_blocked_matches_jax_at_other_positions():
+    """Decode-style positions (queries at the end of a longer key run)."""
+    q, k, v = qkv(1, 40, 4, 2, 16, seed=3)
+    q = q[:, :8]
+    q_pos, kv_pos = np.arange(32, 40, dtype=np.int32), np.arange(40, dtype=np.int32)
+    got = blocked_attention(*t(q, k, v), q_pos=torch.from_numpy(q_pos).long(),
+                            kv_pos=torch.from_numpy(kv_pos).long(), window=12, kv_block=16)
+    want = jax_blocked(*map(jnp.asarray, (q, k, v)), q_pos=jnp.asarray(q_pos),
+                       kv_pos=jnp.asarray(kv_pos), window=12, kv_block=16)
+    close(got, want)
+
+
+def test_plain_vdim_differs():
+    """K and V head dims differ (the JAX test_flash_mla_style_vdim)."""
+    q, k, v = qkv(2, 128, 4, 2, 24, hd_v=16, seed=5)
+    got = flash_attention(*t(q, k, v))
+    assert got.shape == (2, 128, 4, 16)
+    close(got, jax_flash(*map(jnp.asarray, (q, k, v))))
+
+
+def test_op_gradient_matches_jax():
+    q, k, v = qkv(1, 128, 4, 2, 16, seed=7)
+    ct = np.random.default_rng(8).standard_normal((1, 128, 4, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, 32, 20.0), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(ct))
+    leaves = [x.requires_grad_() for x in t(q, k, v)]
+    out = flash_attention(*leaves, 32, 20.0)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(ct))
+    for g, w in zip(got, want):
+        close(g, w)
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+    q, k, v = t(*qkv(1, 70, 4, 2, 16, seed=9))
+    before = K.flash_attention_kernel.launches
+    got = K.flash_attention_kernel(q, k, v, window=8, softcap=10.0)
+    assert K.flash_attention_kernel.launches == before
+    assert torch.equal(got, flash_attention_ref(q, k, v, window=8, softcap=10.0))
+
+
+def test_wrapper_rejects_mixed_devices():
+    q, k, v = t(*qkv(1, 8, 2, 1, 8))
+    with pytest.raises(ValueError, match="one device"):
+        K.flash_attention_kernel(q, k.to("meta"), v)

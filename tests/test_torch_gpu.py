@@ -11,7 +11,9 @@ order than the plain versions' einsums; fully-masked GAT rows and
 all-zero-norm SpMM rows must be exactly 0. A kernel-backend GCN step is held
 to the padded backend at 2e-4 in its loss and update (the tolerance of
 ``benchmarks/fig3.py``), and each gradient leaf within 1e-5 of its largest
-entry.
+entry. The flash kernel is held at 1e-5 (2e-2 in bf16) and the SSD kernel
+at atol 1e-4, the JAX package's SSD tolerance; smoke-size LM serving on the
+card at 1e-4 against the same params on the CPU.
 """
 
 import os
@@ -31,6 +33,12 @@ from repro_torch.kernels.spmm import kernel as SK
 from repro_torch.kernels.spmm import ops as sops
 from repro_torch.kernels.spmm import ref as sref
 from repro_torch.launch import serve_gnn as tserve
+from repro_torch.kernels.flash import kernel as FK
+from repro_torch.kernels.flash.ref import flash_attention_ref
+from repro_torch.kernels.ssd import kernel as SSK
+from repro_torch.kernels.ssd.ops import ssd as ssd_op
+from repro_torch.kernels.ssd.ref import ssd_chunk_scan
+from repro_torch.launch import serve as lm_serve
 from repro_torch.models.gnn.net import build_gnn
 from repro_torch.train import optimizer as topt
 
@@ -260,3 +268,126 @@ def test_kernel_backend_gcn_train_step_on_card(cuda):
             grad, want = k[2][i][key], p[2][i][key]
             assert float((grad - want).abs().max()) <= 1e-5 * float(want.abs().max())
             assert torch.equal(grad, k2[2][i][key])
+
+
+# ------------------------------------------------ flash attention, SSD --
+# The two LM-serving kernels against their plain versions on the card, on
+# phase 2's edge cases of chip_smoke.py: flash at atol/rtol 1e-5 (bf16 at
+# 2e-2), SSD's y and final state at atol 1e-4 (the JAX package's SSD
+# tolerance). Inputs are numpy draws at unit scale (flash) and at the JAX
+# SSD tests' scales.
+
+
+def _flash_inputs(dev, b, s, h, kv, hd, hd_v=None, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd if hd_v is None else hd_v))
+    return tuple(torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev, dtype)
+                 for sh in shapes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,window,cap", [
+    (4, 512, 32, 32, 128, None, 0, 0.0),  # the codeqwen prefill's launch shape
+    (1, 256, 32, 16, 64, None, 0, 0.0),
+    (2, 128, 8, 1, 32, None, 0, 0.0),
+    (1, 512, 4, 2, 128, None, 128, 0.0),
+    (1, 192, 4, 2, 64, None, 0, 50.0),
+    (2, 64, 4, 4, 32, None, 0, 0.0),
+    (1, 200, 4, 2, 64, None, 48, 30.0),
+    (1, 513, 8, 8, 128, None, 0, 0.0),
+    (2, 96, 4, 2, 48, 16, 0, 0.0),
+    (1, 70, 2, 1, 256, 256, 0, 0.0),
+])
+def test_flash_kernel_matches_plain_on_card(cuda, b, s, h, kv, hd, hd_v, window, cap):
+    q, k, v = _flash_inputs(cuda, b, s, h, kv, hd, hd_v, seed=s + h)
+    before = FK.flash_attention_kernel.launches
+    got = FK.flash_attention_kernel(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_kernel.launches == before + 1
+    want = flash_attention_ref(q, k, v, window=window, softcap=cap)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_bf16_on_card(cuda):
+    q, k, v = _flash_inputs(cuda, 2, 300, 8, 2, 128, dtype=torch.bfloat16, seed=1)
+    got = FK.flash_attention_kernel(q, k, v)
+    assert got.dtype == torch.bfloat16
+    want = flash_attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_rejects_bad_inputs_on_card(cuda):
+    q, k, v = _flash_inputs(cuda, 1, 64, 4, 3, 32)
+    with pytest.raises(ValueError, match="group"):
+        FK.flash_attention_kernel(q, k, v)
+    q, k, v = _flash_inputs(cuda, 1, 64, 4, 2, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        FK.flash_attention_kernel(q.transpose(1, 2), k, v)
+    with pytest.raises(TypeError):
+        FK.flash_attention_kernel(q.half(), k.half(), v.half())
+
+
+def _ssd_inputs(dev, b, s, h, p, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.1
+    A = -np.exp(np.linspace(0.0, 2.0, h))
+    B = rng.standard_normal((b, s, n)) * 0.3
+    C = rng.standard_normal((b, s, n)) * 0.3
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (x, dt, A, B, C))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (4, 512, 24, 64, 128, 128),  # the mamba2-130m prefill's launch shape
+    (2, 64, 24, 64, 128, 128),
+    (2, 200, 24, 64, 128, 128),
+    (2, 512, 4, 64, 128, 32),
+    (1, 77, 3, 8, 16, 16),
+])
+def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, n, chunk):
+    x, dt, A, B, C = _ssd_inputs(cuda, b, s, h, p, n, seed=s)
+    loga = (dt * A).contiguous()
+    before = SSK.ssd_kernel.launches
+    y, state = SSK.ssd_kernel(x, dt, loga, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SSK.ssd_kernel.launches == before + 1
+    want_y, want_state = ssd_chunk_scan(x, dt, loga, B, C, chunk=chunk)
+    torch.testing.assert_close(y, want_y, rtol=0, atol=1e-4)
+    torch.testing.assert_close(state, want_state, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_op_on_card_refuses_nonzero_h0(cuda):
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 64, 2, 8, 16)
+    zero = torch.zeros((1, 2, 8, 16), device=cuda)
+    y, _ = ssd_op(x, dt, A, B, C, 16, zero)  # an all-zero h0 is the kernel's own start
+    torch.testing.assert_close(y, ssd_op(x, dt, A, B, C, 16)[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="zero state"):
+        ssd_op(x, dt, A, B, C, 16, zero + 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "mamba2-130m"])
+def test_lm_serving_on_card_goes_through_kernels(cuda, arch):
+    """Smoke-size serving on the card launches its kernel once per layer and
+    micro-batch in the prefill, and decodes the same tokens as the CPU."""
+    args = lm_serve.build_parser().parse_args(
+        ["--arch", arch, "--prompt-len", "80", "--decode-steps", "3", "--batch", "4"])
+    wrapper = SSK.ssd_kernel if arch == "mamba2-130m" else FK.flash_attention_kernel
+    wrapper.launches = 0
+    served = lm_serve.serve(args)
+    layers = served.cfg.num_layers
+    assert wrapper.launches == layers * args.chunks
+    cpu_gen = lm_serve.generate(served.cfg, served.topo, _tree_to(served.params, "cpu"),
+                                served.prompt.cpu(), args.decode_steps)
+    torch.testing.assert_close(served.generation.prefill_logits.cpu(), cpu_gen.prefill_logits,
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(served.generation.tokens, cpu_gen.tokens)
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}

@@ -39,6 +39,9 @@ def test_port_files_found():
     assert (port / "kernels" / "gat_edge" / "csrc" / "gat_edge.cu").exists()
     assert (port / "kernels" / "spmm" / "csrc" / "spmm.cu").exists()
     assert (port / "launch" / "train.py").exists()
+    assert (port / "kernels" / "flash" / "csrc" / "flash.cu").exists()
+    assert (port / "kernels" / "ssd" / "csrc" / "ssd.cu").exists()
+    assert (port / "launch" / "serve.py").exists()
 
 
 def test_every_port_module_imports():
@@ -46,6 +49,8 @@ def test_every_port_module_imports():
 
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
     assert {"repro_torch.launch.serve_gnn", "repro_torch.launch.train",
-            "repro_torch.kernels.spmm.ops", "repro_torch.core.schedule"} <= set(names)
+            "repro_torch.kernels.spmm.ops", "repro_torch.core.schedule",
+            "repro_torch.launch.serve", "repro_torch.models.transformer.model",
+            "repro_torch.kernels.flash.ops", "repro_torch.kernels.ssd.ops"} <= set(names)
     for name in names:
         importlib.import_module(name)
