@@ -13,15 +13,20 @@ Phases; any failure stops the run with a non-zero exit:
    rtol 1e-5). GAT: the padded kernel at the full-graph shapes of cora and
    pubmed; the bucket kernel on every degree bucket of skewed-powerlaw and
    on every tile of every chunk of phase 6's cora training plan, at both GAT
-   layers' own inputs and on unit-scale random features (F 8 and 7). SpMM: the padded kernel on cora at F 256/32/7 and at
-   both layers' own inputs of phase 7's single-device GCN on skewed-powerlaw
-   (F 32/16); the bucket kernel on every bucket of the GCN training plan's
-   skewed-powerlaw layout (max_degree 128, 2 chunks) at F 32/16. Plus edge
-   cases for both (ragged R, empty bucket, W=1, rows that must be exactly 0,
-   an out-of-range index -> NaN row). Flash attention at atol/rtol 1e-5: the
-   codeqwen prefill's launch shape (4 x 512 tokens, 32 heads of 128,
-   causal), GQA 32/16 and 8/1, window 128, softcap 50, ragged S 64/200/513,
-   hd_v != hd, and bf16 at 2e-2. SSD, y and final state at atol 1e-4: the
+   layers' own inputs and on unit-scale random features (F 8 and 7). SpMM,
+   each launched twice and bit-identical: the padded kernel on cora at F
+   256/32/7 and at both layers' own inputs of phase 7's single-device GCN on
+   skewed-powerlaw (F 32/16); the bucket kernel on every bucket of the GCN
+   training plan's skewed-powerlaw layout (max_degree 128, 2 chunks) at F
+   32/16. Plus edge cases for both (ragged R, empty bucket, W=1, rows that
+   must be exactly 0, an out-of-range index -> NaN row, also when it sits
+   only in a zero-norm padding slot; SpMM with live slots interleaved with
+   zero-norm ones at W 1/31/33/129 x R 1/40/48/8192). Flash attention at
+   atol/rtol 1e-5: the codeqwen prefill's launch shape (4 x 512 tokens, 32
+   heads of 128, causal), GQA 32/16, 32/8 and 8/1, window 128 and 100
+   (crossing tile edges), softcap 50, S 1/63/64/65/127/129/200/513, hd/hd_v
+   64/64, 128/128, 128/64, 256/256 and 96/64, and bf16 at 2e-2. SSD, y and
+   final state at atol 1e-4: the
    mamba2-130m prefill's launch shape (4 x 512, 24 heads, P 64, N 128,
    chunk 128), ragged S 64 and 200, chunk 32.
 3. Serve cora through ``repro_torch.launch.serve_gnn.run`` with the kernel
@@ -36,10 +41,14 @@ Phases; any failure stops the run with a non-zero exit:
    replays (the bucket GAT kernel on one forward of phase 6's plan, and
    per launch on skewed-powerlaw), beside its plain version, its bound
    (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is
-   larger) and, for SpMM, ``torch.sparse.mm`` on a CSR matrix built once
-   from (nbr, norm); the flash and SSD kernels at their prefill launch
-   shapes, flash beside ``scaled_dot_product_attention(is_causal=True)`` on
-   the same fp32 tensors.
+   larger; for flash, its operations as three TF32 tensor-core products each
+   over 495 TFLOP/s, with the CUDA-core figure beside) and, for SpMM,
+   ``torch.sparse.mm`` on a CSR matrix built once from (nbr, norm), with
+   each SpMM launch's own time beside its bound; the flash and SSD kernels
+   at their prefill launch shapes, flash beside
+   ``scaled_dot_product_attention(is_causal=True)`` on the same fp32 tensors,
+   whose device kernels one ``torch.profiler`` pass names. The flash, padded
+   and bucket SpMM times are printed against their floors.
 6. Train the paper GAT on cora through ``repro_torch.launch.train.run_gnn``
    (4 stages, 4 halo chunks, fill_drain, ``--backend pallas``): the loss
    stays finite and falls, and the bucket GAT kernel launches 2 (forward +
@@ -97,6 +106,14 @@ GCN_MATCH_ATOL = 2e-4  # benchmarks/fig3.py: bucket concat reorders f32 edge sum
 GCN_GRAD_RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
+# the flash kernel's fp32 scheme: three TF32 tensor-core products per operation
+FLASH_TF32_PASSES = 3
+# floors for the redesigned kernels' times on this card (the first versions'
+# times over 1.5; the bucket SpMM's first-version time): printed against the
+# measured times, not enforced
+FLOOR_MS = {"flash_attention_kernel": 0.43, "padded_spmm_kernel": 0.059,
+            "bucket_spmm_kernel": 0.2175}
 FLASH_ATOL = FLASH_RTOL = 1e-5  # fp32 attention, kernel vs plain (bf16: 2e-2)
 FLASH_BF16_TOL = 2e-2
 SSD_ATOL = 1e-4  # the JAX package's own SSD tolerance (tests/test_kernels.py)
@@ -164,6 +181,7 @@ class Harness:
         self.card = card_line
         self.gen = torch.Generator(device=self.dev).manual_seed(0)
         self.err = {name: 0.0 for name in REPLACES}
+        self.used = {}  # per kernel: the largest share of the tolerance a compare used
         self.launches = {}
         self.timing = {}
 
@@ -192,11 +210,15 @@ class Harness:
                           f"R={nbr.shape[0]:6d} W={nbr.shape[1]:4d} H={hw.shape[1]} F={hw.shape[2]:3d}")
 
     def compare_spmm(self, name, label, hw, nbr, norm, zero_rows=None):
-        """SpMM kernel vs its plain version on the same card inputs."""
+        """SpMM kernel vs its plain version on the same card inputs; the
+        kernel launched twice must agree bit for bit."""
         from repro_torch.kernels.spmm.ref import padded_spmm_ref
 
         got = getattr(self.S, name)(hw, nbr, norm)
+        again = getattr(self.S, name)(hw, nbr, norm)
         self.torch.cuda.synchronize()
+        if not self.torch.equal(got, again):
+            raise AssertionError(f"{label}: two launches on the same inputs differ")
         want = padded_spmm_ref(hw, nbr, norm)
         return self._held(name, label, got, want, zero_rows,
                           f"R={nbr.shape[0]:6d} W={nbr.shape[1]:4d} F={hw.shape[1]:3d}")
@@ -205,14 +227,18 @@ class Harness:
         t = self.torch
         if got.shape != want.shape:
             raise AssertionError(f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
-        err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max()) if got.numel() else 0.0
+        # how close the worst element comes to the allclose tolerance (1 = at it)
+        used = float((diff / (atol + rtol * want.float().abs())).max()) if got.numel() else 0.0
         if not t.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
             raise AssertionError(f"{label}: kernel disagrees with plain version, max |err| {err:.3g}")
         if zero_rows is not None and bool(zero_rows.any()):
             if not bool((got[zero_rows] == 0).all()):
                 raise AssertionError(f"{label}: rows that must be 0 are not exactly 0")
         self.err[name] = max(self.err.get(name, 0.0), err)
-        log(f"[compare] {name:21s} {label:46s} {shape} max|err|={err:.3g}")
+        self.used[name] = max(self.used.get(name, 0.0), used)
+        log(f"[compare] {name:21s} {label:46s} {shape} max|err|={err:.3g} of tolerance {used:.3f}")
         return got
 
     # ------------------------------------------------------------ timing --
@@ -513,7 +539,30 @@ def phase_compare_spmm(H, torch):
     torch.cuda.synchronize()
     if not (bool(out[5].isnan().all()) and bool(out[6].isfinite().all())):
         raise AssertionError("out-of-range index must give a NaN row and leave others")
-    log("[compare] spmm out-of-range index -> NaN row: ok")
+    # out of range only in a zero-norm padding slot: still a NaN row
+    bad_nbr, bad_norm = gd.neighbors.clone(), gd.norm.clone()
+    bad_nbr[5, -1], bad_norm[5, -1] = g.num_nodes, 0.0
+    hw = torch.randn((g.num_nodes, 32), generator=gen, device=dev)
+    out = H.S.padded_spmm_kernel(hw, bad_nbr, bad_norm)
+    torch.cuda.synchronize()
+    if not (bool(out[5].isnan().all()) and bool(out[6].isfinite().all())):
+        raise AssertionError("an out-of-range index in a zero-norm slot must give a NaN row")
+    log("[compare] spmm out-of-range index -> NaN row (live slot, zero-norm padding slot): ok")
+
+    # live slots interleaved with zero-norm slots (not trailing), every
+    # W in {1, 31, 33, 129} (one, under and over a 32-slot group, the fig3
+    # width) and R in {1, 40, 48, 8192} (a row, the fig3 wide buckets' row
+    # counts, the padded layout's); every fifth row all zero
+    for w in (1, 31, 33, 129):
+        for r in (1, 40, 48, 8192):
+            nbr = torch.randint(0, g.num_nodes, (r, w), generator=gen, device=dev,
+                                dtype=torch.int32)
+            norm = torch.rand((r, w), generator=gen, device=dev) + 0.1
+            norm[:, 1::2] = 0.0
+            norm[::5] = 0.0
+            hw = torch.randn((g.num_nodes, 32), generator=gen, device=dev)
+            H.compare_spmm("bucket_spmm_kernel", f"interleaved zero-norm slots R={r} W={w}",
+                           hw, nbr, norm, zero_rows=(norm == 0).all(dim=1))
 
 
 def phase_compare(H, torch):
@@ -900,16 +949,21 @@ def flash_pairs(sq, skv, window):
 
 
 def flash_bound(q, k, v, window=0):
-    """(bound_ms, bound_by, bytes, ops) of one flash launch: q, k, v read
-    once and the output written once; per needed (query, key) pair a
-    hd-long dot product and a hd_v-long multiply-add (2 operations each)
-    plus 4 softmax operations (max, subtract, exp, sum), at the fp32 rate."""
+    """(bound_ms, bound_by, bytes, ops, cuda_core_ms) of one fp32 flash
+    launch: q, k, v read once and the output written once; per needed
+    (query, key) pair a hd-long dot product and a hd_v-long multiply-add (2
+    operations each) plus 4 softmax operations (max, subtract, exp, sum).
+    The bound counts them as the fp32-accurate kernel issues them, three TF32
+    tensor-core products each (3xTF32) at the TF32 rate; ``cuda_core_ms`` is
+    the same count at the fp32 CUDA-core rate, printed beside it."""
     b, sq, h, hd = q.shape
     hd_v = v.shape[-1]
     nbytes = (q.numel() + k.numel() + v.numel() + b * sq * h * hd_v) * q.element_size()
     ops = b * h * flash_pairs(sq, k.shape[1], window) * (2 * hd + 2 * hd_v + 4)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = FLASH_TF32_PASSES * ops / TF32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops,
+            ops / FP32_OPS_PER_S * 1e3)
 
 
 def ssd_bound(x, B, chunk):
@@ -964,6 +1018,21 @@ def compare_flash(H, label, q, k, v, window=0, softcap=0.0, tol=FLASH_ATOL, out=
                    f"win={window} cap={softcap} {str(q.dtype)[6:]}", atol=tol, rtol=tol)
 
 
+def sdpa_tolerance_used(torch, q, k, v):
+    """How close ``scaled_dot_product_attention(is_causal=True)`` comes to the
+    flash tolerance against the plain version on the same fp32 inputs (the
+    yardstick's own accuracy, beside the kernel's; not enforced)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash.ref import flash_attention_ref
+
+    g = q.shape[2] // k.shape[2]
+    kk, vv = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
+    got = F.scaled_dot_product_attention(q.transpose(1, 2), kk, vv, is_causal=True).transpose(1, 2)
+    want = flash_attention_ref(q, k, v)
+    return float(((got - want).abs() / (FLASH_ATOL + FLASH_RTOL * want.abs())).max())
+
+
 def compare_ssd(H, label, x, dt, loga, B, C, chunk, out=None):
     """SSD kernel vs its plain version, y and final state, on the same card
     inputs (``out``: the kernel's (y, state) from the main path)."""
@@ -991,6 +1060,21 @@ def phase_compare_lm(H, torch):
     compare_flash(H, "hd_v != hd", *flash_inputs(H, 2, 192, 8, 2, 96, hd_v=64))
     compare_flash(H, "S 300, GQA 8/2", *flash_inputs(H, 2, 300, 8, 2, 128, dtype=torch.bfloat16),
                   tol=FLASH_BF16_TOL)
+    # the tensor-core tilings' edges: S around the 16-row warp tiles, the
+    # 32/64-key KV tiles and the 64/128-row query tiles
+    for s in (1, 63, 65, 127, 129, 513):
+        compare_flash(H, f"Sq = Skv = {s}", *flash_inputs(H, 2, s, 8, 4, 128))
+    for hd, hd_v in ((64, 64), (128, 128), (128, 64), (256, 256)):
+        compare_flash(H, f"hd/hd_v {hd}/{hd_v}", *flash_inputs(H, 2, 300, 8, 4, hd, hd_v=hd_v))
+    compare_flash(H, "window 100 crossing tile edges", *flash_inputs(H, 2, 300, 8, 4, 128),
+                  window=100)
+    compare_flash(H, "window 40, softcap 30, hd 64", *flash_inputs(H, 2, 257, 8, 4, 64),
+                  window=40, softcap=30.0)
+    compare_flash(H, "GQA 32/8", *flash_inputs(H, 2, 256, 32, 8, 128))
+    for s, hd, window in ((129, 64, 0), (513, 128, 100), (65, 256, 0)):
+        compare_flash(H, f"S {s} hd {hd} window {window}",
+                      *flash_inputs(H, 2, s, 8, 2, hd, dtype=torch.bfloat16), window=window,
+                      tol=FLASH_BF16_TOL)
     compare_ssd(H, "mamba2-130m prefill launch shape", *ssd_inputs(H, 4, 512, 24, 64, 128), 128)
     for s in (64, 200):
         compare_ssd(H, f"ragged S {s}", *ssd_inputs(H, 4, s, 24, 64, 128), 128)
@@ -1014,14 +1098,17 @@ def phase_timing_lm(H, torch):
     ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v))
     plain_ms = H.time_ms(lambda: flash_attention_ref(q, k, v))
     library_ms = H.time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    bound_ms, bound_by, nbytes, nops = flash_bound(q, k, v)
+    bound_ms, bound_by, nbytes, nops, cuda_core_ms = flash_bound(q, k, v)
+    sdpa = device_kernels(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
     H.timing["flash_attention_kernel"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                                           "bound_by": bound_by, "library_ms": library_ms}
     log(f"[timing] flash_attention_kernel one codeqwen prefill launch (4 x 512 tokens, 32 heads, "
         f"hd 128, causal, fp32): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-        f"scaled_dot_product_attention {library_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
-        f"{nbytes} B, {nops} ops), share of bound {bound_ms / ms:.3f}, achieved "
-        f"{nops / ms / 1e9:.3f} TFLOP/s [{H.card}]")
+        f"scaled_dot_product_attention {library_ms:.6f} ms ({sdpa}), "
+        f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops as 3xTF32 tensor-core "
+        f"products at {TF32_OPS_PER_S:.3g}/s; on the fp32 CUDA cores {cuda_core_ms:.6f} ms), "
+        f"share of bound {bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s [{H.card}]")
+    log_floors(H)
 
     x, dt, loga, B, C = ssd_inputs(H, 4, 512, 24, 64, 128)
     ms = H.time_ms(lambda: H.DK.ssd_kernel(x, dt, loga, B, C, chunk=128))
@@ -1033,6 +1120,32 @@ def phase_timing_lm(H, torch):
         f"N 128, chunk 128): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, library none (no "
         f"single PyTorch call), bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops), "
         f"share of bound {bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s [{H.card}]")
+
+
+def device_kernels(torch, fn):
+    """The device kernels one call of ``fn`` launches, by name, from one
+    ``torch.profiler`` pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        raise AssertionError("torch.profiler recorded no device kernel")
+    return "kernels: " + ", ".join(names)
+
+
+def log_floors(H):
+    """Each redesigned kernel's time against its floor (not enforced)."""
+    for name, floor in FLOOR_MS.items():
+        ms = H.timing[name]["ms"]
+        log(f"[timing] floor {name}: {ms:.6f} ms vs {floor} ms: "
+            f"{'meets' if ms <= floor else 'MISSES'}; library {H.timing[name]['library_ms']:.6f} ms: "
+            f"{'no slower' if ms <= H.timing[name]['library_ms'] else 'slower'} [{H.card}]")
 
 
 def profile_steps(H, torch, label, served, key):
@@ -1136,13 +1249,20 @@ def phase_serve_lm(H, torch, arch, name):
         if logits.shape != (args.batch, served.cfg.vocab_size) or not bool(logits.isfinite().all()):
             raise AssertionError(f"{arch}: logits of shape {tuple(logits.shape)} or non-finite")
 
+    sdpa_used = 0.0
     for i, (a, kw, out) in enumerate(captured):
         label = f"{arch} layer {i:2d} micro-batch 0"
         if name == "flash_attention_kernel":
             compare_flash(H, label, *a, window=kw["window"], softcap=kw["softcap"], out=out)
+            if kw["window"] == 0 and kw["softcap"] == 0.0:
+                sdpa_used = max(sdpa_used, sdpa_tolerance_used(torch, *a))
         else:
             compare_ssd(H, label, *a, kw["chunk"], out=out)
     del captured
+    if name == "flash_attention_kernel":
+        log(f"[serve-lm] {arch} layers' own inputs, share of the flash tolerance used at most: "
+            f"flash kernel {H.used['flash_attention_kernel']:.3f} (all compares), "
+            f"scaled_dot_product_attention {sdpa_used:.3f} (these layers) [{H.card}]")
 
     # decode vs prefill: the logits at position prompt_len, two ways
     b, plen = served.prompt.shape
@@ -1231,6 +1351,8 @@ def main() -> int:
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
         })
+    log("[compare] largest share of the tolerance used, per kernel: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card_line}")
     log(json.dumps({"kernels": kernels}))

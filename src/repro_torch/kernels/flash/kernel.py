@@ -8,8 +8,9 @@ attention with optional sliding ``window`` and tanh ``softcap``, query and
 key positions both 0-based row indices. On CUDA tensors it launches
 ``csrc/flash.cu`` (and counts the launch in ``.launches``); on CPU tensors
 it returns the plain version ``ref.flash_attention_ref``, whose KV block is
-``kv_block`` (the kernel tiles by 64 whatever it is). Anything else raises:
-a wrong device, dtype, shape, head grouping or a non-contiguous tensor.
+``kv_block`` (the kernel tiles KV by 16, 32 or 64 keys whatever it is).
+Anything else raises: a wrong device, dtype, shape, head grouping or a
+non-contiguous tensor.
 """
 
 from __future__ import annotations

@@ -115,3 +115,53 @@ def test_wrapper_rejects_mixed_devices():
     q, k, v = t(*qkv(1, 8, 2, 1, 8))
     with pytest.raises(ValueError, match="one device"):
         K.flash_attention_kernel(q, k.to("meta"), v)
+
+
+# ---------------------------------------------- the kernel's numeric scheme --
+# The CUDA kernel multiplies fp32 operands on the tensor cores as 3xTF32:
+# x = big + small with big = tf32(x), small = tf32(x - big), and a product
+# a_small.b_big + a_big.b_small + a_big.b_big accumulated in fp32, for S = Q.K^T
+# and for P.V. Emulated here with numpy (TF32: 10 mantissa bits, rounded to
+# nearest even), it must hold the plain version at 1e-5 on the codeqwen head
+# shape (hd 128, S 512), where a single TF32 pass must not.
+
+
+def _tf32(x):
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    u = (u + np.uint32(0xFFF) + ((u >> 13) & np.uint32(1))) & np.uint32(0xFFFFE000)
+    return u.view(np.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b from TF32 products (fp32 accumulation, summed here in float64)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    terms = [(a_big, b_big)] if passes == 1 else [(a_small, b_big), (a_big, b_small), (a_big, b_big)]
+    return sum(x.astype(np.float64) @ y.astype(np.float64) for x, y in terms).astype(np.float32)
+
+
+def _emulated_attention(q, k, v, passes):
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    scale = np.float32(1.0) / np.sqrt(np.float32(hd))
+    causal = np.tril(np.ones((s, s), dtype=bool))
+    out = np.empty((b, s, h, v.shape[-1]), dtype=np.float32)
+    for bi in range(b):
+        for hi in range(h):
+            kv = hi // (h // kvh)
+            sc = _tf32_matmul(q[bi, :, hi], k[bi, :, kv].T, passes) * scale
+            sc = np.where(causal, sc, np.float32(-2e38))
+            p = np.where(causal, np.exp(sc - sc.max(axis=1, keepdims=True)), np.float32(0.0))
+            out[bi, :, hi] = _tf32_matmul(p, v[bi, :, kv], passes) / p.sum(axis=1, keepdims=True)
+    return out
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_three_tf32_split_holds_plain_version(passes):
+    q, k, v = qkv(1, 512, 2, 1, 128, seed=11)
+    got = _emulated_attention(q, k, v, passes)
+    want = flash_attention_ref(*t(q, k, v)).numpy()
+    if passes == 3:
+        close(got, want)
+    else:  # one TF32 pass keeps ~11 bits: the 1e-5 parity fails, as it must
+        assert not np.allclose(got, want, atol=ATOL, rtol=RTOL)

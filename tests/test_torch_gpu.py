@@ -210,6 +210,42 @@ def test_bucket_spmm_kernel_edges_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 31, 33, 129])
+@pytest.mark.parametrize("r", [1, 40, 48, 8192])
+def test_spmm_kernel_interleaved_zero_norm_slots_on_card(cuda, r, w):
+    """Live slots interleaved with zero-norm ones (not trailing), at widths
+    around a 32-slot group and the row counts of the fig3 plan's wide
+    buckets (40, 48), where a row's slots are split over warps, and of the
+    padded layout (8192); every fifth row all zero. Twice, bit-identical."""
+    rng = np.random.default_rng(r * 1000 + w)
+    nbr = torch.from_numpy(rng.integers(0, 8192, (r, w)).astype(np.int32)).to(cuda)
+    nrm = rng.uniform(0.1, 1.0, (r, w)).astype(np.float32)
+    nrm[:, 1::2] = 0.0
+    nrm[::5] = 0.0
+    nrm = torch.from_numpy(nrm).to(cuda)
+    hw = _spmm_hw(cuda, 8192, 32, seed=w)
+    got = SK.bucket_spmm_kernel(hw, nbr, nrm)
+    again = SK.bucket_spmm_kernel(hw, nbr, nrm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, sref.padded_spmm_ref(hw, nbr, nrm), rtol=1e-5, atol=1e-5)
+    assert (got[(nrm == 0).all(1)] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [48, 8192])  # a split wide bucket, the padded layout
+def test_spmm_kernel_out_of_range_in_padding_slot_gives_nan_row(cuda, rows):
+    g = load_dataset("skewed-powerlaw", max_degree=128).to(cuda)
+    nbr, nrm = g.neighbors[:rows].clone(), g.norm[:rows].clone()
+    nbr[5, -1], nrm[5, -1] = g.num_nodes, 0.0  # only a zero-norm padding slot is bad
+    hw = _spmm_hw(cuda, g.num_nodes, 16)
+    out = SK.bucket_spmm_kernel(hw, nbr, nrm)
+    torch.cuda.synchronize()
+    assert out[5].isnan().all()
+    assert out[torch.arange(rows, device=cuda) != 5].isfinite().all()
+
+
+@pytest.mark.gpu
 def test_spmm_ops_on_card_launch_kernel_and_match_cpu(cuda):
     g = load_dataset("skewed-mini")
     layout = tpart.degree_bucketed_layout(g)
@@ -306,6 +342,33 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, s, h, kv, hd, hd_v, window,
     assert FK.flash_attention_kernel.launches == before + 1
     want = flash_attention_ref(q, k, v, window=window, softcap=cap)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129, 513])
+@pytest.mark.parametrize("hd,hd_v", [(64, 64), (128, 128), (128, 64), (256, 256)])
+def test_flash_kernel_tilings_on_card(cuda, s, hd, hd_v):
+    """S around the 16-row warp tiles, the 16/32/64-key KV tiles and the
+    64/128-row query tiles, at every head-dim configuration."""
+    q, k, v = _flash_inputs(cuda, 2, s, 8, 4, hd, hd_v, seed=s + hd + hd_v)
+    got = FK.flash_attention_kernel(q, k, v)
+    torch.testing.assert_close(got, flash_attention_ref(q, k, v), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("s,h,kv,hd,window,cap", [
+    (300, 8, 4, 128, 100, 0.0),  # a window crossing KV and query tile edges
+    (257, 8, 4, 64, 40, 30.0),  # window and softcap
+    (256, 32, 8, 128, 0, 0.0),  # GQA 32/8
+    (129, 4, 2, 256, 0, 50.0),
+])
+def test_flash_kernel_window_softcap_gqa_on_card(cuda, dtype, tol, s, h, kv, hd, window, cap):
+    q, k, v = _flash_inputs(cuda, 2, s, h, kv, hd, dtype=dtype, seed=s + window)
+    got = FK.flash_attention_kernel(q, k, v, window=window, softcap=cap)
+    assert got.dtype == dtype
+    want = flash_attention_ref(q, k, v, window=window, softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
