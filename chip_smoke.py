@@ -26,9 +26,9 @@ Phases; any failure stops the run with a non-zero exit:
    heads of 128, causal), GQA 32/16, 32/8 and 8/1, window 128 and 100
    (crossing tile edges), softcap 50, S 1/63/64/65/127/129/200/513, hd/hd_v
    64/64, 128/128, 128/64, 256/256 and 96/64, and bf16 at 2e-2. SSD, y and
-   final state at atol 1e-4: the
-   mamba2-130m prefill's launch shape (4 x 512, 24 heads, P 64, N 128,
-   chunk 128), ragged S 64 and 200, chunk 32.
+   final state at atol 1e-4: the mamba2-130m prefill's launch shape (4 x
+   512, 24 heads, P 64, N 128, chunk 128), ragged S 64 and 200, chunk 32,
+   S 1, S 2048 (16 chunks), strong decay and a 45-block grid.
 3. Serve cora through ``repro_torch.launch.serve_gnn.run`` with the kernel
    backend (4 stages, 4 chunks, 50 q/s for 3 s, ``--verify`` at 1e-5): every
    query answered, 0 mismatches, and the padded GAT kernel's launch count
@@ -38,21 +38,26 @@ Phases; any failure stops the run with a non-zero exit:
    backend's forward; the bucket kernel must have launched for every
    non-empty bucket of both GAT layers.
 5. Time each kernel's main-path work with CUDA events over CUDA-graph
-   replays (the bucket GAT kernel on one forward of phase 6's plan, and
-   per launch on skewed-powerlaw), beside its plain version, its bound
-   (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is
-   larger; for flash, its operations as three TF32 tensor-core products each
-   over 495 TFLOP/s, with the CUDA-core figure beside) and, for SpMM,
+   replays (the bucket GAT kernel on one forward of phase 6's plan and of
+   skewed-powerlaw, and per launch, each beside that launch's plain time),
+   beside its plain version, its bound (bytes over 3.35 TB/s or fp32
+   operations over 67 TFLOP/s, whichever is larger; for flash and SSD, their
+   operations as three TF32 tensor-core products each over 495 TFLOP/s, with
+   the CUDA-core figure beside) and, for SpMM,
    ``torch.sparse.mm`` on a CSR matrix built once from (nbr, norm), with
    each SpMM launch's own time beside its bound; the flash and SSD kernels
    at their prefill launch shapes, flash beside
    ``scaled_dot_product_attention(is_causal=True)`` on the same fp32 tensors,
-   whose device kernels one ``torch.profiler`` pass names. The flash, padded
-   and bucket SpMM times are printed against their floors.
+   whose device kernels one ``torch.profiler`` pass names; the SSD call's
+   three CUDA launches are named and timed by the profiler, and each must
+   run once a call. The redesigned kernels' times are printed against their
+   floors.
 6. Train the paper GAT on cora through ``repro_torch.launch.train.run_gnn``
    (4 stages, 4 halo chunks, fill_drain, ``--backend pallas``): the loss
    stays finite and falls, and the bucket GAT kernel launches 2 (forward +
-   recompute) x 2 GAT layers x buckets x 4 chunks per step.
+   recompute) x 2 GAT layers x buckets x 4 chunks per step; the same run
+   under fill_drain, 1f1b and zb-h1 with deterministic algorithms gives
+   bit-identical epoch losses and final eval.
 7. Train the GCN of ``benchmarks/fig3.py`` ``_sparse_bench`` on
    skewed-powerlaw (max_degree 128, hidden 32, depth 2, balance (2, 2), 2
    sequential chunks, adam(1e-2), host engine): one kernel-backend step
@@ -75,8 +80,9 @@ Phases; any failure stops the run with a non-zero exit:
    algorithms for 1 row than for 513). Prefill and decode times, tokens/s,
    peak memory, and ``torch.profiler`` breakdowns of a prefill and two
    decode steps are printed.
-9. The same for mamba2-130m at full width: the SSD kernel launches 24 x 2 =
-   48 times, each layer's captured inputs held at 1e-4 (y and final state).
+9. The same for mamba2-130m at full width: the SSD wrapper is called 24 x 2
+   = 48 times (3 CUDA launches each), each layer's captured inputs held at
+   1e-4 (y and final state).
 
 The last three lines are the card's name and power limit, the ``kernels``
 JSON line, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -107,13 +113,18 @@ GCN_GRAD_RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
-# the flash kernel's fp32 scheme: three TF32 tensor-core products per operation
-FLASH_TF32_PASSES = 3
-# floors for the redesigned kernels' times on this card (the first versions'
-# times over 1.5; the bucket SpMM's first-version time): printed against the
-# measured times, not enforced
+# the flash and SSD kernels' fp32 scheme: three TF32 tensor-core products per
+# operation
+TF32_PASSES = 3
+# floors for the redesigned kernels' times on this card, printed against the
+# measured times, not enforced: flash and padded SpMM, their first versions'
+# times over 1.5; bucket SpMM, its first version's time; SSD, one prefill
+# launch; bucket GAT, one forward of the cora training plan and of
+# skewed-powerlaw; padded GAT, one served cora batch
 FLOOR_MS = {"flash_attention_kernel": 0.43, "padded_spmm_kernel": 0.059,
-            "bucket_spmm_kernel": 0.2175}
+            "bucket_spmm_kernel": 0.2175, "ssd_kernel": 0.25, "bucket_gat_kernel": 0.10,
+            "bucket_gat_kernel skewed-powerlaw": 0.30, "gat_aggregate_kernel": 0.030}
+SSD_LAUNCH_KERNELS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_output")
 FLASH_ATOL = FLASH_RTOL = 1e-5  # fp32 attention, kernel vs plain (bf16: 2e-2)
 FLASH_BF16_TOL = 2e-2
 SSD_ATOL = 1e-4  # the JAX package's own SSD tolerance (tests/test_kernels.py)
@@ -324,10 +335,12 @@ class Harness:
             f"{nbytes} B, {nops} ops), share of bound {bound_ms / ms:.3f} [{self.card}]")
         for c in calls if per_call else ():
             one_ms = self.time_ms(lambda c=c: self.launch(name, c))
+            one_plain = self.time_ms(lambda c=c: gat_edge_ref(*c))
             one_bound = self.bound([c])[0]
             log(f"[timing]   {name} R={c[3].shape[0]:5d} W={c[3].shape[1]:4d} "
-                f"F={c[0].shape[2]:2d} live={int(c[4].sum()):7d}: kernel {one_ms:.6f} ms, "
-                f"bound {one_bound:.6f} ms, share of bound {one_bound / one_ms:.3f}")
+                f"H={c[0].shape[1]} F={c[0].shape[2]:2d} live={int(c[4].sum()):7d}: kernel "
+                f"{one_ms:.6f} ms, plain {one_plain:.6f} ms, bound {one_bound:.6f} ms, share of "
+                f"bound {one_bound / one_ms:.3f} [{self.card}]")
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "calls": len(calls)}
 
@@ -733,13 +746,14 @@ def phase_timing(H, torch, bucketed):
     H.timing["bucket_gat_kernel"] = H.record_timing(
         "bucket_gat_kernel", f"one forward of the cora GAT training plan ({plan.chunks} chunks x "
         f"2 layers x {sum(1 for b in gat_layout.buckets if b.rows)} buckets)",
-        bucket_gat_plan_calls(torch, model, params, gat_layout, plan.chunks))
+        bucket_gat_plan_calls(torch, model, params, gat_layout, plan.chunks), per_call=True)
     model_k, params_k, skew, layout = bucketed
     tiles = [b for b in layout.buckets if b.rows]
     b_calls = gat_calls(torch, model_k, params_k, skew, [b.neighbors for b in tiles],
                         [b.mask for b in tiles], [b.row_node for b in tiles])
-    H.record_timing("bucket_gat_kernel", f"skewed-powerlaw forward ({len(tiles)} buckets x "
-                    "2 layers)", b_calls, per_call=True)
+    H.timing["bucket_gat_kernel skewed-powerlaw"] = H.record_timing(
+        "bucket_gat_kernel", f"skewed-powerlaw forward ({len(tiles)} buckets x 2 layers)", b_calls,
+        per_call=True)
 
     # the GCN training path's SpMM work (phase 7's model and params)
     from repro_torch.models.gnn.net import build_gnn
@@ -785,6 +799,21 @@ def phase_train_gat(H, torch):
         f"{out['median_epoch_s']}, first_epoch_s {out['first_epoch_s']}, bubble_fraction "
         f"{out['bubble_fraction']}, bucket-GAT launches {launched} ({per_step} per step = 2 x 2 "
         f"GAT layers x {tiles} buckets x {args.chunks} chunks) [{H.card}]")
+
+    # the same training under fill_drain, 1f1b and zb-h1 with deterministic
+    # algorithms: every epoch's loss and the final eval bit-identical
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for schedule in ("fill_drain", "1f1b", "zb-h1"):
+            res = run_gnn(build_parser().parse_args([*TRAIN_GAT_ARGS, "--schedule", schedule]))
+            runs[schedule] = (res["epoch_losses"], res["train_loss"], res["val_acc"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if any(v != runs["fill_drain"] for v in runs.values()):
+        raise AssertionError(f"GAT training: schedules differ under deterministic algorithms {runs}")
+    log(f"[train-gat] fill_drain/1f1b/zb-h1 epoch losses and final eval bit-identical under "
+        f"deterministic algorithms: {runs['fill_drain']} [{H.card}]")
 
 
 def phase_train_gcn(H, torch):
@@ -961,16 +990,19 @@ def flash_bound(q, k, v, window=0):
     nbytes = (q.numel() + k.numel() + v.numel() + b * sq * h * hd_v) * q.element_size()
     ops = b * h * flash_pairs(sq, k.shape[1], window) * (2 * hd + 2 * hd_v + 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = FLASH_TF32_PASSES * ops / TF32_OPS_PER_S * 1e3
+    t_ops = TF32_PASSES * ops / TF32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops,
             ops / FP32_OPS_PER_S * 1e3)
 
 
 def ssd_bound(x, B, chunk):
-    """(bound_ms, bound_by, bytes, ops) of one SSD launch: x, dt, loga, B, C
-    read once, y and the final state written once; per chunk and head the
-    causal half of C·Bᵀ and of G·(x·dt), C·Hᵀ and the state update, as
-    multiply-adds (2 operations), at the fp32 rate."""
+    """(bound_ms, bound_by, bytes, ops, cuda_core_ms) of one SSD wrapper call:
+    x, dt, loga, B, C read once, y and the final state written once; per
+    chunk and head the causal half of C·Bᵀ and of G·(x·dt), C·Hᵀ and the
+    state update, as multiply-adds (2 operations). The bound counts them as
+    the kernel issues them, three TF32 tensor-core products each (3xTF32) at
+    the TF32 rate; ``cuda_core_ms`` is the same count at the fp32 CUDA-core
+    rate, printed beside it."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     nbytes = 4 * (2 * x.numel() + 2 * b * s * h + 2 * b * s * n + b * h * p * n)
@@ -979,8 +1011,10 @@ def ssd_bound(x, B, chunk):
         q = min(chunk, s - c0)  # the last chunk's padding does no needed work
         tri = q * (q + 1) // 2
         ops += b * h * 2 * (tri * n + tri * p + 2 * q * p * n)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = TF32_PASSES * ops / TF32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops,
+            ops / FP32_OPS_PER_S * 1e3)
 
 
 def flash_inputs(H, b, s, h, kv, hd, hd_v=None, dtype=None):
@@ -1079,6 +1113,14 @@ def phase_compare_lm(H, torch):
     for s in (64, 200):
         compare_ssd(H, f"ragged S {s}", *ssd_inputs(H, 4, s, 24, 64, 128), 128)
     compare_ssd(H, "chunk 32", *ssd_inputs(H, 4, 512, 24, 64, 128), 32)
+    # the chunk-parallel design's edges: one token, 16 chunks through the
+    # state pass, strong decay (exp(la) underflows, exp above the diagonal
+    # would overflow), a grid that is not a multiple of 132 blocks
+    compare_ssd(H, "S 1", *ssd_inputs(H, 2, 1, 24, 64, 128), 128)
+    compare_ssd(H, "S 2048, 16 chunks", *ssd_inputs(H, 1, 2048, 8, 64, 128), 128)
+    x, dt, loga, B, C = ssd_inputs(H, 2, 512, 24, 64, 128)
+    compare_ssd(H, "strong decay, loga x 40", x, dt, (loga * 40.0).contiguous(), B, C, 128)
+    compare_ssd(H, "b h chunks 45", *ssd_inputs(H, 3, 300, 5, 64, 128), 128)
 
 
 def phase_timing_lm(H, torch):
@@ -1099,7 +1141,8 @@ def phase_timing_lm(H, torch):
     plain_ms = H.time_ms(lambda: flash_attention_ref(q, k, v))
     library_ms = H.time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
     bound_ms, bound_by, nbytes, nops, cuda_core_ms = flash_bound(q, k, v)
-    sdpa = device_kernels(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    sdpa = "kernels: " + ", ".join(k for k, _, _ in device_kernel_times(
+        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), calls=1))
     H.timing["flash_attention_kernel"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                                           "bound_by": bound_by, "library_ms": library_ms}
     log(f"[timing] flash_attention_kernel one codeqwen prefill launch (4 x 512 tokens, 32 heads, "
@@ -1108,49 +1151,61 @@ def phase_timing_lm(H, torch):
         f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops as 3xTF32 tensor-core "
         f"products at {TF32_OPS_PER_S:.3g}/s; on the fp32 CUDA cores {cuda_core_ms:.6f} ms), "
         f"share of bound {bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s [{H.card}]")
-    log_floors(H)
 
     x, dt, loga, B, C = ssd_inputs(H, 4, 512, 24, 64, 128)
     ms = H.time_ms(lambda: H.DK.ssd_kernel(x, dt, loga, B, C, chunk=128))
     plain_ms = H.time_ms(lambda: ssd_chunk_scan(x, dt, loga, B, C, chunk=128))
-    bound_ms, bound_by, nbytes, nops = ssd_bound(x, B, 128)
+    bound_ms, bound_by, nbytes, nops, cuda_core_ms = ssd_bound(x, B, 128)
+    seen = device_kernel_times(torch, lambda: H.DK.ssd_kernel(x, dt, loga, B, C, chunk=128))
+    per_launch = [(short, t, n) for short in SSD_LAUNCH_KERNELS for k, t, n in seen if short in k]
+    if len(seen) != len(SSD_LAUNCH_KERNELS) or len(per_launch) != len(SSD_LAUNCH_KERNELS) or any(
+            n != 1 for _, _, n in per_launch):
+        raise AssertionError(f"ssd_kernel: one call should launch each of {SSD_LAUNCH_KERNELS} "
+                             f"once, the profiler saw {seen}")
     H.timing["ssd_kernel"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                               "bound_by": bound_by, "library_ms": None}
     log(f"[timing] ssd_kernel one mamba2-130m prefill launch (4 x 512 tokens, 24 heads, P 64, "
-        f"N 128, chunk 128): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, library none (no "
-        f"single PyTorch call), bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops), "
-        f"share of bound {bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s [{H.card}]")
+        f"N 128, chunk 128): kernel {ms:.6f} ms in {len(per_launch)} CUDA launches a call ("
+        + ", ".join(f"{k} {t:.6f} ms" for k, t, _ in per_launch)
+        + f", profiled), plain {plain_ms:.6f} ms, library none (no single PyTorch call), bound "
+        f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops as 3xTF32 tensor-core products at "
+        f"{TF32_OPS_PER_S:.3g}/s; on the fp32 CUDA cores {cuda_core_ms:.6f} ms), share of bound "
+        f"{bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s [{H.card}]")
+    log_floors(H)
 
 
-def device_kernels(torch, fn):
-    """The device kernels one call of ``fn`` launches, by name, from one
-    ``torch.profiler`` pass."""
+def device_kernel_times(torch, fn, calls=10):
+    """[(device kernel name, ms per call, launches per call)] of ``fn``, from
+    one ``torch.profiler`` pass over ``calls`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not names:
+    out = [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls)
+           for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not out:
         raise AssertionError("torch.profiler recorded no device kernel")
-    return "kernels: " + ", ".join(names)
+    return out
 
 
 def log_floors(H):
-    """Each redesigned kernel's time against its floor (not enforced)."""
+    """Each redesigned kernel's time against its floor, and against its
+    library call where there is one (not enforced)."""
     for name, floor in FLOOR_MS.items():
-        ms = H.timing[name]["ms"]
-        log(f"[timing] floor {name}: {ms:.6f} ms vs {floor} ms: "
-            f"{'meets' if ms <= floor else 'MISSES'}; library {H.timing[name]['library_ms']:.6f} ms: "
-            f"{'no slower' if ms <= H.timing[name]['library_ms'] else 'slower'} [{H.card}]")
+        tm = H.timing[name]
+        versus = "none" if tm["library_ms"] is None else (
+            f"{tm['library_ms']:.6f} ms: {'no slower' if tm['ms'] <= tm['library_ms'] else 'slower'}")
+        log(f"[timing] floor {name}: {tm['ms']:.6f} ms vs {floor} ms: "
+            f"{'meets' if tm['ms'] <= floor else 'MISSES'}; library {versus} [{H.card}]")
 
 
-def profile_steps(H, torch, label, served, key):
+def profile_steps(H, torch, label, served, keys):
     """Device busy share of one prefill's and of two decode steps' wall time
-    and the named kernel's share of the prefill's device time, from
+    and the named kernels' share of the prefill's device time, from
     ``torch.profiler`` (the decode cache is zeros: a step's work does not
     depend on its contents)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1185,9 +1240,10 @@ def profile_steps(H, torch, label, served, key):
     wall_ms, device_ms, kernels = traced(
         lambda i, c: prefill(served.params, c, {"tokens": served.prompt}), pcache, 1)
     del pcache
-    mine_ms = sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3
+    mine_ms = sum(e.self_device_time_total for e in kernels
+                  if any(k in e.key for k in keys)) / 1e3
     log(f"[profile] {label} prefill (profiled): wall {wall_ms:.3f} ms, device busy "
-        f"{device_ms:.3f} ms ({device_ms / wall_ms:.3f} of wall), {key} {mine_ms:.3f} ms "
+        f"{device_ms:.3f} ms ({device_ms / wall_ms:.3f} of wall), {'+'.join(keys)} {mine_ms:.3f} ms "
         f"({mine_ms / device_ms:.3f} of device time) [{H.card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
@@ -1287,8 +1343,8 @@ def phase_serve_lm(H, torch, arch, name):
         f"{summary['sample']}; {name} launches {launched} ({layers} layers x {args.chunks}); "
         f"decode vs fresh {plen + 1}-token prefill: max |logit diff| {err:.6g} (limit "
         f"{DECODE_VS_PREFILL_ATOL}), argmax agree {agree}/{b} [{H.card}]")
-    profile_steps(H, torch, arch, served, "flash_kernel" if name == "flash_attention_kernel"
-                  else "ssd_kernel")
+    profile_steps(H, torch, arch, served, ("flash_kernel",) if name == "flash_attention_kernel"
+                  else SSD_LAUNCH_KERNELS)
     return summary
 
 

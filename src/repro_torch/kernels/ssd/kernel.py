@@ -4,10 +4,13 @@
 (``pallas_call`` at ``:84``). It takes the model's layout — x (b, S, h, P),
 dt and ``loga = A·dt`` (b, S, h), B and C (b, S, N), all float32 — and
 returns ``(y (b, S, h, P), final state (b, h, P, N))`` from a zero initial
-state. On CUDA tensors it launches ``csrc/ssd.cu`` (and counts the launch
-in ``.launches``); on CPU tensors it returns the plain version
+state. On CUDA tensors it runs ``csrc/ssd.cu`` — three CUDA launches per
+call (chunk states, the state pass, the output), counted once per call in
+``.launches`` — with the chunk states in a (b, h, chunks, P, N) scratch it
+allocates; on CPU tensors it returns the plain version
 ``ref.ssd_chunk_scan``. Anything else raises: a wrong device, dtype, shape,
-a non-contiguous tensor, or a (P, N, chunk) whose tiles exceed a block's
+a non-contiguous tensor, a head dim P above 64 or a chunk above 128 (the
+kernel's register tiles), or a (P, N, chunk) whose tiles exceed a block's
 shared memory.
 """
 
@@ -25,6 +28,8 @@ from repro_torch.kernels.ssd.ref import ssd_chunk_scan
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 MAX_SMEM_BYTES = 232_448  # what one block may opt into on Hopper
+MAX_P = 64  # the kernel's y tile: 16 rows x 64 columns of accumulators
+MAX_CHUNK = 128  # 8 warps of 16 query rows
 
 
 @functools.cache
@@ -32,7 +37,7 @@ def library() -> BuiltLibrary:
     """The built and loaded kernel library (compiled at the first call)."""
     built = load_library("ssd", [SOURCE])
     fn = built.lib.ssd_forward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     built.lib.ssd_smem_bytes.argtypes = [ctypes.c_int] * 3
     built.lib.ssd_smem_bytes.restype = ctypes.c_longlong
@@ -58,12 +63,17 @@ def ssd_kernel(
     check_tensor("loga", loga, torch.float32, (b, s, h))
     check_tensor("B", B, torch.float32, (b, s, n))
     check_tensor("C", C, torch.float32, (b, s, n))
-    if chunk < 1:
-        raise ValueError(f"chunk {chunk} < 1")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk}: the kernel takes 1 to {MAX_CHUNK}")
+    if p > MAX_P:
+        raise ValueError(f"head dim P={p}: the kernel takes at most {MAX_P}")
     y = torch.empty_like(x)
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
-        return y, state
+        return y, torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    chunks = -(-s // chunk)
+    states = torch.empty((b, h, chunks, p, n), dtype=torch.float32, device=x.device)
+    decay = torch.empty((b, h, chunks), dtype=torch.float32, device=x.device)
     lib = library().lib
     smem = lib.ssd_smem_bytes(p, n, chunk)
     if smem > MAX_SMEM_BYTES:
@@ -73,7 +83,8 @@ def ssd_kernel(
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_forward(
             x.data_ptr(), dt.data_ptr(), loga.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), state.data_ptr(), b, s, h, p, n, chunk, stream,
+            y.data_ptr(), state.data_ptr(), states.data_ptr(), decay.data_ptr(),
+            b, s, h, p, n, chunk, stream,
         )
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: cudaError_t {err}")

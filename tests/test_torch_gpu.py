@@ -112,6 +112,43 @@ def test_bucket_kernel_matches_plain_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads,f", [(8, 16), (8, 7), (1, 64), (8, 8), (3, 5), (40, 5)])
+def test_bucket_kernel_heads_and_widths_on_card(cuda, heads, f):
+    """One warp per row for all heads: H x F above 32 columns (8 x 16), the
+    paper's second layer (8 x 7), one wide head (1 x 64), heads that are not
+    a power of two, and 40 heads (a full block of 32 and a short one, whose
+    column passes differ); every skewed-powerlaw bucket up to
+    W 558 (rows split over warps), with holes in the mask, a fully masked
+    row (exactly 0) and, in a copy, an out-of-range index (a NaN row). Two
+    calls are bit-identical."""
+    g = load_dataset("skewed-powerlaw").to(cuda)
+    rng = np.random.default_rng(heads * 100 + f)
+    x = tuple(torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.standard_normal((g.num_nodes, heads, f)), rng.standard_normal((g.num_nodes, heads)),
+        rng.standard_normal((g.num_nodes, heads))))
+    for b in tpart.degree_bucketed_layout(g).buckets:
+        mask = b.mask.clone()
+        mask[:, 1::3] = False  # holes
+        mask[0] = False  # a fully masked row
+        args = (b.neighbors, mask.contiguous(), b.row_node)
+        got = K.bucket_gat_kernel(*x, *args)
+        again = K.bucket_gat_kernel(*x, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, tref.gat_edge_ref(*x, *args), rtol=1e-5, atol=1e-5)
+        assert (got[~mask.any(1)] == 0).all()
+        bad, live = b.neighbors.clone(), mask.clone()
+        bad[1, -1], live[1, -1] = g.num_nodes, True
+        out = K.bucket_gat_kernel(*x, bad, live, b.row_node)
+        torch.cuda.synchronize()
+        assert out[1].isnan().all() and out[torch.arange(b.rows, device=cuda) != 1].isfinite().all()
+    b = tpart.degree_bucketed_layout(g).buckets[0]
+    before = K.bucket_gat_kernel.launches
+    empty = K.bucket_gat_kernel(*x, b.neighbors[:0], b.mask[:0], b.row_node[:0])
+    assert empty.shape == (0, heads, f) and K.bucket_gat_kernel.launches == before
+
+
+@pytest.mark.gpu
 def test_kernel_wrapper_rejects_bad_inputs_on_card(cuda, holed):
     g = holed.to(cuda)
     hw, s_src, s_dst = _cuda_inputs(cuda, g.num_nodes, 8)
@@ -403,23 +440,42 @@ def _ssd_inputs(dev, b, s, h, p, n, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,p,n,chunk", [
-    (4, 512, 24, 64, 128, 128),  # the mamba2-130m prefill's launch shape
-    (2, 64, 24, 64, 128, 128),
-    (2, 200, 24, 64, 128, 128),
-    (2, 512, 4, 64, 128, 32),
-    (1, 77, 3, 8, 16, 16),
+@pytest.mark.parametrize("b,s,h,p,n,chunk,loga_scale", [
+    (4, 512, 24, 64, 128, 128, 1.0),  # the mamba2-130m prefill's launch shape
+    (2, 64, 24, 64, 128, 128, 1.0),
+    (2, 200, 24, 64, 128, 128, 1.0),
+    (2, 512, 4, 64, 128, 32, 1.0),
+    (1, 77, 3, 8, 16, 16, 1.0),
+    # the chunk-parallel design's edges: S = 1 (one chunk of one token), S <
+    # chunk, 16 chunks through the state pass, strong decay (loga << 0, exp
+    # of la underflows), b h chunks = 45 blocks (not a multiple of 132)
+    (2, 1, 24, 64, 128, 128, 1.0),
+    (2, 77, 24, 64, 128, 128, 1.0),
+    (1, 2048, 8, 64, 128, 128, 1.0),
+    (2, 512, 24, 64, 128, 128, 40.0),
+    (3, 300, 5, 64, 128, 128, 1.0),
 ])
-def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, n, chunk):
+def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, n, chunk, loga_scale):
     x, dt, A, B, C = _ssd_inputs(cuda, b, s, h, p, n, seed=s)
-    loga = (dt * A).contiguous()
+    loga = (dt * A * loga_scale).contiguous()
     before = SSK.ssd_kernel.launches
     y, state = SSK.ssd_kernel(x, dt, loga, B, C, chunk=chunk)
     torch.cuda.synchronize()
     assert SSK.ssd_kernel.launches == before + 1
     want_y, want_state = ssd_chunk_scan(x, dt, loga, B, C, chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
     torch.testing.assert_close(y, want_y, rtol=0, atol=1e-4)
     torch.testing.assert_close(state, want_state, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_rejects_untiled_shapes_on_card(cuda):
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 64, 2, 96, 16)
+    with pytest.raises(ValueError, match="head dim"):
+        SSK.ssd_kernel(x, dt, (dt * A).contiguous(), B, C, chunk=32)
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 64, 2, 8, 16)
+    with pytest.raises(ValueError, match="chunk"):
+        SSK.ssd_kernel(x, dt, (dt * A).contiguous(), B, C, chunk=256)
 
 
 @pytest.mark.gpu
