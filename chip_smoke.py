@@ -33,6 +33,12 @@ Phases; any failure stops the run with a non-zero exit:
    backend (4 stages, 4 chunks, 50 q/s for 3 s, ``--verify`` at 1e-5): every
    query answered, 0 mismatches, and the padded GAT kernel's launch count
    equal to 2 GAT layers x chunks x eval calls (+2 for the full-graph verify).
+3b. The same on the compiled engine (one CUDA graph per node-count bucket):
+   every query answered, 0 mismatches; a profiled served call shows the
+   padded GAT kernel 8 times inside its one replay; q/s, p50/p99 and the
+   warm eval-call time are printed beside phase 3's. It runs after phase 5:
+   a profiler pass before phase 5's graph captures made phase 5's own
+   passes lose device records.
 4. Run the paper GAT forward over the degree-bucketed layout of
    skewed-powerlaw with the kernel backend and hold it against the padded
    backend's forward; the bucket kernel must have launched for every
@@ -58,6 +64,14 @@ Phases; any failure stops the run with a non-zero exit:
    recompute) x 2 GAT layers x buckets x 4 chunks per step; the same run
    under fill_drain, 1f1b and zb-h1 with deterministic algorithms gives
    bit-identical epoch losses and final eval.
+6b. The same training on ``--engine compiled`` (each step one CUDA-graph
+   replay) under fill_drain, 1f1b, zb-h1 and interleaved (2 pipe devices),
+   deterministic: every epoch loss bit-identical to phase 6's host
+   fill_drain run, and the final eval (over the plan) to the host engine's
+   over the same plan. Per engine: median step time, peak allocated memory,
+   a profiled step's device-busy share and bucket-GAT launches (inside one
+   replay: as many as the capture recorded, 32 under fill_drain), and the
+   graphs captured.
 7. Train the GCN of ``benchmarks/fig3.py`` ``_sparse_bench`` on
    skewed-powerlaw (max_degree 128, hidden 32, depth 2, balance (2, 2), 2
    sequential chunks, adam(1e-2), host engine): one kernel-backend step
@@ -70,6 +84,9 @@ Phases; any failure stops the run with a non-zero exit:
    fill_drain step; the single-device ``train()`` and ``make_eval`` of the
    same GCN launch the padded SpMM kernel. Step times and the kernel's share
    of the step's device time (``torch.profiler``) are printed.
+7b. The same GCN step on the compiled engine: loss and update bit-identical
+   to phase 7's host step under deterministic algorithms, and a profiled
+   replay with the bucket SpMM kernel 48 times inside it.
 8. Serve codeqwen1.5-7b at full width (8.19e9 fp32 params) through
    ``repro_torch.launch.serve`` (``--full-arch --prompt-len 512
    --decode-steps 16 --batch 8 --chunks 2``): the flash kernel launches 32
@@ -93,6 +110,7 @@ no result.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import os
 import statistics
@@ -104,6 +122,11 @@ from pathlib import Path
 
 # deterministic cuBLAS for phase 7's bit-identity check; read when CUDA starts
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# the profiler's CUDA-graph workaround (torch.profiler applies it itself
+# before CUDA 12.6): keep CUPTI initialized between passes, since the
+# passes here alternate with graph captures
+os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
 ROOT = Path(__file__).resolve().parent
 ATOL = RTOL = 1e-5
@@ -807,13 +830,15 @@ def phase_train_gat(H, torch):
     try:
         for schedule in ("fill_drain", "1f1b", "zb-h1"):
             res = run_gnn(build_parser().parse_args([*TRAIN_GAT_ARGS, "--schedule", schedule]))
-            runs[schedule] = (res["epoch_losses"], res["train_loss"], res["val_acc"])
+            runs[schedule] = (res["epoch_losses"], res["train_loss"], res["val_acc"],
+                              res["median_epoch_s"])
     finally:
         torch.use_deterministic_algorithms(False)
-    if any(v != runs["fill_drain"] for v in runs.values()):
+    if any(v[:3] != runs["fill_drain"][:3] for v in runs.values()):
         raise AssertionError(f"GAT training: schedules differ under deterministic algorithms {runs}")
     log(f"[train-gat] fill_drain/1f1b/zb-h1 epoch losses and final eval bit-identical under "
-        f"deterministic algorithms: {runs['fill_drain']} [{H.card}]")
+        f"deterministic algorithms: {runs['fill_drain'][:3]} [{H.card}]")
+    return runs
 
 
 def phase_train_gcn(H, torch):
@@ -919,6 +944,8 @@ def phase_train_gcn(H, torch):
         f"{ {b: [round(x * 1e3, 3) for x in v] for b, v in times.items()} } ms [{H.card}]")
     H.gcn_step_ms = {b: v * 1e3 for b, v in med.items()}
     profile_gcn_step(H, torch, engines["kernel"], state["kernel"], plan, opt)
+    ref = {"plan": plan, "layout": layout, "model": models["kernel"], "opt": opt,
+           "params0": params0, "params": p_k, "loss": loss_k}
 
     # the single-device loop and full-graph eval launch the padded kernel
     gd = g.to(dev)
@@ -935,24 +962,44 @@ def phase_train_gcn(H, torch):
         f"{launched} (2 GCN layers x 4 forwards), train_loss {res.train_loss}, val_acc "
         f"{res.val_acc}, epoch times {[round(x * 1e3, 3) for x in res.epoch_times_s]} ms "
         f"[{H.card}]")
+    return ref
+
+
+PROFILE_MARGIN_S = 0.5
+
+
+def profiled(torch, run):
+    """(wall ms, CUDA events) of ``run()`` to a device synchronize, under
+    ``torch.profiler``. The pass opens and closes ``PROFILE_MARGIN_S``
+    before and after the timed work: the profiler keeps only the device
+    records time-stamped inside the pass, and short passes on the card lost
+    their first or all records without the margin."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_MARGIN_S)
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall_ms, kernels
 
 
 def profile_gcn_step(H, torch, engine, state, plan, opt):
     """The SpMM kernel's share of a kernel-backend GCN step's device time,
     and the device's busy share of the step's wall time, from
     ``torch.profiler`` over 3 steps."""
-    from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.train.loop import synchronize
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def run():
+        nonlocal state
         for step in range(3):
             params, opt_state, _ = engine.train_step(*state, plan, 100 + step, opt)
             state = (params, opt_state)
-        synchronize(H.dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    wall_ms, kernels = profiled(torch, run)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     spmm_ms = sum(e.self_device_time_total for e in kernels if "spmm_kernel" in e.key) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
@@ -963,6 +1010,234 @@ def profile_gcn_step(H, torch, engine, state, plan, opt):
         f"{spmm_ms:.3f} ms ({spmm_ms / device_ms:.3f} of device time) [{H.card}]")
     for e in top:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
+
+
+# ------------------------------------- the compiled engine (phases 3b, 6b, 7b) --
+
+
+def profile_one(torch, fn):
+    """(wall ms, device-busy ms, {kernel name: (launches, device ms)}) of one
+    ``fn()`` call to a device synchronize, from ``torch.profiler``."""
+    wall_ms, kernels = profiled(torch, fn)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if device_ms <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return wall_ms, device_ms, {e.key: (e.count, e.self_device_time_total / 1e3) for e in kernels}
+
+
+def launches_named(counts, part):
+    return sum(n for key, (n, _) in counts.items() if part in key)
+
+
+def log_top(label, counts, top=5):
+    for key, (n, ms) in sorted(counts.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"[profile]   {label}: {ms:9.3f} ms  x{n:5d}  {key[:90]}")
+
+
+def phase_serve_compiled(H, torch, host):
+    """Phase 3b: serve cora on the compiled engine, one CUDA graph per
+    node-count bucket, beside phase 3's host-engine run."""
+    from repro_torch.core.pipeline import GPipeConfig, make_engine
+    from repro_torch.graphs import load_dataset
+    from repro_torch.launch.serve_gnn import GNNServer, Query, ShapeBuckets, build_parser, run
+    from repro_torch.models.gnn.net import build_paper_gat
+
+    args = build_parser().parse_args([*SERVE_ARGS, "--engine", "compiled"])
+    H.K.gat_aggregate_kernel.launches = 0
+    summary = run(args)
+    launched = H.K.gat_aggregate_kernel.launches
+    served = sum(v["queries"] for v in summary["buckets"].values())
+    if served != summary["queries"] or summary["verify_mismatches"] != 0:
+        raise AssertionError(f"compiled serve: {served}/{summary['queries']} served, "
+                             f"{summary['verify_mismatches']} mismatches")
+    if launched == 0:
+        raise AssertionError("compiled serve: the padded GAT kernel was never launched")
+    # one served batch's eval call: one replay with the kernel inside
+    cora = load_dataset("cora")
+    model = build_paper_gat(cora.num_features, cora.num_classes, backend="kernel")
+    engine = make_engine(model, GPipeConfig(balance=(2, 1, 1, 2), chunks=4, engine="compiled",
+                                            device=str(H.dev)))
+    server = GNNServer(engine, model.init_params(0, device=H.dev), cora, hops=2,
+                       buckets=ShapeBuckets.geometric(cora))
+    prepared = [server.prepare(Query(i, "node", u)) for i, u in enumerate((0, 700, 1400, 2100))]
+    graphs = [p.graph for p in prepared]
+    server._run(graphs)  # capture
+    _, device_ms, counts = profile_one(torch, lambda: server._run(graphs))
+    in_replay = launches_named(counts, "gat_edge_kernel")
+    if in_replay != 2 * 4 or engine.graphs_captured != 1:
+        raise AssertionError(f"compiled serve: {in_replay} GAT launches in a profiled call, "
+                             f"want 8; {engine.graphs_captured} graphs captured")
+    log(f"[serve-compiled] ok: {served} queries, 0 mismatches (verify exact "
+        f"{summary['verify_exact']}/{summary['queries']}, max diff {summary['verify_max_diff']}), "
+        f"achieved {summary['achieved_qps']} q/s (host {host['achieved_qps']}), p50 "
+        f"{summary['p50_s'] * 1e3} ms (host {host['p50_s'] * 1e3}), p99 {summary['p99_s'] * 1e3} "
+        f"ms (host {host['p99_s'] * 1e3}), warm eval call {summary['eval_call_s'] * 1e3} ms "
+        f"(host {host['eval_call_s'] * 1e3}); padded-kernel launches recorded (warm-up + "
+        f"capture) {launched}; a profiled served call: {in_replay} GAT launches inside the "
+        f"replay, device busy {device_ms:.6f} ms [{H.card}]")
+
+
+def engine_numbers(H, torch, pipe, params, opt, plan, kernel_part, steps=4):
+    """Train ``steps`` steps on ``pipe`` from ``params``; returns (median step
+    ms after the first, (``torch.cuda.max_memory_allocated`` over the steps,
+    its excess over what was allocated before them), a profiled step's (wall ms, device ms, launches
+    of ``kernel_part``, per-kernel counts)). The first step captures the
+    compiled engine's graph, so its pool counts."""
+    from repro_torch.train.loop import synchronize
+
+    gc.collect()  # engines of earlier runs, and their graph pools
+    torch.cuda.empty_cache()
+    state = (params, opt.init(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        p, o, _ = pipe.train_step(*state, plan, 200 + step, opt)
+        synchronize(H.dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        state = (p, o)
+    peak = torch.cuda.max_memory_allocated()
+    peak = (peak, peak - base)
+    wall, device, counts = profile_one(
+        torch, lambda: pipe.train_step(*state, plan, 300, opt))
+    return (statistics.median(times[1:]), peak,
+            (wall, device, launches_named(counts, kernel_part), counts))
+
+
+def phase_train_gat_compiled(H, torch, host):
+    """Phase 6b: the paper GAT on cora through ``run_gnn --engine compiled``
+    under four schedules, bit-identical to phase 6's host fill_drain run,
+    with each engine's step time, busy share, peak memory and graphs."""
+    from repro_torch.core.cli import PipelineCLIConfig
+    from repro_torch.core.pipeline import make_engine
+    from repro_torch.graphs import load_dataset
+    from repro_torch.launch.train import build_parser, run_gnn
+    from repro_torch.models.gnn.net import build_paper_gat, fold_in
+    from repro_torch.train import optimizer as opt_lib
+
+    plan, layout = gat_plan_layout(H.dev)
+    tiles = sum(1 for b in layout.buckets if b.rows)
+    cora = load_dataset("cora")
+    model = build_paper_gat(cora.num_features, cora.num_classes, backend="pallas",
+                            attn_dropout=0.0)
+    host_losses, host_median_s = host["fill_drain"][0], host["fill_drain"][3]
+    schedules = {"fill_drain": [], "1f1b": [], "zb-h1": [], "interleaved": ["--pipe-devices", "2"]}
+    torch.use_deterministic_algorithms(True)
+    try:
+        # the host engine's final params, evaluated over the plan as the
+        # compiled run evaluates: the reference for the compiled final eval
+        args = build_parser().parse_args(TRAIN_GAT_ARGS)
+        cli = PipelineCLIConfig.from_args(args)
+        host_pipe = make_engine(model, cli.gpipe_config(cli.uniform_balance()))
+        opt = opt_lib.adam(5e-3, weight_decay=5e-4)
+        params = host_pipe.init_params(args.seed)
+        state = opt.init(params)
+        losses = []
+        for epoch in range(args.epochs):
+            params, state, loss = host_pipe.train_step(params, state, plan,
+                                                       fold_in(args.seed, epoch), opt)
+            losses.append(float(loss))
+        if losses != host_losses:
+            raise AssertionError(f"host loop {losses} != phase 6 run_gnn {host_losses}")
+        want = {k: float(v) for k, v in host_pipe.evaluate(params, plan).items()}
+        rows = {}
+        for schedule, extra in schedules.items():
+            argv = [*TRAIN_GAT_ARGS, "--engine", "compiled", "--schedule", schedule, *extra]
+            H.K.bucket_gat_kernel.launches = 0
+            res = run_gnn(build_parser().parse_args(argv))
+            launched = H.K.bucket_gat_kernel.launches
+            got = {k: res[k] for k in want}
+            if res["epoch_losses"] != host_losses or got != want:
+                raise AssertionError(f"compiled {schedule}: losses {res['epoch_losses']} eval "
+                                     f"{got}; host fill_drain {host_losses} eval {want}")
+            if launched == 0:
+                raise AssertionError(f"compiled {schedule}: bucket GAT kernel never launched")
+            rows[schedule] = (res["median_epoch_s"], res["first_epoch_s"], launched)
+        # per engine: step time, peak memory, one profiled step
+        measured = {}
+        for name, schedule, extra in (("host", "fill_drain", []),
+                                      *(("compiled", s, e) for s, e in schedules.items())):
+            argv = [*TRAIN_GAT_ARGS, "--engine", name, "--schedule", schedule, *extra]
+            cli = PipelineCLIConfig.from_args(build_parser().parse_args(argv))
+            pipe = make_engine(model, cli.gpipe_config(cli.uniform_balance()))
+            params0 = pipe.init_params(0)
+            med, peak, prof = engine_numbers(H, torch, pipe, params0, opt, plan, "gat_edge_kernel")
+            graphs = getattr(pipe, "graphs_captured", 0)
+            if name == "compiled":
+                pipe.evaluate(params0, plan)
+                graphs = pipe.graphs_captured
+                (program,) = pipe._steps.values()
+                (entry,) = program.captures.values()
+                captured = entry[1].captured.launches.get("bucket_gat_kernel", 0)
+                if prof[2] != captured or graphs != 2:
+                    raise AssertionError(f"compiled {schedule}: {prof[2]} GAT launches in a "
+                                         f"profiled replay, {captured} captured; {graphs} graphs")
+                if schedule == "fill_drain" and prof[2] != 2 * 2 * tiles * plan.chunks:
+                    raise AssertionError(f"compiled fill_drain: {prof[2]} GAT launches a step")
+            measured[name if name == "host" else schedule] = (med, peak, prof, graphs)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[train-gat-compiled] cora paper GAT, 4 stages x 4 halo chunks, pallas, 5 epochs, "
+        f"deterministic: compiled fill_drain/1f1b/zb-h1/interleaved epoch losses and final "
+        f"eval bit-identical to host fill_drain: {host_losses}, eval {want} [{H.card}]")
+    log(f"[train-gat-compiled] run_gnn median epoch s: host fill_drain {host_median_s}; "
+        + ", ".join(f"compiled {s} {v[0]} (first epoch {v[1]}, GAT launches recorded {v[2]})"
+                    for s, v in rows.items()) + f" [{H.card}]")
+    for name, (med, peak, (wall, device, gat, counts), graphs) in measured.items():
+        log(f"[train-gat-compiled] {name}: median step {med:.6f} ms, max_memory_allocated "
+            f"{peak[0]} B ({peak[1]} B beyond the params and data), profiled step wall {wall:.6f} ms device {device:.6f} ms "
+            f"busy {device / wall:.6f}, bucket-GAT launches in it {gat}, graphs captured "
+            f"{graphs} [{H.card}]")
+        if name in ("host", "fill_drain"):
+            log_top(name, counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_gcn_compiled(H, torch, ref):
+    """Phase 7b: the fig3 GCN step on the compiled engine, kernel backend:
+    loss and update bit-identical to phase 7's host step, the bucket SpMM
+    kernel inside the replay."""
+    from repro_torch.core.pipeline import GPipeConfig, make_engine
+
+    plan, model, opt, params0 = ref["plan"], ref["model"], ref["opt"], ref["params0"]
+    pipe = make_engine(model, GPipeConfig(balance=(2, 2), chunks=plan.chunks, engine="compiled",
+                                          backend="kernel", device=str(H.dev)))
+    torch.use_deterministic_algorithms(True)
+    try:
+        H.S.bucket_spmm_kernel.launches = 0
+        p, _, loss = pipe.train_step(params0, opt.init(params0), plan, 1, opt)
+        launched = H.S.bucket_spmm_kernel.launches
+        same = torch.equal(loss, ref["loss"]) and all(
+            torch.equal(a[k], b[k]) for a, b in zip(p, ref["params"]) for k in a)
+        if not same:
+            raise AssertionError("compiled GCN step: loss or update not bit-identical to host")
+        if launched == 0:
+            raise AssertionError("compiled GCN step: bucket SpMM kernel never launched")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # timed as phase 7 times the host engine: a fresh engine, default algorithms
+    del pipe
+    pipe = make_engine(model, GPipeConfig(balance=(2, 2), chunks=plan.chunks, engine="compiled",
+                                          backend="kernel", device=str(H.dev)))
+    med, peak, (wall, device, spmm, counts) = engine_numbers(H, torch, pipe, params0, opt, plan,
+                                                             "spmm_kernel")
+    tiles = sum(1 for b in ref["layout"].buckets if b.rows)
+    if spmm != 2 * 2 * tiles * plan.chunks:
+        raise AssertionError(f"compiled GCN step: {spmm} SpMM launches in a profiled replay")
+    log(f"[train-gcn-compiled] fig3 GCN, compiled fill_drain, kernel backend: loss {float(loss)} "
+        f"and update bit-identical to the host step; median step {med:.6f} ms (host kernel "
+        f"backend {H.gcn_step_ms['kernel']:.6f} ms), max_memory_allocated {peak[0]} B "
+        f"({peak[1]} B beyond the params and data), profiled step wall "
+        f"{wall:.6f} ms device {device:.6f} ms busy {device / wall:.6f}, bucket-SpMM launches "
+        f"inside the replay {spmm} (2 x 2 GCN layers x {tiles} buckets x {plan.chunks} chunks), "
+        f"recorded at warm-up + capture {launched} [{H.card}]")
+    log_top("compiled GCN", counts)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------- LM serving (phases 2, 5, 8, 9) --
@@ -1177,16 +1452,14 @@ def phase_timing_lm(H, torch):
 def device_kernel_times(torch, fn, calls=10):
     """[(device kernel name, ms per call, launches per call)] of ``fn``, from
     one ``torch.profiler`` pass over ``calls`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    out = [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls)
-           for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    _, kernels = profiled(torch, run)
+    out = [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls) for e in kernels]
     if not out:
         raise AssertionError("torch.profiler recorded no device kernel")
     return out
@@ -1208,8 +1481,6 @@ def profile_steps(H, torch, label, served, keys):
     and the named kernels' share of the prefill's device time, from
     ``torch.profiler`` (the decode cache is zeros: a step's work does not
     depend on its contents)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import ShapeConfig
     from repro_torch.models.transformer.model import init_cache, make_prefill_step, make_serve_step
 
@@ -1221,16 +1492,12 @@ def profile_steps(H, torch, label, served, keys):
     tok = served.prompt[:, -1].to(torch.int32)
 
     def traced(fn, cache, steps):
-        with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
-                                                         ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(steps):
-                fn(i, cache)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        def run():
+            with torch.inference_mode():
+                for i in range(steps):
+                    fn(i, cache)
+
+        wall_ms, kernels = profiled(torch, run)
         device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         if device_ms <= 0:
             raise AssertionError(f"torch.profiler recorded no device time for {label}")
@@ -1386,12 +1653,17 @@ def main() -> int:
     phase_compare(H, torch)  # phase 2
     phase_compare_spmm(H, torch)  # phase 2, SpMM
     phase_compare_lm(H, torch)  # phase 2, flash attention and SSD
-    phase_serve(H, torch)  # phase 3
+    served = phase_serve(H, torch)  # phase 3
     bucketed = phase_bucketed(H, torch)  # phase 4
     phase_timing(H, torch, bucketed)  # phase 5
     phase_timing_lm(H, torch)  # phase 5, flash attention and SSD
-    phase_train_gat(H, torch)  # phase 6
-    phase_train_gcn(H, torch)  # phase 7
+    # after phase 5: a profiler pass before phase 5's graph captures made
+    # phase 5's own profiler passes lose device records on the card
+    phase_serve_compiled(H, torch, served)  # phase 3b
+    host_runs = phase_train_gat(H, torch)  # phase 6
+    phase_train_gat_compiled(H, torch, host_runs)  # phase 6b
+    gcn_ref = phase_train_gcn(H, torch)  # phase 7
+    phase_train_gcn_compiled(H, torch, gcn_ref)  # phase 7b
     phase_serve_lm(H, torch, "codeqwen1.5-7b", "flash_attention_kernel")  # phase 8
     torch.cuda.empty_cache()
     phase_serve_lm(H, torch, "mamba2-130m", "ssd_kernel")  # phase 9

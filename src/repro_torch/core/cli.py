@@ -5,8 +5,9 @@ set on a parser and ``PipelineCLIConfig`` is the parsed bundle with its
 ``gpipe_config()`` translation. The flag names and spellings are the JAX
 package's, so its command lines carry over; ``--device`` (default
 ``cuda``) is new. Flags whose machinery is not ported yet (``--auto``,
-``--partition profiled``, ``--data-parallel``, ``--overlap``) are declared
-and raise by name, with their ROADMAP queue 1 item, when set.
+``--partition profiled``, ``--data-parallel``, ``--overlap``, ``--backend
+dense``) are declared and raise by name, with their ROADMAP queue 1 item,
+when set.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from repro_torch.core.schedule import Placement
 ENGINE_CHOICES = ("host", "compiled")
 SCHEDULE_CHOICES = ("fill_drain", "gpipe", "1f1b", "interleaved", "zb-h1", "zb-v")
 PARTITION_CHOICES = ("uniform", "profiled")
-BACKEND_CHOICES = ("padded", "kernel", "pallas")
+BACKEND_CHOICES = ("padded", "kernel", "pallas", "dense")
 OVERLAP_CHOICES = ("off", "double-buffer", "async")
 
 # layer-count split of the 6-layer sequential paper model
@@ -53,8 +54,8 @@ def add_pipeline_args(
 ):
     """Declare the pipeline flag set on ``ap`` (a parser or group)."""
     ap.add_argument("--engine", default=engine, choices=list(ENGINE_CHOICES),
-                    help="pipeline engine: the host-driven GPipe loop ('compiled' "
-                         "comes with a later slice)")
+                    help="pipeline engine: the host-driven GPipe loop, or the compiled "
+                         "single program (one CUDA-graph replay per step on a card)")
     ap.add_argument("--schedule", default=schedule, choices=list(SCHEDULE_CHOICES),
                     help="pipeline schedule (read by training; serving's eval ignores it)")
     ap.add_argument("--stages", type=int, default=stages)
@@ -69,7 +70,7 @@ def add_pipeline_args(
     ap.add_argument("--backend", default=backend, choices=list(BACKEND_CHOICES),
                     help="aggregation: plain padded gathers, or the hand-written CUDA "
                          "kernels over the degree-bucketed layout ('pallas' is an "
-                         "alias of 'kernel')")
+                         "alias of 'kernel'; 'dense' not ported yet)")
     ap.add_argument("--data-parallel", type=int, default=1, help="not ported yet")
     ap.add_argument("--overlap", default="off", choices=list(OVERLAP_CHOICES),
                     help="not ported yet")
@@ -108,6 +109,7 @@ class PipelineCLIConfig:
             "--partition profiled": (self.partition != "uniform", 10),
             "--data-parallel": (self.data_parallel != 1, 12),
             "--overlap": (self.overlap != "off", 13),
+            "--backend dense": (self.backend == "dense", 5),
         }
         named = [f"{flag} (item {item})" for flag, (is_set, item) in not_ported.items() if is_set]
         if named:

@@ -1,4 +1,5 @@
-"""Pipeline engine for GNNs: the host-driven GPipe loop.
+"""Pipeline engines for GNNs: the host-driven GPipe loop and the compiled
+single-program engine.
 
 Counterpart of ``repro.core.pipeline``. ``PipelineEngine`` partitions a
 sequential ``GNNModel`` into stages by a ``balance`` array (torchgpipe's
@@ -17,11 +18,18 @@ contract); ``GPipe`` is the host-driven engine:
     one synchronous optimizer update closes the step, so every schedule
     gives an update bit-identical to fill-drain.
 
+``CompiledGNNPipeline`` runs the same timelines as one program: the
+schedule is lowered to per-tick slot arrays (``schedule.lower_timeline``)
+and executed by the tick executors of ``repro_torch.core.spmd_pipe``, the
+optimizer update included. On a CUDA card each train step and each eval
+call is one CUDA-graph replay (``repro_torch.core.cuda_graph``); on the CPU
+the same program runs eagerly. Its updates are bit-identical to the host
+engine's fill-drain update.
+
 ``compile_eval(params, graph) -> EvalProgram`` is the forward-only path the
 serving frontend (``repro_torch.launch.serve_gnn``) and ``evaluate`` share.
 Every stage runs on ``config.device`` (one card); the schedule's device
-numbers only label the timeline. The compiled single-program engine comes
-with a later slice (ROADMAP queue 1, item 9).
+numbers only label the timeline (the compiled engine's lanes).
 """
 
 from __future__ import annotations
@@ -32,12 +40,38 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import cuda_graph
 from repro_torch.core.microbatch import MicroBatchPlan
-from repro_torch.core.schedule import Placement, get_schedule
+from repro_torch.core.schedule import (
+    PHASE_BWD,
+    PHASE_BWD_B,
+    PHASE_FWD,
+    Placement,
+    forward_timeline,
+    get_schedule,
+    lower_timeline,
+)
+from repro_torch.core.spmd_pipe import (
+    spmd_pipeline_scheduled_eval_lanes,
+    spmd_pipeline_scheduled_lanes,
+)
 from repro_torch.graphs.data import BucketedGraphBatch, GraphBatch
 from repro_torch.graphs.partition import bucketize_stacked
 from repro_torch.models.gnn.layers import canonical_backend
-from repro_torch.models.gnn.net import GNNModel, fold_in, layer_keys
+from repro_torch.models.gnn.net import (
+    GNNModel,
+    activation_widths,
+    chunk_keys,
+    fold_in,
+    layer_keys,
+    make_gnn_stage_slices,
+    make_gnn_stage_slices_bw,
+    narrow,
+    stage_forward,
+    stage_vjp,
+    to_wire,
+    travel_width,
+)
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.loop import synchronize
 
@@ -54,12 +88,17 @@ class GPipeConfig:
     # stage -> device assignment overriding the schedule's default (ring
     # rotations); validated at engine construction, relabels the timeline
     placement: Placement | None = None
-    engine: str = "host"  # "host"; "compiled" comes with a later slice
+    engine: str = "host"  # "host" | "compiled"; consumed by make_engine
     # aggregation layout fed to the stages: "padded" feeds the padded
     # batches; "kernel" ("pallas") feeds the degree-bucketed layout
     # (``bucketize_stacked``). Must match the backend the model was built with.
     backend: str = "padded"
     device: str = "cuda"
+    # graph data parallelism and communication/compute overlap: the
+    # reference's compiled-engine options, not ported yet (ROADMAP queue 1,
+    # items 12 and 13); anything but 1 and "off" raises
+    data_parallel: int = 1
+    overlap: str = "off"
 
     @property
     def num_stages(self) -> int:
@@ -148,6 +187,12 @@ class PipelineEngine:
             raise ValueError(f"every stage needs at least one layer, got {config.balance}")
         if config.chunks < 1:
             raise ValueError(f"chunks must be >= 1, got {config.chunks}")
+        if config.data_parallel < 1:
+            raise ValueError(f"data_parallel must be >= 1, got {config.data_parallel}")
+        if config.overlap not in ("off", "double-buffer", "async"):
+            raise ValueError(
+                f"overlap must be 'off', 'double-buffer' or 'async', got {config.overlap!r}"
+            )
         self.model = model
         self.config = config
         self.device = torch.device(config.device)
@@ -209,6 +254,27 @@ class PipelineEngine:
             return graph.to(self.device)
         return self._cached(graph, lambda: bucketize_stacked(graph).to(self.device))
 
+    def _chunk_graphs(self, plan: MicroBatchPlan) -> tuple[list, list]:
+        """Per-chunk graphs the stages consume, on the device, and each
+        chunk's loss mask (``train_mask & core_mask``): the plan's padded
+        batches as they are, or under the kernel backend one shared
+        bucketed layout of the stacked plan (``bucketize_stacked``, one set
+        of bucket capacities) sliced back per chunk. Built once per plan."""
+
+        def build():
+            if self.backend == "kernel":
+                stacked = plan.stacked()
+                layout = self.layout(stacked.graph)
+                graphs = [layout.chunk(c) for c in range(plan.chunks)]
+                cores = [stacked.core_mask[c] for c in range(plan.chunks)]
+            else:
+                graphs = [mb.graph.to(self.device) for mb in plan.batches]
+                cores = [mb.core_mask for mb in plan.batches]
+            masks = [g.train_mask & core.to(self.device) for g, core in zip(graphs, cores)]
+            return graphs, masks
+
+        return self._cached(plan, build)
+
     def evaluate(self, params: list, plan: MicroBatchPlan) -> dict:
         """Forward-only inference over the plan's chunks: the same metric
         dict as ``repro_torch.train.loop.make_eval``, over each chunk's core
@@ -249,6 +315,16 @@ class GPipe(PipelineEngine):
 
     def __init__(self, model: GNNModel, config: GPipeConfig):
         super().__init__(model, config)
+        if config.data_parallel > 1:
+            raise ValueError(
+                "data_parallel > 1 needs the compiled engine's data axis; the host "
+                "queue loop has none"
+            )
+        if config.overlap != "off":
+            raise ValueError(
+                "overlap needs the compiled engine's wire buffers; the host queue "
+                "loop has no wires to double-buffer"
+            )
         self._evals: dict = {}  # (chunks, n_pad, max_deg) -> EvalProgram
         self._timelines: dict = {}  # chunks -> the (placed) timeline
 
@@ -298,27 +374,6 @@ class GPipe(PipelineEngine):
             grads = torch.autograd.grad(out, inputs, ct, allow_unused=True)
         d_params = opt_lib.fill_grads(leaves, grads[: len(flat)]) if want_params else None
         return d_params, (grads[-1] if want_input else None)
-
-    def _chunk_graphs(self, plan: MicroBatchPlan) -> tuple[list, list]:
-        """Per-chunk graphs the stages consume, on the device, and each
-        chunk's loss mask (``train_mask & core_mask``): the plan's padded
-        batches as they are, or under the kernel backend one shared
-        bucketed layout of the stacked plan (``bucketize_stacked``, one set
-        of bucket capacities) sliced back per chunk. Built once per plan."""
-
-        def build():
-            if self.backend == "kernel":
-                stacked = plan.stacked()
-                layout = self.layout(stacked.graph)
-                graphs = [layout.chunk(c) for c in range(plan.chunks)]
-                cores = [stacked.core_mask[c] for c in range(plan.chunks)]
-            else:
-                graphs = [mb.graph.to(self.device) for mb in plan.batches]
-                cores = [mb.core_mask for mb in plan.batches]
-            masks = [g.train_mask & core.to(self.device) for g, core in zip(graphs, cores)]
-            return graphs, masks
-
-        return self._cached(plan, build)
 
     def _timeline(self, chunks: int) -> list:
         if chunks not in self._timelines:
@@ -380,7 +435,7 @@ class GPipe(PipelineEngine):
             else:
                 if s == S - 1 and it.phase in ("bwd", "bwd_b"):
                     # the chunk's loss cotangent, computed once its fwd completes
-                    chunk_losses[c], cts[c] = self._loss_grad(outs.pop(c), g.labels, loss_masks[c])
+                    chunk_losses[c], cts[c] = _loss_grad(outs.pop(c), g.labels, loss_masks[c])
                 if it.phase == "bwd":
                     d_params, d_h = self._stage_vjp(
                         s, params, g, saved.pop((s, c)), keys, cts[c],
@@ -438,28 +493,313 @@ class GPipe(PipelineEngine):
         loss = total_loss / torch.clamp(total_count, min=1.0)
         return params, opt_state, loss
 
-    @staticmethod
-    def _loss_grad(logp, labels, mask):
-        """((Σ nll·mask, Σ mask), d(Σ nll·mask)/d logp) for one chunk."""
-        leaf = logp.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss_sum, count = _chunk_loss_sum(leaf, labels, mask)
-            (d_h,) = torch.autograd.grad(loss_sum, leaf)
-        return (loss_sum.detach(), count), d_h
+
+def _loss_grad(logp, labels, mask):
+    """((Σ nll·mask, Σ mask), d(Σ nll·mask)/d logp) for one chunk."""
+    leaf = logp.detach().requires_grad_(True)
+    with torch.enable_grad():
+        loss_sum, count = _chunk_loss_sum(leaf, labels, mask)
+        (d_h,) = torch.autograd.grad(loss_sum, leaf)
+    return (loss_sum.detach(), count), d_h
 
 
-ENGINES = {"host": GPipe}
+class _StepProgram:
+    """One compiled train step for one lowered timeline and optimizer:
+    ``__call__(params, opt_state, graphs, loss_masks, keys)`` runs it eagerly
+    (the CPU path); ``captures`` holds its CUDA graphs, one per plan and
+    keyed-or-not step."""
+
+    def __init__(self, step, optimizer: opt_lib.Optimizer, lowered):
+        self.step = step
+        self.optimizer = optimizer  # retained: the cache is keyed by its id()
+        self.lowered = lowered
+        self.captures: dict = {}  # (id(plan), keyed) -> (plan, CapturedStep)
+
+    def __call__(self, params, opt_state, graphs, loss_masks, keys):
+        return self.step(params, opt_state, graphs, loss_masks, keys)
+
+
+class CompiledGNNPipeline(PipelineEngine):
+    """Compiled single-program engine on one device.
+
+    Every schedule, fill-drain included, is lowered to per-tick slot arrays
+    (``lower_timeline``, with the placement's relabelling) and run by
+    ``spmd_pipeline_scheduled_lanes``: the schedule's devices are lanes of
+    one program, activations and cotangents hop between lanes through
+    preallocated stashes, each work item is an explicit stage forward or
+    vjp over the params-explicit stage slices (``make_gnn_stage_slices``,
+    ``make_gnn_stage_slices_bw``), and one optimizer update closes the
+    step. Per-chunk gradients are reduced in descending chunk order and
+    dropout keys are derived per (step key, chunk, layer) as the host engine
+    derives them, so every schedule and placement gives an update
+    bit-identical to the host engine's fill-drain.
+
+    On a CUDA card the step is captured once per (plan, optimizer, shape)
+    as a CUDA graph (``cuda_graph.CapturedStep``) and each ``train_step``
+    is one replay; ``train_step`` then returns the graph's static param and
+    optimizer-state buffers, which the next replay overwrites. Each eval
+    program (``compile_eval``, one per stacked shape) is likewise one graph
+    (``cuda_graph.GraphedForward``). On the CPU the same programs run
+    eagerly. ``graphs_captured`` counts the graphs this engine holds.
+
+    Not ported: the reference's single-device fused chunk scan
+    (``_build_step``/``_make_scan_loss``, which exists because a
+    ``vmap``-emulated ring computes every ``lax.switch`` branch; a
+    host-unrolled tick program dispatches only real items), the ring
+    executors across ranks, data parallelism (item 12) and overlap (item
+    13)."""
+
+    name = "compiled"
+
+    def __init__(self, model: GNNModel, config: GPipeConfig):
+        super().__init__(model, config)
+        if config.data_parallel > 1:
+            raise NotImplementedError(
+                f"data_parallel={config.data_parallel}: graph data parallelism is not "
+                "ported to repro_torch yet (ROADMAP queue 1, item 12)"
+            )
+        if config.overlap != "off":
+            raise NotImplementedError(
+                f"overlap={config.overlap!r}: the double-buffered wires are not ported "
+                "to repro_torch yet (ROADMAP queue 1, item 13)"
+            )
+        self._widths: list[int] | None = None
+        # (chunks, n_pad, max_deg, id(optimizer), skip) -> _StepProgram
+        self._steps: dict = {}
+        self._evals: dict = {}  # (chunks, n_pad, max_deg) -> EvalProgram
+        self._plans: dict = {}  # id(plan) -> (plan, (graphs, loss_masks, skip, key))
+
+    @property
+    def graphs_captured(self) -> int:
+        """CUDA graphs this engine holds: train steps and eval programs."""
+        steps = sum(len(program.captures) for program in self._steps.values())
+        evals = sum(getattr(prog._forward, "captured", None) is not None
+                    for prog in self._evals.values())
+        return steps + evals
+
+    # ------------------------------------------------------------ program --
+
+    def _plan_inputs(self, plan: MicroBatchPlan):
+        """(per-chunk graphs, loss masks, loss-free chunks, shape key) for a
+        plan, built once. The graphs are the host engine's, so both engines
+        multiply the same tensors; a plan whose chunks differ in node count
+        uses its stacked chunks instead, since the wires need one."""
+        cached = self._plans.get(id(plan))
+        if cached is not None and cached[0] is plan:
+            return cached[1]
+        stacked = plan.stacked()
+        graphs, masks = self._chunk_graphs(plan)
+        if len({g.num_nodes for g in graphs}) > 1:
+            layout = self.layout(stacked.graph)
+            graphs = [layout.chunk(c) for c in range(plan.chunks)]
+            masks = [
+                g.train_mask & stacked.core_mask[c].to(self.device)
+                for c, g in enumerate(graphs)
+            ]
+        # chunks with no loss rows (ragged plans pad with empty microbatches)
+        # contribute exactly-zero gradients and loss: the lowering drops them
+        # and their dead ticks. Read from the host copy: no device sync.
+        live = (stacked.graph.train_mask & stacked.core_mask).any(dim=1)
+        skip = tuple(int(c) for c in torch.nonzero(~live).flatten())
+        value = (graphs, masks, skip, (plan.chunks, stacked.n_pad, stacked.max_deg))
+        self._plans[id(plan)] = (plan, value)
+        return value
+
+    def _lower_for(self, chunks: int, skip_chunks: tuple = ()):
+        """The configured schedule's timeline for ``chunks`` chunks, placed
+        and lowered (the lowering's ring check rejects what the executor
+        could not route); ``skip_chunks`` drops loss-free chunks and their
+        dead ticks."""
+        S = self.config.num_stages
+        timeline = self.schedule.timeline(S, chunks)  # raises on a bad (S, C)
+        if self.placement is not None:
+            timeline = self.placement.apply(timeline)
+        return lower_timeline(timeline, S, chunks, skip_chunks=skip_chunks)
+
+    def _make_work_fn(self, widths, params, graphs, loss_masks, keys):
+        """The per-tick work dispatcher for ``spmd_pipeline_scheduled_lanes``:
+        fwd, fused bwd, split B and split W items of every stage. The last
+        stage derives its cotangent from the same summed masked NLL the host
+        engine differentiates (``_chunk_loss_sum``), in its fused bwd or B
+        half, from its re-materialized output."""
+        model, bounds = self.model, self._bounds
+        S, n_layers = self.config.num_stages, len(model.layers)
+        d_travel = travel_width(bounds, widths)
+        slices = make_gnn_stage_slices(model, bounds, widths, graphs, keys)
+        runs = [stage_forward(model, bounds, graphs, keys, True, s) for s in range(S)]
+
+        def loss_ct(y, chunk):
+            (loss_sum, count), ct = _loss_grad(y, graphs[chunk].labels, loss_masks[chunk])
+            return ct, loss_sum, count
+
+        b_fns, w_fns = make_gnn_stage_slices_bw(
+            model, bounds, widths, graphs, keys, loss_ct=loss_ct
+        )
+
+        def full(d_params, s):  # the stage's layer grads, placed in the full layer list
+            lo, hi = bounds[s]
+            return [None] * lo + d_params + [None] * (n_layers - hi)
+
+        def work_fn(phase, s, c, h_in, ct, w_res):
+            lo, hi = bounds[s]
+            if phase == PHASE_FWD:
+                return slices[s](params, c, h_in), None, None, None, None, None
+            if phase == PHASE_BWD:
+                if s == S - 1:
+                    def ct_of(y):
+                        return loss_ct(y, c)
+                else:
+                    ct_true = narrow(ct, widths[hi])
+
+                    def ct_of(y):
+                        return ct_true, None, None
+                h = None if lo == 0 else narrow(h_in, widths[lo])
+                d_params, d_h, loss_sum, count = stage_vjp(
+                    runs[s], params, lo, hi, c, h, ct_of, "bwd",
+                    want_params=True, want_input=lo > 0,
+                )
+                d_h = None if d_h is None else to_wire(d_h, d_travel)
+                return None, d_h, None, full(d_params, s), loss_sum, count
+            if phase == PHASE_BWD_B:
+                d_h, residual, loss_sum, count = b_fns[s](params, c, h_in, ct)
+                return None, d_h, residual, None, loss_sum, count
+            return None, None, None, full(w_fns[s](params, c, w_res), s), None, None
+
+        return work_fn
+
+    def _build_step_scheduled(self, widths, chunks, optimizer, skip_chunks):
+        """The train step over the configured timeline: the tick executor,
+        the gradient scaling and one optimizer update, as one function of
+        ``(params, opt_state, graphs, loss_masks, keys)``."""
+        lowered = self._lower_for(chunks, skip_chunks)
+        d_travel = travel_width(self._bounds, widths)
+
+        def step(params, opt_state, graphs, loss_masks, keys):
+            work_fn = self._make_work_fn(widths, params, graphs, loss_masks, keys)
+            f = graphs[0].features
+            wire_like = torch.zeros((f.shape[0], d_travel), dtype=f.dtype, device=f.device)
+            grads, loss_sum, count = spmd_pipeline_scheduled_lanes(
+                work_fn, lowered, wire_like=wire_like, grads_like=params
+            )
+            scale = 1.0 / torch.clamp(count, min=1.0)
+            grads = opt_lib.tree_map(lambda g: g * scale, grads)
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = opt_lib.apply_updates(params, updates)
+            return params, opt_state, loss_sum / torch.clamp(count, min=1.0)
+
+        return _StepProgram(step, optimizer, lowered)
+
+    def step_program(self, params, plan: MicroBatchPlan, optimizer) -> tuple:
+        """``(program, graphs, loss_masks)`` for a plan: the compiled step
+        as a plain function (``program(params, opt_state, graphs,
+        loss_masks, keys)``, keys from ``net.chunk_keys``), the one that
+        ``train_step`` runs eagerly on the CPU and captures on a card."""
+        graphs, masks, skip, shape = self._plan_inputs(plan)
+        if self._widths is None:
+            self._widths = activation_widths(self.model, params, graphs[0])
+        key = (*shape, id(optimizer), skip)
+        program = self._steps.get(key)
+        if program is None or program.optimizer is not optimizer:
+            program = self._build_step_scheduled(self._widths, plan.chunks, optimizer, skip)
+            self._steps[key] = program
+        return program, graphs, masks
+
+    def _build_eval_forward(self, widths, chunks: int):
+        """``forward(params, graph) -> logp`` over a stacked batch: the
+        fill-drain forward wave (``forward_timeline``) lowered forward-only
+        and run by ``spmd_pipeline_scheduled_eval_lanes``."""
+        S = self.config.num_stages
+        items = forward_timeline(S, chunks)
+        if self.placement is not None and self.placement.num_devices == S:
+            # a one-stage-per-device ring re-devices the eval wave too; an
+            # interleaved placement (D < S) would double-book devices on the
+            # fill-drain wave, so eval keeps its S-lane identity ring there
+            items = self.placement.apply(items)
+        lowered = lower_timeline(items, S, chunks, forward_only=True)
+        model, bounds = self.model, self._bounds
+        d_travel = travel_width(bounds, widths)
+        no_keys = chunk_keys(None, len(model.layers))
+
+        def forward(params, g):
+            graphs = [g.chunk(c) for c in range(chunks)]
+            slices = make_gnn_stage_slices(model, bounds, widths, graphs, no_keys, train=False)
+            f = g.features
+            wire_like = torch.zeros((f.shape[1], d_travel), dtype=f.dtype, device=f.device)
+            out = spmd_pipeline_scheduled_eval_lanes(
+                lambda phase, s, c, h_in: slices[s](params, c, h_in), lowered,
+                wire_like=wire_like,
+            )
+            return out[..., : model.out_dim].contiguous()
+
+        return forward
+
+    def compile_eval(self, params: list, graph) -> EvalProgram:
+        """The forward-only program for ``graph``'s stacked shape, with
+        ``params`` bound: one CUDA graph per ``(chunks, n_pad, max_deg)``
+        on a card, captured at its first call."""
+        if self._widths is None:
+            self._widths = activation_widths(self.model, params, graph)
+        key = tuple(graph.neighbors.shape)
+        prog = self._evals.get(key)
+        if prog is None:
+            forward = self._build_eval_forward(self._widths, key[0])
+            if self.device.type == "cuda":
+                forward = cuda_graph.GraphedForward(forward)
+            prog = EvalProgram(forward, self.device, key)
+            self._evals[key] = prog
+        return prog.bind(params)
+
+    # -------------------------------------------------------------- step --
+
+    def train_step(
+        self,
+        params: list,
+        opt_state,
+        plan: MicroBatchPlan,
+        rng: int | None,
+        optimizer: opt_lib.Optimizer,
+        *,
+        record: list | None = None,  # per-item timings do not exist in one program
+        stats: dict | None = None,
+    ):
+        """One step over the plan as one program; returns ``(params,
+        opt_state, mean_loss)``. On a card it is one CUDA-graph replay and
+        the returned params and state are the graph's static buffers: the
+        next step overwrites them. ``stats`` receives the schedule's
+        accounting and the lowered stash's."""
+        program, graphs, masks = self.step_program(params, plan, optimizer)
+        if stats is not None:
+            lowered = program.lowered
+            stats.update(self.describe())
+            # stage-0 inputs are read from the features by chunk id, never stashed
+            stats["measured_peak_live_activations"] = lowered.peak_live_stash
+            stats["stash_slots_per_device"] = lowered.n_fslots
+            stats["w_slots_per_device"] = lowered.n_wslots
+            stats["num_ticks"] = lowered.num_ticks
+            stats["wire_latency"] = lowered.wire_latency
+        n_layers = len(self.model.layers)
+        if self.device.type != "cuda":
+            return program(params, opt_state, graphs, masks, chunk_keys(rng, n_layers))
+        ckey = (id(plan), rng is not None)
+        entry = program.captures.get(ckey)
+        if entry is None or entry[0] is not plan:
+            captured = cuda_graph.CapturedStep(
+                lambda p, o, keys: program(p, o, graphs, masks, keys),
+                params, opt_state, n_layers, rng is not None, self.device,
+            )
+            entry = (plan, captured)
+            program.captures[ckey] = entry
+        return entry[1](params, opt_state, rng)
+
+ENGINES = {"host": GPipe, "compiled": CompiledGNNPipeline}
 
 
 def make_engine(model: GNNModel, config: GPipeConfig) -> PipelineEngine:
-    """Engine factory, selected by ``config.engine``."""
+    """Engine factory, selected by ``config.engine``: ``host`` (the GPipe
+    queue loop) or ``compiled`` (one program per step; one CUDA-graph replay
+    on a card)."""
     if not isinstance(config, GPipeConfig):
         raise TypeError(f"make_engine(model, config) expects a GPipeConfig, got {type(config).__name__}")
-    if config.engine == "compiled":
-        raise NotImplementedError(
-            "engine 'compiled' comes with a later slice (ROADMAP queue 1, item 9: "
-            "compiled single-program engine); use engine 'host'"
-        )
     try:
         cls = ENGINES[config.engine]
     except KeyError:

@@ -2,7 +2,7 @@
 through the pipeline engine's eval programs.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --dataset cora \\
-        --backend kernel --engine host --stages 4 --chunks 4 --verify
+        --backend kernel --engine compiled --stages 4 --chunks 4 --verify
 
 Counterpart of ``repro.launch.serve_gnn``. A synthetic open-loop arrival
 process (Poisson at ``--qps``) emits node-classification and
@@ -17,7 +17,10 @@ full graph's ``max_degree``); same-bucket requests batch together,
 ``--chunks`` per dispatch, and each stacked batch moves to the device in
 ``GNNServer.execute``. The result comes back with ``.cpu()``, which waits
 for the device, so latency covers the device work. Under ``--backend
-kernel`` every GAT aggregation runs the hand-written CUDA kernel.
+kernel`` every GAT aggregation runs the hand-written CUDA kernel. Under
+``--engine compiled`` (the default) each node-count bucket's eval program
+is one CUDA graph, captured at warmup: a call copies the batch into the
+bucket's static inputs and replays it.
 
 The driver reports achieved queries/s, p50/p99 latency (completion minus
 scheduled arrival, queueing included) and per-bucket batch occupancy; with
@@ -435,7 +438,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="check every served prediction against a full-graph forward")
     ap.add_argument("--verify-atol", type=float, default=0.0,
                     help="--verify failure tolerance; 0 = strict bit-identity")
-    add_pipeline_args(ap, engine="host", chunks=4, stages=4)
+    add_pipeline_args(ap, engine="compiled", chunks=4, stages=4)
     return ap
 
 

@@ -6,17 +6,19 @@
 
 Counterpart of ``repro.launch.train``: the paper's experiment, GAT node
 classification on the citation datasets, single-device (``--stages 1``,
-``train.loop.train``) or pipelined on the host GPipe engine with a chunking
-strategy (paper-faithful ``sequential`` or exact ``halo``) under any
-``--schedule``. Under ``--backend pallas``/``kernel`` the GAT aggregation
+``train.loop.train``) or pipelined with a chunking strategy (paper-faithful
+``sequential`` or exact ``halo``) under any ``--schedule``, on the host
+GPipe engine or, with ``--engine compiled``, as one CUDA-graph replay per
+step (evaluated through the engine's compiled eval program over the plan,
+as the JAX launcher does). Under ``--backend pallas``/``kernel`` the GAT aggregation
 runs the hand-written CUDA kernel (the bucket kernel on the pipeline's
 degree-bucketed chunks, the padded one in the full-graph eval), with
 attention dropout off. It prints the JAX launcher's result dict and runs on
 ``cuda`` unless ``--device cpu`` is given; with no card it raises.
 
 Not ported yet, and raising by name: streamed datasets (ROADMAP queue 1,
-item 12), ``--engine compiled`` (item 9), ``--auto`` and ``--partition
-profiled`` (item 10), ``--mode lm`` (item 16).
+item 12), ``--auto`` and ``--partition profiled`` (item 10), ``--backend
+dense`` (item 5), ``--mode lm`` (item 16).
 """
 
 from __future__ import annotations
@@ -87,8 +89,9 @@ def run_gnn(args) -> dict:
 
 
 def _train_pipeline(args, g, model, plan, pipe, *, cli, balance) -> dict:
-    """Epochs over ``pipe.train_step`` with the full-graph ``make_eval``,
-    and the result dict the JAX launcher prints."""
+    """Epochs over ``pipe.train_step`` with the full-graph ``make_eval`` (the
+    compiled engine: its eval program over the plan's core nodes), and the
+    result dict the JAX launcher prints."""
     from repro_torch.models.gnn.net import fold_in
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.loop import make_eval, synchronize
@@ -96,7 +99,10 @@ def _train_pipeline(args, g, model, plan, pipe, *, cli, balance) -> dict:
     params = pipe.init_params(args.seed)
     optimizer = opt_lib.adam(5e-3, weight_decay=5e-4)
     opt_state = optimizer.init(params)
-    evaluate = make_eval(model)
+    if cli.engine == "compiled":
+        evaluate = lambda p, _g: pipe.evaluate(p, plan)  # noqa: E731
+    else:
+        evaluate = make_eval(model)
 
     times, losses = [], []
     sched_stats: dict = {}

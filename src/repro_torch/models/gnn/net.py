@@ -2,9 +2,10 @@
 layer sequences.
 
 Counterpart of ``repro.models.gnn.net`` (``SeqLayer``, ``GNNModel``,
-``build_paper_gat``, ``build_gnn`` for ``gat``/``gcn`` and
-``build_imbalanced_gcn``; the compiled engine's stage slices come with a
-later slice). The paper model (§6):
+``build_paper_gat``, ``build_gnn`` for ``gat``/``gcn``,
+``build_imbalanced_gcn`` and the compiled engine's params-explicit stage
+slices, ``make_gnn_stage_slices`` and its split-backward halves
+``make_gnn_stage_slices_bw``). The paper model (§6):
 
     dropout(0.6) -> GAT(8 heads, concat, attn-dropout 0.6) -> ELU
     -> dropout(0.6) -> GAT(8 heads, average, attn-dropout 0.6) -> log_softmax
@@ -16,7 +17,10 @@ Randomness is keyed, never drawn from shared state: ``apply`` takes an
 integer key, ``fold_in`` derives one key per layer from it, and a dropout
 layer seeds a fresh counter-based generator from its key on the device of
 its input. The same key therefore redraws the same masks, which is what
-lets the pipeline engine re-materialize a stage in its backward.
+lets the pipeline engine re-materialize a stage in its backward. A key may
+also be a *draw site*, any object with ``generator(device)``: the compiled
+engine's CUDA graphs hand each draw a generator they own and reseed from
+the integer key before every replay (``repro_torch.core.cuda_graph``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch.graphs.data import GraphBatch
 from repro_torch.models.gnn import layers as L
+from repro_torch.train.optimizer import fill_grads
 
 
 _MASK64 = (1 << 64) - 1
@@ -50,12 +55,15 @@ def layer_keys(key: int | None, n_layers: int) -> list[int | None]:
     return [fold_in(key, i) for i in range(n_layers)]
 
 
-def _generator(key: int | None, x: torch.Tensor, active: bool) -> torch.Generator | None:
-    """A fresh generator seeded from ``key`` on ``x``'s device, only where a
-    draw will happen (training with a positive rate)."""
+def _generator(key, x: torch.Tensor, active: bool) -> torch.Generator | None:
+    """The generator a draw uses, only where one will happen (training with
+    a positive rate): a fresh one seeded from an integer ``key`` on ``x``'s
+    device, or a draw site's own (``key.generator(device)``)."""
     if key is None or not active:
         return None
-    return torch.Generator(device=x.device).manual_seed(key)
+    if isinstance(key, int):
+        return torch.Generator(device=x.device).manual_seed(key)
+    return key.generator(x.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,3 +241,226 @@ def build_gnn(
             layers.append(_elu_layer())
     layers.append(_log_softmax_layer())
     return GNNModel(layers=tuple(layers), in_dim=num_features, out_dim=num_classes)
+
+
+# ------------------------------------------------------- stage slices --
+
+
+def _one_node_graph(graph: GraphBatch) -> GraphBatch:
+    """A one-node graph on the CPU with ``graph``'s feature width: its only
+    neighbor slot is its self-loop."""
+    one = torch.ones((1, 1), dtype=torch.bool)
+    return GraphBatch(
+        features=torch.zeros((1, graph.num_features)),
+        neighbors=torch.zeros((1, 1), dtype=torch.int32),
+        mask=one,
+        norm=torch.ones((1, 1)),
+        labels=torch.zeros((1,), dtype=torch.int32),
+        train_mask=one[0],
+        val_mask=one[0],
+        test_mask=one[0],
+        node_ids=torch.zeros((1,), dtype=torch.int32),
+        num_classes=graph.num_classes,
+    )
+
+
+def activation_widths(model: GNNModel, params: list, graph: GraphBatch) -> list[int]:
+    """Feature width at every layer boundary: ``widths[i]`` is the input
+    width of layer ``i``, ``widths[len(layers)]`` the model's output width.
+    Found by running each layer on a one-node graph on the CPU (no width
+    depends on the node count), so it works for any SeqLayer mix."""
+    probe = _one_node_graph(graph)
+    h = probe.features
+    widths = [h.shape[-1]]
+    with torch.no_grad():
+        for layer, p in zip(model.layers, params):
+            h = layer.apply({k: v.detach().cpu() for k, v in p.items()}, probe, h, None, False)
+            widths.append(h.shape[-1])
+    return widths
+
+
+def travel_width(bounds: list[tuple[int, int]], widths: list[int]) -> int:
+    """Wire width of the traveling activation: the widest stage-boundary
+    width (every stage's output). The model's input width is excluded:
+    stage 0 reads the features by chunk id, they never ride the wire."""
+    return max(widths[hi] for _, hi in bounds)
+
+
+def chunk_keys(rng: int | None, n_layers: int) -> Callable:
+    """``keys(chunk, site) -> per-layer keys`` from an integer step key,
+    derived as the host engine derives them (``fold_in(rng, chunk)``, then
+    ``layer_keys``). Every site of a chunk, forward or recompute, gets the
+    same keys."""
+
+    def keys(chunk: int, site: str) -> list:
+        return layer_keys(None if rng is None else fold_in(rng, chunk), n_layers)
+
+    return keys
+
+
+def narrow(wire: torch.Tensor, width: int) -> torch.Tensor:
+    """The true-width columns of a wire activation as a fresh contiguous
+    tensor. A strided view would do for the math, but it can change the
+    matmul algorithm the next layer gets, and with it the low bits."""
+    return wire[:, :width].clone(memory_format=torch.contiguous_format)
+
+
+def to_wire(h: torch.Tensor, width: int) -> torch.Tensor:
+    """``h`` zero-padded on the right to the wire width."""
+    if h.shape[-1] == width:
+        return h
+    return torch.nn.functional.pad(h, (0, width - h.shape[-1]))
+
+
+def stage_forward(model, bounds, graphs, keys, train, s):
+    """``run(params, chunk, h, site) -> h_out`` at true widths: stage ``s``'s
+    layers on chunk ``chunk``; stage 0 reads the chunk's features."""
+    lo, hi = bounds[s]
+
+    def run(params, chunk, h, site):
+        g = graphs[chunk]
+        ks = keys(chunk, site)
+        h = g.features if lo == 0 else h
+        for i in range(lo, hi):
+            h = model.layers[i].apply(params[i], g, h, ks[i], train)
+        return h
+
+    return run
+
+
+def make_gnn_stage_slices(
+    model: GNNModel,
+    bounds: list[tuple[int, int]],
+    widths: list[int],
+    graphs,
+    keys: Callable,
+    *,
+    train: bool = True,
+):
+    """Params-explicit per-stage slices for the compiled engine's tick
+    executors: ``slices[s](params, chunk, h_in, site="fwd") -> h_out``
+    applies stage ``s``'s contiguous layer slice ``[lo, hi)`` to chunk
+    ``chunk`` (``graphs[chunk]`` is its graph). ``params`` is the full
+    per-layer list. ``h_in`` and ``h_out`` are padded to the uniform wire
+    width (``travel_width``); ``h_in`` is narrowed back (``narrow``) before
+    the first layer, and stage 0 ignores it and reads the chunk's features.
+    ``keys(chunk, site)`` gives the per-layer dropout keys (``chunk_keys``
+    derives the host engine's)."""
+    d_travel = travel_width(bounds, widths)
+
+    def make(s):
+        run = stage_forward(model, bounds, graphs, keys, train, s)
+        lo = bounds[s][0]
+
+        def apply_slice(params, chunk, h_in, site="fwd"):
+            h = None if lo == 0 else narrow(h_in, widths[lo])
+            return to_wire(run(params, chunk, h, site), d_travel)
+
+        return apply_slice
+
+    return [make(s) for s in range(len(bounds))]
+
+
+def stage_vjp(
+    run, params, lo: int, hi: int, chunk: int, h, ct_of, site: str,
+    *, want_params: bool, want_input: bool,
+):
+    """Re-materialize a stage (``run`` from ``stage_forward``) from its
+    true-width input ``h`` and pull a cotangent back. ``ct_of(y)`` gives
+    ``(ct, loss_sum, count)`` from the recomputed output (the loss head at
+    the last stage; a fixed cotangent elsewhere). Returns ``(d_params or
+    None, d_h or None, loss_sum, count)``; ``d_params`` holds the stage's
+    layers only."""
+    leaves = [
+        {k: v.detach().requires_grad_(want_params) for k, v in p.items()}
+        for p in params[lo:hi]
+    ]
+    full = list(params[:lo]) + leaves + list(params[hi:])
+    h = None if h is None else h.detach().requires_grad_(want_input)
+    flat = [v for p in leaves for v in p.values()] if want_params else []
+    inputs = flat + ([h] if want_input else [])
+    with torch.enable_grad():
+        y = run(full, chunk, h, site)
+        ct, loss_sum, count = ct_of(y)
+        grads = torch.autograd.grad(y, inputs, ct, allow_unused=True) if inputs else ()
+    d_params = fill_grads(leaves, grads[: len(flat)]) if want_params else None
+    return d_params, (grads[-1] if want_input else None), loss_sum, count
+
+
+def make_gnn_stage_slices_bw(
+    model: GNNModel,
+    bounds: list[tuple[int, int]],
+    widths: list[int],
+    graphs,
+    keys: Callable,
+    *,
+    train: bool = True,
+    loss_ct: Callable | None = None,
+):
+    """Split-backward (zero-bubble) halves of ``make_gnn_stage_slices``:
+    the stage backward cut along its two cotangent outputs so the tick
+    executor can run them at different ticks. Returns ``(b_fns, w_fns)``:
+
+      * ``b_fns[s](params, chunk, h_in, ct) -> (d_h, residual, loss_sum,
+        count)``, the B (input-gradient) half: re-materialize the stage,
+        differentiate it with respect to its input only and return the
+        upstream cotangent (wire width; None at stage 0, whose input is
+        the features and which therefore skips the work) plus the
+        ``(h_in, ct_applied)`` residual the W half needs. At the last stage
+        ``loss_ct(y, chunk) -> (ct, loss_sum, count)`` derives the applied
+        cotangent from the recomputed output; elsewhere the wire ``ct`` is
+        applied and ``loss_sum``/``count`` are None.
+      * ``w_fns[s](params, chunk, residual) -> d_params``, the W half:
+        re-materialize from the residual's input and differentiate with
+        respect to the stage's params (the stage's layers only).
+
+    B and W are separate draw sites (``"bwd_b"``, ``"bwd_w"``) of the same
+    keys, so both recomputes redraw the forward's masks."""
+    d_travel = travel_width(bounds, widths)
+    n_stages = len(bounds)
+
+    def make(s):
+        lo, hi = bounds[s]
+        run = stage_forward(model, bounds, graphs, keys, train, s)
+        last = s == n_stages - 1 and loss_ct is not None
+        w_out = widths[hi]
+
+        def b_fn(params, chunk, h_in, ct):
+            applied = []
+
+            def ct_of(y):
+                if last:
+                    out = loss_ct(y, chunk)
+                else:
+                    out = (narrow(ct, w_out), None, None)
+                applied.append(out[0])
+                return out
+
+            if lo == 0:  # the features need no cotangent: nothing to pull back
+                if not last:
+                    return None, (None, ct), None, None
+                with torch.no_grad():  # a one-stage pipeline still owes its loss
+                    _, loss_sum, count = ct_of(run(params, chunk, None, "bwd_b"))
+                return None, (None, to_wire(applied[0], d_travel)), loss_sum, count
+            h = narrow(h_in, widths[lo])
+            _, d_h, loss_sum, count = stage_vjp(
+                run, params, lo, hi, chunk, h, ct_of, "bwd_b",
+                want_params=False, want_input=True,
+            )
+            residual = (h_in, to_wire(applied[0], d_travel) if last else ct)
+            return to_wire(d_h, d_travel), residual, loss_sum, count
+
+        def w_fn(params, chunk, residual):
+            h_in, ct = residual
+            h = None if lo == 0 else narrow(h_in, widths[lo])
+            ct_true = narrow(ct, w_out)
+            d_params, _, _, _ = stage_vjp(
+                run, params, lo, hi, chunk, h, lambda y: (ct_true, None, None), "bwd_w",
+                want_params=True, want_input=False,
+            )
+            return d_params
+
+        return b_fn, w_fn
+
+    halves = [make(s) for s in range(n_stages)]
+    return [b for b, _ in halves], [w for _, w in halves]

@@ -8,7 +8,10 @@ moments, bias correction, and *decoupled* weight decay ``u -= lr·wd·p``
 added to the update after the Adam step. ``torch.optim.Adam(weight_decay=)``
 adds L2 to the gradient instead, a different optimizer, and
 ``torch.optim.AdamW`` orders the arithmetic differently; neither is used.
-Updates are new tensors: nothing is changed in place.
+Updates are new tensors: nothing is changed in place. The step count (and
+a scheduled learning rate) live on the params' device, so an update
+captured in a CUDA graph reads the step it replays, not the one it was
+captured at.
 """
 
 from __future__ import annotations
@@ -85,9 +88,16 @@ def clip_by_global_norm(tree: Tree, max_norm: float) -> tuple[Tree, torch.Tensor
     return tree_map(lambda x: x * scale, tree), norm
 
 
+def _device_of(params: Tree) -> torch.device:
+    """The device of the first leaf (the CPU for a tree without leaves)."""
+    leaves = tree_leaves(params)
+    return leaves[0].device if leaves else torch.device("cpu")
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamState:
-    """Step count (int32, 0-d, host) and the f32 first and second moments."""
+    """Step count (int32, 0-d, on the params' device) and the f32 first and
+    second moments."""
 
     step: torch.Tensor
     mu: Any
@@ -95,7 +105,9 @@ class AdamState:
 
 
 def _lr_at(lr, step: torch.Tensor) -> torch.Tensor:
-    return lr(step) if callable(lr) else torch.tensor(lr, dtype=torch.float32)
+    if callable(lr):
+        return lr(step)
+    return torch.full((), lr, dtype=torch.float32, device=step.device)
 
 
 def adam(
@@ -113,7 +125,7 @@ def adam(
     def init(params):
         f32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return AdamState(
-            step=torch.zeros((), dtype=torch.int32),
+            step=torch.zeros((), dtype=torch.int32, device=_device_of(params)),
             mu=tree_map(f32, params),
             nu=tree_map(f32, params),
         )
@@ -146,10 +158,11 @@ def sgd(lr: float | Callable, *, momentum: float = 0.0) -> Optimizer:
     """Plain SGD, with optional heavy-ball momentum kept in f32."""
 
     def init(params):
+        step = torch.zeros((), dtype=torch.int32, device=_device_of(params))
         if momentum == 0.0:
-            return {"step": torch.zeros((), dtype=torch.int32)}
+            return {"step": step}
         return {
-            "step": torch.zeros((), dtype=torch.int32),
+            "step": step,
             "vel": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
         }
 

@@ -13,7 +13,9 @@ to the padded backend at 2e-4 in its loss and update (the tolerance of
 ``benchmarks/fig3.py``), and each gradient leaf within 1e-5 of its largest
 entry. The flash kernel is held at 1e-5 (2e-2 in bf16) and the SSD kernel
 at atol 1e-4, the JAX package's SSD tolerance; smoke-size LM serving on the
-card at 1e-4 against the same params on the CPU.
+card at 1e-4 against the same params on the CPU. The compiled engine's
+captured steps are held bit for bit to its eager program and to the host
+engine, under deterministic algorithms.
 """
 
 import os
@@ -39,7 +41,7 @@ from repro_torch.kernels.ssd import kernel as SSK
 from repro_torch.kernels.ssd.ops import ssd as ssd_op
 from repro_torch.kernels.ssd.ref import ssd_chunk_scan
 from repro_torch.launch import serve as lm_serve
-from repro_torch.models.gnn.net import build_gnn
+from repro_torch.models.gnn.net import build_gnn, build_paper_gat, chunk_keys
 from repro_torch.train import optimizer as topt
 
 H = 4
@@ -184,16 +186,23 @@ def test_ops_on_card_launch_kernel_and_match_cpu(cuda):
 
 @pytest.mark.gpu
 def test_serving_on_card_goes_through_kernel(cuda):
-    args = tserve.build_parser().parse_args([
-        "--dataset", "karate", "--qps", "100", "--duration", "0.3", "--backend", "kernel",
-        "--verify", "--verify-atol", "1e-5", "--device", "cuda",
-    ])
-    K.gat_aggregate_kernel.launches = 0
-    summary = tserve.run(args)
-    calls = sum(v["batches"] for v in summary["buckets"].values())
-    calls += tserve.WARM_CALLS * summary["warm_buckets"]
-    assert summary["verify_mismatches"] == 0
-    assert K.gat_aggregate_kernel.launches == 2 * summary["chunks"] * calls + 2
+    """Both engines serve through the kernel. The host engine launches it on
+    every call; the compiled engine records it twice a bucket (the graph's
+    warm-up and its capture), and its replays launch it without counting."""
+    for engine in ("host", "compiled"):
+        args = tserve.build_parser().parse_args([
+            "--dataset", "karate", "--qps", "100", "--duration", "0.3", "--backend", "kernel",
+            "--verify", "--verify-atol", "1e-5", "--device", "cuda", "--engine", engine,
+        ])
+        K.gat_aggregate_kernel.launches = 0
+        summary = tserve.run(args)
+        if engine == "host":
+            calls = sum(v["batches"] for v in summary["buckets"].values())
+            calls += tserve.WARM_CALLS * summary["warm_buckets"]
+        else:
+            calls = 2 * summary["warm_buckets"]
+        assert summary["verify_mismatches"] == 0
+        assert K.gat_aggregate_kernel.launches == 2 * summary["chunks"] * calls + 2
 
 
 # ------------------------------------------------------------------ SpMM --
@@ -510,3 +519,85 @@ def test_lm_serving_on_card_goes_through_kernels(cuda, arch):
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+# ------------------------------------------------- the compiled engine --
+# Each compiled train step is one CUDA-graph replay. It must equal the same
+# program run eagerly on the card, and the host engine's update, bit for bit
+# under deterministic algorithms, with dropout on: every replay reseeds its
+# draw sites from the step's key.
+
+
+def _compiled_case(backend):
+    g = load_dataset("karate")
+    kw = {"attn_dropout": 0.0} if backend == "kernel" else {}
+    model = build_paper_gat(g.num_features, g.num_classes, backend=backend, **kw)
+    return model, make_plan(g, 4, strategy="halo")
+
+
+def _steps(eng, model, plan, opt, keys, dev):
+    params = model.init_params(0, device=dev)
+    state, losses = opt.init(params), []
+    for key in keys:
+        params, state, loss = eng.train_step(params, state, plan, key, opt)
+        losses.append(loss.clone())
+    return [{k: v.clone() for k, v in p.items()} for p in params], losses
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["padded", "kernel"])
+def test_compiled_captured_step_equals_eager_program_on_card(cuda, backend):
+    model, plan = _compiled_case(backend)
+    opt = topt.adam(5e-3, weight_decay=5e-4)
+    eng = make_engine(model, GPipeConfig(balance=(2, 1, 1, 2), chunks=4, schedule="1f1b",
+                                         engine="compiled", backend=backend, device="cuda"))
+    torch.use_deterministic_algorithms(True)
+    try:
+        captured, c_losses = _steps(eng, model, plan, opt, (11, 12, 13), cuda)
+        params = model.init_params(0, device=cuda)
+        program, graphs, masks = eng.step_program(params, plan, opt)
+        state = opt.init(params)
+        for i, key in enumerate((11, 12, 13)):
+            params, state, loss = program(params, state, graphs, masks,
+                                          chunk_keys(key, len(model.layers)))
+            assert torch.equal(loss, c_losses[i])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(captured, params) for k in a)
+    assert eng.graphs_captured == 1
+    (entry,) = program.captures.values()
+    launched = entry[1].captured.launches
+    if backend == "kernel":
+        layout = tpart.bucketize_stacked(plan.stacked().graph)
+        tiles = sum(1 for b in layout.buckets if b.rows)
+        assert launched == {"bucket_gat_kernel": 2 * 2 * tiles * 4}
+    else:
+        assert launched == {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ["fill_drain", "zb-h1", "interleaved"])
+def test_compiled_replays_redraw_the_host_masks_on_card(cuda, schedule):
+    model, plan = _compiled_case("padded")  # feature and attention dropout on
+    opt = topt.adam(5e-3, weight_decay=5e-4)
+    nd = 2 if schedule == "interleaved" else None
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for engine in ("host", "compiled"):
+            eng = make_engine(model, GPipeConfig(
+                balance=(2, 1, 1, 2), chunks=4, engine=engine, device="cuda",
+                schedule="fill_drain" if engine == "host" else schedule, num_devices=nd))
+            runs[engine] = _steps(eng, model, plan, opt, (21, 22, 23), cuda)
+        comp = make_engine(model, GPipeConfig(balance=(2, 1, 1, 2), chunks=4, engine="compiled",
+                                              device="cuda"))
+        host = make_engine(model, GPipeConfig(balance=(2, 1, 1, 2), chunks=4, device="cuda"))
+        params = runs["host"][0]
+        evals = [e.evaluate(params, plan) for e in (host, comp, comp)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (hp, hl), (cp, cl) = runs["host"], runs["compiled"]
+    assert all(torch.equal(a, b) for a, b in zip(hl, cl)) and not torch.equal(hl[0], hl[1])
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(hp, cp) for k in a)
+    assert all(torch.equal(evals[0][k], e[k]) for e in evals[1:] for k in evals[0])
+    assert comp.graphs_captured == 1  # one eval graph, replayed twice

@@ -376,7 +376,7 @@ def test_train_cli_trains_on_cpu_and_targets_cuda_by_default(capsys):
     (["--dataset", "powerlaw-64k"], "item 12"),
     (["--partition", "profiled"], "item 10"),
     (["--auto"], "item 10"),
-    (["--engine", "compiled"], "item 9"),
+    (["--backend", "dense"], "item 5"),
 ])
 def test_train_cli_unported_paths_raise_by_item(argv, match):
     with pytest.raises(NotImplementedError, match=match):
