@@ -100,6 +100,25 @@ Phases; any failure stops the run with a non-zero exit:
 9. The same for mamba2-130m at full width: the SSD wrapper is called 24 x 2
    = 48 times (3 CUDA launches each), each layer's captured inputs held at
    1e-4 (y and final state).
+10. The zoo on phase 6's cora plan: ``build_gnn("graphconv")``,
+   ``build_gnn("gatedgraphconv")`` (hidden 64, depth 2; kernel backend, its
+   GCN projections on the bucket SpMM kernel) and the paper GAT on the
+   dense and padded backends. Dense against padded in the full-graph loss
+   and each gradient leaf at dropout 0, within 1e-5 of the leaf's largest
+   entry in float64 (the float32 comparison is printed beside each
+   backend's distance from float64); 3 steps with dropout on, compiled
+   bit-identical to host fill_drain under deterministic algorithms; per
+   engine the median step, busy share, peak memory and top kernels.
+11. SIGN on cora: ``as_sign_graph(hops=2)`` on the card within 1e-5 of the
+   CPU's; one sign-MLP step over 4 sequential chunks within 1e-5 of the
+   full-batch step.
+12. Phase 6's trained GAT params and Adam state saved with
+   ``train.checkpoint`` and loaded back bit-identical; one step from each
+   bit-identical.
+13. The planner through the entry points: ``train --auto --dry-run`` on
+   cora (per-layer card costs, the ranked table), ``--auto --epochs 3``
+   (predicted against measured step), ``--partition profiled --schedule
+   1f1b`` against uniform, ``serve_gnn --auto --dry-run``.
 
 The last three lines are the card's name and power limit, the ``kernels``
 JSON line, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -1141,6 +1160,8 @@ def phase_train_gat_compiled(H, torch, host):
             losses.append(float(loss))
         if losses != host_losses:
             raise AssertionError(f"host loop {losses} != phase 6 run_gnn {host_losses}")
+        trained = {"pipe": host_pipe, "params": params, "state": state, "opt": opt,
+                   "plan": plan, "epochs": args.epochs}
         want = {k: float(v) for k, v in host_pipe.evaluate(params, plan).items()}
         rows = {}
         for schedule, extra in schedules.items():
@@ -1194,6 +1215,7 @@ def phase_train_gat_compiled(H, torch, host):
             log_top(name, counts)
     gc.collect()
     torch.cuda.empty_cache()
+    return trained
 
 
 def phase_train_gcn_compiled(H, torch, ref):
@@ -1238,6 +1260,291 @@ def phase_train_gcn_compiled(H, torch, ref):
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ------------------- the zoo, SIGN, checkpoints and the planner (phases 10-13) --
+
+ZOO_STEPS = 4  # timed steps per engine in phase 10 (the first is dropped)
+ZOO_ATOL = 1e-5  # dense vs padded in float64: loss, and each gradient leaf against its largest entry
+
+
+def loss_and_grads(torch, model, g, dtype):
+    """(masked NLL, per-layer gradients) of ``model`` on the full graph
+    ``g`` from ``init_params(0)``, params and features cast to ``dtype``."""
+    import dataclasses
+
+    from repro_torch.train import losses, optimizer as opt_lib
+
+    g = dataclasses.replace(g, features=g.features.to(dtype), norm=g.norm.to(dtype))
+    leaves = opt_lib.requires_grad_leaves(opt_lib.tree_map(
+        lambda v: v.to(dtype), model.init_params(0, device=g.features.device)))
+    loss = losses.masked_nll(model.apply(leaves, g), g.labels, g.train_mask)
+    return float(loss), opt_lib.tree_grad(loss, leaves)
+
+
+def leaf_rel(a, b):
+    """Per leaf of two gradient trees: max |diff| / max |entry of b|."""
+    return {f"{i}.{k}": float((x[k] - y[k]).abs().max()) / max(float(y[k].abs().max()), 1e-30)
+            for i, (x, y) in enumerate(zip(a, b)) for k in x}
+
+
+def phase_zoo(H, torch):
+    """Phase 10: GraphConv, GatedGraphConv (its GCN projections on the
+    bucket SpMM kernel) and the paper GAT on the dense backend (and on the
+    padded one, its yardstick), on cora in 4 stages x 4 halo chunks: dense
+    against padded in the full-graph loss and gradients at dropout 0 (held
+    in float64, where the two must be one function; in float32 a bias
+    gradient, a cancelling sum over the graph's rows, differs between them
+    by float32 rounding, so that comparison is printed beside each
+    backend's distance from float64), host fill_drain against the compiled
+    engine bit for bit with dropout on, and each engine's step time, busy
+    share and peak memory."""
+    from repro_torch.core.costmodel import uniform_balance
+    from repro_torch.core.pipeline import GPipeConfig, make_engine
+    from repro_torch.models.gnn.net import build_gnn, build_paper_gat
+    from repro_torch.train import optimizer as opt_lib
+
+    from repro_torch.graphs import load_dataset
+
+    plan, _ = gat_plan_layout(H.dev)
+    full = load_dataset("cora").to(H.dev)
+    F, C = full.num_features, full.num_classes
+    opt = opt_lib.adam(5e-3, weight_decay=5e-4)
+    gat = lambda b: build_paper_gat(F, C, backend=b)  # noqa: E731
+    cases = {  # name: (model for a backend, training backend, kernel name part)
+        "graphconv": (lambda b: build_gnn("graphconv", F, C, backend=b), "padded", "spmm_kernel"),
+        "gatedgraphconv": (lambda b: build_gnn("gatedgraphconv", F, C, backend=b), "kernel",
+                           "spmm_kernel"),
+        "gat-dense": (gat, "dense", "gat_edge_kernel"),
+        "gat-padded": (gat, "padded", "gat_edge_kernel"),  # the dense step's yardstick
+    }
+    no_dropout = {"gat-dense": lambda b: build_paper_gat(F, C, backend=b, feat_dropout=0.0,
+                                                         attn_dropout=0.0)}
+
+    def engine(model, backend, name="host"):
+        return make_engine(model, GPipeConfig(
+            balance=balance, chunks=plan.chunks, engine=name, backend=backend,
+            device=str(H.dev)))
+
+    for name, (build, backend, part) in cases.items():
+        # the paper GAT on the paper's split, as phases 6-6b run it
+        balance = (2, 1, 1, 2) if name.startswith("gat-") else uniform_balance(
+            len(build("padded").layers), 4)
+        # dense against padded on the full graph, dropout 0: float64 holds
+        # the two to one function; float32 is printed beside each backend's
+        # distance from float64
+        steps = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for b in (("padded", "dense") if name != "gat-padded" else ()):
+                for dtype in (torch.float64, torch.float32):
+                    steps[b, dtype] = loss_and_grads(torch, no_dropout.get(name, build)(b),
+                                                     full, dtype)
+            compared = ""
+            if steps:
+                f64, f32 = ({b: steps[b, dt] for b in ("padded", "dense")}
+                            for dt in (torch.float64, torch.float32))
+                rel = leaf_rel(f64["dense"][1], f64["padded"][1])
+                loss_diff = abs(f64["dense"][0] - f64["padded"][0])
+                if loss_diff > ZOO_ATOL * max(1.0, abs(f64["padded"][0])) or \
+                        max(rel.values()) > ZOO_ATOL:
+                    raise AssertionError(f"zoo {name}: dense vs padded in float64: loss diff "
+                                         f"{loss_diff}, gradients per leaf {rel}")
+                rel32 = leaf_rel(f32["dense"][1], f32["padded"][1])
+                worst = max(rel32, key=rel32.get)
+                off = {b: leaf_rel(f32[b][1], f64[b][1])[worst] for b in ("padded", "dense")}
+                compared = (f"dense vs padded (dropout 0, full graph) in float64: loss diff "
+                            f"{loss_diff:.3g}, gradient leaves max |diff| / max |grad| "
+                            f"{max(rel.values()):.3g} (limit {ZOO_ATOL}); in float32: loss "
+                            f"{f32['dense'][0]} vs {f32['padded'][0]}, worst leaf {worst} "
+                            f"{rel32[worst]:.3g} of its largest entry, each backend's float32 "
+                            f"distance from float64 there: padded {off['padded']:.3g}, dense "
+                            f"{off['dense']:.3g}; ")
+
+            # host fill_drain against the compiled engine, dropout on
+            model = build(backend)
+            params0 = model.init_params(0, device=H.dev)
+            runs = {}
+            for eng_name in ("host", "compiled"):
+                pipe = engine(model, backend, eng_name)
+                state, losses = (params0, opt.init(params0)), []
+                H.S.bucket_spmm_kernel.launches = 0
+                for step in range(3):
+                    p, o, loss = pipe.train_step(*state, plan, 40 + step, opt)
+                    state = (p, o)
+                    losses.append(float(loss))
+                runs[eng_name] = (state[0], losses, H.S.bucket_spmm_kernel.launches)
+                del pipe
+            (hp, hl, h_spmm), (cp, cl, _) = runs["host"], runs["compiled"]
+            same = hl == cl and all(torch.equal(a[k], b[k]) for a, b in zip(hp, cp) for k in a)
+            if not same or not all(x == x and abs(x) < float("inf") for x in hl):
+                raise AssertionError(f"zoo {name}: compiled {cl} vs host {hl}, params equal "
+                                     f"{same}")
+            if (part == "spmm_kernel" and backend == "kernel") != (h_spmm > 0):
+                raise AssertionError(f"zoo {name}: bucket SpMM launched {h_spmm} times in 3 "
+                                     f"host steps on the {backend} backend")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        log(f"[zoo] {name} ({[layer.name for layer in model.layers]}, balance {balance}, "
+            f"{backend}): {compared}3 steps with dropout on, "
+            f"compiled bit-identical to host fill_drain: losses {hl}; bucket-SpMM launches in "
+            f"the host steps {h_spmm} [{H.card}]")
+        for eng_name in ("host", "compiled"):
+            pipe = engine(model, backend, eng_name)
+            med, peak, (wall, device, launched, counts) = engine_numbers(
+                H, torch, pipe, params0, opt, plan, part, steps=ZOO_STEPS)
+            log(f"[zoo] {name} {eng_name}: median step {med:.6f} ms, max_memory_allocated "
+                f"{peak[0]} B ({peak[1]} B beyond the params and data), profiled step wall "
+                f"{wall:.6f} ms device {device:.6f} ms busy {device / wall:.6f}, {part} "
+                f"launches in it {launched} [{H.card}]")
+            log_top(f"{name} {eng_name}", counts, top=4)
+            del pipe
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def phase_sign(H, torch):
+    """Phase 11: SIGN on cora: the diffused features on the card against
+    the CPU, and one sign-MLP step over 4 sequential chunks against the
+    full-batch step."""
+    from repro_torch.core.microbatch import make_plan
+    from repro_torch.core.pipeline import GPipeConfig, make_engine
+    from repro_torch.graphs import load_dataset
+    from repro_torch.graphs.sign import as_sign_graph, build_sign_mlp
+    from repro_torch.train import losses, optimizer as opt_lib
+
+    cora = load_dataset("cora")
+    t0 = time.perf_counter()
+    g = as_sign_graph(cora.to(H.dev), hops=2)
+    torch.cuda.synchronize()
+    precompute_ms = (time.perf_counter() - t0) * 1e3
+    feat_err = float((g.features.cpu() - as_sign_graph(cora, hops=2).features).abs().max())
+    if feat_err > ATOL:
+        raise AssertionError(f"sign: card features differ from the CPU's by {feat_err}")
+    m = build_sign_mlp(g.num_features, g.num_classes, hidden=64, dropout=0.0)
+    params = m.init_params(0, device=H.dev)
+    opt = opt_lib.adam(1e-2)
+    leaves = opt_lib.requires_grad_leaves(params)
+    ref_loss = losses.masked_nll(m.apply(leaves, g, train=True), g.labels, g.train_mask)
+    upd, _ = opt.update(opt_lib.tree_grad(ref_loss, leaves), opt.init(params), params)
+    want = opt_lib.apply_updates(params, upd)
+    plan = make_plan(as_sign_graph(cora, hops=2), 4, strategy="sequential")
+    pipe = make_engine(m, GPipeConfig(balance=(2, 2), chunks=4, device=str(H.dev)))
+    got, _, loss = pipe.train_step(params, opt.init(params), plan, 1, opt)
+    loss_diff = abs(float(loss) - float(ref_loss.detach()))
+    upd_diff = max(float((a - b.detach()).abs().max())
+                   for a, b in zip(opt_lib.tree_leaves(got), opt_lib.tree_leaves(want)))
+    if loss_diff > ATOL or upd_diff > ATOL or plan.edge_cut != 0.0:
+        raise AssertionError(f"sign: 4 sequential chunks vs full batch: loss diff {loss_diff}, "
+                             f"update diff {upd_diff}, edge cut {plan.edge_cut}")
+    log(f"[sign] cora hops 2: features {tuple(g.features.shape)} on the card within "
+        f"{feat_err:.3g} of the CPU's (limit {ATOL}), precompute {precompute_ms:.3f} ms; one "
+        f"sign-MLP step over 4 sequential chunks vs the full batch: loss {float(loss)} (diff "
+        f"{loss_diff:.3g}), update max |diff| {upd_diff:.3g} (limit {ATOL}) [{H.card}]")
+
+
+def phase_checkpoint(H, torch, trained):
+    """Phase 12: the cora GAT's params and Adam state after phase 6's
+    training, saved and loaded back bit-identical; one step from the loaded
+    state equals one step from the state in memory."""
+    import tempfile
+
+    from repro_torch.models.gnn.net import fold_in
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint, tree_like
+
+    pipe, plan, opt = trained["pipe"], trained["plan"], trained["opt"]
+    tree = {"params": trained["params"], "opt": trained["state"]}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as path:
+        t0 = time.perf_counter()
+        save_checkpoint(path, tree, step=trained["epochs"], extra={"dataset": "cora"})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        loaded, meta = load_checkpoint(path, device=H.dev)
+    back = tree_like(tree, loaded)
+    flat = [(a, b) for x, y in ((tree["params"], back["params"]), (tree["opt"].mu, back["opt"].mu),
+                                (tree["opt"].nu, back["opt"].nu))
+            for p, q in zip(x, y) for a, b in ((p[k], q[k]) for k in p)]
+    flat.append((tree["opt"].step, back["opt"].step))
+    if meta["step"] != trained["epochs"] or not all(
+            a.dtype == b.dtype and a.device == b.device and torch.equal(a, b) for a, b in flat):
+        raise AssertionError("checkpoint: loaded state not bit-identical to the saved one")
+    key = fold_in(0, trained["epochs"])
+    torch.use_deterministic_algorithms(True)
+    try:
+        p1, _, l1 = pipe.train_step(tree["params"], tree["opt"], plan, key, opt)
+        p2, _, l2 = pipe.train_step(back["params"], back["opt"], plan, key, opt)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not (torch.equal(l1, l2) and all(torch.equal(a[k], b[k]) for a, b in zip(p1, p2)
+                                        for k in a)):
+        raise AssertionError("checkpoint: a step from the loaded state differs")
+    log(f"[checkpoint] cora paper GAT after {trained['epochs']} epochs: params + Adam state, "
+        f"{len(flat)} tensors, {size} B on disk, saved in {save_ms:.3f} ms, loaded back "
+        f"bit-identical; one step from each: loss {float(l1)} == {float(l2)}, updates "
+        f"bit-identical [{H.card}]")
+
+
+AUTO_ARGS = ["--mode", "gnn", "--dataset", "cora", "--backend", "pallas", "--strategy", "halo",
+             "--stages", "4", "--chunks", "4", "--device", "cuda", "--log-every", "0"]
+
+
+def phase_auto(H, torch):
+    """Phase 13: the planner on the card through the training and serving
+    entry points: ``--auto --dry-run`` (per-layer card costs and the ranked
+    table), ``--auto`` training the pick (its predicted step beside the
+    measured median), ``--partition profiled`` against the uniform balance,
+    and ``serve_gnn --auto --dry-run``."""
+    from repro_torch.core import costmodel
+    from repro_torch.launch import serve_gnn
+    from repro_torch.launch.train import build_parser, run_gnn
+
+    costmodel._PROFILE_CACHE.clear()
+    H.K.gat_aggregate_kernel.launches = 0
+    t0 = time.perf_counter()
+    dry = run_gnn(build_parser().parse_args([*AUTO_ARGS, "--auto", "--dry-run"]))
+    plan_s = time.perf_counter() - t0
+    profiled_launches = H.K.gat_aggregate_kernel.launches
+    if dry["mode"] != "auto-dry-run" or profiled_launches == 0:
+        raise AssertionError(f"auto dry run: {dry}, padded-GAT launches {profiled_launches}")
+    rows = dry["layer_costs"]
+    if not all(r[k] > 0 for r in rows for k in ("fwd_s", "bwd_s", "bwd_b_s", "bwd_w_s")):
+        raise AssertionError(f"auto dry run: non-positive layer costs {rows}")
+    log(f"[auto] --auto --dry-run: {dry['evaluated']} candidates in {plan_s:.3f} s (profiling "
+        f"4 chunk counts included, padded-GAT kernel launches {profiled_launches}); pick "
+        f"schedule {dry['schedule']} chunks {dry['chunks']} balance {dry['balance']} predicted "
+        f"{dry['predicted_step_s'] * 1e3:.6f} ms; per-layer card costs at chunks="
+        f"{dry['chunks']} (fwd / B / W ms): "
+        + ", ".join(f"{r['name']} {r['fwd_s'] * 1e3:.4f}/{r['bwd_b_s'] * 1e3:.4f}/"
+                    f"{r['bwd_w_s'] * 1e3:.4f}" for r in rows) + f" [{H.card}]")
+
+    H.K.bucket_gat_kernel.launches = 0
+    auto = run_gnn(build_parser().parse_args([*AUTO_ARGS, "--auto", "--epochs", "3"]))
+    if H.K.bucket_gat_kernel.launches == 0 or auto["partition"] != "auto":
+        raise AssertionError(f"auto training: {auto}")
+    ratio = auto["predicted_step_s"] / auto["median_epoch_s"]
+    log(f"[auto] --auto --epochs 3 trained schedule {auto['schedule']} chunks {auto['chunks']} "
+        f"balance {auto['balance']}: predicted step {auto['predicted_step_s'] * 1e3:.6f} ms, "
+        f"measured median step {auto['median_epoch_s'] * 1e3:.6f} ms (predicted/measured "
+        f"{ratio:.4f}), losses {auto['epoch_losses']}, bucket-GAT launches "
+        f"{H.K.bucket_gat_kernel.launches} [{H.card}]")
+
+    part = {}
+    for partition in ("profiled", "uniform"):
+        res = run_gnn(build_parser().parse_args(
+            [*AUTO_ARGS, "--partition", partition, "--schedule", "1f1b", "--epochs", "3"]))
+        part[partition] = (res["balance"], res["median_epoch_s"] * 1e3, res["epoch_losses"])
+    if part["profiled"][2] != part["profiled"][2] or sum(part["profiled"][0]) != 6:
+        raise AssertionError(f"profiled partition: {part}")
+    log(f"[auto] --partition profiled --schedule 1f1b: balance {part['profiled'][0]} median "
+        f"step {part['profiled'][1]:.6f} ms; uniform {part['uniform'][0]} median step "
+        f"{part['uniform'][1]:.6f} ms [{H.card}]")
+
+    served = serve_gnn.run(serve_gnn.build_parser().parse_args(
+        ["--dataset", "cora", "--backend", "kernel", "--device", "cuda", "--auto", "--dry-run"]))
+    if served["mode"] != "auto-dry-run":
+        raise AssertionError(f"serve --auto --dry-run: {served}")
+    log(f"[auto] serve_gnn --auto --dry-run: pick {served} [{H.card}]")
 
 
 # ------------------------------------------------- LM serving (phases 2, 5, 8, 9) --
@@ -1661,12 +1968,17 @@ def main() -> int:
     # phase 5's own profiler passes lose device records on the card
     phase_serve_compiled(H, torch, served)  # phase 3b
     host_runs = phase_train_gat(H, torch)  # phase 6
-    phase_train_gat_compiled(H, torch, host_runs)  # phase 6b
+    trained = phase_train_gat_compiled(H, torch, host_runs)  # phase 6b
     gcn_ref = phase_train_gcn(H, torch)  # phase 7
     phase_train_gcn_compiled(H, torch, gcn_ref)  # phase 7b
     phase_serve_lm(H, torch, "codeqwen1.5-7b", "flash_attention_kernel")  # phase 8
     torch.cuda.empty_cache()
     phase_serve_lm(H, torch, "mamba2-130m", "ssd_kernel")  # phase 9
+    torch.cuda.empty_cache()
+    phase_zoo(H, torch)  # phase 10
+    phase_sign(H, torch)  # phase 11
+    phase_checkpoint(H, torch, trained)  # phase 12
+    phase_auto(H, torch)  # phase 13
 
     kernels = []
     for name, replaces in REPLACES.items():

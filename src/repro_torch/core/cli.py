@@ -4,10 +4,9 @@ Counterpart of ``repro.core.cli``: ``add_pipeline_args`` declares the flag
 set on a parser and ``PipelineCLIConfig`` is the parsed bundle with its
 ``gpipe_config()`` translation. The flag names and spellings are the JAX
 package's, so its command lines carry over; ``--device`` (default
-``cuda``) is new. Flags whose machinery is not ported yet (``--auto``,
-``--partition profiled``, ``--data-parallel``, ``--overlap``, ``--backend
-dense``) are declared and raise by name, with their ROADMAP queue 1 item,
-when set.
+``cuda``) is new. ``--data-parallel`` and ``--overlap``, whose machinery is
+not ported yet, are declared and raise by name, with their ROADMAP queue 1
+item, when set.
 """
 
 from __future__ import annotations
@@ -64,19 +63,29 @@ def add_pipeline_args(
                     help="interleaved/zb-v: devices the timeline places stages on "
                          "(virtual stages = stages/devices; default 2)")
     ap.add_argument("--partition", default="uniform", choices=list(PARTITION_CHOICES),
-                    help="stage balance: layer-count split ('profiled' not ported yet)")
+                    help="stage balance: layer-count split or the cost-model partitioner "
+                         "(profiles per-layer fwd/B/W on a padded chunk on the device, "
+                         "minimizes the schedule's weighted makespan)")
     ap.add_argument("--placement", default=None,
                     help="stage->device ring placement as comma ints, e.g. '1,2,3,0'")
     ap.add_argument("--backend", default=backend, choices=list(BACKEND_CHOICES),
-                    help="aggregation: plain padded gathers, or the hand-written CUDA "
-                         "kernels over the degree-bucketed layout ('pallas' is an "
-                         "alias of 'kernel'; 'dense' not ported yet)")
+                    help="aggregation: plain padded gathers, a dense masked adjacency, "
+                         "or the hand-written CUDA kernels over the degree-bucketed "
+                         "layout ('pallas' is an alias of 'kernel')")
     ap.add_argument("--data-parallel", type=int, default=1, help="not ported yet")
     ap.add_argument("--overlap", default="off", choices=list(OVERLAP_CHOICES),
                     help="not ported yet")
-    ap.add_argument("--auto", action="store_true", help="not ported yet")
-    ap.add_argument("--auto-budget", type=int, default=None, help="not ported yet")
-    ap.add_argument("--dry-run", action="store_true", help="not ported yet (with --auto)")
+    ap.add_argument("--auto", action="store_true",
+                    help="self-tuning planner (core.autotune.plan_pipeline): profile "
+                         "per-layer costs once, enumerate schedule x chunks x balance x "
+                         "placement, pick the argmin predicted step time; overrides "
+                         "--schedule/--chunks/--partition/--placement")
+    ap.add_argument("--auto-budget", type=int, default=None,
+                    help="cap on the candidate configurations --auto evaluates "
+                         "(ranked enumeration order; default: exhaustive)")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="with --auto: print the ranked candidate table and exit "
+                         "without training or serving")
     ap.add_argument("--device", default="cuda",
                     help="device to run on: cuda (default; raises without a card) or cpu")
     return ap
@@ -103,13 +112,8 @@ class PipelineCLIConfig:
 
     def __post_init__(self):
         not_ported = {  # flag -> (set?, ROADMAP queue 1 item)
-            "--auto": (self.auto, 10),
-            "--auto-budget": (self.auto_budget is not None, 10),
-            "--dry-run": (self.dry_run, 10),
-            "--partition profiled": (self.partition != "uniform", 10),
             "--data-parallel": (self.data_parallel != 1, 12),
             "--overlap": (self.overlap != "off", 13),
-            "--backend dense": (self.backend == "dense", 5),
         }
         named = [f"{flag} (item {item})" for flag, (is_set, item) in not_ported.items() if is_set]
         if named:

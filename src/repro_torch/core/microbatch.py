@@ -11,8 +11,9 @@ into a list of ``MicroBatch`` items, each a self-contained sub-graph plus a
   * ``greedy``     — edge-cut-aware partitioner (METIS stand-in).
   * ``halo``       — chunks carry their k-hop halo; aggregation is exact, so
     the accumulated gradient equals the full batch's.
-  * ``sign``       — SIGN precompute; raises here as in the JAX package
-    (``graphs/sign.py`` comes with a later slice).
+  * ``sign``       — SIGN precompute turns the model into an MLP over
+    diffused features (``repro_torch.graphs.sign``); ``make_plan`` refuses
+    it, as the JAX package does.
 
 Sub-graph construction runs in numpy on the host and is charged to
 ``rebuild_seconds`` (the paper's Fig 3 overhead).
@@ -113,10 +114,7 @@ def make_plan(
     if strategy not in STRATEGIES:
         raise KeyError(f"unknown strategy {strategy!r}; have {STRATEGIES}")
     if strategy == "sign":
-        raise ValueError(
-            "sign microbatching needs graphs/sign.py, which is not ported yet "
-            "(see ROADMAP queue 1, item 4)"
-        )
+        raise ValueError("sign microbatching is handled by repro_torch.graphs.sign (dense rows)")
 
     t0 = time.perf_counter()
     if strategy == "random":

@@ -89,8 +89,8 @@ class GPipeConfig:
     # rotations); validated at engine construction, relabels the timeline
     placement: Placement | None = None
     engine: str = "host"  # "host" | "compiled"; consumed by make_engine
-    # aggregation layout fed to the stages: "padded" feeds the padded
-    # batches; "kernel" ("pallas") feeds the degree-bucketed layout
+    # aggregation layout fed to the stages: "padded" and "dense" feed the
+    # padded batches; "kernel" ("pallas") feeds the degree-bucketed layout
     # (``bucketize_stacked``). Must match the backend the model was built with.
     backend: str = "padded"
     device: str = "cuda"
@@ -794,12 +794,22 @@ class CompiledGNNPipeline(PipelineEngine):
 ENGINES = {"host": GPipe, "compiled": CompiledGNNPipeline}
 
 
-def make_engine(model: GNNModel, config: GPipeConfig) -> PipelineEngine:
+def make_engine(model: GNNModel, config) -> PipelineEngine:
     """Engine factory, selected by ``config.engine``: ``host`` (the GPipe
     queue loop) or ``compiled`` (one program per step; one CUDA-graph replay
-    on a card)."""
+    on a card). ``config`` is a ``GPipeConfig`` or a planner
+    ``PipelinePlan`` (``repro_torch.core.autotune``), which converts through
+    its own ``to_config()``, so an ``--auto`` pick replays on either
+    engine."""
+    from repro_torch.core.autotune import PipelinePlan  # autotune imports this module
+
+    if isinstance(config, PipelinePlan):
+        config = config.to_config()
     if not isinstance(config, GPipeConfig):
-        raise TypeError(f"make_engine(model, config) expects a GPipeConfig, got {type(config).__name__}")
+        raise TypeError(
+            f"make_engine(model, config) expects a GPipeConfig or a PipelinePlan, "
+            f"got {type(config).__name__}"
+        )
     try:
         cls = ENGINES[config.engine]
     except KeyError:

@@ -20,7 +20,9 @@ for the device, so latency covers the device work. Under ``--backend
 kernel`` every GAT aggregation runs the hand-written CUDA kernel. Under
 ``--engine compiled`` (the default) each node-count bucket's eval program
 is one CUDA graph, captured at warmup: a call copies the batch into the
-bucket's static inputs and replays it.
+bucket's static inputs and replays it. ``--auto`` serves on the plan the
+planner ranks first (``--dry-run`` prints the ranking and stops) and
+``--partition profiled`` on the measured balance, as in training.
 
 The driver reports achieved queries/s, p50/p99 latency (completion minus
 scheduled arrival, queueing included) and per-bucket batch occupancy; with
@@ -309,19 +311,46 @@ def verify_results(
 def run(args) -> dict:
     """Serve ``args.qps`` × ``args.duration`` synthetic queries; returns the
     summary dict."""
-    from repro_torch.core.cli import PipelineCLIConfig
+    from repro_torch.core.cli import PipelineCLIConfig, resolve_device
     from repro_torch.core.pipeline import make_engine
     from repro_torch.graphs import load_dataset
+    from repro_torch.models.gnn.layers import canonical_backend
     from repro_torch.models.gnn.net import build_paper_gat
 
     cli = PipelineCLIConfig.from_args(args)
-    engine_config = cli.gpipe_config()  # resolves --device: raises with no card
+    device = resolve_device(cli.device)  # raises with no card
     g = load_dataset(args.dataset, seed=args.seed)
-    # serving is forward-only (train=False), so the kernel backend's
-    # attn-dropout restriction never triggers and the paper rate can stay
-    model = build_paper_gat(g.num_features, g.num_classes, backend=args.backend)
+    # serving is forward-only (train=False) and never applies attention
+    # dropout; under the kernel backend the rate is set to 0 all the same,
+    # because the planner's profile (--auto, --partition profiled) trains
+    # the layers and the fused kernel refuses attention dropout in training
+    kw = {"attn_dropout": 0.0} if canonical_backend(args.backend) == "kernel" else {}
+    model = build_paper_gat(g.num_features, g.num_classes, backend=args.backend, **kw)
     params = model.init_params(args.seed)
-    engine = make_engine(model, engine_config)
+    if cli.auto:
+        # serving shares the planner: the pick's schedule/chunks/balance/
+        # placement configure the engine whose eval programs serve traffic
+        from repro_torch.core.autotune import plan_for_cli
+
+        auto_plan = plan_for_cli(model, g, cli, seed=args.seed)
+        print(auto_plan.format_table(limit=10))
+        if cli.dry_run:
+            return {"mode": "auto-dry-run", "schedule": auto_plan.schedule,
+                    "chunks": auto_plan.chunks, "balance": list(auto_plan.balance)}
+        cli = dataclasses.replace(cli, schedule=auto_plan.schedule, chunks=auto_plan.chunks,
+                                  stages=auto_plan.num_stages, partition="auto")
+        balance = auto_plan.balance
+        engine = make_engine(model, auto_plan)
+    else:
+        if cli.partition == "profiled":
+            from repro_torch.core.microbatch import make_plan
+            from repro_torch.launch.train import profiled_balance
+
+            chunk = make_plan(g, cli.chunks).stacked().graph.chunk(0).to(device)
+            balance = profiled_balance(model, chunk, cli, seed=args.seed)
+        else:
+            balance = cli.uniform_balance()
+        engine = make_engine(model, cli.gpipe_config(balance))
     buckets = ShapeBuckets.geometric(g, base=args.bucket_base)
     server = GNNServer(engine, params, g, hops=args.hops, buckets=buckets)
 
@@ -357,6 +386,8 @@ def run(args) -> dict:
         "schedule": cli.schedule,
         "chunks": cli.chunks,
         "stages": cli.stages,
+        "partition": cli.partition,
+        "balance": list(balance),
         "hops": args.hops,
         "qps": args.qps,
         "queries": n,

@@ -13,17 +13,22 @@ step (evaluated through the engine's compiled eval program over the plan,
 as the JAX launcher does). Under ``--backend pallas``/``kernel`` the GAT aggregation
 runs the hand-written CUDA kernel (the bucket kernel on the pipeline's
 degree-bucketed chunks, the padded one in the full-graph eval), with
-attention dropout off. It prints the JAX launcher's result dict and runs on
-``cuda`` unless ``--device cpu`` is given; with no card it raises.
+attention dropout off; ``--backend dense`` aggregates over a masked (n, n)
+adjacency. ``--partition profiled`` measures each layer's cost on the card
+and picks the balance that minimizes the schedule's predicted step;
+``--auto`` plans schedule, chunks, balance and placement at once
+(``--dry-run`` prints the ranked table and stops). It prints the JAX
+launcher's result dict and runs on ``cuda`` unless ``--device cpu`` is
+given; with no card it raises.
 
 Not ported yet, and raising by name: streamed datasets (ROADMAP queue 1,
-item 12), ``--auto`` and ``--partition profiled`` (item 10), ``--backend
-dense`` (item 5), ``--mode lm`` (item 16).
+item 12), ``--mode lm`` (item 16).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -78,20 +83,102 @@ def run_gnn(args) -> dict:
         print(out)
         return out
 
+    if cli.auto:
+        # self-tuning planner: profile -> enumerate -> predict -> pick; the
+        # pick overrides --schedule/--chunks/--partition/--placement
+        from repro_torch.core.autotune import plan_for_cli
+
+        auto_plan = plan_for_cli(
+            model, host_graph, cli,
+            strategy=args.strategy,
+            seed=args.seed,
+            cache_path=getattr(args, "cost_cache", None),
+            costs_by_chunks=getattr(args, "costs_by_chunks", None),
+        )
+        if auto_plan.costs is not None:
+            _print_costs(auto_plan.costs, f"chunks={auto_plan.chunks}")
+        print(auto_plan.format_table(limit=10))
+        if cli.dry_run:
+            out = {
+                "mode": "auto-dry-run",
+                "schedule": auto_plan.schedule,
+                "chunks": auto_plan.chunks,
+                "balance": list(auto_plan.balance),
+                "predicted_step_s": auto_plan.predicted_step_s,
+                "evaluated": auto_plan.evaluated,
+                # the pick's per-layer costs (seconds per chunk)
+                "layer_costs": auto_plan.costs.table() if auto_plan.costs else None,
+            }
+            print(out)
+            return out
+        cli = dataclasses.replace(cli, schedule=auto_plan.schedule, chunks=auto_plan.chunks,
+                                  partition="auto")
+        plan = make_plan(host_graph, auto_plan.chunks, strategy=args.strategy, halo_hops=2,
+                         seed=args.seed)
+        pipe = make_engine(model, auto_plan)
+        _log_engine(cli, device, plan, pipe, auto_plan.balance,
+                    f" predicted_step={auto_plan.predicted_step_s * 1e3:.2f}ms")
+        return _train_pipeline(args, g, model, plan, pipe, cli=cli, balance=auto_plan.balance,
+                               predicted_step_s=auto_plan.predicted_step_s)
+
     plan = make_plan(host_graph, args.chunks, strategy=args.strategy, halo_hops=2, seed=args.seed)
-    balance = cli.uniform_balance()
+    if cli.partition == "profiled":
+        balance = profiled_balance(
+            model, plan.stacked().graph.chunk(0).to(device), cli, seed=args.seed,
+            cost_cache=getattr(args, "cost_cache", None),
+            layer_costs=getattr(args, "layer_costs", None),
+        )
+    else:
+        balance = cli.uniform_balance()
     pipe = make_engine(model, cli.gpipe_config(balance))
-    print(f"[gnn] engine={cli.engine} device={device} stages={args.stages} chunks={args.chunks} "
-          f"strategy={plan.strategy} schedule={cli.schedule} balance={balance} "
-          f"edge_cut={plan.edge_cut:.3f} rebuild_s={plan.rebuild_seconds:.3f} "
-          f"bubble={pipe.describe()['bubble_fraction']:.2f}")
+    _log_engine(cli, device, plan, pipe, balance)
     return _train_pipeline(args, g, model, plan, pipe, cli=cli, balance=balance)
 
 
-def _train_pipeline(args, g, model, plan, pipe, *, cli, balance) -> dict:
+def profiled_balance(model, chunk, cli, *, seed=0, cost_cache=None, layer_costs=None):
+    """``--partition profiled``: the contiguous balance over ``cli.stages``
+    that minimizes the schedule's predicted step under per-layer fwd/B/W
+    costs measured on ``chunk`` (one padded chunk, the shape the engines
+    dispatch per tick, on the device), or under ``layer_costs`` when a
+    caller hands them in. Prints the cost table and the pick."""
+    from repro_torch.core.costmodel import cached_profile_layer_costs, choose_balance
+    from repro_torch.core.schedule import get_schedule
+
+    costs = layer_costs
+    if costs is None:
+        costs = cached_profile_layer_costs(
+            model, model.init_params(seed, device=chunk.features.device), chunk,
+            backend=cli.backend, cache_path=cost_cache,
+        )
+    balance, predicted = choose_balance(
+        costs, cli.stages, get_schedule(cli.schedule, num_devices=cli.resolved_pipe_devices),
+        cli.chunks,
+    )
+    _print_costs(costs)
+    print(f"[gnn] profiled balance={balance} predicted_step={predicted * 1e3:.2f}ms")
+    return balance
+
+
+def _print_costs(costs, label=""):
+    print(f"[gnn] per-layer profile (ms/chunk{', ' + label if label else ''}):")
+    for row in costs.table():
+        print(f"  {row['layer']:2d} {row['name']:<14s} "
+              f"fwd {row['fwd_s'] * 1e3:7.3f}  B {row['bwd_b_s'] * 1e3:7.3f}  "
+              f"W {row['bwd_w_s'] * 1e3:7.3f}")
+
+
+def _log_engine(cli, device, plan, pipe, balance, extra=""):
+    print(f"[gnn] engine={cli.engine} device={device} stages={len(balance)} chunks={plan.chunks} "
+          f"strategy={plan.strategy} schedule={cli.schedule} balance={balance} "
+          f"edge_cut={plan.edge_cut:.3f} rebuild_s={plan.rebuild_seconds:.3f} "
+          f"bubble={pipe.describe()['bubble_fraction']:.2f}{extra}")
+
+
+def _train_pipeline(args, g, model, plan, pipe, *, cli, balance, predicted_step_s=None) -> dict:
     """Epochs over ``pipe.train_step`` with the full-graph ``make_eval`` (the
     compiled engine: its eval program over the plan's core nodes), and the
-    result dict the JAX launcher prints."""
+    result dict the JAX launcher prints (with ``predicted_step_s`` for an
+    ``--auto`` plan)."""
     from repro_torch.models.gnn.net import fold_in
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.loop import make_eval, synchronize
@@ -125,7 +212,7 @@ def _train_pipeline(args, g, model, plan, pipe, *, cli, balance) -> dict:
         "schedule": cli.schedule,
         "partition": cli.partition,
         "balance": list(balance),
-        "chunks": args.chunks,
+        "chunks": plan.chunks,
         "edge_cut": plan.edge_cut,
         "bubble_fraction": sched_stats.get("bubble_fraction"),
         "peak_live_activations": sched_stats.get("measured_peak_live_activations"),
@@ -142,6 +229,8 @@ def _train_pipeline(args, g, model, plan, pipe, *, cli, balance) -> dict:
         "epoch_losses": losses,
         "device": str(pipe.device),
     }
+    if predicted_step_s is not None:
+        out["predicted_step_s"] = predicted_step_s
     print(out)
     return out
 

@@ -4,8 +4,9 @@
 cross-framework comparisons start from the JAX model's own init: its
 ``GNNModel.init_params`` leaves, taken as numpy arrays, become the port's
 params unchanged (same names, same shapes, float32): GAT leaves (``w``,
-``a_src``, ``a_dst``, ``b``), GCN leaves (``w``, ``b``) and the empty dicts
-of the parameter-free layers alike.
+``a_src``, ``a_dst``, ``b``), GCN leaves (``w``, ``b``), GraphConv and
+GatedGraphConv leaves and the empty dicts of the parameter-free layers
+alike.
 """
 
 from __future__ import annotations

@@ -1,18 +1,21 @@
-"""GCN and GAT layers over the padded-neighbor layout, with two aggregation
-backends.
+"""GNN layers over the padded-neighbor layout: GCN, GAT, GraphConv and
+GatedGraphConv, with three aggregation backends.
 
-Counterpart of ``repro.models.gnn.layers`` (GCN and GAT; GraphConv,
-GatedGraphConv and the ``dense`` backend are queued in ROADMAP queue 1,
-item 5). Layers are an ``init_*`` returning a dict of tensors plus a plain
-``*_layer`` function:
+Counterpart of ``repro.models.gnn.layers``. Layers are an ``init_*``
+returning a dict of tensors plus a plain ``*_layer`` function:
 
   * ``padded`` — gather neighbors along the (n, max_deg) layout with plain
     tensor ops (the reference semantics);
+  * ``dense`` — materialize a masked (n, n) adjacency and matmul; only for
+    small graphs (the reference's "second framework" analogue of the
+    paper's DGL-vs-PyG comparison);
   * ``kernel`` — the hand-written CUDA aggregation kernels through
     ``repro_torch.kernels.gat_edge.ops`` (GAT) and
     ``repro_torch.kernels.spmm.ops`` (GCN): padded layout, or the
     degree-bucketed one when the graph is a ``BucketedGraphBatch``.
     ``pallas`` is accepted as its alias so the JAX command lines carry over.
+    GraphConv and GatedGraphConv have no kernel (nor has the reference):
+    under ``kernel`` they take the padded gathers.
 
 The GAT layer follows the paper §2.1 / Veličković et al.: ``alpha_ij ∝
 exp(LeakyReLU(a^T [Wh_i || Wh_j]))`` with multi-head concat or average,
@@ -29,11 +32,12 @@ from repro_torch.graphs.data import BucketedGraphBatch, GraphBatch
 
 _NEG_INF = -1e9
 
-BACKEND_ALIASES = {"padded": "padded", "kernel": "kernel", "pallas": "kernel"}
+BACKEND_ALIASES = {"padded": "padded", "dense": "dense", "kernel": "kernel", "pallas": "kernel"}
 
 
 def canonical_backend(backend: str) -> str:
-    """``padded`` or ``kernel`` (``pallas`` is an alias of ``kernel``)."""
+    """``padded``, ``dense`` or ``kernel`` (``pallas`` is an alias of
+    ``kernel``)."""
     try:
         return BACKEND_ALIASES[backend]
     except KeyError:
@@ -62,6 +66,32 @@ def dropout(
     return torch.where(keep.to(x.device), x / (1.0 - rate), torch.zeros_like(x))
 
 
+def _scatter_max(g: GraphBatch, values: torch.Tensor) -> torch.Tensor:
+    """(n, n) matrix whose [i, j] entry is the largest of ``values[i, d]``
+    over the slots d of row i that point at j, and 0 where none does: the
+    reference's ``zeros.at[rows, neighbors].max(values)``. Padding slots all
+    point at row 0, so duplicates exist and the max decides them;
+    ``scatter_reduce(amax)`` does so deterministically and without a host
+    sync, so a CUDA graph can capture it."""
+    n = g.num_nodes
+    nbr = g.neighbors.long()
+    rows = torch.arange(n, device=nbr.device)[:, None]
+    flat = (rows * n + nbr).reshape(-1)
+    out = torch.zeros(n * n, dtype=values.dtype, device=values.device)
+    out = out.scatter_reduce(0, flat, values.reshape(-1), reduce="amax", include_self=True)
+    return out.reshape(n, n)
+
+
+def _dense_adj(g: GraphBatch) -> torch.Tensor:
+    """Masked (n, n) bool adjacency (with self-loops) from the padded layout."""
+    return _scatter_max(g, g.mask.to(torch.float32)) > 0
+
+
+def _dense_norm(g: GraphBatch) -> torch.Tensor:
+    """(n, n) symmetric-normalized adjacency from the padded layout."""
+    return _scatter_max(g, g.norm)
+
+
 def init_gcn(in_dim: int, out_dim: int, *, generator: torch.Generator | None = None) -> dict:
     """Params with the JAX package's shapes: ``w`` (in, out), ``b`` (out,)."""
     return {"w": glorot((in_dim, out_dim), generator), "b": torch.zeros((out_dim,))}
@@ -73,7 +103,9 @@ def gcn_layer(
     """H' = Â H W + b with symmetric normalization (Kipf & Welling)."""
     backend = canonical_backend(backend)
     hw = h @ params["w"]
-    if backend == "kernel":
+    if backend == "dense":
+        agg = _dense_norm(g) @ hw
+    elif backend == "kernel":
         from repro_torch.kernels.spmm.ops import bucketed_spmm, padded_spmm
 
         if isinstance(g, BucketedGraphBatch):
@@ -129,7 +161,7 @@ def gat_layer(
         raise ValueError(
             "kernel GAT backend is deterministic and cannot apply attention "
             f"dropout (attn_dropout={attn_dropout}) during training; set "
-            "attn_dropout=0.0 or use the 'padded' backend"
+            "attn_dropout=0.0 or use the 'padded'/'dense' backend"
         )
     heads, _, out_dim = params["w"].shape
     hw = torch.einsum("nf,hfo->nho", h, params["w"])  # (n, H, F')
@@ -146,6 +178,15 @@ def gat_layer(
             )
         else:
             out = gat_aggregate(hw, s_src, s_dst, g.neighbors, g.mask, negative_slope)
+    elif backend == "dense":
+        adj = _dense_adj(g)[..., None]  # (n, n, 1)
+        scores = torch.nn.functional.leaky_relu(
+            s_src[:, None, :] + s_dst[None, :, :], negative_slope
+        )  # (n, n, H)
+        scores = scores.masked_fill(~adj, _NEG_INF)
+        alpha = torch.softmax(scores, dim=1) * adj
+        alpha = dropout(alpha, attn_dropout, generator, train)
+        out = torch.einsum("njh,jho->nho", alpha, hw)
     else:
         nbr = g.neighbors.long()
         mask = g.mask[..., None]
@@ -161,3 +202,69 @@ def gat_layer(
     if concat:
         return out.reshape(out.shape[0], heads * out_dim)
     return out.mean(dim=1)
+
+
+# ---------------------------------------------------------- GraphConv ----
+
+
+def init_graph_conv(
+    in_dim: int, out_dim: int, *, generator: torch.Generator | None = None
+) -> dict:
+    """Params with the JAX package's shapes: ``w_self``, ``w_nbr`` (in,
+    out), ``b`` (out,)."""
+    return {
+        "w_self": glorot((in_dim, out_dim), generator),
+        "w_nbr": glorot((in_dim, out_dim), generator),
+        "b": torch.zeros((out_dim,)),
+    }
+
+
+def graph_conv_layer(
+    params: dict, g: GraphBatch, h: torch.Tensor, *, backend: str = "padded"
+) -> torch.Tensor:
+    """GraphConv (Morris et al.): H' = H W1 + (A H) W2 + b (no self in A)."""
+    if canonical_backend(backend) == "dense":
+        eye = torch.eye(g.num_nodes, dtype=torch.bool, device=h.device)
+        agg = (_dense_adj(g) & ~eye).to(h.dtype) @ h
+    else:
+        nbr_mask = g.mask.clone()
+        nbr_mask[:, 0] = False  # slot 0 is the self-loop
+        agg = torch.einsum("nd,ndf->nf", nbr_mask.to(h.dtype), h[g.neighbors.long()])
+    return h @ params["w_self"] + agg @ params["w_nbr"] + params["b"]
+
+
+# ----------------------------------------------------- GatedGraphConv ----
+
+
+def init_gated_graph_conv(dim: int, *, generator: torch.Generator | None = None) -> dict:
+    """Params with the JAX package's shapes; five independent draws (the
+    GRU candidate's input and recurrent projections differ at init)."""
+    return {
+        "w_msg": glorot((dim, dim), generator),
+        "w_zr": glorot((dim, 2 * dim), generator),
+        "u_zr": glorot((dim, 2 * dim), generator),
+        "w_h": glorot((dim, dim), generator),
+        "u_h": glorot((dim, dim), generator),
+    }
+
+
+def gated_graph_conv_layer(
+    params: dict, g: GraphBatch, h: torch.Tensor, *, steps: int = 3, backend: str = "padded"
+) -> torch.Tensor:
+    """GatedGraphConv (Li et al. 2015): GRU state updates over aggregated
+    messages for ``steps`` propagation steps (the reference's ``lax.scan``
+    as a Python loop)."""
+    if canonical_backend(backend) == "dense":
+        adj = _dense_adj(g).to(h.dtype)
+        aggregate = lambda msg: adj @ msg  # noqa: E731
+    else:
+        nbr_mask, nbr = g.mask.to(h.dtype), g.neighbors.long()
+        aggregate = lambda msg: torch.einsum("nd,ndf->nf", nbr_mask, msg[nbr])  # noqa: E731
+    state = h
+    for _ in range(steps):
+        agg = aggregate(state @ params["w_msg"])
+        zr = torch.sigmoid(agg @ params["w_zr"] + state @ params["u_zr"])
+        z, r = zr.chunk(2, dim=-1)
+        cand = torch.tanh(agg @ params["w_h"] + (r * state) @ params["u_h"])
+        state = (1.0 - z) * state + z * cand
+    return state

@@ -2,8 +2,8 @@
 layer sequences.
 
 Counterpart of ``repro.models.gnn.net`` (``SeqLayer``, ``GNNModel``,
-``build_paper_gat``, ``build_gnn`` for ``gat``/``gcn``,
-``build_imbalanced_gcn`` and the compiled engine's params-explicit stage
+``build_paper_gat``, ``build_gnn`` for ``gat``/``gcn``/``graphconv``/
+``gatedgraphconv``, ``build_imbalanced_gcn`` and the compiled engine's params-explicit stage
 slices, ``make_gnn_stage_slices`` and its split-backward halves
 ``make_gnn_stage_slices_bw``). The paper model (§6):
 
@@ -129,6 +129,22 @@ def _gcn_seq_layer(name: str, in_dim: int, out_dim: int, *, backend: str) -> Seq
     )
 
 
+def _graph_conv_seq_layer(name: str, in_dim: int, out_dim: int, *, backend: str) -> SeqLayer:
+    return SeqLayer(
+        name,
+        lambda gen: L.init_graph_conv(in_dim, out_dim, generator=gen),
+        lambda p, g, h, key, train: L.graph_conv_layer(p, g, h, backend=backend),
+    )
+
+
+def _gated_graph_conv_seq_layer(name: str, dim: int, *, backend: str) -> SeqLayer:
+    return SeqLayer(
+        name,
+        lambda gen: L.init_gated_graph_conv(dim, generator=gen),
+        lambda p, g, h, key, train: L.gated_graph_conv_layer(p, g, h, backend=backend),
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class GNNModel:
     """A sequential GNN: its layers and the model's input/output widths."""
@@ -222,21 +238,26 @@ def build_gnn(
     backend: str = "padded",
 ) -> GNNModel:
     """Generic builder in the same sequential form: ``gat`` (the paper
-    model) and ``gcn`` (``depth`` GCN layers of width ``hidden`` with ELU
-    between them). GraphConv and GatedGraphConv are not ported yet."""
+    model), or ``depth`` layers of width ``hidden`` with ELU between them of
+    ``gcn``, ``graphconv`` or ``gatedgraphconv`` (a GCN projection
+    ``proj_i`` ahead of each GatedGraphConv whose width changes)."""
     if kind == "gat":
         return build_paper_gat(num_features, num_classes, backend=backend)
-    if kind in ("graphconv", "gatedgraphconv"):
-        raise NotImplementedError(
-            f"GNN kind {kind!r} is not ported to repro_torch yet (ROADMAP queue 1, item 5)"
-        )
-    if kind != "gcn":
-        raise KeyError(f"unknown GNN kind {kind!r}")
     L.canonical_backend(backend)
     layers: list[SeqLayer] = []
     dims = [num_features] + [hidden] * (depth - 1) + [num_classes]
     for i in range(depth):
-        layers.append(_gcn_seq_layer(f"gcn_{i}", dims[i], dims[i + 1], backend=backend))
+        din, dout = dims[i], dims[i + 1]
+        if kind == "gcn":
+            layers.append(_gcn_seq_layer(f"gcn_{i}", din, dout, backend=backend))
+        elif kind == "graphconv":
+            layers.append(_graph_conv_seq_layer(f"graphconv_{i}", din, dout, backend=backend))
+        elif kind == "gatedgraphconv":
+            if din != dout:
+                layers.append(_gcn_seq_layer(f"proj_{i}", din, dout, backend=backend))
+            layers.append(_gated_graph_conv_seq_layer(f"ggc_{i}", dout, backend=backend))
+        else:
+            raise KeyError(f"unknown GNN kind {kind!r}")
         if i < depth - 1:
             layers.append(_elu_layer())
     layers.append(_log_softmax_layer())

@@ -601,3 +601,108 @@ def test_compiled_replays_redraw_the_host_masks_on_card(cuda, schedule):
     assert all(torch.equal(a[k], b[k]) for a, b in zip(hp, cp) for k in a)
     assert all(torch.equal(evals[0][k], e[k]) for e in evals[1:] for k in evals[0])
     assert comp.graphs_captured == 1  # one eval graph, replayed twice
+
+
+# ------------------------- the zoo, dense, SIGN, checkpoints, the planner --
+
+
+def _zoo_model(kind, backend):
+    g = load_dataset("karate")
+    if kind == "gat":
+        return g, build_paper_gat(g.num_features, g.num_classes, backend=backend)
+    return g, build_gnn(kind, g.num_features, g.num_classes, hidden=16, backend=backend)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind, backend", [
+    ("graphconv", "padded"), ("gatedgraphconv", "kernel"), ("gat", "dense"),
+])
+def test_zoo_compiled_replays_equal_host_on_card(cuda, kind, backend):
+    """GraphConv, GatedGraphConv (its projections on the SpMM kernel) and
+    the dense GAT with dropout on: compiled replays bit-identical to the
+    host fill-drain steps under deterministic algorithms."""
+    from repro_torch.core.costmodel import uniform_balance
+
+    g, model = _zoo_model(kind, backend)
+    plan = make_plan(g, 4, strategy="halo")
+    balance = uniform_balance(len(model.layers), 4)
+    opt = topt.adam(5e-3, weight_decay=5e-4)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for engine in ("host", "compiled"):
+            eng = make_engine(model, GPipeConfig(balance=balance, chunks=4, engine=engine,
+                                                 backend=backend, device="cuda"))
+            runs[engine] = _steps(eng, model, plan, opt, (31, 32, 33), cuda)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (hp, hl), (cp, cl) = runs["host"], runs["compiled"]
+    assert all(torch.equal(a, b) for a, b in zip(hl, cl))
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(hp, cp) for k in a)
+    assert all(torch.isfinite(v).all() for p in cp for v in p.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gat", "gcn", "graphconv", "gatedgraphconv"])
+def test_dense_backend_matches_padded_on_card(cuda, kind):
+    """Dropout 0 (the two backends draw masks of different shapes): loss and
+    each gradient leaf within 1e-5 of that leaf's largest entry."""
+    g = load_dataset("karate").to(cuda)
+    grads = {}
+    for backend in ("padded", "dense"):
+        if kind == "gat":
+            m = build_paper_gat(g.num_features, g.num_classes, backend=backend,
+                                feat_dropout=0.0, attn_dropout=0.0)
+        else:
+            m = build_gnn(kind, g.num_features, g.num_classes, hidden=16, backend=backend)
+        leaves = topt.requires_grad_leaves(m.init_params(0, device=cuda))
+        logp = m.apply(leaves, g)
+        loss = -(logp[g.train_mask].gather(1, g.labels[g.train_mask].long()[:, None])).mean()
+        grads[backend] = (loss.detach(), topt.tree_grad(loss, leaves))
+    (lp, gp), (ld, gd) = grads["padded"], grads["dense"]
+    assert abs(float(lp - ld)) <= 1e-5 * max(1.0, abs(float(lp)))
+    for a, b in zip(topt.tree_leaves(gd), topt.tree_leaves(gp)):
+        assert float((a - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+def test_sign_on_card_matches_cpu_and_checkpoint_round_trips(cuda, tmp_path):
+    from repro_torch.graphs.sign import as_sign_graph
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint, tree_like
+
+    g = load_dataset("cora")
+    got, want = as_sign_graph(g.to(cuda), hops=2).features.cpu(), as_sign_graph(g).features
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    m = build_paper_gat(g.num_features, g.num_classes)
+    params = m.init_params(0, device=cuda)
+    state = topt.adam(5e-3).init(params)
+    tree = {"params": params, "opt": state}
+    save_checkpoint(str(tmp_path), tree, step=5)
+    loaded, meta = load_checkpoint(str(tmp_path), device=cuda)
+    back = tree_like(tree, loaded)
+    assert meta["step"] == 5 and back["opt"].step.device.type == "cuda"
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(params, back["params"]) for k in a)
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(state.mu, back["opt"].mu) for k in a)
+
+
+@pytest.mark.gpu
+def test_planner_profiles_on_card(cuda, capsys):
+    """``--auto --dry-run`` and ``--partition profiled`` on the card: every
+    layer timed, the ranked table printed, the picked balance trained."""
+    from repro_torch.core.costmodel import profile_fingerprint, profile_layer_costs
+    from repro_torch.launch import train as tlaunch
+
+    g = load_dataset("karate")
+    chunk = make_plan(g, 2).stacked().graph.chunk(0).to(cuda)
+    m = build_paper_gat(g.num_features, g.num_classes, backend="kernel", attn_dropout=0.0)
+    params = m.init_params(0, device=cuda)
+    costs = profile_layer_costs(m, params, chunk, repeats=2, warmup=1)
+    assert all(t > 0 for t in costs.fwd + costs.bwd + costs.bwd_b + costs.bwd_w)
+    assert profile_fingerprint(m, params, chunk, "kernel") != profile_fingerprint(
+        m, [{k: v.cpu() for k, v in p.items()} for p in params], chunk.to("cpu"), "kernel")
+    base = ["--dataset", "karate", "--stages", "4", "--chunks", "4", "--epochs", "2",
+            "--log-every", "0", "--backend", "kernel"]
+    out = tlaunch.main([*base, "--auto", "--dry-run"])
+    assert out["mode"] == "auto-dry-run" and "[auto] evaluated" in capsys.readouterr().out
+    out = tlaunch.main([*base, "--partition", "profiled", "--schedule", "1f1b"])
+    assert out["device"].startswith("cuda") and sum(out["balance"]) == 6

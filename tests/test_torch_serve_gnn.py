@@ -110,7 +110,7 @@ def test_kernel_backend_rejects_attention_dropout_in_training(cora):
                     generator=torch.Generator().manual_seed(0), backend="padded")
     assert out.shape == (g.num_nodes, 64)
     with pytest.raises(ValueError, match="unknown GAT backend"):
-        build_paper_gat(4, 2, backend="dense")
+        build_paper_gat(4, 2, backend="sparse")
 
 
 def test_port_init_is_seeded_and_shaped():
@@ -213,17 +213,41 @@ def test_no_card_means_raise_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("flags, name", [
-    (["--auto"], "--auto"),
-    (["--auto-budget", "5"], "--auto-budget"),
     (["--data-parallel", "2"], "--data-parallel"),
     (["--overlap", "double-buffer"], "--overlap"),
-    (["--partition", "profiled"], "--partition profiled"),
-    (["--backend", "dense"], "--backend dense"),
 ])
 def test_unported_flags_raise_by_name(flags, name):
     args = tserve.build_parser().parse_args(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match=name):
         PipelineCLIConfig.from_args(args)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--auto"],
+    ["--auto", "--auto-budget", "5", "--backend", "pallas"],
+    ["--partition", "profiled", "--backend", "kernel"],
+    ["--backend", "dense"],
+])
+def test_planner_and_dense_flags_serve_on_cpu(capsys, flags):
+    """The flags that used to raise serve karate on the CPU, every served
+    row verified against the full-graph forward: ``--auto`` on the plan it
+    ranked first (``--auto-budget`` truncating the ranking), ``--partition
+    profiled`` on its measured balance, ``--backend dense`` over a dense
+    adjacency."""
+    args = tserve.build_parser().parse_args([
+        "--dataset", "karate", "--qps", "100", "--duration", "0.1", "--verify", "--device",
+        "cpu", *flags])
+    summary = tserve.run(args)
+    printed = capsys.readouterr().out
+    assert summary["verify_mismatches"] == 0 and summary["queries"] == 10
+    assert sum(summary["balance"]) == 6 and summary["backend"] == args.backend
+    if "--auto" in flags:
+        assert summary["partition"] == "auto" and "[auto] evaluated" in printed
+        assert ("(budget-truncated)" in printed) == ("--auto-budget" in flags)
+    elif "--partition" in flags:
+        assert summary["partition"] == "profiled" and "[gnn] per-layer profile" in printed
+    else:
+        assert summary["balance"] == [2, 1, 1, 2]
 
 
 def test_compiled_engine_and_train_step_raise_with_roadmap_item():

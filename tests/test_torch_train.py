@@ -118,8 +118,8 @@ def test_build_gnn_kinds_and_layer_names():
     m = tnet.build_gnn("gcn", 10, 3, hidden=8, depth=2)
     assert [layer.name for layer in m.layers] == ["gcn_0", "elu", "gcn_1", "log_softmax"]
     assert tnet.build_gnn("gat", 10, 3).layers[1].name == "gat_0"
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tnet.build_gnn("graphconv", 10, 3)
+    assert [layer.name for layer in tnet.build_gnn("graphconv", 10, 3).layers] == [
+        "graphconv_0", "elu", "graphconv_1", "log_softmax"]
     with pytest.raises(KeyError):
         tnet.build_gnn("nope", 10, 3)
     im = tnet.build_imbalanced_gcn(10, 3)
@@ -374,11 +374,36 @@ def test_train_cli_trains_on_cpu_and_targets_cuda_by_default(capsys):
 @pytest.mark.parametrize("argv, match", [
     (["--mode", "lm"], "item 16"),
     (["--dataset", "powerlaw-64k"], "item 12"),
-    (["--partition", "profiled"], "item 10"),
-    (["--auto"], "item 10"),
-    (["--backend", "dense"], "item 5"),
+    (["--data-parallel", "2"], "item 12"),
+    (["--overlap", "double-buffer"], "item 13"),
 ])
 def test_train_cli_unported_paths_raise_by_item(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tlaunch.main(["--dataset", "karate", "--stages", "4", "--epochs", "1", "--device", "cpu",
                       *argv])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--partition", "profiled", "--schedule", "1f1b"],
+    ["--auto", "--auto-budget", "40"],
+    ["--backend", "dense"],
+])
+def test_train_cli_planner_and_dense_paths_run_on_cpu(capsys, argv):
+    """The flags that used to raise (items 5 and 10) train on the CPU:
+    ``--partition profiled`` prints its measured per-layer table and trains
+    the balance it picked, ``--auto`` the plan it ranked first, ``--backend
+    dense`` the paper GAT over a dense adjacency."""
+    out = tlaunch.main(["--dataset", "karate", "--stages", "4", "--chunks", "4", "--epochs",
+                        "2", "--log-every", "0", "--device", "cpu", *argv])
+    printed = capsys.readouterr().out
+    assert sum(out["balance"]) == 6 and len(out["balance"]) == 4
+    assert np.isfinite(out["epoch_losses"]).all() and out["device"] == "cpu"
+    if "--partition" in argv:
+        assert "[gnn] per-layer profile" in printed and out["partition"] == "profiled"
+        assert f"profiled balance={tuple(out['balance'])}" in printed
+    elif "--auto" in argv:
+        assert "[auto] evaluated 40 candidates (budget-truncated)" in printed
+        assert out["partition"] == "auto" and out["predicted_step_s"] > 0
+        assert f"pick: schedule={out['schedule']} chunks={out['chunks']}" in printed
+    else:
+        assert out["balance"] == [2, 1, 1, 2] and out["partition"] == "uniform"
