@@ -119,6 +119,26 @@ Phases; any failure stops the run with a non-zero exit:
    cora (per-layer card costs, the ranked table), ``--auto --epochs 3``
    (predicted against measured step), ``--partition profiled --schedule
    1f1b`` against uniform, ``serve_gnn --auto --dry-run``.
+14. Streamed graphs and one-card data parallelism. 14a: the paper GAT on
+   powerlaw-1m (1,048,576 nodes, 64 features, 16 classes) through
+   ``run_gnn`` (``--stages 4 --chunks 8 --backend pallas --max-degree 32
+   --engine compiled``, 2 epochs): the plan build, stack, bucketize and copy
+   seconds, the bucket widths and capacities; the bucket GAT kernel against
+   its plain version on every bucket of chunk 0 (131,072 rows) at both
+   layers' inputs, and one forward of all 8 chunks timed beside its plain
+   version and bound; one host and one compiled fill_drain step from the same
+   params bit-identical under deterministic algorithms, with each engine's
+   peak memory; 4 timed compiled steps (the first dropped), a profiled
+   step's busy share, the plain backward's index-put share, the GAT launches
+   inside the replay, the top kernels; the eval over the plan. 14b: fig3's
+   scale configuration (GCN hidden 32, depth 2, powerlaw-64k, 8 chunks,
+   balance (2, 2), 1f1b, kernel backend): 2 steps at ``data_parallel`` 1
+   and 2 and on host fill_drain bit-identical, the bucket SpMM launches in
+   a replay, the kernel against its plain version on chunk 0 and one
+   forward timed beside ``torch.sparse.mm``. 14c: 14a's chunks through
+   ``DoubleBufferedLoader``, bit for bit, the eval of chunk t beside the
+   copy of t+1; per consumer (compiled and host eval), the copies' streams,
+   pinned state, GB/s and the share of copy time that compute overlaps.
 
 The last three lines are the card's name and power limit, the ``kernels``
 JSON line, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -129,6 +149,7 @@ no result.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import gc
 import json
 import os
@@ -183,9 +204,9 @@ SOURCES = {
     "flash_attention_kernel": FLASH_SOURCE,
     "ssd_kernel": SSD_SOURCE,
 }
-REPLACES = {
-    "gat_aggregate_kernel": "src/repro/kernels/gat_edge/kernel.py:70",
-    "bucket_gat_kernel": "src/repro/kernels/gat_edge/kernel.py:164",
+REPLACES = {  # the public function of each TPU kernel (its pallas_call: PERF.md §6)
+    "gat_aggregate_kernel": "src/repro/kernels/gat_edge/kernel.py:86",
+    "bucket_gat_kernel": "src/repro/kernels/gat_edge/kernel.py:175",
     "padded_spmm_kernel": "src/repro/kernels/spmm/kernel.py:86",
     "bucket_spmm_kernel": "src/repro/kernels/spmm/kernel.py:99",
     "flash_attention_kernel": "src/repro/kernels/flash/kernel.py:74",
@@ -987,9 +1008,10 @@ def phase_train_gcn(H, torch):
 PROFILE_MARGIN_S = 0.5
 
 
-def profiled(torch, run):
+def profiled(torch, run, trace=None):
     """(wall ms, CUDA events) of ``run()`` to a device synchronize, under
-    ``torch.profiler``. The pass opens and closes ``PROFILE_MARGIN_S``
+    ``torch.profiler``; with ``trace`` a path, the pass's Chrome trace is
+    written there. The pass opens and closes ``PROFILE_MARGIN_S``
     before and after the timed work: the profiler keeps only the device
     records time-stamped inside the pass, and short passes on the card lost
     their first or all records without the margin."""
@@ -1003,6 +1025,8 @@ def profiled(torch, run):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         time.sleep(PROFILE_MARGIN_S)
+    if trace is not None:
+        prof.export_chrome_trace(str(trace))
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     return wall_ms, kernels
 
@@ -1547,6 +1571,347 @@ def phase_auto(H, torch):
     log(f"[auto] serve_gnn --auto --dry-run: pick {served} [{H.card}]")
 
 
+# ------------------------ streamed graphs and one-card data parallelism (phase 14) --
+
+STREAM_ARGS = [  # phase 14a: the paper GAT on the streamed 2^20-node graph
+    "--mode", "gnn", "--dataset", "powerlaw-1m", "--stages", "4", "--chunks", "8",
+    "--backend", "pallas", "--max-degree", "32", "--log-every", "0", "--device", "cuda",
+]
+STREAM_STEPS = 4  # timed compiled steps in phase 14a (the first is dropped)
+INDEX_PUT_KERNEL = "indexing_backward_kernel"  # the plain backward's neighbor-gather index-put
+
+
+def layout_bytes(layout) -> int:
+    from repro_torch.core.cuda_graph import tree_tensors
+
+    return sum(t.numel() * t.element_size() for t in tree_tensors(layout))
+
+
+def same_trees(torch, a, b) -> bool:
+    from repro_torch.core.cuda_graph import tree_tensors
+
+    ta, tb = tree_tensors(a), tree_tensors(b)
+    return len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def phase_streamed(H, torch):
+    """Phase 14a: the paper GAT trained on powerlaw-1m through ``run_gnn``
+    on the compiled engine, its host costs, the bucket GAT kernel against
+    its plain version on every bucket of chunk 0, one host and one compiled
+    step bit-identical, the timed compiled step and the eval over the
+    plan. Returns the plan and its host-side bucketed layout for 14c."""
+    import repro_torch.graphs as G
+    from repro_torch.core.cli import PipelineCLIConfig
+    from repro_torch.core.pipeline import make_engine
+    from repro_torch.launch.train import build_parser, run_gnn
+    from repro_torch.models.gnn.net import build_paper_gat
+    from repro_torch.train import optimizer as opt_lib
+
+    # the main path, keeping the plan run_gnn builds (built once: ~30 s of host work)
+    plans, build_plan = [], G.streamed_plan
+
+    def keep(*args, **kwargs):
+        plans.append(build_plan(*args, **kwargs))
+        return plans[-1]
+
+    G.streamed_plan = keep
+    H.K.bucket_gat_kernel.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out = run_gnn(build_parser().parse_args([*STREAM_ARGS, "--engine", "compiled",
+                                                 "--epochs", "2"]))
+    finally:
+        G.streamed_plan = build_plan
+    run_s = time.perf_counter() - t0
+    launched = H.K.bucket_gat_kernel.launches
+    (plan,) = plans
+    finite = all(x == x and abs(x) < float("inf") for x in out["epoch_losses"])
+    if out["mode"] != "gpipe-streamed" or not finite or launched == 0:
+        raise AssertionError(f"powerlaw-1m run_gnn: {out}, bucket-GAT launches {launched}")
+    H.launches["bucket_gat_kernel"] += launched
+    log(f"[streamed] run_gnn powerlaw-1m (1048576 nodes), 4 stages x 8 chunks, pallas, compiled, "
+        f"2 epochs: {run_s:.3f} s in all; plan build {plan.rebuild_seconds:.3f} s, edge_cut "
+        f"{plan.edge_cut:.6f}, first epoch {out['first_epoch_s']:.3f} s (stack, bucketize, copy, "
+        f"capture), second {out['median_epoch_s']:.6f} s, losses {out['epoch_losses']}, val_acc "
+        f"{out['val_acc']}, bucket-GAT launches (warm-up + capture + eval) {launched} [{H.card}]")
+
+    # the host costs, one at a time: stack (a fresh plan cache), bucketize, copy
+    t0 = time.perf_counter()
+    stacked = dataclasses.replace(plan).stacked()
+    stack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_layout = G.bucketize_stacked(stacked.graph)
+    bucket_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    layout = host_layout.to(H.dev)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    nbytes = layout_bytes(host_layout)
+    slots = sum(b.rows * b.width for b in layout.buckets)
+    live = [int(b.mask[0].sum()) for b in host_layout.buckets]  # chunk 0's live slots
+    log(f"[streamed] host: plan.stacked() {stack_s:.3f} s, bucketize_stacked {bucket_s:.3f} s, "
+        f"copy of the layout to the card {copy_s:.3f} s ({nbytes} B from pageable memory, "
+        f"{nbytes / copy_s / 1e9:.3f} GB/s); n_pad {stacked.n_pad}, max_deg {stacked.max_deg}, "
+        f"bucket widths {[b.width for b in layout.buckets]}, capacities "
+        f"{[b.rows for b in layout.buckets]}: {slots} slots a chunk, chunk 0 {sum(live)} live "
+        f"(per bucket {live}) and {slots - sum(live)} padding, each pointing at row 0 "
+        f"[{H.card}]")
+
+    # the kernel against its plain version on every bucket of chunk 0, both layers
+    g0 = plan.batches[0].graph
+    model = build_paper_gat(g0.num_features, g0.num_classes, backend="pallas", attn_dropout=0.0)
+    params0 = model.init_params(0, device=H.dev)
+    chunk0 = layout.chunk(0)
+    tiles = [b for b in chunk0.buckets if b.rows]
+    calls = gat_calls(torch, model, params0, chunk0, [b.neighbors for b in tiles],
+                      [b.mask for b in tiles], [b.row_node for b in tiles])
+    for i, call in enumerate(calls):
+        H.compare("bucket_gat_kernel", f"powerlaw-1m chunk 0 gat_{i // len(tiles)}", *call)
+    calls = bucket_gat_plan_calls(torch, model, params0, layout, plan.chunks)
+    H.record_timing("bucket_gat_kernel", "powerlaw-1m forward (8 chunks)", calls)
+    del calls, chunk0, tiles
+
+    # one host and one compiled fill_drain step from the same params, bit for bit
+    cli = PipelineCLIConfig.from_args(build_parser().parse_args(STREAM_ARGS))
+    config = cli.gpipe_config(cli.uniform_balance())
+    opt = opt_lib.adam(5e-3, weight_decay=5e-4)
+    steps = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in ("host", "compiled"):
+            pipe = make_engine(model, dataclasses.replace(config, engine=name))
+            t0 = time.perf_counter()
+            pipe._chunk_graphs(plan)  # the engine's layout on the card
+            torch.cuda.synchronize()
+            layout_s = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            p, _, loss = pipe.train_step(params0, opt.init(params0), plan, 1, opt)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            steps[name] = ([{k: v.clone() for k, v in layer.items()} for layer in p],
+                           loss.clone(), layout_s, step_s, peak)
+            del pipe, p
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (hp, hl, *host_s), (cp, cl, *comp_s) = steps["host"], steps["compiled"]
+    if not (torch.equal(hl, cl) and same_trees(torch, hp, cp)):
+        raise AssertionError(f"powerlaw-1m: compiled step not bit-identical to host ({hl}, {cl})")
+    log(f"[streamed] one fill_drain step, deterministic: loss {float(hl)} and every param leaf "
+        f"bit-identical, host and compiled; host engine layout {host_s[0]:.3f} s, step "
+        f"{host_s[1]:.6f} s, {host_s[2]} B beyond params and data; compiled layout "
+        f"{comp_s[0]:.3f} s, step (capture included) {comp_s[1]:.6f} s, {comp_s[2]} B beyond "
+        f"params and data [{H.card}]")
+    del steps, hp, cp
+
+    # the timed compiled steps, default algorithms, on a fresh engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = make_engine(model, dataclasses.replace(config, engine="compiled"))
+    pipe._chunk_graphs(plan)
+    med, peak, (wall, device, gat, counts) = engine_numbers(
+        H, torch, pipe, params0, opt, plan, "gat_edge_kernel", steps=STREAM_STEPS)
+    (program,) = pipe._steps.values()
+    (entry,) = program.captures.values()
+    captured = entry[1].captured.launches.get("bucket_gat_kernel", 0)
+    if gat != captured:
+        raise AssertionError(f"powerlaw-1m: {gat} GAT launches in a profiled replay, "
+                             f"{captured} captured")
+    index_put = sum(ms for key, (_, ms) in counts.items() if INDEX_PUT_KERNEL in key)
+    t0 = time.perf_counter()
+    metrics = pipe.evaluate(params0, plan)  # captures the eval graph
+    torch.cuda.synchronize()
+    first_eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = pipe.evaluate(params0, plan)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    values = {k: float(v) for k, v in metrics.items()}
+    if not all(v == v and abs(v) < float("inf") for v in values.values()):
+        raise AssertionError(f"powerlaw-1m eval: {values}")
+    log(f"[streamed] compiled fill_drain step: median {med:.6f} ms over {STREAM_STEPS - 1} "
+        f"steps, max_memory_allocated {peak[0]} B ({peak[1]} B beyond the params and data), "
+        f"profiled step wall {wall:.6f} ms device {device:.6f} ms busy {device / wall:.6f}, "
+        f"{INDEX_PUT_KERNEL} {index_put:.6f} ms ({index_put / device:.6f} of device time), "
+        f"bucket-GAT launches in the replay {gat}, graphs captured {pipe.graphs_captured}; "
+        f"eval over the plan {values}, first call {first_eval_s:.3f} s, warm call "
+        f"{eval_s * 1e3:.6f} ms [{H.card}]")
+    log_top("powerlaw-1m compiled", counts)
+    del pipe, program, entry, layout
+    gc.collect()
+    torch.cuda.empty_cache()
+    return plan, host_layout, model, params0
+
+
+def phase_data_parallel(H, torch):
+    """Phase 14b: fig3's scale configuration (the GCN at hidden 32, depth 2,
+    on powerlaw-64k at its registry size, 8 chunks, ``max_degree=32``,
+    balance (2, 2), 1f1b, compiled, kernel backend): two steps at
+    ``data_parallel`` 1 and 2 and on host fill_drain, bit for bit; the
+    bucket SpMM kernel against its plain version on chunk 0 and timed."""
+    import repro_torch.graphs as G
+    from repro_torch.core.pipeline import GPipeConfig, make_engine
+    from repro_torch.models.gnn.net import build_gnn
+    from repro_torch.train import optimizer as opt_lib
+
+    plan = G.streamed_plan(G.open_streamed("powerlaw-64k"), 8, max_degree=32)
+    g0 = plan.batches[0].graph
+    model = build_gnn("gcn", g0.num_features, g0.num_classes, hidden=32, depth=2,
+                      backend="kernel")
+    params0 = model.init_params(0, device=H.dev)
+    opt = opt_lib.adam(1e-2)
+    configs = {
+        "host fill_drain": dict(engine="host"),
+        "compiled 1f1b dp=1": dict(engine="compiled", schedule="1f1b"),
+        "compiled 1f1b dp=2": dict(engine="compiled", schedule="1f1b", data_parallel=2),
+    }
+    runs, engines = {}, {}
+    torch.use_deterministic_algorithms(True)
+    H.S.bucket_spmm_kernel.launches = 0
+    try:
+        for name, kw in configs.items():
+            pipe = make_engine(model, GPipeConfig(balance=(2, 2), chunks=plan.chunks,
+                                                  backend="kernel", device=str(H.dev), **kw))
+            p, o = params0, opt.init(params0)
+            losses = []
+            for key in (1, 2):
+                p, o, loss = pipe.train_step(p, o, plan, key, opt)
+                losses.append(loss.clone())
+            runs[name] = ([{k: v.clone() for k, v in layer.items()} for layer in p], losses)
+            engines[name] = pipe
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launched = H.S.bucket_spmm_kernel.launches
+    want_p, want_l = runs["host fill_drain"]
+    for name, (p, losses) in runs.items():
+        if not (all(torch.equal(a, b) for a, b in zip(losses, want_l))
+                and same_trees(torch, p, want_p)):
+            raise AssertionError(f"powerlaw-64k {name}: not bit-identical to host fill_drain")
+    dp = engines["compiled 1f1b dp=2"]
+    if dp._data_parallel_active or launched == 0:
+        raise AssertionError(f"data_parallel=2: active {dp._data_parallel_active}, "
+                             f"bucket-SpMM launches {launched}")
+    H.launches["bucket_spmm_kernel"] += launched
+    state = runs["compiled 1f1b dp=2"][0]
+    _, device, counts = profile_one(torch, lambda: dp.train_step(state, opt.init(state), plan,
+                                                                 3, opt))
+    in_replay = launches_named(counts, "spmm_kernel")
+    layout = dp.layout(plan.stacked().graph)
+    tiles = sum(1 for b in layout.buckets if b.rows)
+    if in_replay != 2 * 2 * tiles * plan.chunks:
+        raise AssertionError(f"data_parallel=2: {in_replay} SpMM launches in a replay")
+    log(f"[data-parallel] powerlaw-64k (65536 nodes, edge_cut {plan.edge_cut:.6f}) GCN hidden "
+        f"32 depth 2, 8 chunks, balance (2, 2), kernel backend, deterministic: losses "
+        f"{[float(x) for x in want_l]} and params bit-identical for "
+        f"{', '.join(configs)}; _data_parallel_active False; bucket-SpMM launches (warm-up + "
+        f"capture) {launched}, inside one data_parallel=2 replay {in_replay} (2 x 2 GCN layers "
+        f"x {tiles} buckets x 8 chunks), its device time {device:.6f} ms [{H.card}]")
+
+    chunk0 = layout.chunk(0)
+    bucket_tiles = [(b.neighbors, b.norm) for b in chunk0.buckets if b.rows]
+    for i, call in enumerate(gcn_calls(torch, model, params0, chunk0, bucket_tiles)):
+        H.compare_spmm("bucket_spmm_kernel", f"powerlaw-64k chunk 0 gcn_{i // len(bucket_tiles)}",
+                       *call)
+    calls = []
+    for c in range(plan.chunks):
+        chunk = layout.chunk(c)
+        calls += gcn_calls(torch, model, params0, chunk,
+                           [(b.neighbors, b.norm) for b in chunk.buckets if b.rows])
+    H.record_spmm_timing("bucket_spmm_kernel", "powerlaw-64k forward (8 chunks)", calls)
+    del engines, dp, layout, chunk0, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def copy_overlap(events) -> dict:
+    """The HtoD copies of a Chrome trace beside its compute kernels: their
+    names and streams, the kernels' streams, the copy time, the share of
+    it that some kernel overlaps, and each copy's GB/s."""
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not copies or not kernels:
+        raise AssertionError(f"loader: the trace holds {len(copies)} HtoD copies and "
+                             f"{len(kernels)} kernels")
+    merged = []  # the union of the compute intervals
+    for lo, hi in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    copy_us = sum(e["dur"] for e in copies)
+    hidden_us = sum(max(0.0, min(e["ts"] + e["dur"], hi) - max(e["ts"], lo))
+                    for e in copies for lo, hi in merged)
+    return {
+        "names": sorted({e["name"] for e in copies}),
+        "copy_streams": sorted({e["args"]["stream"] for e in copies}),
+        "kernel_streams": sorted({e["args"]["stream"] for e in kernels}),
+        "copies": len(copies),
+        "copy_ms": copy_us / 1e3,
+        "hidden_ms": hidden_us / 1e3,
+        "gbps": sorted(e["args"]["bytes"] / (e["dur"] * 1e3) for e in copies if e["dur"] > 0),
+    }
+
+
+def phase_loader(H, torch, plan, host_layout, model, params):
+    """Phase 14c: 14a's 8 chunks (each a one-chunk slice of the host
+    bucketed layout) walked onto the card through ``DoubleBufferedLoader``,
+    each arriving bit for bit, the eval forward of chunk t issued while
+    chunk t+1 copies. One ``torch.profiler`` pass per consumer reads the
+    copies' streams, pinned state, bandwidth and the share of copy time
+    that compute kernels overlap: the compiled eval (one CUDA-graph replay,
+    its batch first copied into the graph's static buffers on the compute
+    stream) and the host engine's eval (which reads the loaded chunk in
+    place)."""
+    import tempfile
+
+    from repro_torch.core.cuda_graph import map_tensors
+    from repro_torch.core.pipeline import GPipeConfig, make_engine
+    from repro_torch.graphs import DoubleBufferedLoader
+
+    items = [map_tensors(lambda t, c=c: t[c:c + 1], host_layout) for c in range(plan.chunks)]
+    loader = DoubleBufferedLoader(items, device=H.dev)
+    lines = []
+    for engine in ("compiled", "host"):
+        pipe = make_engine(model, GPipeConfig(balance=(2, 1, 1, 2), chunks=1, engine=engine,
+                                              backend="pallas", device=str(H.dev)))
+        for t, item in enumerate(loader):  # warm-up: bitwise arrival, eval graphs captured
+            logp = pipe.compile_eval(params, item)(item)
+            if not same_trees(torch, map_tensors(lambda x: x.cpu(), item), items[t]):
+                raise AssertionError(f"loader: chunk {t} did not arrive bit for bit")
+            if not bool(torch.isfinite(logp).all()):
+                raise AssertionError(f"loader: chunk {t} eval on the {engine} engine not finite")
+
+        def walk():
+            for item in loader:
+                pipe.compile_eval(params, item)(item)
+
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "loader.json"
+            wall_ms, _ = profiled(torch, walk, trace=trace)
+            o = copy_overlap(json.loads(trace.read_text())["traceEvents"])
+        if set(o["copy_streams"]) & set(o["kernel_streams"]) or not all(
+                "Pinned" in name for name in o["names"]):
+            raise AssertionError(f"loader: {o}")
+        rates = o["gbps"]
+        lines.append(
+            f"{engine} eval: {o['copies']} HtoD copies {o['names']} on streams "
+            f"{o['copy_streams']}, compute kernels on {o['kernel_streams']}; HtoD copy time "
+            f"{o['copy_ms']:.6f} ms, overlapped by compute {o['hidden_ms']:.6f} ms (share "
+            f"{o['hidden_ms'] / o['copy_ms']:.6f}); GB/s per copy min {rates[0]:.3f} median "
+            f"{statistics.median(rates):.3f} max {rates[-1]:.3f}; pass wall {wall_ms:.3f} ms")
+        del pipe
+    log("[loader] 8 powerlaw-1m chunks through DoubleBufferedLoader, each bit for bit, the eval "
+        "of chunk t issued while chunk t+1 copies; " + "; ".join(lines) + f" [{H.card}]")
+    del loader
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------- LM serving (phases 2, 5, 8, 9) --
 
 
@@ -1979,6 +2344,9 @@ def main() -> int:
     phase_sign(H, torch)  # phase 11
     phase_checkpoint(H, torch, trained)  # phase 12
     phase_auto(H, torch)  # phase 13
+    streamed = phase_streamed(H, torch)  # phase 14a
+    phase_data_parallel(H, torch)  # phase 14b
+    phase_loader(H, torch, *streamed)  # phase 14c
 
     kernels = []
     for name, replaces in REPLACES.items():
@@ -1993,7 +2361,7 @@ def main() -> int:
         })
     log("[compare] largest share of the tolerance used, per kernel: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
-    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] all 14 phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card_line}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

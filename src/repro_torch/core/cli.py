@@ -4,9 +4,8 @@ Counterpart of ``repro.core.cli``: ``add_pipeline_args`` declares the flag
 set on a parser and ``PipelineCLIConfig`` is the parsed bundle with its
 ``gpipe_config()`` translation. The flag names and spellings are the JAX
 package's, so its command lines carry over; ``--device`` (default
-``cuda``) is new. ``--data-parallel`` and ``--overlap``, whose machinery is
-not ported yet, are declared and raise by name, with their ROADMAP queue 1
-item, when set.
+``cuda``) is new. ``--overlap``, whose machinery is not ported yet, is
+declared and raises by name, with its ROADMAP queue 1 item, when set.
 """
 
 from __future__ import annotations
@@ -72,7 +71,11 @@ def add_pipeline_args(
                     help="aggregation: plain padded gathers, a dense masked adjacency, "
                          "or the hand-written CUDA kernels over the degree-bucketed "
                          "layout ('pallas' is an alias of 'kernel')")
-    ap.add_argument("--data-parallel", type=int, default=1, help="not ported yet")
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="graph-partition replicas (compiled engine): chunks split "
+                         "data_parallel ways, gradients reduced in the canonical chunk "
+                         "order, so the update is bit-identical to 1 replica; one card "
+                         "runs the single-replica program over all chunks")
     ap.add_argument("--overlap", default="off", choices=list(OVERLAP_CHOICES),
                     help="not ported yet")
     ap.add_argument("--auto", action="store_true",
@@ -111,14 +114,9 @@ class PipelineCLIConfig:
     device: str = "cuda"
 
     def __post_init__(self):
-        not_ported = {  # flag -> (set?, ROADMAP queue 1 item)
-            "--data-parallel": (self.data_parallel != 1, 12),
-            "--overlap": (self.overlap != "off", 13),
-        }
-        named = [f"{flag} (item {item})" for flag, (is_set, item) in not_ported.items() if is_set]
-        if named:
+        if self.overlap != "off":
             raise NotImplementedError(
-                f"{', '.join(named)}: not ported to repro_torch yet (see ROADMAP queue 1)"
+                "--overlap (item 13): not ported to repro_torch yet (see ROADMAP queue 1)"
             )
 
     @classmethod
@@ -163,5 +161,6 @@ class PipelineCLIConfig:
             placement=self.parsed_placement(),
             engine=self.engine,
             backend=self.backend,
+            data_parallel=self.data_parallel,
             device=str(resolve_device(self.device)),
         )

@@ -94,10 +94,15 @@ class GPipeConfig:
     # (``bucketize_stacked``). Must match the backend the model was built with.
     backend: str = "padded"
     device: str = "cuda"
-    # graph data parallelism and communication/compute overlap: the
-    # reference's compiled-engine options, not ported yet (ROADMAP queue 1,
-    # items 12 and 13); anything but 1 and "off" raises
+    # graph data parallelism (compiled engine): replicas that each pipeline a
+    # contiguous shard of the chunks, gradients reduced in the canonical
+    # global chunk order, so the update is bit-identical to one replica.
+    # Requires chunks % data_parallel == 0. One card holds one replica, so
+    # the step runs the single-replica program over all chunks, as the
+    # reference does with fewer devices than data_parallel x ring.
     data_parallel: int = 1
+    # communication/compute overlap: not ported yet (ROADMAP queue 1, item
+    # 13); anything but "off" raises
     overlap: str = "off"
 
     @property
@@ -195,6 +200,9 @@ class PipelineEngine:
             )
         self.model = model
         self.config = config
+        # set when the compiled engine lowers a step: True only when
+        # replicas really split the chunks, which one card never does
+        self._data_parallel_active = False
         self.device = torch.device(config.device)
         self.backend = canonical_backend(config.backend)
         self.schedule = get_schedule(config.schedule, num_devices=config.num_devices)
@@ -296,6 +304,8 @@ class PipelineEngine:
         )
         if self.placement is not None:
             d["placement"] = list(self.placement.stage_to_device)
+        if self.config.data_parallel > 1:
+            d["data_parallel"] = self.config.data_parallel
         return d
 
 
@@ -546,18 +556,14 @@ class CompiledGNNPipeline(PipelineEngine):
     (``_build_step``/``_make_scan_loss``, which exists because a
     ``vmap``-emulated ring computes every ``lax.switch`` branch; a
     host-unrolled tick program dispatches only real items), the ring
-    executors across ranks, data parallelism (item 12) and overlap (item
-    13)."""
+    executors across ranks and overlap (item 13). ``data_parallel`` > 1
+    runs the single-replica program over all chunks, the reference's
+    update on too few devices for its (data, stage) mesh."""
 
     name = "compiled"
 
     def __init__(self, model: GNNModel, config: GPipeConfig):
         super().__init__(model, config)
-        if config.data_parallel > 1:
-            raise NotImplementedError(
-                f"data_parallel={config.data_parallel}: graph data parallelism is not "
-                "ported to repro_torch yet (ROADMAP queue 1, item 12)"
-            )
         if config.overlap != "off":
             raise NotImplementedError(
                 f"overlap={config.overlap!r}: the double-buffered wires are not ported "
@@ -599,8 +605,12 @@ class CompiledGNNPipeline(PipelineEngine):
         # chunks with no loss rows (ragged plans pad with empty microbatches)
         # contribute exactly-zero gradients and loss: the lowering drops them
         # and their dead ticks. Read from the host copy: no device sync.
-        live = (stacked.graph.train_mask & stacked.core_mask).any(dim=1)
-        skip = tuple(int(c) for c in torch.nonzero(~live).flatten())
+        # data_parallel > 1 keeps the full grid, as the reference's replicas
+        # cannot carry per-replica tick counts.
+        skip: tuple = ()
+        if self.config.data_parallel == 1:
+            live = (stacked.graph.train_mask & stacked.core_mask).any(dim=1)
+            skip = tuple(int(c) for c in torch.nonzero(~live).flatten())
         value = (graphs, masks, skip, (plan.chunks, stacked.n_pad, stacked.max_deg))
         self._plans[id(plan)] = (plan, value)
         return value
@@ -670,8 +680,16 @@ class CompiledGNNPipeline(PipelineEngine):
     def _build_step_scheduled(self, widths, chunks, optimizer, skip_chunks):
         """The train step over the configured timeline: the tick executor,
         the gradient scaling and one optimizer update, as one function of
-        ``(params, opt_state, graphs, loss_masks, keys)``."""
+        ``(params, opt_state, graphs, loss_masks, keys)``. With
+        ``data_parallel`` > 1 the chunks must split evenly across the
+        replicas; one card lowers the timeline over all of them."""
+        dp = self.config.data_parallel
+        if dp > 1 and chunks % dp:
+            raise ValueError(
+                f"chunks {chunks} must split evenly across data_parallel={dp} replicas"
+            )
         lowered = self._lower_for(chunks, skip_chunks)
+        self._data_parallel_active = False  # one card: the replicas never split the chunks
         d_travel = travel_width(self._bounds, widths)
 
         def step(params, opt_state, graphs, loss_masks, keys):

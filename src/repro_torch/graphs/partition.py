@@ -1,23 +1,26 @@
 """Node partitioners, halo expansion, ego-subgraphs and the degree-bucketed
 aggregation layout.
 
-Counterpart of ``repro.graphs.partition`` (``streamed_plan`` comes with the
-streamed-graph slice). ``sequential`` is the paper's §6/§7.3 behaviour:
-GPipe splits the node-index tensor by position, so chunk boundaries cut
-edges arbitrarily. ``greedy`` is an edge-cut-aware partitioner (METIS
-stand-in). ``expand_halo`` grows a chunk by its k-hop neighborhood so
-message passing stays exact.
+Counterpart of ``repro.graphs.partition``. ``sequential`` is the paper's
+§6/§7.3 behaviour: GPipe splits the node-index tensor by position, so chunk
+boundaries cut edges arbitrarily. ``greedy`` is an edge-cut-aware
+partitioner (METIS stand-in). ``expand_halo`` grows a chunk by its k-hop
+neighborhood so message passing stays exact.
 
 ``degree_bucketed_layout`` re-tiles the padded ``(n, max_deg)`` neighbor
 matrix into geometric degree buckets (widths 8/16/32/…/max_deg): each row
 moves to the narrowest bucket its live slot count fits, so aggregation work
 scales with the degree distribution instead of the single worst-case degree;
 ``bucketize_stacked`` does it for a chunk-stacked batch with one set of
-bucket capacities shared by every chunk. All of it is host-side numpy, like
-``subgraph``, and gives the JAX package's arrays exactly.
+bucket capacities shared by every chunk. ``streamed_plan`` chunks a
+streamed power-law graph (``graphs.datasets.open_streamed``) without ever
+building it whole. All of it is host-side numpy, like ``subgraph``, and
+gives the JAX package's arrays exactly.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -278,3 +281,29 @@ def bucketize_stacked(
     )
     gather = torch.stack([pc.gather_rows for pc in per_chunk])
     return BucketedGraphBatch(base=g, buckets=stacked_buckets, gather_rows=gather)
+
+
+def streamed_plan(ds, chunks: int, *, max_degree: int | None = None):
+    """Micro-batch plan over a ``StreamedPowerlaw``: ``chunks`` contiguous
+    node ranges, each materialized on the host by ``ds.chunk_batch``, so the
+    whole graph never exists in memory. The streamed analogue of
+    ``make_plan(strategy="sequential")``: the same lossy boundaries, all-core
+    masks and plan container. ``edge_cut`` comes from the generator's drop
+    counts (edges with exactly one endpoint inside a chunk)."""
+    from repro_torch.core.microbatch import MicroBatch, MicroBatchPlan
+
+    t0 = time.perf_counter()
+    batches, kept, dropped = [], 0, 0
+    for lo, hi in ds.chunk_ranges(chunks):
+        g = ds.chunk_batch(lo, hi, max_degree=max_degree)
+        _, d = ds.chunk_edges(lo, hi)
+        kept += (int(g.mask.sum()) - g.num_nodes) // 2  # directed slots, no self-loops
+        dropped += d
+        batches.append(MicroBatch(graph=g, core_mask=torch.ones(g.num_nodes, dtype=torch.bool)))
+    return MicroBatchPlan(
+        strategy="streamed",
+        chunks=chunks,
+        batches=batches,
+        rebuild_seconds=time.perf_counter() - t0,
+        edge_cut=float(dropped) / float(max(kept + dropped, 1)),
+    )

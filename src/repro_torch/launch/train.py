@@ -21,8 +21,18 @@ and picks the balance that minimizes the schedule's predicted step;
 launcher's result dict and runs on ``cuda`` unless ``--device cpu`` is
 given; with no card it raises.
 
-Not ported yet, and raising by name: streamed datasets (ROADMAP queue 1,
-item 12), ``--mode lm`` (item 16).
+The streamed power-law graphs (``--dataset powerlaw-64k``/``-256k``/``-1m``,
+``--num-nodes``, ``--max-degree``) train on the pipeline path only: the plan
+is generated chunk by chunk on the host (``streamed_plan``), the model takes
+its shapes from the first chunk, ``--strategy`` is ignored, and both engines
+evaluate over the plan, since no full graph exists:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --mode gnn \
+        --dataset powerlaw-1m --stages 4 --chunks 8 --backend pallas \
+        --engine compiled
+
+Not ported yet, and raising by name: ``--mode lm`` (ROADMAP queue 1, item
+16).
 """
 
 from __future__ import annotations
@@ -35,30 +45,43 @@ import numpy as np
 
 from repro_torch.core.cli import PipelineCLIConfig, add_pipeline_args, resolve_device
 
-# the JAX package's streamed power-law graphs (graphs/datasets.py)
-STREAMED_DATASETS = ("powerlaw-64k", "powerlaw-256k", "powerlaw-1m")
-
 
 def run_gnn(args) -> dict:
     """Train the paper GAT as the flags say; returns (and prints) the
     result dict."""
     from repro_torch.core.microbatch import make_plan
     from repro_torch.core.pipeline import make_engine
-    from repro_torch.graphs.datasets import load_dataset
+    from repro_torch.graphs import STREAMED_DATASETS, load_dataset, open_streamed, streamed_plan
     from repro_torch.models.gnn.net import build_paper_gat
     from repro_torch.train.loop import train
 
-    if args.dataset in STREAMED_DATASETS:
-        raise NotImplementedError(
-            f"streamed dataset {args.dataset!r} is not ported to repro_torch yet "
-            "(ROADMAP queue 1, item 12)"
-        )
     # the flag bundle first: unported flags and a missing card raise before
     # any work
     cli = PipelineCLIConfig.from_args(args)
     device = resolve_device(cli.device)
-    host_graph = load_dataset(args.dataset, seed=args.seed)  # plans are built on the host
-    g = host_graph.to(device)
+    streamed = args.dataset in STREAMED_DATASETS
+    if streamed:
+        # a streamed graph never exists whole: the pipeline path is its only
+        # consumer, chunks are generated block by block on the host, and
+        # evaluation runs over the plan
+        if args.stages <= 1:
+            raise ValueError(
+                f"streamed dataset {args.dataset!r} requires the pipeline path (--stages > 1)"
+            )
+        if cli.auto:
+            raise ValueError(
+                "--auto profiles representative chunks of the full graph; "
+                "streamed datasets have no full-graph batch to plan over"
+            )
+        stream_plan = streamed_plan(
+            open_streamed(args.dataset, seed=args.seed, num_nodes=args.num_nodes),
+            args.chunks,
+            max_degree=args.max_degree,
+        )
+        host_graph = g = stream_plan.batches[0].graph  # the model's shapes only
+    else:
+        host_graph = load_dataset(args.dataset, seed=args.seed)  # plans are built on the host
+        g = host_graph.to(device)
     gat_kwargs = {}
     if args.backend in ("pallas", "kernel"):
         # the fused GAT kernel is deterministic; training it with the
@@ -121,7 +144,11 @@ def run_gnn(args) -> dict:
         return _train_pipeline(args, g, model, plan, pipe, cli=cli, balance=auto_plan.balance,
                                predicted_step_s=auto_plan.predicted_step_s)
 
-    plan = make_plan(host_graph, args.chunks, strategy=args.strategy, halo_hops=2, seed=args.seed)
+    if streamed:
+        plan = stream_plan
+    else:
+        plan = make_plan(host_graph, args.chunks, strategy=args.strategy, halo_hops=2,
+                         seed=args.seed)
     if cli.partition == "profiled":
         balance = profiled_balance(
             model, plan.stacked().graph.chunk(0).to(device), cli, seed=args.seed,
@@ -176,9 +203,9 @@ def _log_engine(cli, device, plan, pipe, balance, extra=""):
 
 def _train_pipeline(args, g, model, plan, pipe, *, cli, balance, predicted_step_s=None) -> dict:
     """Epochs over ``pipe.train_step`` with the full-graph ``make_eval`` (the
-    compiled engine: its eval program over the plan's core nodes), and the
-    result dict the JAX launcher prints (with ``predicted_step_s`` for an
-    ``--auto`` plan)."""
+    compiled engine, and any engine on a streamed plan: the eval program
+    over the plan's core nodes), and the result dict the JAX launcher prints
+    (with ``predicted_step_s`` for an ``--auto`` plan)."""
     from repro_torch.models.gnn.net import fold_in
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.loop import make_eval, synchronize
@@ -186,7 +213,7 @@ def _train_pipeline(args, g, model, plan, pipe, *, cli, balance, predicted_step_
     params = pipe.init_params(args.seed)
     optimizer = opt_lib.adam(5e-3, weight_decay=5e-4)
     opt_state = optimizer.init(params)
-    if cli.engine == "compiled":
+    if cli.engine == "compiled" or plan.strategy == "streamed":
         evaluate = lambda p, _g: pipe.evaluate(p, plan)  # noqa: E731
     else:
         evaluate = make_eval(model)
@@ -246,6 +273,10 @@ def build_parser() -> argparse.ArgumentParser:
     # --placement/--backend/--device
     add_pipeline_args(ap)
     ap.add_argument("--epochs", type=int, default=300)
+    ap.add_argument("--num-nodes", type=int, default=None,
+                    help="streamed datasets only: override the registry node count")
+    ap.add_argument("--max-degree", type=int, default=32,
+                    help="streamed datasets only: neighbor-slot cap per node")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     return ap

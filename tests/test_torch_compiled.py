@@ -323,8 +323,7 @@ def test_unported_options_and_illegal_combinations_raise(karate):
         return make_engine(model, GPipeConfig(**{"balance": BALANCE, "chunks": 4,
                                                  "device": "cpu", **kw}))
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        engine(engine="compiled", data_parallel=2)
+    assert engine(engine="compiled", data_parallel=2).describe()["data_parallel"] == 2
     with pytest.raises(NotImplementedError, match="item 13"):
         engine(engine="compiled", overlap="double-buffer")
     with pytest.raises(ValueError, match="data_parallel"):

@@ -15,7 +15,10 @@ entry. The flash kernel is held at 1e-5 (2e-2 in bf16) and the SSD kernel
 at atol 1e-4, the JAX package's SSD tolerance; smoke-size LM serving on the
 card at 1e-4 against the same params on the CPU. The compiled engine's
 captured steps are held bit for bit to its eager program and to the host
-engine, under deterministic algorithms.
+engine, under deterministic algorithms, and a streamed plan's step at
+``data_parallel=2`` to ``data_parallel=1``. The double-buffered loader's
+copies must come from pinned memory, on a stream of their own, and arrive
+bit for bit.
 """
 
 import os
@@ -27,7 +30,8 @@ import torch
 from repro_torch.core.microbatch import make_plan
 from repro_torch.core.pipeline import GPipeConfig, make_engine
 from repro_torch.graphs import data as tdata
-from repro_torch.graphs import load_dataset, partition as tpart
+from repro_torch.graphs import DoubleBufferedLoader, load_dataset, open_streamed, streamed_plan
+from repro_torch.graphs import partition as tpart
 from repro_torch.kernels.gat_edge import kernel as K
 from repro_torch.kernels.gat_edge import ops as tops
 from repro_torch.kernels.gat_edge import ref as tref
@@ -706,3 +710,53 @@ def test_planner_profiles_on_card(cuda, capsys):
     assert out["mode"] == "auto-dry-run" and "[auto] evaluated" in capsys.readouterr().out
     out = tlaunch.main([*base, "--partition", "profiled", "--schedule", "1f1b"])
     assert out["device"].startswith("cuda") and sum(out["balance"]) == 6
+
+
+# ------------------------------------- streamed graphs, data parallelism --
+
+
+@pytest.mark.gpu
+def test_loader_copies_pinned_on_a_side_stream_on_card(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    plan = streamed_plan(open_streamed("powerlaw-64k", num_nodes=8192), 4, max_degree=16)
+    host = [mb.graph for mb in plan.batches]
+    loader = DoubleBufferedLoader(host)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = []
+        for g in loader:
+            assert g.device.type == "cuda"
+            g.features.sum()  # consumer work on the current stream
+            got.append(g)
+        torch.cuda.synchronize()
+    assert loader.copy_stream is not None
+    assert loader.copy_stream != torch.cuda.current_stream()
+    for g, want in zip(got, host, strict=True):
+        for f in ("features", "neighbors", "mask", "norm", "labels", "train_mask", "node_ids"):
+            assert torch.equal(getattr(g, f).cpu(), getattr(want, f))
+    copies = [e.key for e in prof.key_averages() if "Memcpy HtoD" in e.key]
+    assert copies and all("Pinned" in k for k in copies), copies
+
+
+@pytest.mark.gpu
+def test_streamed_compiled_step_data_parallel_bitwise_on_card(cuda):
+    plan = streamed_plan(open_streamed("powerlaw-64k", num_nodes=2048, block_size=512), 4,
+                         max_degree=16)
+    g0 = plan.batches[0].graph
+    model = build_gnn("gcn", g0.num_features, g0.num_classes, hidden=16, depth=2,
+                      backend="kernel")
+    opt = topt.adam(1e-2)
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for dp in (1, 2):
+            eng = make_engine(model, GPipeConfig(balance=(2, 2), chunks=4, schedule="1f1b",
+                                                 engine="compiled", backend="kernel",
+                                                 device="cuda", data_parallel=dp))
+            runs.append(_steps(eng, model, plan, opt, (5, 6), cuda))
+            assert eng._data_parallel_active is False and eng.graphs_captured == 1
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (p1, l1), (p2, l2) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l1, l2))
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(p1, p2) for k in a)

@@ -213,13 +213,24 @@ def test_no_card_means_raise_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("flags, name", [
-    (["--data-parallel", "2"], "--data-parallel"),
     (["--overlap", "double-buffer"], "--overlap"),
 ])
 def test_unported_flags_raise_by_name(flags, name):
     args = tserve.build_parser().parse_args(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match=name):
         PipelineCLIConfig.from_args(args)
+
+
+def test_data_parallel_flag_serves_on_the_compiled_engine():
+    """``--data-parallel 2`` as the JAX launcher takes it: the compiled
+    engine's eval programs are unaffected and serve every query verified;
+    the host engine refuses it."""
+    argv = ["--dataset", "karate", "--qps", "100", "--duration", "0.1", "--verify", "--device",
+            "cpu", "--data-parallel", "2"]
+    summary = tserve.run(tserve.build_parser().parse_args(argv))
+    assert summary["verify_mismatches"] == 0 and summary["queries"] == 10
+    with pytest.raises(ValueError, match="host"):
+        tserve.run(tserve.build_parser().parse_args([*argv, "--engine", "host"]))
 
 
 @pytest.mark.parametrize("flags", [
@@ -251,15 +262,18 @@ def test_planner_and_dense_flags_serve_on_cpu(capsys, flags):
 
 
 def test_compiled_engine_and_train_step_raise_with_roadmap_item():
-    """The compiled engine builds; what it does not port yet (data
-    parallelism, overlap) raises with its ROADMAP item."""
+    """The compiled engine builds, with data parallelism too (one device runs
+    one replica); what it does not port yet (overlap) raises with its
+    ROADMAP item."""
     m = build_paper_gat(34, 2)
     eng = make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, engine="compiled", device="cpu"))
     assert eng.name == "compiled" and eng.describe()["engine"] == "compiled"
-    for kw, item in ((dict(data_parallel=2), "item 12"), (dict(overlap="double-buffer"), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, engine="compiled",
-                                       device="cpu", **kw))
+    dp = make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, engine="compiled",
+                                    device="cpu", data_parallel=2))
+    assert dp.describe()["data_parallel"] == 2 and not dp._data_parallel_active
+    with pytest.raises(NotImplementedError, match="item 13"):
+        make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, engine="compiled",
+                                   device="cpu", overlap="double-buffer"))
     with pytest.raises(ValueError, match="balance"):
         make_engine(m, GPipeConfig(balance=(2, 2), chunks=2, device="cpu"))
     assert [eng.stage_params(list(range(6)), s) for s in range(4)] == [[0, 1], [2], [3], [4, 5]]

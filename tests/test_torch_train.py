@@ -373,14 +373,26 @@ def test_train_cli_trains_on_cpu_and_targets_cuda_by_default(capsys):
 
 @pytest.mark.parametrize("argv, match", [
     (["--mode", "lm"], "item 16"),
-    (["--dataset", "powerlaw-64k"], "item 12"),
-    (["--data-parallel", "2"], "item 12"),
     (["--overlap", "double-buffer"], "item 13"),
 ])
 def test_train_cli_unported_paths_raise_by_item(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tlaunch.main(["--dataset", "karate", "--stages", "4", "--epochs", "1", "--device", "cpu",
                       *argv])
+
+
+def test_train_cli_data_parallel_on_one_device():
+    """``--data-parallel 2`` (item 12, one device): the compiled engine
+    trains the single-replica program over all chunks, with the epoch losses
+    of ``--data-parallel 1``; the host engine refuses it."""
+    argv = ["--dataset", "karate", "--stages", "4", "--chunks", "4", "--strategy", "halo",
+            "--epochs", "2", "--log-every", "0", "--device", "cpu", "--engine", "compiled",
+            "--schedule", "1f1b"]
+    one = tlaunch.main(argv)
+    two = tlaunch.main([*argv, "--data-parallel", "2"])
+    assert two["epoch_losses"] == one["epoch_losses"] and two["val_acc"] == one["val_acc"]
+    with pytest.raises(ValueError, match="host"):
+        tlaunch.main([*argv, "--engine", "host", "--data-parallel", "2"])
 
 
 @pytest.mark.parametrize("argv", [
