@@ -139,7 +139,25 @@ Phases; any failure stops the run with a non-zero exit:
    ``DoubleBufferedLoader``, bit for bit, the eval of chunk t beside the
    copy of t+1; per consumer (compiled and host eval), the copies' streams,
    pinned state, GB/s and the share of copy time that compute overlaps.
+15. Overlap and the per-stage roofline. 15a: fig3's overlap configuration
+   with the kernel backend (the paper GAT on cora, 4 stages (2, 1, 1, 2), 8
+   sequential chunks, 1f1b, compiled engine under ``--overlap`` off,
+   double-buffer and async): one step of each bit-identical to host
+   fill_drain under deterministic algorithms; the tick counts (off below
+   the retimed ones); each mode's median step over 4 interleaved steps (the
+   first dropped); per mode one profiled replay: its device copies (count,
+   streams, time), how many ran beside a kernel of another stream (at
+   least one under double-buffer and async), the kernels' streams,
+   ``capture_overlap_report``'s overlap fraction and the bucket GAT
+   launches inside the replay. 15b: fig3's sparse configuration (the
+   kernel-backend GCN, hidden 32, depth 2, on skewed-powerlaw at
+   max_degree 128, balance (2, 2), 2 sequential chunks) through
+   ``sparse_stage_report`` on the padded and the bucketed layout: the
+   slots, and per stage its measured device time per chunk, its roof and
+   the roof's share of the measured time, which may not pass 1.05.
 
+Every bound divides by the card's data-sheet rates from
+``repro_torch.roofline.analysis.HW``, which knows the card by its name.
 The last three lines are the card's name and power limit, the ``kernels``
 JSON line, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repo's ``src/`` beside it, the script exits non-zero and prints
@@ -173,9 +191,10 @@ ATOL = RTOL = 1e-5
 GCN_MATCH_ATOL = 2e-4  # benchmarks/fig3.py: bucket concat reorders f32 edge sums
 # the two backends' reduced gradients, per leaf: max |diff| over max |grad|
 GCN_GRAD_RTOL = 1e-5
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
-TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
+# the card's data-sheet rates (``repro_torch.roofline.analysis.HW``: memory
+# bytes/s, fp32 FLOP/s on the CUDA cores, dense TF32 FLOP/s), read in main()
+# for the card the script runs on; every bound below divides by them
+CARD = None
 # the flash and SSD kernels' fp32 scheme: three TF32 tensor-core products per
 # operation
 TF32_PASSES = 3
@@ -365,8 +384,8 @@ class Harness:
             # per live slot and head: add, LeakyReLU, max, subtract, exp, sum,
             # divide, then F multiply-adds
             total_ops += live * h * (7 + 2 * f)
-        t_bytes = total_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = total_ops / FP32_OPS_PER_S * 1e3
+        t_bytes = total_bytes / CARD.hbm_bw * 1e3
+        t_ops = total_ops / CARD.fp32_flops * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), total_bytes, total_ops
 
     def launch(self, name, call):
@@ -421,8 +440,8 @@ class Harness:
             used = int(t.unique(nbr[live]).numel())
             total_bytes += r * w * (4 + 4) + used * f * 4 + r * f * 4
             total_ops += 2 * f * int(live.sum())
-        t_bytes = total_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = total_ops / FP32_OPS_PER_S * 1e3
+        t_bytes = total_bytes / CARD.hbm_bw * 1e3
+        t_ops = total_ops / CARD.fp32_flops * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), total_bytes, total_ops
 
     def csr(self, hw, nbr, norm):
@@ -1912,6 +1931,167 @@ def phase_loader(H, torch, plan, host_layout, model, params):
     torch.cuda.empty_cache()
 
 
+# ------------------------------ overlap and the per-stage roofline (phase 15) --
+
+OVERLAP_MODES = ("off", "double-buffer", "async")
+OVERLAP_STEPS = 4  # interleaved timed steps per mode in phase 15a (the first is dropped)
+ROOF_SHARE_MAX = 1.05  # a stage faster than its floor means the count or the rates are wrong
+
+
+def phase_overlap(H, torch):
+    """Phase 15a: fig3's overlap configuration (``benchmarks/fig3.py``
+    ``_overlap_bench``) on the kernel backend: the paper GAT on cora at full
+    width, 4 stages (2, 1, 1, 2), 8 sequential chunks, 1f1b, compiled engine
+    under overlap off, double-buffer and async. One step of each from the
+    same params, and one of host fill_drain, bit-identical under
+    deterministic algorithms; the tick counts; each mode's median step over
+    interleaved steps; per mode one profiled replay: its device copies
+    (count, streams, time), the kernels' streams, the copies running beside
+    a kernel of another stream, the package's overlap report and the bucket
+    GAT launches inside the replay."""
+    import collections
+    import tempfile
+
+    from repro_torch.core.microbatch import make_plan
+    from repro_torch.core.overlap_report import capture_overlap_report, load_trace_events
+    from repro_torch.core.pipeline import GPipeConfig, make_engine
+    from repro_torch.graphs import load_dataset
+    from repro_torch.models.gnn.net import build_paper_gat
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.loop import synchronize
+
+    cora = load_dataset("cora")
+    plan = make_plan(cora, 8, strategy="sequential")
+    model = build_paper_gat(cora.num_features, cora.num_classes, backend="pallas",
+                            attn_dropout=0.0)
+    opt = opt_lib.adam(5e-3, weight_decay=5e-4)
+    params0 = model.init_params(0, device=H.dev)
+
+    def engine(name, overlap):
+        return make_engine(model, GPipeConfig(
+            balance=(2, 1, 1, 2), chunks=plan.chunks, engine=name, backend="pallas",
+            schedule="fill_drain" if name == "host" else "1f1b", overlap=overlap,
+            device=str(H.dev)))
+
+    runs, ticks = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, mode in (("host", "off"), *(("compiled", m) for m in OVERLAP_MODES)):
+            stats = {}
+            p, _, loss = engine(name, mode).train_step(params0, opt.init(params0), plan, 7, opt,
+                                                       stats=stats)
+            key = "host fill_drain" if name == "host" else mode
+            runs[key] = ([{k: v.clone() for k, v in layer.items()} for layer in p], loss.clone())
+            ticks[key] = stats.get("num_ticks")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want_p, want_loss = runs["host fill_drain"]
+    for mode in OVERLAP_MODES:
+        p, loss = runs[mode]
+        if not (torch.equal(loss, want_loss) and same_trees(torch, p, want_p)):
+            raise AssertionError(f"overlap {mode}: loss or update not bit-identical to host "
+                                 "fill_drain")
+    if not ticks["off"] < ticks["double-buffer"] == ticks["async"]:
+        raise AssertionError(f"overlap: tick counts {ticks}")
+
+    # timed on fresh engines with default algorithms, the modes in turns
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipes = {m: engine("compiled", m) for m in OVERLAP_MODES}
+    states = {m: (params0, opt.init(params0)) for m in OVERLAP_MODES}
+    times = {m: [] for m in OVERLAP_MODES}
+    H.K.bucket_gat_kernel.launches = 0
+    for step in range(OVERLAP_STEPS):
+        for m, pipe in pipes.items():
+            t0 = time.perf_counter()
+            p, o, _ = pipe.train_step(*states[m], plan, 200 + step, opt)
+            synchronize(H.dev)
+            times[m].append((time.perf_counter() - t0) * 1e3)
+            states[m] = (p, o)
+    launched = H.K.bucket_gat_kernel.launches
+    if launched == 0:
+        raise AssertionError("overlap: the bucket GAT kernel was never launched")
+    H.launches["bucket_gat_kernel"] += launched
+
+    lines = []
+    for m, pipe in pipes.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            report = capture_overlap_report(
+                lambda: pipe.train_step(*states[m], plan, 300, opt), trace_dir=tmp)
+            events = load_trace_events(tmp)
+        copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        gat = sum("gat_edge_kernel" in e["name"] for e in kernels)
+        beside = sum(any(c["args"]["stream"] != k["args"]["stream"]
+                         and c["ts"] < k["ts"] + k["dur"] and k["ts"] < c["ts"] + c["dur"]
+                         for k in kernels) for c in copies)
+        if gat == 0 or pipe.graphs_captured != 1:
+            raise AssertionError(f"overlap {m}: {gat} bucket GAT launches in a profiled replay, "
+                                 f"{pipe.graphs_captured} graphs captured")
+        if m != "off" and not beside:
+            raise AssertionError(f"overlap {m}: no device copy ran beside a kernel of another "
+                                 "stream in a profiled replay")
+        copy_streams = collections.Counter(c["args"]["stream"] for c in copies)
+        lines.append(
+            f"{m}: median step {statistics.median(times[m][1:]):.6f} ms (steps "
+            f"{[round(t, 3) for t in times[m]]}), ticks {ticks[m]}; profiled replay: "
+            f"{len(copies)} device copies ({sum(c['dur'] for c in copies):.3f} us) on streams "
+            f"{dict(sorted(copy_streams.items()))}, {beside} of them beside a kernel of another "
+            f"stream; {len(kernels)} kernels on {len({k['args']['stream'] for k in kernels})} "
+            f"streams; overlap_fraction {report['overlap_fraction']:.6f} (copies "
+            f"{report['collective_time_us']:.3f} us, under compute "
+            f"{report['overlapped_time_us']:.3f} us, compute {report['compute_time_us']:.3f} "
+            f"us); bucket-GAT launches in the replay {gat}; graphs captured "
+            f"{pipe.graphs_captured}")
+    log(f"[overlap] cora paper GAT, pallas, 4 stages (2, 1, 1, 2) x 8 sequential chunks, 1f1b: "
+        f"off, double-buffer and async one step bit-identical to host fill_drain (loss "
+        f"{float(want_loss)}); ticks off {ticks['off']} < retimed {ticks['double-buffer']}; "
+        f"bucket-GAT launches recorded (warm-up + capture) {launched} [{H.card}]")
+    for line in lines:
+        log(f"[overlap]   {line} [{H.card}]")
+    del pipes, states
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_roofline(H, torch):
+    """Phase 15b: fig3's sparse configuration (``benchmarks/fig3.py``
+    ``_sparse_bench``): the kernel-backend GCN (hidden 32, depth 2) on
+    skewed-powerlaw at max_degree 128, balance (2, 2), 2 sequential chunks,
+    through ``sparse_stage_report`` on the padded and the bucketed layout:
+    the slots and each stage's measured device time per chunk beside its
+    roof. A stage faster than its roof by more than 5% raises."""
+    from repro_torch.models.gnn.net import build_gnn
+    from repro_torch.roofline import sparse_stage_report
+
+    g, plan, layout = gcn_plan_layout(H.dev)
+    model = build_gnn("gcn", g.num_features, g.num_classes, hidden=32, depth=2,
+                      backend="kernel")
+    params = model.init_params(0, device=H.dev)
+    padded = plan.stacked().graph.to(H.dev)
+    H.S.padded_spmm_kernel.launches = H.S.bucket_spmm_kernel.launches = 0
+    report = sparse_stage_report(model, params, padded, layout, (2, 2))
+    launched = {name: getattr(H.S, name).launches
+                for name in ("padded_spmm_kernel", "bucket_spmm_kernel")}
+    if not all(launched.values()):
+        raise AssertionError(f"roofline: SpMM launches {launched}")
+    for name, n in launched.items():
+        H.launches[name] += n
+    log(f"[roofline] fig3 sparse GCN on skewed-powerlaw (max_degree 128, 2 sequential chunks, "
+        f"balance (2, 2)): slots per chunk {report['slots']}; rates {CARD}; SpMM launches "
+        f"recorded (warm-up + capture) {launched} [{H.card}]")
+    for row in report["stages"]:
+        for name in ("padded", "bucketed"):
+            share = row[name]["roof_share"]
+            if share > ROOF_SHARE_MAX:
+                raise AssertionError(f"roofline: stage {row['stage']} {name} roof_share {share}")
+        log(f"[roofline]   stage {row['stage']} {row['layers']}: roof {row['roof_flops']:.0f} "
+            f"FLOPs, {row['roof_bytes']:.0f} B, roof {row['roof_ms']:.6f} ms; padded "
+            f"{row['padded']['measured_ms']:.6f} ms (roof_share "
+            f"{row['padded']['roof_share']:.6f}), bucketed {row['bucketed']['measured_ms']:.6f} "
+            f"ms (roof_share {row['bucketed']['roof_share']:.6f}) per chunk [{H.card}]")
+
+
 # ------------------------------------------------- LM serving (phases 2, 5, 8, 9) --
 
 
@@ -1936,10 +2116,10 @@ def flash_bound(q, k, v, window=0):
     hd_v = v.shape[-1]
     nbytes = (q.numel() + k.numel() + v.numel() + b * sq * h * hd_v) * q.element_size()
     ops = b * h * flash_pairs(sq, k.shape[1], window) * (2 * hd + 2 * hd_v + 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = TF32_PASSES * ops / TF32_OPS_PER_S * 1e3
+    t_bytes = nbytes / CARD.hbm_bw * 1e3
+    t_ops = TF32_PASSES * ops / CARD.tf32_flops * 1e3
     return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops,
-            ops / FP32_OPS_PER_S * 1e3)
+            ops / CARD.fp32_flops * 1e3)
 
 
 def ssd_bound(x, B, chunk):
@@ -1958,10 +2138,10 @@ def ssd_bound(x, B, chunk):
         q = min(chunk, s - c0)  # the last chunk's padding does no needed work
         tri = q * (q + 1) // 2
         ops += b * h * 2 * (tri * n + tri * p + 2 * q * p * n)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = TF32_PASSES * ops / TF32_OPS_PER_S * 1e3
+    t_bytes = nbytes / CARD.hbm_bw * 1e3
+    t_ops = TF32_PASSES * ops / CARD.tf32_flops * 1e3
     return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops,
-            ops / FP32_OPS_PER_S * 1e3)
+            ops / CARD.fp32_flops * 1e3)
 
 
 def flash_inputs(H, b, s, h, kv, hd, hd_v=None, dtype=None):
@@ -2096,7 +2276,7 @@ def phase_timing_lm(H, torch):
         f"hd 128, causal, fp32): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
         f"scaled_dot_product_attention {library_ms:.6f} ms ({sdpa}), "
         f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops as 3xTF32 tensor-core "
-        f"products at {TF32_OPS_PER_S:.3g}/s; on the fp32 CUDA cores {cuda_core_ms:.6f} ms), "
+        f"products at {CARD.tf32_flops:.3g}/s; on the fp32 CUDA cores {cuda_core_ms:.6f} ms), "
         f"share of bound {bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s [{H.card}]")
 
     x, dt, loga, B, C = ssd_inputs(H, 4, 512, 24, 64, 128)
@@ -2116,7 +2296,7 @@ def phase_timing_lm(H, torch):
         + ", ".join(f"{k} {t:.6f} ms" for k, t, _ in per_launch)
         + f", profiled), plain {plain_ms:.6f} ms, library none (no single PyTorch call), bound "
         f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops as 3xTF32 tensor-core products at "
-        f"{TF32_OPS_PER_S:.3g}/s; on the fp32 CUDA cores {cuda_core_ms:.6f} ms), share of bound "
+        f"{CARD.tf32_flops:.3g}/s; on the fp32 CUDA cores {cuda_core_ms:.6f} ms), share of bound "
         f"{bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s [{H.card}]")
     log_floors(H)
 
@@ -2298,6 +2478,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.roofline.analysis import HW
+
+    global CARD
+    CARD = HW.of(torch.cuda.get_device_name(0))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -2305,7 +2489,7 @@ def main() -> int:
     # phase 1: the card and the build
     card_line = card()
     log(f"[card] {card_line}; torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; data-sheet rates {CARD}")
     from repro_torch.kernels.flash import kernel as FK
     from repro_torch.kernels.gat_edge import kernel as K
     from repro_torch.kernels.spmm import kernel as S
@@ -2347,6 +2531,8 @@ def main() -> int:
     streamed = phase_streamed(H, torch)  # phase 14a
     phase_data_parallel(H, torch)  # phase 14b
     phase_loader(H, torch, *streamed)  # phase 14c
+    phase_overlap(H, torch)  # phase 15a
+    phase_roofline(H, torch)  # phase 15b
 
     kernels = []
     for name, replaces in REPLACES.items():
@@ -2361,7 +2547,7 @@ def main() -> int:
         })
     log("[compare] largest share of the tolerance used, per kernel: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
-    log(f"[done] all 14 phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] all 15 phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card_line}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

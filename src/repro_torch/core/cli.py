@@ -4,8 +4,9 @@ Counterpart of ``repro.core.cli``: ``add_pipeline_args`` declares the flag
 set on a parser and ``PipelineCLIConfig`` is the parsed bundle with its
 ``gpipe_config()`` translation. The flag names and spellings are the JAX
 package's, so its command lines carry over; ``--device`` (default
-``cuda``) is new. ``--overlap``, whose machinery is not ported yet, is
-declared and raises by name, with its ROADMAP queue 1 item, when set.
+``cuda``) is new. ``--overlap async`` runs the ``double-buffer`` program:
+the reference's async adds XLA scheduler flags, which PyTorch has no
+counterpart of.
 """
 
 from __future__ import annotations
@@ -39,6 +40,14 @@ def resolve_device(name: str) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"--device must be cuda or cpu, got {name!r}")
     return device
+
+
+def log_overlap(cli: "PipelineCLIConfig") -> None:
+    """Say once that ``--overlap async`` runs the ``double-buffer`` program."""
+    if cli.overlap == "async":
+        print("[overlap] async runs the double-buffer program: the wire copies already run "
+              "on a stream of their own, and the reference's XLA latency-hiding flags have "
+              "no PyTorch counterpart")
 
 
 def add_pipeline_args(
@@ -77,7 +86,12 @@ def add_pipeline_args(
                          "order, so the update is bit-identical to 1 replica; one card "
                          "runs the single-replica program over all chunks")
     ap.add_argument("--overlap", default="off", choices=list(OVERLAP_CHOICES),
-                    help="not ported yet")
+                    help="communication/compute overlap (compiled engine): double-buffer "
+                         "retimes the tick arrays so each wire copy is posted on a stream "
+                         "of its own one tick before its arrivals are consumed "
+                         "(bit-identical updates); async runs the same program (the "
+                         "reference's XLA scheduler flags have no PyTorch counterpart; "
+                         "core.overlap_report measures the overlap)")
     ap.add_argument("--auto", action="store_true",
                     help="self-tuning planner (core.autotune.plan_pipeline): profile "
                          "per-layer costs once, enumerate schedule x chunks x balance x "
@@ -112,12 +126,6 @@ class PipelineCLIConfig:
     auto_budget: int | None = None
     dry_run: bool = False
     device: str = "cuda"
-
-    def __post_init__(self):
-        if self.overlap != "off":
-            raise NotImplementedError(
-                "--overlap (item 13): not ported to repro_torch yet (see ROADMAP queue 1)"
-            )
 
     @classmethod
     def from_args(cls, args) -> "PipelineCLIConfig":
@@ -162,5 +170,6 @@ class PipelineCLIConfig:
             engine=self.engine,
             backend=self.backend,
             data_parallel=self.data_parallel,
+            overlap=self.overlap,
             device=str(resolve_device(self.device)),
         )

@@ -22,6 +22,14 @@ counterpart on a CUDA card is the same host-unrolled tick program
     ``GraphedForward`` holds an eval program's params and batch in static
     buffers that each call fills before the replay.
 
+A program that forks work to another stream (the double-buffered wires of
+``repro_torch.core.spmd_pipe`` post on a wire stream) is captured whole:
+each fork (``wait_stream`` on the capture stream) and each join (an event
+the capture stream waits on) becomes a graph edge, and the program must
+join every fork before it returns, or the capture fails. A replay does not
+keep the streams: CUDA runs the graph's independent branches on streams of
+its own.
+
 Each kernel wrapper counts its launches where it records them, so during a
 capture each launch counts once and a replay adds nothing;
 ``CapturedGraph.launches`` keeps the per-replay counts seen at capture.

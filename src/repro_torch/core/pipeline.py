@@ -50,6 +50,7 @@ from repro_torch.core.schedule import (
     forward_timeline,
     get_schedule,
     lower_timeline,
+    retime_timeline,
 )
 from repro_torch.core.spmd_pipe import (
     spmd_pipeline_scheduled_eval_lanes,
@@ -101,8 +102,12 @@ class GPipeConfig:
     # the step runs the single-replica program over all chunks, as the
     # reference does with fewer devices than data_parallel x ring.
     data_parallel: int = 1
-    # communication/compute overlap: not ported yet (ROADMAP queue 1, item
-    # 13); anything but "off" raises
+    # communication/compute overlap (compiled engine): "off" banks each
+    # tick's outputs at the next tick; "double-buffer" retimes the timeline
+    # to wire latency 2, so each tick posts the last tick's outputs on a
+    # wire stream of their own before its work (``core.spmd_pipe``);
+    # "async" runs the same program (the reference adds XLA scheduler flags,
+    # which have no PyTorch counterpart). Updates stay bit-identical to "off".
     overlap: str = "off"
 
     @property
@@ -552,11 +557,15 @@ class CompiledGNNPipeline(PipelineEngine):
     (``cuda_graph.GraphedForward``). On the CPU the same programs run
     eagerly. ``graphs_captured`` counts the graphs this engine holds.
 
+    ``overlap`` other than "off" lowers the train timeline retimed to wire
+    latency 2 (the double-buffered wires, their posts on ``wire_stream`` on
+    a card); eval programs stay at latency 1, as the reference's do.
+
     Not ported: the reference's single-device fused chunk scan
     (``_build_step``/``_make_scan_loss``, which exists because a
     ``vmap``-emulated ring computes every ``lax.switch`` branch; a
-    host-unrolled tick program dispatches only real items), the ring
-    executors across ranks and overlap (item 13). ``data_parallel`` > 1
+    host-unrolled tick program dispatches only real items) and the ring
+    executors across ranks. ``data_parallel`` > 1
     runs the single-replica program over all chunks, the reference's
     update on too few devices for its (data, stage) mesh."""
 
@@ -564,11 +573,9 @@ class CompiledGNNPipeline(PipelineEngine):
 
     def __init__(self, model: GNNModel, config: GPipeConfig):
         super().__init__(model, config)
-        if config.overlap != "off":
-            raise NotImplementedError(
-                f"overlap={config.overlap!r}: the double-buffered wires are not ported "
-                "to repro_torch yet (ROADMAP queue 1, item 13)"
-            )
+        # the stream the double-buffered wires post on (a card, overlap on),
+        # made with the first step program: one per engine
+        self.wire_stream: torch.cuda.Stream | None = None
         self._widths: list[int] | None = None
         # (chunks, n_pad, max_deg, id(optimizer), skip) -> _StepProgram
         self._steps: dict = {}
@@ -618,13 +625,18 @@ class CompiledGNNPipeline(PipelineEngine):
     def _lower_for(self, chunks: int, skip_chunks: tuple = ()):
         """The configured schedule's timeline for ``chunks`` chunks, placed
         and lowered (the lowering's ring check rejects what the executor
-        could not route); ``skip_chunks`` drops loss-free chunks and their
-        dead ticks."""
+        could not route). With ``overlap`` on, the timeline is first retimed
+        to wire latency 2 for the double-buffered wires; ``skip_chunks``
+        drops loss-free chunks and their dead ticks."""
         S = self.config.num_stages
         timeline = self.schedule.timeline(S, chunks)  # raises on a bad (S, C)
         if self.placement is not None:
             timeline = self.placement.apply(timeline)
-        return lower_timeline(timeline, S, chunks, skip_chunks=skip_chunks)
+        latency = 1 if self.config.overlap == "off" else 2
+        if latency != 1:
+            timeline = retime_timeline(timeline, S, chunks, wire_latency=latency)
+        return lower_timeline(timeline, S, chunks, wire_latency=latency,
+                              skip_chunks=skip_chunks)
 
     def _make_work_fn(self, widths, params, graphs, loss_masks, keys):
         """The per-tick work dispatcher for ``spmd_pipeline_scheduled_lanes``:
@@ -689,6 +701,8 @@ class CompiledGNNPipeline(PipelineEngine):
                 f"chunks {chunks} must split evenly across data_parallel={dp} replicas"
             )
         lowered = self._lower_for(chunks, skip_chunks)
+        if lowered.wire_latency == 2 and self.device.type == "cuda" and self.wire_stream is None:
+            self.wire_stream = torch.cuda.Stream(device=self.device)
         self._data_parallel_active = False  # one card: the replicas never split the chunks
         d_travel = travel_width(self._bounds, widths)
 
@@ -697,7 +711,8 @@ class CompiledGNNPipeline(PipelineEngine):
             f = graphs[0].features
             wire_like = torch.zeros((f.shape[0], d_travel), dtype=f.dtype, device=f.device)
             grads, loss_sum, count = spmd_pipeline_scheduled_lanes(
-                work_fn, lowered, wire_like=wire_like, grads_like=params
+                work_fn, lowered, wire_like=wire_like, grads_like=params,
+                wire_stream=self.wire_stream,
             )
             scale = 1.0 / torch.clamp(count, min=1.0)
             grads = opt_lib.tree_map(lambda g: g * scale, grads)

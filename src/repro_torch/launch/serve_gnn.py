@@ -23,6 +23,8 @@ is one CUDA graph, captured at warmup: a call copies the batch into the
 bucket's static inputs and replays it. ``--auto`` serves on the plan the
 planner ranks first (``--dry-run`` prints the ranking and stops) and
 ``--partition profiled`` on the measured balance, as in training.
+``--overlap`` is accepted as in training; the eval programs run the
+forward wave at wire latency 1 whatever it says, as the reference's do.
 
 The driver reports achieved queries/s, p50/p99 latency (completion minus
 scheduled arrival, queueing included) and per-bucket batch occupancy; with
@@ -311,7 +313,7 @@ def verify_results(
 def run(args) -> dict:
     """Serve ``args.qps`` × ``args.duration`` synthetic queries; returns the
     summary dict."""
-    from repro_torch.core.cli import PipelineCLIConfig, resolve_device
+    from repro_torch.core.cli import PipelineCLIConfig, log_overlap, resolve_device
     from repro_torch.core.pipeline import make_engine
     from repro_torch.graphs import load_dataset
     from repro_torch.models.gnn.layers import canonical_backend
@@ -319,6 +321,7 @@ def run(args) -> dict:
 
     cli = PipelineCLIConfig.from_args(args)
     device = resolve_device(cli.device)  # raises with no card
+    log_overlap(cli)
     g = load_dataset(args.dataset, seed=args.seed)
     # serving is forward-only (train=False) and never applies attention
     # dropout; under the kernel backend the rate is set to 0 all the same,
@@ -384,6 +387,7 @@ def run(args) -> dict:
         "dataset": args.dataset,
         "engine": cli.engine,
         "schedule": cli.schedule,
+        "overlap": cli.overlap,
         "chunks": cli.chunks,
         "stages": cli.stages,
         "partition": cli.partition,

@@ -43,7 +43,12 @@ import time
 
 import numpy as np
 
-from repro_torch.core.cli import PipelineCLIConfig, add_pipeline_args, resolve_device
+from repro_torch.core.cli import (
+    PipelineCLIConfig,
+    add_pipeline_args,
+    log_overlap,
+    resolve_device,
+)
 
 
 def run_gnn(args) -> dict:
@@ -59,6 +64,7 @@ def run_gnn(args) -> dict:
     # any work
     cli = PipelineCLIConfig.from_args(args)
     device = resolve_device(cli.device)
+    log_overlap(cli)
     streamed = args.dataset in STREAMED_DATASETS
     if streamed:
         # a streamed graph never exists whole: the pipeline path is its only
@@ -237,6 +243,8 @@ def _train_pipeline(args, g, model, plan, pipe, *, cli, balance, predicted_step_
         "mode": f"gpipe-{plan.strategy}",
         "engine": cli.engine,
         "schedule": cli.schedule,
+        "overlap": cli.overlap,
+        "wire_latency": sched_stats.get("wire_latency"),
         "partition": cli.partition,
         "balance": list(balance),
         "chunks": plan.chunks,

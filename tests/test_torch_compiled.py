@@ -324,8 +324,7 @@ def test_unported_options_and_illegal_combinations_raise(karate):
                                                  "device": "cpu", **kw}))
 
     assert engine(engine="compiled", data_parallel=2).describe()["data_parallel"] == 2
-    with pytest.raises(NotImplementedError, match="item 13"):
-        engine(engine="compiled", overlap="double-buffer")
+    assert engine(engine="compiled", overlap="double-buffer").name == "compiled"
     with pytest.raises(ValueError, match="data_parallel"):
         engine(engine="compiled", data_parallel=0)
     with pytest.raises(ValueError, match="overlap"):
@@ -341,12 +340,30 @@ def test_unported_options_and_illegal_combinations_raise(karate):
     params = model.init_params(0)
     with pytest.raises(ValueError):
         eng.train_step(params, opt.init(params), plan, 0, opt)
-    # wire latency 2 (the double-buffered wires) is item 13
+    # wire latency 2: the train lanes run the double-buffered wires (here a
+    # toy forward-only work fn over a 1F1B timeline); the eval lanes refuse it
     items = tsched.retime_timeline(tsched.get_schedule("1f1b").timeline(4, 4), 4, 4,
                                    wire_latency=2)
     lowered = tsched.lower_timeline(items, 4, 4, wire_latency=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        spmd_pipeline_scheduled_lanes(None, lowered, wire_like=torch.zeros(2, 2), grads_like=[])
+
+    def work(phase, s, c, h, ct, w):
+        # stage s's input is c + s; its cotangent out adds its input to the one in
+        if phase == tsched.PHASE_FWD:
+            return (torch.full((2, 2), float(c)) if h is None else h) + 1, None, None, None, \
+                None, None
+        if s == 0:
+            return None, None, None, [{"g": ct}], None, None
+        d_h = (torch.zeros(2, 2) if ct is None else ct) + h
+        return None, d_h, None, None, (h.sum() if s == 3 else None), torch.ones(())
+
+    grads, loss, count = spmd_pipeline_scheduled_lanes(
+        work, lowered, wire_like=torch.zeros(2, 2), grads_like=[{"g": torch.zeros(2, 2)}])
+    assert float(loss) == sum(4.0 * (c + 3) for c in range(4)) and float(count) == 4
+    assert torch.equal(grads[0]["g"], torch.full((2, 2), sum(3.0 * c + 6 for c in range(4))))
+    fwd = tsched.lower_timeline(tsched.forward_timeline(3, 4), 3, 4, forward_only=True)
+    with pytest.raises(ValueError, match="wire latency 1"):
+        spmd_pipeline_scheduled_eval_lanes(None, dataclasses.replace(fwd, wire_latency=2),
+                                           wire_like=torch.zeros(2, 3))
 
 
 def test_optimizer_state_lives_on_the_params_device(karate):

@@ -16,7 +16,8 @@ at atol 1e-4, the JAX package's SSD tolerance; smoke-size LM serving on the
 card at 1e-4 against the same params on the CPU. The compiled engine's
 captured steps are held bit for bit to its eager program and to the host
 engine, under deterministic algorithms, and a streamed plan's step at
-``data_parallel=2`` to ``data_parallel=1``. The double-buffered loader's
+``data_parallel=2`` to ``data_parallel=1``; the double-buffered step (its
+wire copies on a stream of their own) to ``off`` and to host fill-drain. The double-buffered loader's
 copies must come from pinned memory, on a stream of their own, and arrive
 bit for bit.
 """
@@ -605,6 +606,50 @@ def test_compiled_replays_redraw_the_host_masks_on_card(cuda, schedule):
     assert all(torch.equal(a[k], b[k]) for a, b in zip(hp, cp) for k in a)
     assert all(torch.equal(evals[0][k], e[k]) for e in evals[1:] for k in evals[0])
     assert comp.graphs_captured == 1  # one eval graph, replayed twice
+
+
+@pytest.mark.gpu
+def test_compiled_double_buffer_replay_bitwise_and_forked_on_card(cuda, tmp_path):
+    """``overlap="double-buffer"``: the captured 1f1b step (its wire posts
+    forked to a stream of their own inside the capture) gives the update of
+    ``off`` and of host fill_drain bit for bit, and one profiled replay
+    keeps the fork: its device copies and kernels run on more than one
+    stream. (Whether a copy overlaps a kernel is timing: karate's kernels
+    are a few microseconds; the smoke's cora step checks that some do.)"""
+    from repro_torch.core.overlap_report import capture_overlap_report, load_trace_events
+
+    model, plan = _compiled_case("padded")  # feature and attention dropout on
+    opt = topt.adam(5e-3, weight_decay=5e-4)
+    runs, engines = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, engine, schedule, overlap in (("host", "host", "fill_drain", "off"),
+                                                ("off", "compiled", "1f1b", "off"),
+                                                ("double", "compiled", "1f1b", "double-buffer")):
+            engines[name] = make_engine(model, GPipeConfig(
+                balance=(2, 1, 1, 2), chunks=4, engine=engine, schedule=schedule,
+                overlap=overlap, device="cuda"))
+            runs[name] = _steps(engines[name], model, plan, opt, (41, 42), cuda)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (hp, hl) = runs["host"]
+    for name in ("off", "double"):
+        p, losses = runs[name]
+        assert all(torch.equal(a, b) for a, b in zip(hl, losses)), name
+        assert all(torch.equal(a[k], b[k]) for a, b in zip(hp, p) for k in a), name
+    eng = engines["double"]
+    assert eng.wire_stream is not None and eng.graphs_captured == 1
+    params = model.init_params(0, device=cuda)
+    state = opt.init(params)
+    report = capture_overlap_report(lambda: eng.train_step(params, state, plan, 43, opt),
+                                    trace_dir=str(tmp_path))
+    events = load_trace_events(str(tmp_path))
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert copies and kernels and report["num_collective_events"] == len(copies)
+    assert report["collective_time_us"] > 0 and report["num_compute_events"] > 0
+    assert len({e["args"]["stream"] for e in copies + kernels}) > 1
+    assert any(c["args"]["stream"] != k["args"]["stream"] for c in copies for k in kernels)
 
 
 # ------------------------- the zoo, dense, SIGN, checkpoints, the planner --

@@ -216,9 +216,16 @@ def test_no_card_means_raise_unless_cpu_is_asked(monkeypatch):
     (["--overlap", "double-buffer"], "--overlap"),
 ])
 def test_unported_flags_raise_by_name(flags, name):
-    args = tserve.build_parser().parse_args(["--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match=name):
-        PipelineCLIConfig.from_args(args)
+    """The flag that used to raise (``--overlap``, item 13) now serves
+    karate, every served row verified: eval runs at wire latency 1 whatever
+    the overlap mode."""
+    args = tserve.build_parser().parse_args([
+        "--dataset", "karate", "--qps", "100", "--duration", "0.1", "--verify", "--device",
+        "cpu", *flags])
+    assert PipelineCLIConfig.from_args(args).overlap == flags[1]
+    summary = tserve.run(args)
+    assert summary["verify_mismatches"] == 0 and summary["queries"] == 10
+    assert summary["overlap"] == flags[1] and summary["engine"] == "compiled"
 
 
 def test_data_parallel_flag_serves_on_the_compiled_engine():
@@ -263,17 +270,23 @@ def test_planner_and_dense_flags_serve_on_cpu(capsys, flags):
 
 def test_compiled_engine_and_train_step_raise_with_roadmap_item():
     """The compiled engine builds, with data parallelism too (one device runs
-    one replica); what it does not port yet (overlap) raises with its
-    ROADMAP item."""
+    one replica) and with overlap (item 13), whose served eval program gives
+    the overlap-off engine's log-probs bit for bit."""
     m = build_paper_gat(34, 2)
     eng = make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, engine="compiled", device="cpu"))
     assert eng.name == "compiled" and eng.describe()["engine"] == "compiled"
     dp = make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, engine="compiled",
                                     device="cpu", data_parallel=2))
     assert dp.describe()["data_parallel"] == 2 and not dp._data_parallel_active
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, engine="compiled",
-                                   device="cpu", overlap="double-buffer"))
+    ov = make_engine(m, GPipeConfig(balance=(2, 1, 1, 2), chunks=2, engine="compiled",
+                                    device="cpu", overlap="double-buffer"))
+    g = load_dataset("karate")
+    server = tserve.GNNServer(ov, m.init_params(0), g, hops=2,
+                              buckets=tserve.ShapeBuckets.geometric(g))
+    prepared = [server.prepare(tserve.Query(i, "node", u)) for i, u in enumerate((0, 33))]
+    batch = tserve.stack_graphs([p.graph for p in prepared])
+    got = ov.compile_eval(m.init_params(0), batch)(batch)
+    assert torch.equal(got, eng.compile_eval(m.init_params(0), batch)(batch))
     with pytest.raises(ValueError, match="balance"):
         make_engine(m, GPipeConfig(balance=(2, 2), chunks=2, device="cpu"))
     assert [eng.stage_params(list(range(6)), s) for s in range(4)] == [[0, 1], [2], [3], [4, 5]]

@@ -373,12 +373,30 @@ def test_train_cli_trains_on_cpu_and_targets_cuda_by_default(capsys):
 
 @pytest.mark.parametrize("argv, match", [
     (["--mode", "lm"], "item 16"),
-    (["--overlap", "double-buffer"], "item 13"),
 ])
 def test_train_cli_unported_paths_raise_by_item(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tlaunch.main(["--dataset", "karate", "--stages", "4", "--epochs", "1", "--device", "cpu",
                       *argv])
+
+
+@pytest.mark.parametrize("overlap", ["double-buffer", "async"])
+def test_train_cli_overlap_runs_the_compiled_engine(capsys, overlap):
+    """``--overlap`` (item 13) trains karate on the compiled engine at wire
+    latency 2 with the epoch losses of ``--overlap off``; ``async`` says it
+    runs the double-buffer program; the host engine refuses overlap."""
+    argv = ["--dataset", "karate", "--stages", "4", "--chunks", "4", "--strategy", "halo",
+            "--epochs", "2", "--log-every", "0", "--device", "cpu", "--engine", "compiled",
+            "--schedule", "1f1b"]
+    off = tlaunch.main(argv)
+    capsys.readouterr()
+    on = tlaunch.main([*argv, "--overlap", overlap])
+    printed = capsys.readouterr().out
+    assert on["epoch_losses"] == off["epoch_losses"] and on["val_acc"] == off["val_acc"]
+    assert (on["overlap"], on["wire_latency"], off["wire_latency"]) == (overlap, 2, 1)
+    assert ("async runs the double-buffer program" in printed) == (overlap == "async")
+    with pytest.raises(ValueError, match="host"):
+        tlaunch.main([*argv, "--engine", "host", "--overlap", overlap])
 
 
 def test_train_cli_data_parallel_on_one_device():
