@@ -144,17 +144,25 @@ Phases; any failure stops the run with a non-zero exit:
    sequential chunks, 1f1b, compiled engine under ``--overlap`` off,
    double-buffer and async): one step of each bit-identical to host
    fill_drain under deterministic algorithms; the tick counts (off below
-   the retimed ones); each mode's median step over 4 interleaved steps (the
-   first dropped); per mode one profiled replay: its device copies (count,
-   streams, time), how many ran beside a kernel of another stream (at
-   least one under double-buffer and async), the kernels' streams,
-   ``capture_overlap_report``'s overlap fraction and the bucket GAT
-   launches inside the replay. 15b: fig3's sparse configuration (the
-   kernel-backend GCN, hidden 32, depth 2, on skewed-powerlaw at
-   max_degree 128, balance (2, 2), 2 sequential chunks) through
-   ``sparse_stage_report`` on the padded and the bucketed layout: the
-   slots, and per stage its measured device time per chunk, its roof and
-   the roof's share of the measured time, which may not pass 1.05.
+   the retimed ones); the bucket GAT kernel against its plain version on
+   every bucket of the 8-chunk layout, at both layers' inputs; each mode's
+   step over 21 interleaved steps (the first dropped: quartiles, and the
+   retimed modes' paired per-round differences from off); per mode one
+   profiled replay: its device copies (count, streams, time), how many ran
+   beside a kernel of another stream (at least one under double-buffer and
+   async), the kernels' streams, ``capture_overlap_report``'s device-copy
+   overlap fraction (a replay keeps no wire stream) and the bucket GAT
+   launches inside the replay; per retimed mode one traced eager run of
+   the same step program, where the engine's wire stream keeps its id: the
+   wire posts' count, stream and time, and their hidden share (every event
+   on the wire stream a copy, none of the compute on it). 15b: fig3's
+   sparse configuration (the kernel-backend GCN, hidden 32, depth 2, on
+   skewed-powerlaw at max_degree 128, balance (2, 2), 2 sequential chunks)
+   through ``sparse_stage_report`` on the padded and the bucketed layout:
+   the slots, and per stage its measured device time per chunk, its roof
+   and the roof's share of the measured time, which may not pass 1.05;
+   then the padded and the bucket SpMM kernels against their plain
+   version on every chunk at both GCN layers' inputs.
 
 Every bound divides by the card's data-sheet rates from
 ``repro_torch.roofline.analysis.HW``, which knows the card by its name.
@@ -338,28 +346,12 @@ class Harness:
 
     def time_ms(self, fn, iters=20, reps=10):
         """Device ms per ``fn()`` call: ``iters`` calls captured in a CUDA
-        graph, replayed ``reps`` times between two CUDA events."""
-        t = self.torch
-        side = t.cuda.Stream()
-        side.wait_stream(t.cuda.current_stream())
-        with t.cuda.stream(side):
-            for _ in range(3):
-                fn()
-        t.cuda.current_stream().wait_stream(side)
-        t.cuda.synchronize()
-        graph = t.cuda.CUDAGraph()
-        with t.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
-        graph.replay()
-        t.cuda.synchronize()
-        start, end = t.cuda.Event(enable_timing=True), t.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            graph.replay()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / (reps * iters)
+        graph, replayed ``reps`` times between two CUDA events (the
+        package's ``repro_torch.roofline.device_ms``, which also times the
+        roofline's stages)."""
+        from repro_torch.roofline import device_ms
+
+        return device_ms(fn, iters, reps)
 
     def bound(self, calls):
         """(bound_ms, bound_by, bytes, ops) for a list of launches' inputs:
@@ -1934,7 +1926,7 @@ def phase_loader(H, torch, plan, host_layout, model, params):
 # ------------------------------ overlap and the per-stage roofline (phase 15) --
 
 OVERLAP_MODES = ("off", "double-buffer", "async")
-OVERLAP_STEPS = 4  # interleaved timed steps per mode in phase 15a (the first is dropped)
+OVERLAP_STEPS = 21  # interleaved timed steps per mode in phase 15a (the first is dropped)
 ROOF_SHARE_MAX = 1.05  # a stage faster than its floor means the count or the rates are wrong
 
 
@@ -1944,19 +1936,25 @@ def phase_overlap(H, torch):
     width, 4 stages (2, 1, 1, 2), 8 sequential chunks, 1f1b, compiled engine
     under overlap off, double-buffer and async. One step of each from the
     same params, and one of host fill_drain, bit-identical under
-    deterministic algorithms; the tick counts; each mode's median step over
+    deterministic algorithms; the tick counts; the bucket GAT kernel against
+    its plain version on the engine's layout; each mode's step over
     interleaved steps; per mode one profiled replay: its device copies
     (count, streams, time), the kernels' streams, the copies running beside
-    a kernel of another stream, the package's overlap report and the bucket
-    GAT launches inside the replay."""
+    a kernel of another stream, the package's device-copy overlap report
+    and the bucket GAT launches inside the replay; per retimed mode the
+    wire posts of one traced eager run of the step program."""
     import collections
     import tempfile
 
     from repro_torch.core.microbatch import make_plan
-    from repro_torch.core.overlap_report import capture_overlap_report, load_trace_events
+    from repro_torch.core.overlap_report import (
+        capture_overlap_report,
+        load_trace_events,
+        probe_streams,
+    )
     from repro_torch.core.pipeline import GPipeConfig, make_engine
     from repro_torch.graphs import load_dataset
-    from repro_torch.models.gnn.net import build_paper_gat
+    from repro_torch.models.gnn.net import build_paper_gat, chunk_keys
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.loop import synchronize
 
@@ -2013,7 +2011,23 @@ def phase_overlap(H, torch):
         raise AssertionError("overlap: the bucket GAT kernel was never launched")
     H.launches["bucket_gat_kernel"] += launched
 
-    lines = []
+    # the kernel against its plain version on the engine's own layout, both layers
+    layout = pipes["off"].layout(plan.stacked().graph)
+    calls = bucket_gat_plan_calls(torch, model, params0, layout, plan.chunks)
+    per_chunk = len(calls) // plan.chunks
+    for i, call in enumerate(calls):
+        H.compare("bucket_gat_kernel", f"cora 8 seq chunks, chunk {i // per_chunk} call "
+                  f"{i % per_chunk}", *call)
+    del calls
+
+    log(f"[overlap] cora paper GAT, pallas, 4 stages (2, 1, 1, 2) x 8 sequential chunks, 1f1b: "
+        f"off, double-buffer and async one step bit-identical to host fill_drain (loss "
+        f"{float(want_loss)}); ticks off {ticks['off']} < retimed {ticks['double-buffer']}; "
+        f"bucket-GAT launches recorded (warm-up + capture) {launched} [{H.card}]")
+
+    def quartiles(xs):
+        return ", ".join(f"{q:.6f}" for q in statistics.quantiles(xs, n=4))
+
     for m, pipe in pipes.items():
         with tempfile.TemporaryDirectory() as tmp:
             report = capture_overlap_report(
@@ -2025,31 +2039,62 @@ def phase_overlap(H, torch):
         beside = sum(any(c["args"]["stream"] != k["args"]["stream"]
                          and c["ts"] < k["ts"] + k["dur"] and k["ts"] < c["ts"] + c["dur"]
                          for k in kernels) for c in copies)
+        copy_streams = collections.Counter(c["args"]["stream"] for c in copies)
+        timed = times[m][1:]
+        paired = ""
+        if m != "off":
+            diffs = [(a - b) / b * 100 for a, b in zip(timed, times["off"][1:])]
+            paired = (f", minus off per round (%) median {statistics.median(diffs):.6f} "
+                      f"quartiles {quartiles(diffs)}")
+        line = (
+            f"{m}: step over {len(timed)} steps median {statistics.median(timed):.6f} ms, "
+            f"quartiles {quartiles(timed)} ms, min {min(timed):.6f} max {max(timed):.6f}"
+            f"{paired}; ticks {ticks[m]}; profiled replay: {len(copies)} device copies "
+            f"({sum(c['dur'] for c in copies):.3f} us) on streams "
+            f"{dict(sorted(copy_streams.items()))}, {beside} of them beside a kernel of another "
+            f"stream; {len(kernels)} kernels on {len({k['args']['stream'] for k in kernels})} "
+            f"streams; device-copy overlap_fraction {report['overlap_fraction']:.6f} (all "
+            f"copies {report['collective_time_us']:.3f} us, under compute "
+            f"{report['overlapped_time_us']:.3f} us, compute {report['compute_time_us']:.3f} "
+            f"us); bucket-GAT launches in the replay {gat}; graphs captured "
+            f"{pipe.graphs_captured}")
+        log(f"[overlap]   {line} [{H.card}]")
         if gat == 0 or pipe.graphs_captured != 1:
             raise AssertionError(f"overlap {m}: {gat} bucket GAT launches in a profiled replay, "
                                  f"{pipe.graphs_captured} graphs captured")
         if m != "off" and not beside:
             raise AssertionError(f"overlap {m}: no device copy ran beside a kernel of another "
                                  "stream in a profiled replay")
-        copy_streams = collections.Counter(c["args"]["stream"] for c in copies)
-        lines.append(
-            f"{m}: median step {statistics.median(times[m][1:]):.6f} ms (steps "
-            f"{[round(t, 3) for t in times[m]]}), ticks {ticks[m]}; profiled replay: "
-            f"{len(copies)} device copies ({sum(c['dur'] for c in copies):.3f} us) on streams "
-            f"{dict(sorted(copy_streams.items()))}, {beside} of them beside a kernel of another "
-            f"stream; {len(kernels)} kernels on {len({k['args']['stream'] for k in kernels})} "
-            f"streams; overlap_fraction {report['overlap_fraction']:.6f} (copies "
-            f"{report['collective_time_us']:.3f} us, under compute "
-            f"{report['overlapped_time_us']:.3f} us, compute {report['compute_time_us']:.3f} "
-            f"us); bucket-GAT launches in the replay {gat}; graphs captured "
-            f"{pipe.graphs_captured}")
-    log(f"[overlap] cora paper GAT, pallas, 4 stages (2, 1, 1, 2) x 8 sequential chunks, 1f1b: "
-        f"off, double-buffer and async one step bit-identical to host fill_drain (loss "
-        f"{float(want_loss)}); ticks off {ticks['off']} < retimed {ticks['double-buffer']}; "
-        f"bucket-GAT launches recorded (warm-up + capture) {launched} [{H.card}]")
-    for line in lines:
+        if m == "off":
+            continue
+        # the same step program run eagerly: the wire stream keeps its id there
+        program, graphs, masks = pipe.step_program(params0, plan, opt)
+        keys = chunk_keys(301, len(model.layers))
+        with tempfile.TemporaryDirectory() as tmp:
+            wire = capture_overlap_report(
+                lambda: program(*states[m], graphs, masks, keys), wire_stream=pipe.wire_stream,
+                trace_dir=tmp)
+            events = load_trace_events(tmp)
+        _, probe = probe_streams(events)
+        posts = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and e["args"].get("stream") in wire["wire_streams"]
+                 and e["args"].get("correlation") not in probe]
+        compute_streams = {e["args"]["stream"] for e in events if e.get("cat") == "kernel"
+                           and e["args"]["stream"] not in wire["wire_streams"]}
+        line = (
+            f"{m} eager step program (traced): {len(posts)} wire posts "
+            f"({sorted({e['name'] for e in posts})}) on wire stream {wire['wire_streams']}, "
+            f"compute on {sorted(compute_streams)}; posts {wire['collective_time_us']:.3f} us, "
+            f"under compute {wire['overlapped_time_us']:.3f} us: wire overlap_fraction "
+            f"{wire['overlap_fraction']:.6f}; compute {wire['compute_time_us']:.3f} us")
         log(f"[overlap]   {line} [{H.card}]")
-    del pipes, states
+        if (not posts or wire["num_collective_events"] != len(posts) or not compute_streams
+                or any(e["cat"] != "gpu_memcpy" for e in posts)):
+            raise AssertionError(f"overlap {m}: eager run, wire stream {wire['wire_streams']} "
+                                 f"ran {sorted(e['name'] for e in posts)}, the report counts "
+                                 f"{wire['num_collective_events']}, compute on "
+                                 f"{sorted(compute_streams)}")
+    del pipes, states, layout
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2090,6 +2135,21 @@ def phase_roofline(H, torch):
             f"{row['padded']['measured_ms']:.6f} ms (roof_share "
             f"{row['padded']['roof_share']:.6f}), bucketed {row['bucketed']['measured_ms']:.6f} "
             f"ms (roof_share {row['bucketed']['roof_share']:.6f}) per chunk [{H.card}]")
+
+    # each kernel against its plain version on every chunk, at both GCN layers' inputs
+    for c in range(plan.chunks):
+        chunk = padded.chunk(c)
+        zero = (chunk.norm == 0).all(dim=1)
+        for i, call in enumerate(gcn_calls(torch, model, params, chunk,
+                                           [(chunk.neighbors, chunk.norm)])):
+            H.compare_spmm("padded_spmm_kernel", f"skewed-powerlaw padded chunk {c} gcn_{i}",
+                           *call, zero_rows=zero)
+        chunk = layout.chunk(c)
+        tiles = [(b.neighbors, b.norm) for b in chunk.buckets if b.rows]
+        for i, call in enumerate(gcn_calls(torch, model, params, chunk, tiles)):
+            H.compare_spmm("bucket_spmm_kernel", f"skewed-powerlaw bucketed chunk {c} "
+                           f"gcn_{i // len(tiles)} bucket {i % len(tiles)}", *call,
+                           zero_rows=(call[2] == 0).all(dim=1))
 
 
 # ------------------------------------------------- LM serving (phases 2, 5, 8, 9) --

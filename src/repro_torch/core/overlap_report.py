@@ -9,20 +9,29 @@ call; this module measures it: trace one step, attribute device time to
 communication and compute, and report the share of communication time that
 ran under compute on the same device.
 
-On one card the ring hop is a device-to-device copy. A step captured as a
+On one card the ring hop is a device-to-device copy. "Communication" is
+every device event on the wire stream, and every NCCL kernel; "compute" is
+every kernel on another stream. The wire stream is named by its id in the
+trace: ``capture_overlap_report(step_fn, wire_stream=s)`` launches a probe
+on ``s`` inside a ``record_function`` range (``WIRE_PROBE``) before and
+after the step, and the streams that ran the probes' device work are the
+wire (the probes' own events are then dropped). That holds for a step run eagerly, as the
+compiled engine's program runs before its capture. A step captured as a
 CUDA graph does not keep its streams: CUDA runs the graph's branches on
 streams of its own, so the wire posts, the banks and the work's kernels
 appear on streams that change along the step, and no stream id names the
-wire. "Communication" is therefore every device copy event (category
-``gpu_memcpy``) and every NCCL kernel; "compute" is every other kernel.
+wire. Without a wire stream, the report therefore counts every device copy
+(category ``gpu_memcpy``: the posts, but also the banks, stash, gradient
+and optimizer copies) and every NCCL kernel as communication: a
+device-copy overlap, not the wire's.
 Events are grouped per device (the trace's ``pid``), not per stream as the
 reference groups its per-executor lanes: hiding a copy means another
-stream of the same device computing meanwhile. A copy that CUDA runs as a
-copy kernel counts as compute.
+stream of the same device computing meanwhile.
 
-``capture_overlap_report(step_fn)`` traces one call of an already-built
-step. It raises when the profiler fails or, with CUDA activity on, records
-no device event: it never returns zeroed metrics in place of a trace.
+``capture_overlap_report(step_fn)`` traces one call of a step. It raises
+when the profiler fails, when, with CUDA activity on, it records no device
+event, or when the wire probe's stream cannot be found: it never returns
+zeroed metrics in place of a trace.
 The profiler loses device records in short passes made after CUDA-graph
 captures unless CUPTI stays initialized (``DISABLE_CUPTI_LAZY_REINIT=1``,
 ``TEARDOWN_CUPTI=0`` in the environment before CUDA starts); each pass
@@ -42,6 +51,7 @@ import torch
 
 PROFILE_MARGIN_S = 0.5
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+WIRE_PROBE = "overlap_report.wire_probe"
 
 
 def load_trace_events(path: str) -> list:
@@ -82,33 +92,59 @@ def _intersect_len(intervals: list, union: list) -> float:
     return total
 
 
-def _is_communication(ev: dict) -> bool:
-    """A device copy or an NCCL kernel."""
-    return ev["cat"] == "gpu_memcpy" or (
-        ev["cat"] == "kernel" and "nccl" in ev.get("name", "").lower()
-    )
+def _stream(ev: dict):
+    return ev.get("args", {}).get("stream", ev.get("tid"))
 
 
-def overlap_from_events(events: list) -> dict:
+def _is_nccl(ev: dict) -> bool:
+    return ev["cat"] == "kernel" and "nccl" in ev.get("name", "").lower()
+
+
+def probe_streams(events: list, probe: str = WIRE_PROBE) -> tuple[set, set]:
+    """``(streams, correlations)`` of the device work launched inside the
+    host ranges named ``probe``: the runtime calls on the range's thread
+    within its span give the correlation ids, and the device events with
+    those ids give the streams, as the trace numbers them."""
+    spans = [(ev.get("pid"), ev.get("tid"), ev["ts"], ev["ts"] + ev.get("dur", 0))
+             for ev in events if ev.get("name") == probe and ev.get("cat") == "user_annotation"]
+    corr = {
+        ev["args"]["correlation"]
+        for ev in events
+        if ev.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in ev.get("args", {})
+        and any(pid == ev.get("pid") and tid == ev.get("tid") and lo <= ev["ts"] <= hi
+                for pid, tid, lo, hi in spans)
+    }
+    work = [ev for ev in events if ev.get("cat") in DEVICE_CATEGORIES
+            and ev.get("args", {}).get("correlation") in corr]
+    return {_stream(ev) for ev in work}, {ev["args"]["correlation"] for ev in work}
+
+
+def overlap_from_events(events: list, *, wire_streams=None) -> dict:
     """Attribute a trace's device time to communication vs compute and
     measure how much communication time ran under compute on the same
     device.
 
     Only device events count (categories ``kernel``, ``gpu_memcpy``,
-    ``gpu_memset``; host-side events carry none of these), and among the
-    compute events only LEAF events, as in the reference: within one
-    stream (the trace's ``tid``), an event that starts before its
-    successor's start but ends after it contains it. Returns total
-    microseconds per class, the overlapped microseconds, and
-    ``overlap_fraction`` (0.0 when nothing was sent), with the reference's
-    keys."""
+    ``gpu_memset``; host-side events carry none of these). Communication
+    is every device event on a stream of ``wire_streams`` (the trace's
+    stream ids) and every NCCL kernel; with ``wire_streams`` None, every
+    device copy and every NCCL kernel (module docstring). Compute is the
+    other kernels, and among them only LEAF events, as in the reference:
+    within one stream, an event that starts before its successor's start
+    but ends after it contains it. Returns total microseconds per class,
+    the overlapped microseconds, and ``overlap_fraction`` (0.0 when nothing
+    was sent), with the reference's keys."""
     streams: dict = {}
     for ev in events:
         if ev.get("ph") != "X" or not ev.get("dur") or ev.get("cat") not in DEVICE_CATEGORIES:
             continue
         start = float(ev.get("ts", 0.0))
-        streams.setdefault((ev.get("pid"), ev.get("tid")), []).append(
-            (start, start + float(ev["dur"]), _is_communication(ev), ev["cat"] == "kernel"))
+        if wire_streams is None:
+            is_comm = ev["cat"] == "gpu_memcpy" or _is_nccl(ev)
+        else:
+            is_comm = _stream(ev) in wire_streams or _is_nccl(ev)
+        streams.setdefault((ev.get("pid"), _stream(ev)), []).append(
+            (start, start + float(ev["dur"]), is_comm, ev["cat"] == "kernel"))
 
     devices: dict = {}  # pid -> (communication spans, compute spans)
     for (pid, _), spans in streams.items():
@@ -140,16 +176,24 @@ def overlap_from_events(events: list) -> dict:
     }
 
 
-def capture_overlap_report(step_fn: Callable[[], None], *, trace_dir: str | None = None) -> dict:
+def capture_overlap_report(
+    step_fn: Callable[[], None],
+    *,
+    wire_stream: "torch.cuda.Stream | None" = None,
+    trace_dir: str | None = None,
+) -> dict:
     """Trace ONE call of ``step_fn`` and return its overlap report.
 
-    ``step_fn`` runs one already-built step (on a card: captured, so the
-    pass sees one replay and no capture). The Chrome trace stays at
+    ``step_fn`` runs one already-built step. With ``wire_stream`` (a step
+    run eagerly, whose wire posts are issued on that stream), a probe on
+    the stream names its id in the trace, and communication is what ran on
+    it (``wire_streams`` in the report); without, a captured step's
+    replay, communication is every device copy. The Chrome trace stays at
     ``trace_dir/overlap_trace.json`` (a fresh temp dir by default), named
     in the report's ``trace_dir``. The device is synchronized before and
     after the step when CUDA is available; the CUDA activity is then traced
     too, and a trace without a device event raises."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     out_dir = trace_dir or tempfile.mkdtemp(prefix="overlap_trace_")
     os.makedirs(out_dir, exist_ok=True)
@@ -158,17 +202,40 @@ def capture_overlap_report(step_fn: Callable[[], None], *, trace_dir: str | None
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     if cuda:
         torch.cuda.synchronize()
+
+    def probe():
+        if wire_stream is not None:
+            with record_function(WIRE_PROBE), torch.cuda.stream(wire_stream):
+                torch.zeros(1, device=wire_stream.device)
+            torch.cuda.synchronize()
+
     with profile(activities=activities) as prof:
         if cuda:
             time.sleep(PROFILE_MARGIN_S)
+        probe()
         step_fn()
         if cuda:
             torch.cuda.synchronize()
+        probe()  # once more: the device records of a pass's first launches can be lost
+        if cuda:
             time.sleep(PROFILE_MARGIN_S)
     prof.export_chrome_trace(path)
     events = load_trace_events(path)
     if cuda and not any(ev.get("cat") in DEVICE_CATEGORIES for ev in events):
         raise RuntimeError(f"the profiler recorded no device event for the step ({path})")
-    report = overlap_from_events(events)
+    wire = None
+    if wire_stream is not None:
+        wire, corr = probe_streams(events)
+        if not wire:
+            ranges = [(ev.get("cat"), ev["ts"], ev.get("dur"))
+                      for ev in events if ev.get("name") == WIRE_PROBE]
+            device = sorted(ev["ts"] for ev in events if ev.get("cat") in DEVICE_CATEGORIES)
+            raise RuntimeError(
+                f"the wire probe's device work is not in the trace ({path}): probe ranges "
+                f"(category, start us, us) {ranges}, {len(device)} device events from "
+                f"{device[0] if device else None} to {device[-1] if device else None} us")
+        events = [ev for ev in events if ev.get("args", {}).get("correlation") not in corr]
+    report = overlap_from_events(events, wire_streams=wire)
+    report["wire_streams"] = sorted(wire) if wire is not None else None
     report["trace_dir"] = out_dir
     return report

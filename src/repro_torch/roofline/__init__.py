@@ -5,10 +5,11 @@ its live edge slots set."""
 
 from repro_torch.roofline.analysis import HW
 from repro_torch.roofline.stage_report import (
+    device_ms,
     layout_slots,
     live_slots,
     sparse_stage_report,
     stage_report,
 )
 
-__all__ = ["HW", "layout_slots", "live_slots", "sparse_stage_report", "stage_report"]
+__all__ = ["HW", "device_ms", "layout_slots", "live_slots", "sparse_stage_report", "stage_report"]

@@ -83,21 +83,23 @@ def _layer_roof(params: dict, n: int, live: float) -> tuple[float, float]:
     return flops, byts
 
 
-def _device_ms(fn, iters: int = 10, reps: int = 10) -> float:
-    """Device ms per ``fn()`` call: ``iters`` calls captured in a CUDA
-    graph (after a warm-up on a side stream), replayed ``reps`` times
-    between two CUDA events."""
+def device_ms(fn, iters: int = 20, reps: int = 10) -> float:
+    """Device ms per ``fn()`` call on the current CUDA device: ``iters``
+    calls captured in a CUDA graph (after three warm-up calls on a side
+    stream), the graph replayed ``reps`` times between two CUDA events."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(2):
+        for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
     graph.replay()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -119,9 +121,10 @@ def stage_report(
 
     ``graph`` is a chunk-stacked batch (padded ``GraphBatch`` or its
     ``BucketedGraphBatch`` wrapper, leaves ``(chunks, n_pad, ...)``) on the
-    params' device. Each stage slice is timed on the card over every chunk,
-    its input the previous stage's output on that chunk; the roof comes
-    from ``_layer_roof`` at the graph's live slot count."""
+    params' device. Each stage slice is timed on that card (``device_ms``,
+    its rates those of the card's own name) over every chunk, its input
+    the previous stage's output on that chunk; the roof comes from
+    ``_layer_roof`` at the graph's live slot count."""
     bounds = []
     lo = 0
     for b in balance:
@@ -135,7 +138,8 @@ def stage_report(
     )
     n_pad = graph.features.shape[1]
     live = live_slots(graph)
-    card = HW.of() if graph.features.device.type == "cuda" else None
+    device = graph.features.device
+    card = HW.of(torch.cuda.get_device_name(device)) if device.type == "cuda" else None
 
     rows = []
     h_in = [None] * chunks  # each chunk's input to the stage being timed
@@ -161,7 +165,8 @@ def stage_report(
                     for c in range(chunks):
                         fn(params, c, h_in[c])
 
-                row["measured_ms"] = _device_ms(every_chunk) / chunks
+                with torch.cuda.device(device):
+                    row["measured_ms"] = device_ms(every_chunk, iters=10) / chunks
                 row["roof_ms"] = max(roof_flops / card.fp32_flops,
                                      roof_bytes / card.hbm_bw) * 1e3
                 row["roof_share"] = row["roof_ms"] / row["measured_ms"]

@@ -615,8 +615,14 @@ def test_compiled_double_buffer_replay_bitwise_and_forked_on_card(cuda, tmp_path
     ``off`` and of host fill_drain bit for bit, and one profiled replay
     keeps the fork: its device copies and kernels run on more than one
     stream. (Whether a copy overlaps a kernel is timing: karate's kernels
-    are a few microseconds; the smoke's cora step checks that some do.)"""
-    from repro_torch.core.overlap_report import capture_overlap_report, load_trace_events
+    are a few microseconds; the smoke's cora step checks that some do.) The
+    same step program run eagerly posts on the engine's wire stream, which
+    the report names by its id and which runs nothing but the posts."""
+    from repro_torch.core.overlap_report import (
+        capture_overlap_report,
+        load_trace_events,
+        probe_streams,
+    )
 
     model, plan = _compiled_case("padded")  # feature and attention dropout on
     opt = topt.adam(5e-3, weight_decay=5e-4)
@@ -650,6 +656,19 @@ def test_compiled_double_buffer_replay_bitwise_and_forked_on_card(cuda, tmp_path
     assert report["collective_time_us"] > 0 and report["num_compute_events"] > 0
     assert len({e["args"]["stream"] for e in copies + kernels}) > 1
     assert any(c["args"]["stream"] != k["args"]["stream"] for c in copies for k in kernels)
+    # the same program run eagerly keeps the wire stream: its posts sit there alone
+    program, graphs, masks = eng.step_program(params, plan, opt)
+    keys = chunk_keys(44, len(model.layers))
+    wire = capture_overlap_report(lambda: program(params, state, graphs, masks, keys),
+                                  wire_stream=eng.wire_stream, trace_dir=str(tmp_path / "eager"))
+    events = load_trace_events(str(tmp_path / "eager"))
+    _, probe = probe_streams(events)
+    on_wire = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+               and e["args"].get("stream") in wire["wire_streams"]
+               and e["args"].get("correlation") not in probe]
+    assert len(wire["wire_streams"]) == 1 and wire["num_compute_events"] > 0
+    assert on_wire and wire["num_collective_events"] == len(on_wire)
+    assert all(e["cat"] == "gpu_memcpy" for e in on_wire)
 
 
 # ------------------------- the zoo, dense, SIGN, checkpoints, the planner --

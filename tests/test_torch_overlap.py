@@ -295,6 +295,46 @@ def test_overlap_streams_nccl_and_the_no_copy_case():
     assert set(none) == set(jrep.overlap_from_events([]))
 
 
+def test_overlap_names_the_wire_by_its_stream_id():
+    # with the wire stream named, a copy on another stream (a bank) is not
+    # communication, and anything on the wire stream is, a copy kernel too
+    events = [
+        _ev("gpu_memcpy", 0, 4, stream=13),
+        _ev("kernel", 10, 4, stream=13, name="copy_kernel"),
+        _ev("gpu_memcpy", 20, 4, stream=7),
+        _ev("kernel", 2, 10, stream=7),
+        _ev("kernel", 20, 4, stream=7),
+    ]
+    r = trep.overlap_from_events(events, wire_streams={13})
+    assert (r["num_collective_events"], r["num_compute_events"]) == (2, 2)
+    assert r["collective_time_us"] == 8 and r["overlapped_time_us"] == 4
+    assert r["overlap_fraction"] == 0.5 and r["compute_time_us"] == 14
+    copies = trep.overlap_from_events(events)  # no stream named: every device copy
+    assert copies["num_collective_events"] == 2 and copies["num_compute_events"] == 3
+
+
+def test_probe_streams_follows_the_correlation_ids():
+    def host(cat, name, ts, dur, corr=None, tid=1):
+        args = {} if corr is None else {"correlation": corr}
+        return {"ph": "X", "cat": cat, "name": name, "pid": 5, "tid": tid, "ts": ts,
+                "dur": dur, "args": args}
+
+    def dev(cat, ts, stream, corr):
+        return {**_ev(cat, ts, 1, stream=stream), "args": {"stream": stream, "correlation": corr}}
+
+    events = [
+        host("user_annotation", trep.WIRE_PROBE, 100, 10),
+        host("cuda_runtime", "cudaLaunchKernel", 102, 2, corr=1),  # inside: the probe
+        host("cuda_runtime", "cudaLaunchKernel", 120, 2, corr=2),  # after the range
+        host("cuda_runtime", "cudaMemcpyAsync", 104, 2, corr=3, tid=2),  # another thread
+        dev("kernel", 130, 21, 1),
+        dev("kernel", 131, 7, 2),
+        dev("gpu_memcpy", 132, 9, 3),
+    ]
+    assert trep.probe_streams(events) == ({21}, {1})
+    assert trep.probe_streams(events[1:]) == (set(), set())
+
+
 intervals = st.lists(st.tuples(st.floats(0, 1e3, allow_nan=False),
                                st.floats(0, 50, allow_nan=False)), max_size=12)
 
