@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases; any failure stops the run with a non-zero exit:
+Phases (each prints its seconds); any failure stops the run with a non-zero
+exit:
 
 1. Print the card, build the four CUDA kernels from ``src/`` (GAT, SpMM,
    flash attention, SSD; one ``nvcc`` per source, all started together,
@@ -25,10 +26,12 @@ Phases; any failure stops the run with a non-zero exit:
    atol/rtol 1e-5: the codeqwen prefill's launch shape (4 x 512 tokens, 32
    heads of 128, causal), GQA 32/16, 32/8 and 8/1, window 128 and 100
    (crossing tile edges), softcap 50, S 1/63/64/65/127/129/200/513, hd/hd_v
-   64/64, 128/128, 128/64, 256/256 and 96/64, and bf16 at 2e-2. SSD, y and
-   final state at atol 1e-4: the mamba2-130m prefill's launch shape (4 x
-   512, 24 heads, P 64, N 128, chunk 128), ragged S 64 and 200, chunk 32,
-   S 1, S 2048 (16 chunks), strong decay and a 45-block grid.
+   64/64, 128/128, 128/64, 256/256 and 96/64, zamba2's hd 112 (32 heads, B
+   4 and 8, S 512 and 256), and bf16 at 2e-2. SSD, y and final state at
+   atol 1e-4: the mamba2-130m prefill's launch shape (4 x 512, 24 heads, P
+   64, N 128, chunk 128), zamba2's (112 heads, P 64, N 64, S 512 and 256),
+   ragged S 64 and 200, chunk 32, S 1, S 2048 (16 chunks), strong decay and
+   a 45-block grid.
 3. Serve cora through ``repro_torch.launch.serve_gnn.run`` with the kernel
    backend (4 stages, 4 chunks, 50 q/s for 3 s, ``--verify`` at 1e-5): every
    query answered, 0 mismatches, and the padded GAT kernel's launch count
@@ -52,7 +55,9 @@ Phases; any failure stops the run with a non-zero exit:
    the CUDA-core figure beside) and, for SpMM,
    ``torch.sparse.mm`` on a CSR matrix built once from (nbr, norm), with
    each SpMM launch's own time beside its bound; the flash and SSD kernels
-   at their prefill launch shapes, flash beside
+   at their prefill launch shapes and at zamba2's prefill and training
+   launches (4 x 512 and 4 x 256 tokens; flash at hd 112, SSD at 112 heads
+   and N 64), flash beside
    ``scaled_dot_product_attention(is_causal=True)`` on the same fp32 tensors,
    whose device kernels one ``torch.profiler`` pass names; the SSD call's
    three CUDA launches are named and timed by the profiler, and each must
@@ -164,6 +169,27 @@ Phases; any failure stops the run with a non-zero exit:
    then the padded and the bucket SpMM kernels against their plain
    version on every chunk at both GCN layers' inputs.
 
+16. LM training through ``repro_torch.launch.train.train_lm`` at full
+   width with the JAX ``run_lm`` defaults (``--seq 256 --batch 8 --lr
+   3e-4``, fp32, remat on). Per run: every loss finite; the flash and SSD
+   wrappers called twice (forward and recompute) per active slot,
+   micro-batch and step, and every call of the first forward held against
+   the plain version at its own inputs; the losses, step times, median step
+   after the first, tokens/s and peak allocated; one more step profiled:
+   busy share, the kernels' launches inside it and their shares of device
+   time, their plain backward's device time (the ops' autograd nodes), the
+   top kernels. 16a: mamba2-130m at full depth, ``--stages 2 --chunks 2``,
+   6 steps; its first step held against the same step on the CPU (plain
+   versions, same params and batch: loss within 1e-4 relative, Adam's mu
+   within 1e-3 of each leaf's largest entry); fill_drain and interleaved
+   run again under deterministic algorithms, bit-identical. 16b:
+   codeqwen1.5-7b cut to 8 of 32 layers (fp32 params, gradients and Adam's
+   moments of all 8.19e9 params are 131 GB), ``--chunks 2``, 4 steps. 16c:
+   zamba2-7b served at all 81 slots as phase 8 serves codeqwen (flash at hd
+   112 13 x 2 times and SSD 68 x 2 times in the prefill, decode vs a fresh
+   prefill at 1e-3), then trained cut to 36 slots (all 81: 94.3 GB of
+   state), ``--chunks 2``, 4 steps.
+
 Every bound divides by the card's data-sheet rates from
 ``repro_torch.roofline.analysis.HW``, which knows the card by its name.
 The last three lines are the card's name and power limit, the ``kernels``
@@ -178,6 +204,7 @@ import concurrent.futures
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1019,10 +1046,11 @@ def phase_train_gcn(H, torch):
 PROFILE_MARGIN_S = 0.5
 
 
-def profiled(torch, run, trace=None):
+def profiled(torch, run, trace=None, events=False):
     """(wall ms, CUDA events) of ``run()`` to a device synchronize, under
-    ``torch.profiler``; with ``trace`` a path, the pass's Chrome trace is
-    written there. The pass opens and closes ``PROFILE_MARGIN_S``
+    ``torch.profiler``, and with ``events`` every averaged event as a third
+    item (host ranges too); with ``trace`` a path, the pass's Chrome trace
+    is written there. The pass opens and closes ``PROFILE_MARGIN_S``
     before and after the timed work: the profiler keeps only the device
     records time-stamped inside the pass, and short passes on the card lost
     their first or all records without the margin."""
@@ -1038,8 +1066,9 @@ def profiled(torch, run, trace=None):
         time.sleep(PROFILE_MARGIN_S)
     if trace is not None:
         prof.export_chrome_trace(str(trace))
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return wall_ms, kernels
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (wall_ms, kernels, averages) if events else (wall_ms, kernels)
 
 
 def profile_gcn_step(H, torch, engine, state, plan, opt):
@@ -2296,7 +2325,13 @@ def phase_compare_lm(H, torch):
         compare_flash(H, f"S {s} hd {hd} window {window}",
                       *flash_inputs(H, 2, s, 8, 2, hd, dtype=torch.bfloat16), window=window,
                       tol=FLASH_BF16_TOL)
+    # zamba2's shared block: hd 112, 32 heads, its prefill and training
+    # launches (4 rows a micro-batch) and the whole batch of 8
+    for b, s in ((4, 512), (4, 256), (8, 512), (8, 256)):
+        compare_flash(H, f"zamba2 hd 112, B {b} S {s}", *flash_inputs(H, b, s, 32, 32, 112))
     compare_ssd(H, "mamba2-130m prefill launch shape", *ssd_inputs(H, 4, 512, 24, 64, 128), 128)
+    for s in (512, 256):  # zamba2's mixer: 112 heads, state 64
+        compare_ssd(H, f"zamba2 112 heads N 64, b 4 S {s}", *ssd_inputs(H, 4, s, 112, 64, 64), 128)
     for s in (64, 200):
         compare_ssd(H, f"ragged S {s}", *ssd_inputs(H, 4, s, 24, 64, 128), 128)
     compare_ssd(H, "chunk 32", *ssd_inputs(H, 4, 512, 24, 64, 128), 32)
@@ -2319,25 +2354,43 @@ def phase_timing_lm(H, torch):
     from repro_torch.kernels.flash.ref import flash_attention_ref
     from repro_torch.kernels.ssd.ref import ssd_chunk_scan
 
-    q, k, v = flash_inputs(H, 4, 512, 32, 32, 128)
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
-    if not torch.allclose(lib, flash_attention_ref(q, k, v), atol=FLASH_ATOL, rtol=FLASH_RTOL):
-        raise AssertionError("scaled_dot_product_attention disagrees with the plain version")
-    ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v))
-    plain_ms = H.time_ms(lambda: flash_attention_ref(q, k, v))
-    library_ms = H.time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    bound_ms, bound_by, nbytes, nops, cuda_core_ms = flash_bound(q, k, v)
-    sdpa = "kernels: " + ", ".join(k for k, _, _ in device_kernel_times(
-        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), calls=1))
-    H.timing["flash_attention_kernel"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                          "bound_by": bound_by, "library_ms": library_ms}
-    log(f"[timing] flash_attention_kernel one codeqwen prefill launch (4 x 512 tokens, 32 heads, "
-        f"hd 128, causal, fp32): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-        f"scaled_dot_product_attention {library_ms:.6f} ms ({sdpa}), "
-        f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops as 3xTF32 tensor-core "
-        f"products at {CARD.tf32_flops:.3g}/s; on the fp32 CUDA cores {cuda_core_ms:.6f} ms), "
-        f"share of bound {bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s [{H.card}]")
+    def flash_timing(label, q, k, v):
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
+        if not torch.allclose(lib, flash_attention_ref(q, k, v), atol=FLASH_ATOL,
+                              rtol=FLASH_RTOL):
+            raise AssertionError("scaled_dot_product_attention disagrees with the plain version")
+        ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v))
+        plain_ms = H.time_ms(lambda: flash_attention_ref(q, k, v))
+        library_ms = H.time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        bound_ms, bound_by, nbytes, nops, cuda_core_ms = flash_bound(q, k, v)
+        sdpa = "kernels: " + ", ".join(k for k, _, _ in device_kernel_times(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), calls=1))
+        log(f"[timing] flash_attention_kernel {label}: kernel {ms:.6f} ms, plain "
+            f"{plain_ms:.6f} ms, scaled_dot_product_attention {library_ms:.6f} ms ({sdpa}), "
+            f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops as 3xTF32 tensor-core "
+            f"products at {CARD.tf32_flops:.3g}/s; on the fp32 CUDA cores {cuda_core_ms:.6f} ms), "
+            f"share of bound {bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s "
+            f"[{H.card}]")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+
+    H.timing["flash_attention_kernel"] = flash_timing(
+        "one codeqwen prefill launch (4 x 512 tokens, 32 heads, hd 128, causal, fp32)",
+        *flash_inputs(H, 4, 512, 32, 32, 128))
+    for s in (512, 256):
+        flash_timing(f"one zamba2 {'prefill' if s == 512 else 'training'} launch (4 x {s} "
+                     f"tokens, 32 heads, hd 112, causal, fp32)", *flash_inputs(H, 4, s, 32, 32, 112))
+
+    for s in (512, 256):
+        x, dt, loga, B, C = ssd_inputs(H, 4, s, 112, 64, 64)
+        ms = H.time_ms(lambda: H.DK.ssd_kernel(x, dt, loga, B, C, chunk=128))
+        plain_ms = H.time_ms(lambda: ssd_chunk_scan(x, dt, loga, B, C, chunk=128))
+        bound_ms, bound_by, nbytes, nops, _ = ssd_bound(x, B, 128)
+        log(f"[timing] ssd_kernel one zamba2 {'prefill' if s == 512 else 'training'} launch (4 x "
+            f"{s} tokens, 112 heads, P 64, N 64, chunk 128): kernel {ms:.6f} ms, plain "
+            f"{plain_ms:.6f} ms, library none, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, "
+            f"{nops} ops as 3xTF32), share of bound {bound_ms / ms:.3f} [{H.card}]")
 
     x, dt, loga, B, C = ssd_inputs(H, 4, 512, 24, 64, 128)
     ms = H.time_ms(lambda: H.DK.ssd_kernel(x, dt, loga, B, C, chunk=128))
@@ -2439,62 +2492,108 @@ def profile_steps(H, torch, label, served, keys):
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
 
 
-def phase_serve_lm(H, torch, arch, name):
-    """Phases 8-9: serve ``arch`` at full width through
-    ``repro_torch.launch.serve``; ``name``'s wrapper must launch once per
-    layer and micro-batch in the prefill. Each layer's own kernel inputs and
-    output from micro-batch 0 are captured on the way and held against the
-    plain version; the first decode step's logits are held against a fresh
-    prefill over the prompt plus the first token."""
+class KernelCapture:
+    """Route the flash and SSD ops' kernel wrappers through recorders while
+    a main path runs: each wrapper's count starts at 0, the first
+    ``limits[name]`` calls' (args, kwargs, output) are kept in
+    ``captured[name]``, and ``launches[name]`` holds the count on exit."""
+
+    def __init__(self, limits: dict):
+        from repro_torch.kernels.flash import ops as flash_ops
+        from repro_torch.kernels.ssd import ops as ssd_ops
+
+        self.ops = {"flash_attention_kernel": flash_ops, "ssd_kernel": ssd_ops}
+        self.limits = limits
+        self.captured = {name: [] for name in limits}
+        self.launches = {}
+
+    def __enter__(self):
+        self.wrappers = {}
+        for name, limit in self.limits.items():
+            wrapper = self.wrappers[name] = getattr(self.ops[name], name)
+            kept = self.captured[name]
+
+            def record(*a, wrapper=wrapper, kept=kept, limit=limit, **kw):
+                out = wrapper(*a, **kw)
+                if len(kept) < limit:  # the op's autograd marks the outputs themselves
+                    kept.append((tuple(x.detach() for x in a), kw,
+                                 tuple(y.detach() for y in out) if isinstance(out, tuple)
+                                 else out.detach()))
+                return out
+
+            wrapper.launches = 0
+            setattr(self.ops[name], name, record)
+        return self
+
+    def __exit__(self, *exc):
+        for name, wrapper in self.wrappers.items():
+            setattr(self.ops[name], name, wrapper)
+            self.launches[name] = wrapper.launches
+        return False
+
+    def compare(self, H, torch, label):
+        """Hold every kept call against the plain version on its own inputs;
+        returns the largest share of the flash tolerance that
+        ``scaled_dot_product_attention`` uses on the same global, uncapped
+        calls."""
+        sdpa_used = 0.0
+        for name, calls in self.captured.items():
+            for i, (a, kw, out) in enumerate(calls):
+                if name == "flash_attention_kernel":
+                    compare_flash(H, f"{label} call {i:3d}", *a, window=kw["window"],
+                                  softcap=kw["softcap"], out=out)
+                    if kw["window"] == 0 and kw["softcap"] == 0.0:
+                        sdpa_used = max(sdpa_used, sdpa_tolerance_used(torch, *a))
+                else:
+                    compare_ssd(H, f"{label} call {i:3d}", *a, kw["chunk"], out=out)
+        self.captured = {}
+        return sdpa_used
+
+
+def active_slots(cfg, num_stages=1) -> dict:
+    """{kernel: active layer slots whose forward calls it}."""
+    from repro_torch.models.transformer.model import make_extras
+
+    ex = make_extras(cfg, num_stages)
+    if cfg.arch_type == "hybrid":
+        return {"flash_attention_kernel": int(ex["attn"]["active"].sum()),
+                "ssd_kernel": int(ex["mamba"]["active"].sum())}
+    name = "ssd_kernel" if cfg.arch_type == "ssm" else "flash_attention_kernel"
+    return {name: int(ex["active"].sum())}
+
+
+def phase_serve_lm(H, torch, arch):
+    """Phases 8, 9 and 16c's serving: serve ``arch`` at full width through
+    ``repro_torch.launch.serve``; each kernel of its blocks must launch once
+    per active layer slot and micro-batch in the prefill. Each slot's own
+    kernel inputs and output from micro-batch 0 are captured on the way and
+    held against the plain version; the first decode step's logits are held
+    against a fresh prefill over the prompt plus the first token."""
     from repro_torch.configs import ShapeConfig, get_arch
-    from repro_torch.kernels.flash import ops as flash_ops
-    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.launch.serve import build_parser, serve
     from repro_torch.models.transformer.model import init_cache, make_prefill_step
 
     args = build_parser().parse_args(["--arch", arch, *LM_SERVE_ARGS])
-    ops = flash_ops if name == "flash_attention_kernel" else ssd_ops
-    wrapper = getattr(ops, name)
-    layers = get_arch(arch).num_layers
-    captured = []
-
-    def capture(*a, **kw):  # the op's own call, recorded for micro-batch 0
-        out = wrapper(*a, **kw)
-        if len(captured) < layers:
-            captured.append((a, kw, out))
-        return out
-
-    setattr(ops, name, capture)
-    wrapper.launches = 0
-    try:
+    slots = active_slots(get_arch(arch, smoke=not args.full_arch))
+    with KernelCapture(slots) as cap:
         served = serve(args)
-    finally:
-        setattr(ops, name, wrapper)
     torch.cuda.synchronize()
-    launched = wrapper.launches
     summary, gen = served.summary, served.generation
-    want = layers * args.chunks
-    if launched != want:
-        raise AssertionError(f"{arch}: {name} launched {launched} times in the prefill, want "
-                             f"{want} ({layers} layers x {args.chunks} micro-batches)")
-    H.launches[name] = launched
+    for name, n in slots.items():
+        want = n * args.chunks
+        if cap.launches[name] != want:
+            raise AssertionError(f"{arch}: {name} launched {cap.launches[name]} times in the "
+                                 f"prefill, want {want} ({n} layer slots x {args.chunks} "
+                                 "micro-batches)")
+        H.launches[name] = H.launches.get(name, 0) + want
     if gen.tokens.shape != (args.batch, args.decode_steps + 1):
         raise AssertionError(f"{arch}: generated tokens {gen.tokens.shape}")
     for logits in (gen.prefill_logits, gen.first_decode_logits):
         if logits.shape != (args.batch, served.cfg.vocab_size) or not bool(logits.isfinite().all()):
             raise AssertionError(f"{arch}: logits of shape {tuple(logits.shape)} or non-finite")
 
-    sdpa_used = 0.0
-    for i, (a, kw, out) in enumerate(captured):
-        label = f"{arch} layer {i:2d} micro-batch 0"
-        if name == "flash_attention_kernel":
-            compare_flash(H, label, *a, window=kw["window"], softcap=kw["softcap"], out=out)
-            if kw["window"] == 0 and kw["softcap"] == 0.0:
-                sdpa_used = max(sdpa_used, sdpa_tolerance_used(torch, *a))
-        else:
-            compare_ssd(H, label, *a, kw["chunk"], out=out)
-    del captured
-    if name == "flash_attention_kernel":
+    sdpa_used = cap.compare(H, torch, f"{arch} prefill micro-batch 0")
+    if "flash_attention_kernel" in slots:
         log(f"[serve-lm] {arch} layers' own inputs, share of the flash tolerance used at most: "
             f"flash kernel {H.used['flash_attention_kernel']:.3f} (all compares), "
             f"scaled_dot_product_attention {sdpa_used:.3f} (these layers) [{H.card}]")
@@ -2515,16 +2614,215 @@ def phase_serve_lm(H, torch, arch, name):
         raise AssertionError(f"{arch}: decoded logits at position {plen} differ from a fresh "
                              f"{plen + 1}-token prefill by {err:.3g} (limit "
                              f"{DECODE_VS_PREFILL_ATOL})")
+    launched = ", ".join(f"{name} launches {cap.launches[name]} ({n} slots x {args.chunks})"
+                         for name, n in slots.items())
     log(f"[serve-lm] {arch} full width ({summary['params']} params, fp32), batch {b}, prompt "
         f"{plen}, {args.decode_steps} decode steps, {args.chunks} micro-batches: prefill_s "
         f"{summary['prefill_s']}, decode_s_per_tok {summary['decode_s_per_tok']}, tokens_per_s "
         f"{summary['tokens_per_s']}, peak_mem_gb {summary['peak_mem_gb']}, sample "
-        f"{summary['sample']}; {name} launches {launched} ({layers} layers x {args.chunks}); "
-        f"decode vs fresh {plen + 1}-token prefill: max |logit diff| {err:.6g} (limit "
-        f"{DECODE_VS_PREFILL_ATOL}), argmax agree {agree}/{b} [{H.card}]")
-    profile_steps(H, torch, arch, served, ("flash_kernel",) if name == "flash_attention_kernel"
-                  else SSD_LAUNCH_KERNELS)
+        f"{summary['sample']}; {launched}; decode vs fresh {plen + 1}-token prefill: max |logit "
+        f"diff| {err:.6g} (limit {DECODE_VS_PREFILL_ATOL}), argmax agree {agree}/{b} [{H.card}]")
+    profile_steps(H, torch, arch, served,
+                  tuple(part for name in slots for part in LM_KERNEL_PARTS[name]))
     return summary
+
+
+# ----------------------------------------------------- LM training (phase 16) --
+
+LM_TRAIN_ARGS = [  # phase 16: the JAX launcher's run_lm defaults at full width, one card
+    "--mode", "lm", "--full-arch", "--seq", "256", "--batch", "8", "--lr", "3e-4",
+    "--log-every", "0", "--device", "cuda",
+]
+FIRST_STEP_LOSS_RTOL = 1e-4  # the card's first step against the CPU's, relative
+FIRST_STEP_MU_TOL = 1e-3  # Adam's mu after step 1, of each leaf's largest entry
+# each kernel's device-side names: flash's one launch, SSD's three
+LM_KERNEL_PARTS = {"flash_attention_kernel": ("flash_kernel",), "ssd_kernel": SSD_LAUNCH_KERNELS}
+# each op's autograd node, whose range holds its plain backward
+BACKWARD_NODES = {"flash_attention_kernel": "_FlashBackward", "ssd_kernel": "_SsdBackward"}
+
+
+def flat_cpu(tree, prefix=""):
+    """{path: CPU copy} of a nested dict of tensors."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_cpu(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v.detach().to("cpu", copy=True)
+    return out
+
+
+def phase_train_lm(H, torch, tag, arch, extra, *, num_layers=None, cpu_check=False,
+                   also=()):
+    """Phase 16: train ``arch`` at full width (depth cut to ``num_layers``
+    slots) through ``repro_torch.launch.train.train_lm`` with the JAX
+    launcher's ``run_lm`` defaults plus ``extra``. Every kernel of its
+    blocks launches twice (forward and recompute) per active slot,
+    micro-batch and step; each call of the first forward is held against
+    the plain version at its own inputs. Losses finite; median step after
+    the first, tokens/s, peak allocated; one more step profiled: busy share,
+    kernel launches and shares, the plain backward's device time, the top
+    kernels. ``cpu_check``: the first step against the same step on the CPU
+    (plain versions, same params and batch), loss and Adam's mu. ``also``:
+    other schedules, run after the main path with its own schedule again,
+    all under deterministic algorithms: their losses must be bit-identical."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.train import build_parser, lm_batch, train_lm
+    from repro_torch.models.transformer.model import init_params, make_train_step
+    from repro_torch.train.optimizer import tree_map
+
+    t_phase = time.perf_counter()
+    args = build_parser().parse_args([*LM_TRAIN_ARGS, "--arch", arch, *extra])
+    cfg = get_arch(arch, smoke=not args.full_arch)
+    cut = ""
+    if num_layers is not None:
+        cut = f", cut to {num_layers} of {cfg.num_layers} layer slots"
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    first = {name: n * args.chunks for name, n in active_slots(cfg, args.stages).items()}
+    mu_card = {}
+
+    def on_step(i, params, opt_state, loss):
+        if i == 0 and cpu_check:
+            mu_card.update(flat_cpu(opt_state.mu))
+
+    with KernelCapture(first) as cap:
+        trained = train_lm(cfg, args, on_step)
+    torch.cuda.synchronize()
+    for name, n in first.items():
+        want = 2 * n * args.steps
+        if cap.launches[name] != want:
+            raise AssertionError(f"{arch}: {name} launched {cap.launches[name]} times in "
+                                 f"{args.steps} steps, want {want} (forward and recompute x "
+                                 f"{n} slot calls)")
+        H.launches[name] = H.launches.get(name, 0) + want
+    if also:
+        schedules_bit_identical(H, torch, tag, cfg, [*LM_TRAIN_ARGS, "--arch", arch, *extra],
+                                (args.schedule, *also), first)
+    losses, summary = trained.losses, trained.summary
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{arch}: non-finite loss {losses}")
+    median = statistics.median(trained.step_s[1:])
+    state_gb = 16 * summary["params"] / 1e9
+    log(f"[train-lm] {tag} {arch} full width{cut} ({summary['params']} params, fp32; params + "
+        f"grads + Adam mu/nu {state_gb:.3f} GB), topology {trained.topo}, seq {args.seq}, batch "
+        f"{args.batch}, lr {args.lr}: losses {losses}; step s {trained.step_s}; median step "
+        f"after the first {median:.6f} s, {args.batch * args.seq / median:.1f} tokens/s; peak "
+        f"allocated {summary['peak_mem_gb']:.3f} GB ({summary['peak_mem_gb'] - state_gb:.3f} "
+        f"beyond the state); launches {cap.launches} [{H.card}]")
+    cap.compare(H, torch, f"{arch} train step 0 forward")
+
+    batch = lm_batch(cfg, args, args.steps, H.dev)
+    wall_ms, kernels, events = profiled(
+        torch, lambda: trained.step(trained.params, trained.opt_state, batch), events=True)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if device_ms <= 0:
+        raise AssertionError(f"torch.profiler recorded no device time for {arch}'s step")
+    parts = []
+    for name in first:
+        calls = sum(e.count for e in kernels if LM_KERNEL_PARTS[name][-1] in e.key)
+        if calls != 2 * first[name]:
+            raise AssertionError(f"{arch}: the profiled step ran {LM_KERNEL_PARTS[name][-1]} "
+                                 f"{calls} times, want {2 * first[name]}")
+        mine = sum(e.self_device_time_total for e in kernels
+                   if any(p in e.key for p in LM_KERNEL_PARTS[name])) / 1e3
+        back = sum(e.device_time_total for e in events
+                   if e.device_type != torch.autograd.DeviceType.CUDA
+                   and e.key.endswith(BACKWARD_NODES[name])) / 1e3
+        parts.append(f"{name} {calls} launches (forward and recompute) {mine:.3f} ms "
+                     f"({mine / device_ms:.3f} of device time), its plain backward "
+                     + (f"{back:.3f} ms ({back / device_ms:.3f})" if back > 0 else "not measured"))
+    log(f"[profile] {tag} {arch} one train step (profiled): wall {wall_ms:.3f} ms, device busy "
+        f"{device_ms:.3f} ms ({device_ms / wall_ms:.3f} of wall); " + "; ".join(parts)
+        + f" [{H.card}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
+
+    if cpu_check:
+        params = init_params(cfg, seed=args.seed, num_stages=trained.topo.num_stages,
+                             device=H.dev)
+        cpu_params = tree_map(lambda t: t.to("cpu", copy=True), params)
+        del params
+        step = make_train_step(cfg, trained.topo, ShapeConfig("cpu", args.seq, args.batch,
+                                                              "train"), lr=args.lr)
+        t0 = time.perf_counter()
+        _, cpu_opt, metrics = step(cpu_params, step.optimizer.init(cpu_params),
+                                   lm_batch(cfg, args, 0, "cpu"))
+        cpu_s = time.perf_counter() - t0
+        want = float(metrics["loss"])
+        rel = abs(losses[0] - want) / abs(want)
+        worst, worst_name = 0.0, ""
+        for name, mu in flat_cpu(cpu_opt.mu).items():
+            scale = float(mu.abs().max())
+            err = float((mu_card[name] - mu).abs().max())
+            used = err / (FIRST_STEP_MU_TOL * scale) if scale > 0 else (0.0 if err == 0 else 1e9)
+            if used > worst:
+                worst, worst_name = used, name
+        if not rel <= FIRST_STEP_LOSS_RTOL or worst > 1.0:
+            raise AssertionError(f"{arch}: first step on the card vs the CPU: loss rel {rel:.3g} "
+                                 f"(limit {FIRST_STEP_LOSS_RTOL}), mu at {worst:.3g} of its "
+                                 f"tolerance on {worst_name}")
+        log(f"[train-lm] {tag} {arch} first step, card vs CPU (plain versions, {cpu_s:.1f} s on "
+            f"the CPU): loss {losses[0]!r} vs {want!r}, relative {rel:.3g} "
+            f"({rel / FIRST_STEP_LOSS_RTOL:.3f} of {FIRST_STEP_LOSS_RTOL}); Adam mu after step 1 "
+            f"at most "
+            f"{worst:.3f} of {FIRST_STEP_MU_TOL} x each leaf's largest entry ({worst_name}) "
+            f"[{H.card}]")
+    del trained, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train-lm] {tag} {arch}: phase {time.perf_counter() - t_phase:.1f} s")
+    return summary
+
+
+def schedules_bit_identical(H, torch, tag, cfg, argv, schedules, kernels):
+    """Train ``cfg`` once per schedule under deterministic algorithms; every
+    run's losses must equal the first's bit for bit, and each must launch
+    every kernel of ``kernels``."""
+    from repro_torch.launch.train import build_parser, train_lm
+
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for schedule in schedules:
+            args = build_parser().parse_args([*argv, "--schedule", schedule])
+            with KernelCapture({name: 0 for name in kernels}) as cap:
+                trained = train_lm(cfg, args)
+            if any(cap.launches[name] == 0 for name in kernels):
+                raise AssertionError(f"{cfg.name} {schedule}: a kernel was not launched "
+                                     f"({cap.launches})")
+            for name in kernels:
+                H.launches[name] += cap.launches[name]
+            runs[schedule] = trained.losses
+            log(f"[train-lm] {tag} {cfg.name} {schedule} under deterministic algorithms "
+                f"(topology {trained.topo}): losses {trained.losses}; median step "
+                f"{statistics.median(trained.step_s[1:]):.6f} s; launches {cap.launches} "
+                f"[{H.card}]")
+            del trained
+    finally:
+        torch.use_deterministic_algorithms(False)
+    first = runs[schedules[0]]
+    if any(losses != first for losses in runs.values()):
+        raise AssertionError(f"{cfg.name}: schedules' losses differ: {runs}")
+    log(f"[train-lm] {tag} {cfg.name}: {', '.join(schedules)} bit-identical [{H.card}]")
+
+
+def phase_lm_training(H, torch):
+    """Phase 16: mamba2-130m at full depth (16a), codeqwen1.5-7b cut to 8
+    of 32 layers (16b), zamba2-7b served at all 81 slots and trained cut to
+    36 (16c); the cuts keep fp32 params, gradients and Adam's moments (16 B
+    a param) within the card's 80 GB."""
+    phase_train_lm(H, torch, "16a", "mamba2-130m",
+                   ["--stages", "2", "--chunks", "2", "--steps", "6"], cpu_check=True,
+                   also=("interleaved",))
+    phase_train_lm(H, torch, "16b", "codeqwen1.5-7b", ["--chunks", "2", "--steps", "4"],
+                   num_layers=8)
+    t0 = time.perf_counter()
+    phase_serve_lm(H, torch, "zamba2-7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serve-lm] 16c zamba2-7b serving: phase {time.perf_counter() - t0:.1f} s")
+    phase_train_lm(H, torch, "16c", "zamba2-7b", ["--chunks", "2", "--steps", "4"],
+                   num_layers=36)
 
 
 def main() -> int:
@@ -2566,33 +2864,41 @@ def main() -> int:
                 log(f"[build] {line.strip()}")
 
     H = Harness(torch, K, S, torch.device("cuda"), card_line, FK=FK, DK=DK)
-    phase_compare(H, torch)  # phase 2
-    phase_compare_spmm(H, torch)  # phase 2, SpMM
-    phase_compare_lm(H, torch)  # phase 2, flash attention and SSD
-    served = phase_serve(H, torch)  # phase 3
-    bucketed = phase_bucketed(H, torch)  # phase 4
-    phase_timing(H, torch, bucketed)  # phase 5
-    phase_timing_lm(H, torch)  # phase 5, flash attention and SSD
+
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(H, torch, *args)
+        log(f"[phase] {label} {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    phase("2", phase_compare)
+    phase("2", phase_compare_spmm)
+    phase("2", phase_compare_lm)  # flash attention and SSD
+    served = phase("3", phase_serve)
+    bucketed = phase("4", phase_bucketed)
+    phase("5", phase_timing, bucketed)
+    phase("5", phase_timing_lm)  # flash attention and SSD
     # after phase 5: a profiler pass before phase 5's graph captures made
     # phase 5's own profiler passes lose device records on the card
-    phase_serve_compiled(H, torch, served)  # phase 3b
-    host_runs = phase_train_gat(H, torch)  # phase 6
-    trained = phase_train_gat_compiled(H, torch, host_runs)  # phase 6b
-    gcn_ref = phase_train_gcn(H, torch)  # phase 7
-    phase_train_gcn_compiled(H, torch, gcn_ref)  # phase 7b
-    phase_serve_lm(H, torch, "codeqwen1.5-7b", "flash_attention_kernel")  # phase 8
+    phase("3b", phase_serve_compiled, served)
+    host_runs = phase("6", phase_train_gat)
+    trained = phase("6b", phase_train_gat_compiled, host_runs)
+    gcn_ref = phase("7", phase_train_gcn)
+    phase("7b", phase_train_gcn_compiled, gcn_ref)
+    phase("8", phase_serve_lm, "codeqwen1.5-7b")
     torch.cuda.empty_cache()
-    phase_serve_lm(H, torch, "mamba2-130m", "ssd_kernel")  # phase 9
+    phase("9", phase_serve_lm, "mamba2-130m")
     torch.cuda.empty_cache()
-    phase_zoo(H, torch)  # phase 10
-    phase_sign(H, torch)  # phase 11
-    phase_checkpoint(H, torch, trained)  # phase 12
-    phase_auto(H, torch)  # phase 13
-    streamed = phase_streamed(H, torch)  # phase 14a
-    phase_data_parallel(H, torch)  # phase 14b
-    phase_loader(H, torch, *streamed)  # phase 14c
-    phase_overlap(H, torch)  # phase 15a
-    phase_roofline(H, torch)  # phase 15b
+    phase("10", phase_zoo)
+    phase("11", phase_sign)
+    phase("12", phase_checkpoint, trained)
+    phase("13", phase_auto)
+    streamed = phase("14a", phase_streamed)
+    phase("14b", phase_data_parallel)
+    phase("14c", phase_loader, *streamed)
+    phase("15a", phase_overlap)
+    phase("15b", phase_roofline)
+    phase("16", phase_lm_training)
 
     kernels = []
     for name, replaces in REPLACES.items():
@@ -2607,7 +2913,7 @@ def main() -> int:
         })
     log("[compare] largest share of the tolerance used, per kernel: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
-    log(f"[done] all 15 phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] all 16 phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card_line}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

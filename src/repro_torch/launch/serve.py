@@ -11,12 +11,12 @@ raises without a card; ``cpu`` asks for the CPU). Weights are random, drawn
 on the device from ``--seed``; ``--full-arch`` takes the published widths
 and depth, else the arch's smoke config. On the card the prefill's
 attention runs the hand-written flash kernel and Mamba's scan the SSD
-kernel. The prefill fills a prompt-width cache, which is spliced into the
-wider decode cache (the JAX driver's host-side splice), and each decode
-step feeds back its argmax token. The printed result carries the JAX
-driver's keys plus ``tokens_per_s`` (tokens generated over prefill + decode
-wall time), ``peak_mem_gb`` (the card's peak allocation; None on the CPU),
-``params`` and the device.
+kernel (zamba2's hybrid stage runs both). The prefill fills a prompt-width
+cache, which is spliced into the wider decode cache (the JAX driver's
+host-side splice), and each decode step feeds back its argmax token. The
+printed result carries the JAX driver's keys plus ``tokens_per_s`` (tokens
+generated over prefill + decode wall time), ``peak_mem_gb`` (the card's
+peak allocation; None on the CPU), ``params`` and the device.
 """
 
 from __future__ import annotations
@@ -60,10 +60,12 @@ def splice(dst: dict, src: dict) -> dict:
     """Copy a prefill cache into a wider decode cache, in place: KV-like
     leaves (num_stages, num_micro, slots, b_mb, W, ...) fill their first W
     ring slots; other leaves are copied whole (``repro.launch.serve``'s
-    splice)."""
+    splice); a hybrid's ``{"mamba", "attn"}`` parts each so."""
     for name, d in dst.items():
         s = src[name]
-        if d.ndim >= 5 and s.ndim == d.ndim and s.shape[:3] == d.shape[:3]:
+        if isinstance(d, dict):
+            splice(d, s)
+        elif d.ndim >= 5 and s.ndim == d.ndim and s.shape[:3] == d.shape[:3]:
             d[:, :, :, :, :s.shape[4]].copy_(s)
         else:
             d.copy_(s)

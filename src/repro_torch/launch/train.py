@@ -31,8 +31,17 @@ evaluate over the plan, since no full graph exists:
         --dataset powerlaw-1m --stages 4 --chunks 8 --backend pallas \
         --engine compiled
 
-Not ported yet, and raising by name: ``--mode lm`` (ROADMAP queue 1, item
-16).
+``--mode lm`` trains the LM pool (``run_lm``, the JAX launcher's other
+mode; default arch mamba2-130m) on synthetic token batches: the dense GQA
+archs, mamba2-130m and the zamba2 hybrid, under ``--schedule fill_drain``
+or ``interleaved`` (``--stages`` virtual stages walked on the one card).
+Its archs run their smoke config unless ``--full-arch`` is given; on the
+card attention runs the flash kernel and Mamba's scan the SSD kernel, in
+the forward and in each recompute. MoE, MLA, m-rope and the frontends
+raise naming ROADMAP queue 1 item 16:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
+        --arch mamba2-130m --full-arch --stages 2 --chunks 2 --steps 50
 """
 
 from __future__ import annotations
@@ -270,12 +279,133 @@ def _train_pipeline(args, g, model, plan, pipe, *, cli, balance, predicted_step_
     return out
 
 
+@dataclasses.dataclass
+class TrainedLM:
+    """One ``train_lm`` run: the printed summary, each step's loss and wall
+    seconds (to a device synchronize), and the state it left."""
+
+    summary: dict
+    losses: list
+    step_s: list
+    topo: object
+    step: object
+    params: dict
+    opt_state: object
+
+
+def lm_batch(cfg, args, step: int, device):
+    """Step ``step``'s token batch (B, seq+1) on ``device``: ``token_batch``
+    from ``--seed``, as the JAX launcher draws it."""
+    import torch
+
+    from repro_torch.data.tokens import token_batch
+
+    return {"tokens": torch.from_numpy(token_batch(
+        batch=args.batch, seq=args.seq, vocab=cfg.vocab_size, seed=args.seed, step=step,
+    )).to(device)}
+
+
+def train_lm(cfg, args, on_step=None) -> TrainedLM:
+    """Train ``cfg`` (a built config; a caller may cut its depth) as the
+    ``--mode lm`` flags say. ``on_step(i, params, opt_state, loss)`` is
+    called after each step."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models.transformer.model import (
+        Topology, check_supported, init_params, make_train_step,
+    )
+    from repro_torch.train.loop import synchronize
+    from repro_torch.train.optimizer import tree_leaves
+
+    check_supported(cfg)
+    device = resolve_device(args.device)
+    stages = args.stages if args.stages > 1 else 1
+    schedule = "fill_drain" if args.schedule in ("fill_drain", "gpipe") else args.schedule
+    if schedule not in ("fill_drain", "interleaved"):
+        raise ValueError(
+            f"--mode lm supports fill_drain|interleaved schedules, got {schedule!r} "
+            "(1f1b/zb-h1 are GNN-engine schedules)"
+        )
+    if schedule == "interleaved" and stages > 1:
+        # ring positions: --pipe-devices, else the largest divisor of stages
+        # that fits the host's devices — one card here, so V = stages
+        pipe_dev = args.pipe_devices or 1
+        if stages % pipe_dev:
+            raise ValueError(f"--pipe-devices {pipe_dev} must divide --stages {stages}")
+        num_virtual = stages // pipe_dev
+    else:
+        schedule, pipe_dev, num_virtual = "fill_drain", stages, 1
+    num_micro = args.chunks
+    if schedule == "interleaved" and num_micro < pipe_dev:
+        num_micro = pipe_dev  # the ring needs C >= devices
+        print(f"[lm] bumping --chunks to {num_micro} (interleaved needs >= --pipe-devices)")
+    if args.batch % num_micro:
+        raise ValueError(
+            f"micro-batch count {num_micro} must divide the per-device batch "
+            f"{args.batch} (--batch {args.batch} over 1 data shards)"
+        )
+    topo = Topology(num_stages=stages, num_micro=num_micro, loss_chunks=min(4, args.batch),
+                    schedule=schedule, num_virtual=num_virtual)
+    if schedule == "interleaved":
+        print(f"[lm] schedule=interleaved stages={stages} devices={pipe_dev} "
+              f"virtual/device={num_virtual} micro={num_micro}")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    step = make_train_step(cfg, topo, ShapeConfig("cli", args.seq, args.batch, "train"),
+                           lr=args.lr)
+    params = init_params(cfg, seed=args.seed, num_stages=stages, device=device)
+    opt_state = step.optimizer.init(params)
+    n_params = sum(int(p.numel()) for p in tree_leaves(params))
+
+    losses, times = [], []
+    for i in range(args.steps):
+        batch = lm_batch(cfg, args, i, device)
+        synchronize(device)
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        loss = float(metrics["loss"])
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if on_step is not None:
+            on_step(i, params, opt_state, loss)
+        if args.log_every and i % args.log_every == 0:
+            print(f"step {i:4d} loss {loss:.4f} ({times[-1]:.2f}s)")
+    if not np.isfinite(losses).all():
+        raise AssertionError("training diverged")
+    summary = {
+        "arch": cfg.name,
+        "first_loss": losses[0],
+        "last_loss": losses[-1],
+        "improved": bool(losses[-1] < losses[0]),
+        "avg_step_s": float(np.mean(times[1:])) if len(times) > 1 else times[0],
+        "device": str(device),
+        "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9
+        if device.type == "cuda" else None,
+        "params": n_params,
+    }
+    return TrainedLM(summary, losses, times, topo, step, params, opt_state)
+
+
+def run_lm(args) -> dict:
+    """Train the LM pool as the flags say; returns (and prints) the result
+    dict: the JAX launcher's keys plus ``device``, ``device_name``,
+    ``peak_mem_gb`` (None on the CPU) and ``params``."""
+    from repro_torch.configs import get_arch
+
+    out = train_lm(get_arch(args.arch, smoke=not args.full_arch), args).summary
+    print(out)
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
-    """The entry point's flags: the JAX launcher's ``--mode gnn`` set plus
-    ``--device``."""
+    """The entry point's flags: the JAX launcher's set plus ``--device``."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", choices=["gnn", "lm"], default="gnn")
     ap.add_argument("--dataset", default="cora")
+    ap.add_argument("--arch", default="mamba2-130m")
+    ap.add_argument("--full-arch", action="store_true", help="use the full (not smoke) config")
     ap.add_argument("--strategy", default="sequential")
     # --engine/--schedule/--stages/--chunks/--pipe-devices/--partition/
     # --placement/--backend/--device
@@ -285,6 +415,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="streamed datasets only: override the registry node count")
     ap.add_argument("--max-degree", type=int, default=32,
                     help="streamed datasets only: neighbor-slot cap per node")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     return ap
@@ -293,10 +427,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.mode == "lm":
-        raise NotImplementedError(
-            "--mode lm (the transformer pool) is not ported to repro_torch yet "
-            "(ROADMAP queue 1, item 16)"
-        )
+        return run_lm(args)
     return run_gnn(args)
 
 

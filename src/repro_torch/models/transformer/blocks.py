@@ -1,5 +1,5 @@
-"""Per-architecture transformer blocks (one layer slot), the serving half:
-init, prefill and decode. Counterpart of ``repro.models.transformer.blocks``.
+"""Per-architecture transformer blocks (one layer slot): init, training,
+prefill and decode. Counterpart of ``repro.models.transformer.blocks``.
 
 A block takes its slot's ``ex`` — ``{"active": float, "window": int}``, plain
 Python numbers — and its slice of the stacked params. A padding slot
@@ -11,7 +11,7 @@ gigabytes, and decoding copies none of it.
 
 Only GQA attention with rope and Mamba2 blocks build here; MoE, MLA and
 m-rope wait for ROADMAP queue 1 item 16 (``model.check_supported`` says so
-before any block is built). ``block_train`` waits for the LM-training slice.
+before any block is built).
 """
 
 from __future__ import annotations
@@ -147,6 +147,18 @@ def _ffn_tail(cfg: ArchConfig, lp: dict, h: torch.Tensor, a: torch.Tensor) -> to
     return h + f
 
 
+def block_train(cfg: ArchConfig, lp: dict, ex: dict, h: torch.Tensor, *,
+                positions: torch.Tensor, kv_block: int = 512) -> torch.Tensor:
+    """One attention(+FFN) layer over the full sequence (training): the
+    forward of ``block_prefill`` without the cache. A padding slot is the
+    identity, so its params get no gradient from it."""
+    if not ex["active"] > 0:
+        return h
+    a = attn_apply(cfg, lp["attn"], rms_norm(h, lp["ln1"], eps=cfg.norm_eps),
+                   positions=positions, window=int(ex["window"]), kv_block=kv_block)
+    return _ffn_tail(cfg, lp, h, a)
+
+
 def block_prefill(cfg: ArchConfig, lp: dict, ex: dict, h: torch.Tensor, cache: dict, *,
                   positions: torch.Tensor, kv_block: int = 512):
     """Full-sequence forward that also writes this layer's KV entries into
@@ -179,6 +191,15 @@ def _mamba(cfg: ArchConfig, lp: dict, h: torch.Tensor, **kw):
         lp["mamba"], rms_norm(h, lp["ln1"], eps=cfg.norm_eps), expand=cfg.ssm_expand,
         head_dim=cfg.ssm_head_dim, n_state=cfg.ssm_state, chunk=cfg.ssm_chunk, **kw,
     )
+
+
+def mamba_block_train(cfg: ArchConfig, lp: dict, ex: dict, h: torch.Tensor) -> torch.Tensor:
+    """Full-sequence mamba forward from a zero state (training); a padding
+    slot is the identity."""
+    if not ex["active"] > 0:
+        return h
+    y, _ = _mamba(cfg, lp, h)
+    return h + y
 
 
 def mamba_block_prefill(cfg: ArchConfig, lp: dict, ex: dict, h: torch.Tensor, cache: dict):

@@ -3,15 +3,17 @@
 Counterpart of ``repro.train.optimizer``, same API: ``init(params) ->
 state``, ``update(grads, state, params) -> (updates, state)``, applied with
 ``apply_updates``. A tree is what the models use: a list with one dict of
-tensors per layer. ``adam`` follows the JAX package's rule exactly — f32
-moments, bias correction, and *decoupled* weight decay ``u -= lr·wd·p``
-added to the update after the Adam step. ``torch.optim.Adam(weight_decay=)``
-adds L2 to the gradient instead, a different optimizer, and
-``torch.optim.AdamW`` orders the arithmetic differently; neither is used.
-Updates are new tensors: nothing is changed in place. The step count (and
-a scheduled learning rate) live on the params' device, so an update
-captured in a CUDA graph reads the step it replays, not the one it was
-captured at.
+tensors per layer (the GNNs), or nested dicts of tensors (the LMs).
+``adam`` follows the JAX package's rule exactly — f32 moments, bias
+correction, and *decoupled* weight decay ``u -= lr·wd·p`` added to the
+update after the Adam step. ``torch.optim.Adam(weight_decay=)`` adds L2 to
+the gradient instead, a different optimizer, and ``torch.optim.AdamW``
+orders the arithmetic differently; neither is used. ``update`` makes new
+tensors and changes nothing in place; Adam's ``apply_`` is the same
+arithmetic applied in place, leaf by leaf, for models whose params,
+gradients and moments fill the card. The step count (and a scheduled
+learning rate) live on the params' device, so an update captured in a CUDA
+graph reads the step it replays, not the one it was captured at.
 """
 
 from __future__ import annotations
@@ -21,20 +23,26 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-Tree = list  # list[dict[str, torch.Tensor]], one dict per layer
+Tree = list | dict  # list[dict[str, Tensor]] (one dict per layer) or nested dicts
 
 
 def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:
-    """``fn`` applied leaf by leaf across trees of one structure."""
-    return [
-        {k: fn(v, *(r[i][k] for r in rest)) for k, v in layer.items()}
-        for i, layer in enumerate(tree)
-    ]
+    """``fn`` applied leaf by leaf across trees of one structure (lists and
+    dicts are inner nodes, anything else a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree: Tree) -> list[torch.Tensor]:
-    """The leaves in layer order, then key order."""
-    return [v for layer in tree for v in layer.values()]
+    """The leaves in list order, then key order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 def requires_grad_leaves(tree: Tree) -> Tree:
@@ -64,10 +72,12 @@ def fill_grads(leaves: Tree, grads) -> Tree:
 
 
 class Optimizer(NamedTuple):
-    """A pair of pure functions over parameter trees."""
+    """A pair of pure functions over parameter trees, and (Adam) their
+    in-place form ``apply_(grads, state, params)``."""
 
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple[Any, Any]]
+    apply_: Callable[[list, Any, Any], None] | None = None
 
 
 def apply_updates(params: Tree, updates: Tree) -> Tree:
@@ -108,6 +118,9 @@ def _lr_at(lr, step: torch.Tensor) -> torch.Tensor:
     if callable(lr):
         return lr(step)
     return torch.full((), lr, dtype=torch.float32, device=step.device)
+
+
+APPLY_PIECE = 1 << 24  # elements per in-place Adam piece (64 MB of f32)
 
 
 def adam(
@@ -151,7 +164,38 @@ def adam(
         updates = tree_map(upd, mu_hat, nu_hat, params)
         return updates, AdamState(step=step, mu=mu, nu=nu)
 
-    return Optimizer(init=init, update=update)
+    def apply_(grads: list, state: AdamState, params):
+        """``update`` and ``apply_updates`` in place: ``grads`` (a list in
+        ``tree_leaves(params)`` order, emptied as it is read) moves
+        ``params``, ``state.mu``, ``state.nu`` and ``state.step``, with
+        ``update``'s arithmetic element by element. Contiguous leaves go in
+        pieces of ``APPLY_PIECE`` elements, so the temporaries stay small."""
+        if grad_clip is not None:
+            grads[:], _ = clip_by_global_norm(grads, grad_clip)
+        state.step.add_(1)
+        lr_t = _lr_at(lr, state.step)
+        stepf = state.step.float()
+        c1, c2 = 1 - b1 ** stepf, 1 - b2 ** stepf
+        grads.reverse()
+        for p, m, v in zip(tree_leaves(params), tree_leaves(state.mu), tree_leaves(state.nu)):
+            g = grads.pop()
+            whole = all(x.is_contiguous() for x in (p, m, v, g))
+            pieces = zip(*(x.view(-1).split(APPLY_PIECE) for x in (p, m, v, g))) if whole \
+                else [(p, m, v, g)]
+            for pp, mm, vv, gg in pieces:
+                g32 = gg.float()
+                m_new = b1 * mm + (1 - b1) * g32
+                v_new = b2 * vv + (1 - b2) * g32 * g32
+                u = -lr_t * (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
+                if weight_decay > 0.0:
+                    u = u - lr_t * weight_decay * pp.float()
+                mm.copy_(m_new)
+                vv.copy_(v_new)
+                pp.copy_((pp + u.to(pp.dtype)).to(pp.dtype))
+            del g
+
+    return Optimizer(init=init, update=update, apply_=apply_)
+
 
 
 def sgd(lr: float | Callable, *, momentum: float = 0.0) -> Optimizer:

@@ -521,6 +521,36 @@ def test_lm_serving_on_card_goes_through_kernels(cuda, arch):
     np.testing.assert_array_equal(served.generation.tokens, cpu_gen.tokens)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_lm_train_step_on_card_matches_cpu(cuda, arch):
+    """A smoke-size train step on the card (its forward and recompute through
+    the kernels) gives the CPU step's loss at 1e-4 from the same params and
+    batch."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models.transformer import model as TM
+
+    args = lm_train.build_parser().parse_args(
+        ["--mode", "lm", "--arch", arch, "--steps", "1", "--seq", "64", "--batch", "4",
+         "--stages", "2", "--chunks", "2", "--log-every", "0"])
+    cfg = get_arch(arch, smoke=True)
+    params = TM.init_params(cfg, seed=0, num_stages=2, device=cuda)
+    cpu_params = _tree_to(params, "cpu")
+    SSK.ssd_kernel.launches = FK.flash_attention_kernel.launches = 0
+    trained = lm_train.train_lm(cfg, args)
+    layers = {"ssd": trained.topo.num_micro * cfg.num_layers, "flash": 0}
+    if arch == "zamba2-7b":  # one mamba slot and one shared-block application
+        layers = {"ssd": trained.topo.num_micro, "flash": trained.topo.num_micro}
+    # forward and recompute: two calls per slot and micro-batch
+    assert SSK.ssd_kernel.launches == 2 * layers["ssd"]
+    assert FK.flash_attention_kernel.launches == 2 * layers["flash"]
+    step = TM.make_train_step(cfg, trained.topo, ShapeConfig("t", 64, 4, "train"), lr=args.lr)
+    batch = lm_train.lm_batch(cfg, args, 0, "cpu")
+    _, _, metrics = step(cpu_params, step.optimizer.init(cpu_params), batch)
+    assert abs(trained.losses[0] - float(metrics["loss"])) <= 1e-4 * abs(float(metrics["loss"]))
+
+
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
