@@ -27,7 +27,14 @@ exit:
    heads of 128, causal), GQA 32/16, 32/8 and 8/1, window 128 and 100
    (crossing tile edges), softcap 50, S 1/63/64/65/127/129/200/513, hd/hd_v
    64/64, 128/128, 128/64, 256/256 and 96/64, zamba2's hd 112 (32 heads, B
-   4 and 8, S 512 and 256), and bf16 at 2e-2. SSD, y and final state at
+   4 and 8, S 512 and 256), and bf16 at 2e-2; phase 17's launches as the
+   model makes them: musicgen (4 x 512 and 4 x 256, 32/32 heads, hd 64,
+   by row index) and qwen2-vl (the same rows, 12/2 heads, hd 128, masked by
+   the m-rope t-row with 128 and 64 frontend rows at t = 0); the position
+   mask's edges in fp32 and bf16 (a prefix ending inside a KV tile, a
+   prefix and window 40, every row in the prefix, hd 64 and 256); and the
+   null-pointer (index) launch equal to positions arange(S) bit for bit.
+   SSD, y and final state at
    atol 1e-4: the mamba2-130m prefill's launch shape (4 x 512, 24 heads, P
    64, N 128, chunk 128), zamba2's (112 heads, P 64, N 64, S 512 and 256),
    ragged S 64 and 200, chunk 32, S 1, S 2048 (16 chunks), strong decay and
@@ -57,9 +64,12 @@ exit:
    each SpMM launch's own time beside its bound; the flash and SSD kernels
    at their prefill launch shapes and at zamba2's prefill and training
    launches (4 x 512 and 4 x 256 tokens; flash at hd 112, SSD at 112 heads
-   and N 64), flash beside
-   ``scaled_dot_product_attention(is_causal=True)`` on the same fp32 tensors,
-   whose device kernels one ``torch.profiler`` pass names; the SSD call's
+   and N 64) and flash at musicgen's and qwen2-vl's (the same rows; the
+   bound counts the pairs qwen2-vl's positions need; musicgen's launch also
+   by the position path at positions arange, which no rope arch runs), flash beside
+   ``scaled_dot_product_attention`` on the same fp32 tensors (``is_causal``,
+   or the positions' boolean ``attn_mask``, GQA by ``enable_gqa``), whose
+   device kernels one ``torch.profiler`` pass names; the SSD call's
    three CUDA launches are named and timed by the profiler, and each must
    run once a call. The redesigned kernels' times are printed against their
    floors.
@@ -101,7 +111,8 @@ exit:
    against a fresh 513-token prefill at 1e-3 (cuBLAS may take other
    algorithms for 1 row than for 513). Prefill and decode times, tokens/s,
    peak memory, and ``torch.profiler`` breakdowns of a prefill and two
-   decode steps are printed.
+   decode steps are printed, with the prefill's and the decode's model FLOPs
+   (``roofline.model_flops``) as a share of the fp32 peak over the wall.
 9. The same for mamba2-130m at full width: the SSD wrapper is called 24 x 2
    = 48 times (3 CUDA launches each), each layer's captured inputs held at
    1e-4 (y and final state).
@@ -188,7 +199,20 @@ exit:
    zamba2-7b served at all 81 slots as phase 8 serves codeqwen (flash at hd
    112 13 x 2 times and SSD 68 x 2 times in the prefill, decode vs a fresh
    prefill at 1e-3), then trained cut to 36 slots (all 81: 94.3 GB of
-   state), ``--chunks 2``, 4 steps.
+   state), ``--chunks 2``, 4 steps. Each train step's model FLOPs over the
+   median step are printed as a share of the fp32 peak.
+17. The modality-frontend archs at full width and depth, each served as
+   phase 8 serves codeqwen (prompt 512: 128 frontend rows from
+   ``frontend_embeds`` and 384 tokens) and trained as phase 16 trains
+   (seq 256: 64 frontend rows; ``--chunks 2``, 4 steps, the loss finite
+   and falling). 17a musicgen-large (2.424e9 params; flash at 32/32 heads,
+   hd 64: 96 launches in the prefill, 192 a training step). 17b qwen2-vl-2b
+   (1.777e9 params; m-rope, GQA 12/2 at hd 128, flash masked by the t-row:
+   56 launches in the prefill, 112 a training step); its decode is held at
+   1e-3 to a fresh 513-row prefill whose last row takes the decode's
+   positions (512 on all three m-rope axes, as the reference's decode
+   rotates), and the gap to a prefill at ``make_positions(513)`` (t 385)
+   is printed: the reference's own decode/prefill inconsistency.
 
 Every bound divides by the card's data-sheet rates from
 ``repro_torch.roofline.analysis.HW``, which knows the card by its name.
@@ -2184,8 +2208,17 @@ def phase_roofline(H, torch):
 # ------------------------------------------------- LM serving (phases 2, 5, 8, 9) --
 
 
-def flash_pairs(sq, skv, window):
-    """(query, key) pairs that causal (windowed) attention needs, per head."""
+def flash_pairs(sq, skv, window, q_pos=None, kv_pos=None):
+    """(query, key) pairs that causal (windowed) attention needs, per head:
+    by row index, or by the positions (key j for row i when kv_pos[j] <=
+    q_pos[i], within the window)."""
+    if q_pos is not None:
+        import numpy as np
+
+        qp, kp = q_pos.cpu().numpy(), kv_pos.cpu().numpy()
+        hi = np.searchsorted(kp, qp, side="right")
+        lo = np.searchsorted(kp, qp - window, side="right") if window > 0 else 0
+        return int((hi - lo).sum())
     total = 0
     for i in range(sq):
         lo = max(0, i - window + 1) if window > 0 else 0
@@ -2193,18 +2226,21 @@ def flash_pairs(sq, skv, window):
     return total
 
 
-def flash_bound(q, k, v, window=0):
+def flash_bound(q, k, v, window=0, q_pos=None, kv_pos=None):
     """(bound_ms, bound_by, bytes, ops, cuda_core_ms) of one fp32 flash
     launch: q, k, v read once and the output written once; per needed
     (query, key) pair a hd-long dot product and a hd_v-long multiply-add (2
-    operations each) plus 4 softmax operations (max, subtract, exp, sum).
+    operations each) plus 4 softmax operations (max, subtract, exp, sum);
+    with positions, the pairs their mask needs.
     The bound counts them as the fp32-accurate kernel issues them, three TF32
     tensor-core products each (3xTF32) at the TF32 rate; ``cuda_core_ms`` is
     the same count at the fp32 CUDA-core rate, printed beside it."""
     b, sq, h, hd = q.shape
     hd_v = v.shape[-1]
     nbytes = (q.numel() + k.numel() + v.numel() + b * sq * h * hd_v) * q.element_size()
-    ops = b * h * flash_pairs(sq, k.shape[1], window) * (2 * hd + 2 * hd_v + 4)
+    ops = b * h * flash_pairs(sq, k.shape[1], window, q_pos, kv_pos) * (2 * hd + 2 * hd_v + 4)
+    if q_pos is not None:  # the two position vectors, read once
+        nbytes += (q_pos.numel() + kv_pos.numel()) * q_pos.element_size()
     t_bytes = nbytes / CARD.hbm_bw * 1e3
     t_ops = TF32_PASSES * ops / CARD.tf32_flops * 1e3
     return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops,
@@ -2240,6 +2276,25 @@ def flash_inputs(H, b, s, h, kv, hd, hd_v=None, dtype=None):
     return tuple(t.randn(sh, generator=H.gen, device=H.dev).to(dtype) for sh in shapes)
 
 
+def t_row(H, arch, s):
+    """The mask positions of ``arch``'s model at S rows on the card, as
+    ``attn_apply`` passes them: the m-rope t-row (``make_positions(cfg,
+    S)[0]``: the frontend rows at 0, then the text from 1), else None (the
+    index path)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer.model import make_positions
+
+    cfg = get_arch(arch)
+    return make_positions(cfg, s, device=H.dev)[0] if cfg.rope_kind == "mrope" else None
+
+
+def frontend_t_row(H, s, s_front):
+    """A t-row of ``make_positions``' form: ``s_front`` rows at 0, then 1, 2, ..."""
+    t = H.torch
+    idx = t.arange(s, dtype=t.int32, device=H.dev)
+    return t.where(idx < s_front, 0, idx - s_front + 1).to(t.int32)
+
+
 def ssd_inputs(H, b, s, h, p, n):
     """SSD inputs at the JAX SSD tests' scales; loga = A·dt as the op forms it."""
     t = H.torch
@@ -2251,35 +2306,52 @@ def ssd_inputs(H, b, s, h, p, n):
     return x, dt, (dt * A).contiguous(), B, C
 
 
-def compare_flash(H, label, q, k, v, window=0, softcap=0.0, tol=FLASH_ATOL, out=None):
+def compare_flash(H, label, q, k, v, window=0, softcap=0.0, tol=FLASH_ATOL, out=None,
+                  q_pos=None, kv_pos=None):
     """Flash kernel vs its plain version on the same card inputs (``out``:
-    the kernel's output from the main path, else launched here). bf16
-    errors are kept apart from the fp32 ones the ``kernels`` line reports."""
+    the kernel's output from the main path, else launched here), masked by
+    ``q_pos``/``kv_pos`` where given. bf16 errors are kept apart from the
+    fp32 ones the ``kernels`` line reports."""
     from repro_torch.kernels.flash.ref import flash_attention_ref
 
-    got = H.FK.flash_attention_kernel(q, k, v, window=window, softcap=softcap) if out is None \
-        else out
+    pos = {"q_pos": q_pos, "kv_pos": kv_pos}
+    got = H.FK.flash_attention_kernel(q, k, v, window=window, softcap=softcap, **pos) \
+        if out is None else out
     H.torch.cuda.synchronize()
-    want = flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    want = flash_attention_ref(q, k, v, window=window, softcap=softcap, **pos)
     b, s, h, hd = q.shape
     key = "flash_attention_kernel" + ("" if q.dtype == H.torch.float32 else " bf16")
+    front = "" if q_pos is None else f" t0={int((q_pos == q_pos[0]).sum()):3d}"
     return H._held(key, label, got, want, None,
                    f"B={b} S={s:4d} H={h:2d} KV={k.shape[2]:2d} hd={hd:3d} hd_v={v.shape[-1]:3d} "
-                   f"win={window} cap={softcap} {str(q.dtype)[6:]}", atol=tol, rtol=tol)
+                   f"win={window} cap={softcap} {str(q.dtype)[6:]}{front}", atol=tol, rtol=tol)
 
 
-def sdpa_tolerance_used(torch, q, k, v):
-    """How close ``scaled_dot_product_attention(is_causal=True)`` comes to the
-    flash tolerance against the plain version on the same fp32 inputs (the
-    yardstick's own accuracy, beside the kernel's; not enforced)."""
+def sdpa_call(torch, q, k, v, q_pos=None, kv_pos=None):
+    """``fn() -> out`` (model layout): ``scaled_dot_product_attention`` on
+    the same tensors, heads moved to dim 1 once, GQA by ``enable_gqa``;
+    ``is_causal=True`` without positions, else the boolean mask
+    ``kv_pos[j] <= q_pos[i]`` (built once)."""
     import torch.nn.functional as F
 
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    gqa = k.shape[2] != q.shape[2]
+    if q_pos is None:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=gqa).transpose(1, 2)
+    mask = kv_pos[None, :] <= q_pos[:, None]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=gqa).transpose(1, 2)
+
+
+def sdpa_tolerance_used(torch, q, k, v, q_pos=None, kv_pos=None):
+    """How close ``scaled_dot_product_attention`` (``sdpa_call``) comes to
+    the flash tolerance against the plain version on the same fp32 inputs
+    (the yardstick's own accuracy, beside the kernel's; not enforced)."""
     from repro_torch.kernels.flash.ref import flash_attention_ref
 
-    g = q.shape[2] // k.shape[2]
-    kk, vv = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
-    got = F.scaled_dot_product_attention(q.transpose(1, 2), kk, vv, is_causal=True).transpose(1, 2)
-    want = flash_attention_ref(q, k, v)
+    got = sdpa_call(torch, q, k, v, q_pos, kv_pos)()
+    want = flash_attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos)
     return float(((got - want).abs() / (FLASH_ATOL + FLASH_RTOL * want.abs())).max())
 
 
@@ -2329,6 +2401,39 @@ def phase_compare_lm(H, torch):
     # launches (4 rows a micro-batch) and the whole batch of 8
     for b, s in ((4, 512), (4, 256), (8, 512), (8, 256)):
         compare_flash(H, f"zamba2 hd 112, B {b} S {s}", *flash_inputs(H, b, s, 32, 32, 112))
+    # phase 17's launches: musicgen (MHA 32/32, hd 64, the index path) and
+    # qwen2-vl (GQA 12/2, hd 128, masked by the m-rope t-row: 128 and 64
+    # frontend rows at t = 0, each seeing all the others)
+    for s in (512, 256):
+        pos = t_row(H, "musicgen-large", s)
+        compare_flash(H, f"musicgen B 4 S {s}", *flash_inputs(H, 4, s, 32, 32, 64), q_pos=pos,
+                      kv_pos=pos)
+        pos = t_row(H, "qwen2-vl-2b", s)
+        compare_flash(H, f"qwen2-vl B 4 S {s}, t-row", *flash_inputs(H, 4, s, 12, 2, 128),
+                      q_pos=pos, kv_pos=pos)
+    # the position mask's edges: a prefix ending inside a KV tile, a prefix
+    # and a window, every row in the prefix, hd 64 and 256, bf16
+    for s, s_front, window, hd in ((300, 100, 0, 128), (300, 100, 40, 128), (257, 33, 20, 64),
+                                   (70, 70, 0, 128), (200, 50, 0, 256)):
+        pos = frontend_t_row(H, s, s_front)
+        compare_flash(H, f"prefix {s_front} of {s}, window {window}",
+                      *flash_inputs(H, 2, s, 8, 2, hd), window=window, q_pos=pos, kv_pos=pos)
+        compare_flash(H, f"prefix {s_front} of {s}, window {window}",
+                      *flash_inputs(H, 2, s, 8, 2, hd, dtype=torch.bfloat16), window=window,
+                      q_pos=pos, kv_pos=pos, tol=FLASH_BF16_TOL)
+    # null pointers (the index path) and positions arange(S): bit for bit
+    for s, hd, window, dtype in ((512, 128, 0, torch.float32), (512, 64, 0, torch.float32),
+                                 (300, 128, 100, torch.float32), (129, 256, 0, torch.float32),
+                                 (300, 128, 0, torch.bfloat16)):
+        q, k, v = flash_inputs(H, 2, s, 8, 4, hd, dtype=dtype)
+        pos = torch.arange(s, dtype=torch.int32, device=H.dev)
+        index = H.FK.flash_attention_kernel(q, k, v, window=window)
+        by_pos = H.FK.flash_attention_kernel(q, k, v, window=window, q_pos=pos, kv_pos=pos)
+        if not torch.equal(index, by_pos):
+            raise AssertionError(f"flash S {s} hd {hd} window {window} {dtype}: positions "
+                                 "arange(S) differ from the index path")
+        log(f"[compare] flash_attention_kernel S={s} hd={hd} win={window} {str(dtype)[6:]}: "
+            "null-pointer (index) launch == positions arange(S), bit for bit")
     compare_ssd(H, "mamba2-130m prefill launch shape", *ssd_inputs(H, 4, 512, 24, 64, 128), 128)
     for s in (512, 256):  # zamba2's mixer: 112 heads, state 64
         compare_ssd(H, f"zamba2 112 heads N 64, b 4 S {s}", *ssd_inputs(H, 4, s, 112, 64, 64), 128)
@@ -2354,20 +2459,32 @@ def phase_timing_lm(H, torch):
     from repro_torch.kernels.flash.ref import flash_attention_ref
     from repro_torch.kernels.ssd.ref import ssd_chunk_scan
 
-    def flash_timing(label, q, k, v):
-        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
-        if not torch.allclose(lib, flash_attention_ref(q, k, v), atol=FLASH_ATOL,
+    def flash_timing(label, q, k, v, pos=None, position_path_too=False):
+        """``pos``: the kernel's positions, which the library call takes as a
+        boolean mask (else ``is_causal``); ``position_path_too``: also time
+        the position path on the same inputs at positions arange(S), which
+        no rope arch runs (its cost beside the index path's)."""
+        kw = {"q_pos": pos, "kv_pos": pos}
+        library = sdpa_call(torch, q, k, v, pos, pos)
+        if not torch.allclose(library(), flash_attention_ref(q, k, v, **kw), atol=FLASH_ATOL,
                               rtol=FLASH_RTOL):
             raise AssertionError("scaled_dot_product_attention disagrees with the plain version")
-        ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v))
-        plain_ms = H.time_ms(lambda: flash_attention_ref(q, k, v))
-        library_ms = H.time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-        bound_ms, bound_by, nbytes, nops, cuda_core_ms = flash_bound(q, k, v)
+        ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v, **kw, ordered=True))
+        by_pos = ""
+        if position_path_too:
+            ar = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+            pos_ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v, q_pos=ar, kv_pos=ar,
+                                                                   ordered=True))
+            by_pos = f" (the position path at positions arange: {pos_ms:.6f} ms)"
+        plain_ms = H.time_ms(lambda: flash_attention_ref(q, k, v, **kw))
+        library_ms = H.time_ms(library)
+        bound_ms, bound_by, nbytes, nops, cuda_core_ms = flash_bound(q, k, v, 0, pos, pos)
         sdpa = "kernels: " + ", ".join(k for k, _, _ in device_kernel_times(
-            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), calls=1))
-        log(f"[timing] flash_attention_kernel {label}: kernel {ms:.6f} ms, plain "
-            f"{plain_ms:.6f} ms, scaled_dot_product_attention {library_ms:.6f} ms ({sdpa}), "
+            torch, library, calls=1))
+        mask = "is_causal" if pos is None else "boolean attn_mask"
+        log(f"[timing] flash_attention_kernel {label}: kernel {ms:.6f} ms{by_pos}, plain "
+            f"{plain_ms:.6f} ms, scaled_dot_product_attention ({mask}) {library_ms:.6f} ms "
+            f"({sdpa}), "
             f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops as 3xTF32 tensor-core "
             f"products at {CARD.tf32_flops:.3g}/s; on the fp32 CUDA cores {cuda_core_ms:.6f} ms), "
             f"share of bound {bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s "
@@ -2381,6 +2498,15 @@ def phase_timing_lm(H, torch):
     for s in (512, 256):
         flash_timing(f"one zamba2 {'prefill' if s == 512 else 'training'} launch (4 x {s} "
                      f"tokens, 32 heads, hd 112, causal, fp32)", *flash_inputs(H, 4, s, 32, 32, 112))
+    # phase 17's launches, at the positions the model passes
+    for s in (512, 256):
+        what = "prefill" if s == 512 else "training"
+        flash_timing(f"one musicgen {what} launch (4 x {s} rows, 32/32 heads, hd 64, causal, "
+                     f"fp32)", *flash_inputs(H, 4, s, 32, 32, 64),
+                     pos=t_row(H, "musicgen-large", s), position_path_too=True)
+        flash_timing(f"one qwen2-vl {what} launch (4 x {s} rows, 12/2 heads, hd 128, m-rope "
+                     f"t-row with {s // 4} frontend rows, fp32)",
+                     *flash_inputs(H, 4, s, 12, 2, 128), pos=t_row(H, "qwen2-vl-2b", s))
 
     for s in (512, 256):
         x, dt, loga, B, C = ssd_inputs(H, 4, s, 112, 64, 64)
@@ -2448,8 +2574,9 @@ def profile_steps(H, torch, label, served, keys):
     depend on its contents)."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.models.transformer.model import init_cache, make_prefill_step, make_serve_step
+    from repro_torch.roofline import model_flops
 
-    b, plen = served.prompt.shape
+    b, plen = served.prompt.shape[0], served.prompt_len
     pshape = ShapeConfig("profile", plen, b, "prefill")
     dshape = ShapeConfig("profile", plen + 32, b, "decode")
     prefill = make_prefill_step(served.cfg, served.topo, pshape)
@@ -2470,13 +2597,16 @@ def profile_steps(H, torch, label, served, keys):
 
     pcache = init_cache(served.cfg, served.topo, pshape, device=H.dev)
     wall_ms, device_ms, kernels = traced(
-        lambda i, c: prefill(served.params, c, {"tokens": served.prompt}), pcache, 1)
+        lambda i, c: prefill(served.params, c, served.batch()), pcache, 1)
     del pcache
     mine_ms = sum(e.self_device_time_total for e in kernels
                   if any(k in e.key for k in keys)) / 1e3
+    flops = model_flops(served.cfg, pshape, training=False)
     log(f"[profile] {label} prefill (profiled): wall {wall_ms:.3f} ms, device busy "
         f"{device_ms:.3f} ms ({device_ms / wall_ms:.3f} of wall), {'+'.join(keys)} {mine_ms:.3f} ms "
-        f"({mine_ms / device_ms:.3f} of device time) [{H.card}]")
+        f"({mine_ms / device_ms:.3f} of device time); model FLOPs {flops:.6g} (model_flops), "
+        f"{flops / (wall_ms / 1e3) / CARD.fp32_flops:.4f} of the fp32 peak over the wall "
+        f"[{H.card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
 
@@ -2486,8 +2616,11 @@ def profile_steps(H, torch, label, served, keys):
         step(0, dcache)  # warm-up
     wall_ms, device_ms, kernels = traced(lambda i, c: step(i + 1, c), dcache, 2)
     del dcache
+    flops = 2 * model_flops(served.cfg, dshape, training=False)
     log(f"[profile] {label} decode, 2 steps (profiled): wall {wall_ms:.3f} ms, device busy "
-        f"{device_ms:.3f} ms ({device_ms / wall_ms:.3f} of wall) [{H.card}]")
+        f"{device_ms:.3f} ms ({device_ms / wall_ms:.3f} of wall); model FLOPs {flops:.6g}, "
+        f"{flops / (wall_ms / 1e3) / CARD.fp32_flops:.6f} of the fp32 peak over the wall "
+        f"[{H.card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
 
@@ -2540,10 +2673,11 @@ class KernelCapture:
         for name, calls in self.captured.items():
             for i, (a, kw, out) in enumerate(calls):
                 if name == "flash_attention_kernel":
+                    pos = {"q_pos": kw.get("q_pos"), "kv_pos": kw.get("kv_pos")}
                     compare_flash(H, f"{label} call {i:3d}", *a, window=kw["window"],
-                                  softcap=kw["softcap"], out=out)
+                                  softcap=kw["softcap"], out=out, **pos)
                     if kw["window"] == 0 and kw["softcap"] == 0.0:
-                        sdpa_used = max(sdpa_used, sdpa_tolerance_used(torch, *a))
+                        sdpa_used = max(sdpa_used, sdpa_tolerance_used(torch, *a, **pos))
                 else:
                     compare_ssd(H, f"{label} call {i:3d}", *a, kw["chunk"], out=out)
         self.captured = {}
@@ -2568,10 +2702,17 @@ def phase_serve_lm(H, torch, arch):
     per active layer slot and micro-batch in the prefill. Each slot's own
     kernel inputs and output from micro-batch 0 are captured on the way and
     held against the plain version; the first decode step's logits are held
-    against a fresh prefill over the prompt plus the first token."""
+    against a fresh prefill over the prompt (frontend rows included) plus the
+    first token. On m-rope (qwen2-vl) the fresh prefill's last row takes the
+    positions the decode gives it, (plen, plen, plen) as the reference's
+    decode does; the gap to a prefill at ``make_positions(plen + 1)`` is the
+    reference's own inconsistency (ROADMAP queue 3), printed, not held."""
+    import numpy as np
+
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.launch.serve import build_parser, serve
-    from repro_torch.models.transformer.model import init_cache, make_prefill_step
+    from repro_torch.models.transformer.model import (
+        _prefill, init_cache, make_extras, make_positions)
 
     args = build_parser().parse_args(["--arch", arch, *LM_SERVE_ARGS])
     slots = active_slots(get_arch(arch, smoke=not args.full_arch))
@@ -2599,29 +2740,53 @@ def phase_serve_lm(H, torch, arch):
             f"scaled_dot_product_attention {sdpa_used:.3f} (these layers) [{H.card}]")
 
     # decode vs prefill: the logits at position prompt_len, two ways
-    b, plen = served.prompt.shape
+    b, plen = served.prompt.shape[0], served.prompt_len
     tok0 = torch.from_numpy(gen.tokens[:, 0]).to(H.dev, torch.int64)
-    longer = torch.cat([served.prompt, tok0[:, None]], dim=1)
+    longer = dict(served.batch(), tokens=torch.cat([served.prompt, tok0[:, None]], dim=1))
     shape = ShapeConfig("check", plen + 1, b, "prefill")
-    with torch.inference_mode():
-        fresh, _ = make_prefill_step(served.cfg, served.topo, shape)(
-            served.params, init_cache(served.cfg, served.topo, shape, device=H.dev),
-            {"tokens": longer})
-    torch.cuda.synchronize()
+
+    def fresh_prefill(positions=None):
+        cfg, topo = served.cfg, served.topo
+        with torch.inference_mode():
+            logits, _ = _prefill(cfg, topo, make_extras(cfg, topo.num_stages), served.params,
+                                 init_cache(cfg, topo, shape, device=H.dev), longer, plen + 1,
+                                 positions)
+        torch.cuda.synchronize()
+        return logits
+
+    mrope = served.cfg.rope_kind == "mrope"
+    own = None
+    if mrope:  # the decode's own positions for the last row
+        own = torch.from_numpy(np.concatenate([make_positions(served.cfg, plen).numpy(),
+                                               np.full((3, 1), plen, np.int32)], axis=1))
+    fresh = fresh_prefill(own)
     err = float((gen.first_decode_logits - fresh).abs().max())
     agree = int((gen.first_decode_logits.argmax(-1) == fresh.argmax(-1)).sum())
+    reference_gap = ""
+    if mrope:
+        at_t = fresh_prefill()
+        gap = float((gen.first_decode_logits - at_t).abs().max())
+        gap_agree = int((gen.first_decode_logits.argmax(-1) == at_t.argmax(-1)).sum())
+        reference_gap = (
+            f"; against a fresh prefill at make_positions({plen + 1}) (last row t "
+            f"{plen - int(plen * served.cfg.frontend_frac) + 1}, where the reference's decode "
+            f"rotates by {plen}): max |logit diff| {gap:.6g}, argmax agree {gap_agree}/{b}, "
+            "measured, not held (the reference's own m-rope decode/prefill gap)")
     if not err <= DECODE_VS_PREFILL_ATOL:
         raise AssertionError(f"{arch}: decoded logits at position {plen} differ from a fresh "
                              f"{plen + 1}-token prefill by {err:.3g} (limit "
                              f"{DECODE_VS_PREFILL_ATOL})")
     launched = ", ".join(f"{name} launches {cap.launches[name]} ({n} slots x {args.chunks})"
                          for name, n in slots.items())
+    front = "" if served.frontend_embeds is None else \
+        f" ({served.frontend_embeds.shape[1]} frontend rows)"
     log(f"[serve-lm] {arch} full width ({summary['params']} params, fp32), batch {b}, prompt "
-        f"{plen}, {args.decode_steps} decode steps, {args.chunks} micro-batches: prefill_s "
+        f"{plen}{front}, {args.decode_steps} decode steps, {args.chunks} micro-batches: prefill_s "
         f"{summary['prefill_s']}, decode_s_per_tok {summary['decode_s_per_tok']}, tokens_per_s "
         f"{summary['tokens_per_s']}, peak_mem_gb {summary['peak_mem_gb']}, sample "
-        f"{summary['sample']}; {launched}; decode vs fresh {plen + 1}-token prefill: max |logit "
-        f"diff| {err:.6g} (limit {DECODE_VS_PREFILL_ATOL}), argmax agree {agree}/{b} [{H.card}]")
+        f"{summary['sample']}; {launched}; decode vs fresh {plen + 1}-row prefill"
+        f"{' at the decode positions' if mrope else ''}: max |logit diff| {err:.6g} (limit "
+        f"{DECODE_VS_PREFILL_ATOL}), argmax agree {agree}/{b}{reference_gap} [{H.card}]")
     profile_steps(H, torch, arch, served,
                   tuple(part for name in slots for part in LM_KERNEL_PARTS[name]))
     return summary
@@ -2653,7 +2818,7 @@ def flat_cpu(tree, prefix=""):
 
 
 def phase_train_lm(H, torch, tag, arch, extra, *, num_layers=None, cpu_check=False,
-                   also=()):
+                   also=(), falling=False):
     """Phase 16: train ``arch`` at full width (depth cut to ``num_layers``
     slots) through ``repro_torch.launch.train.train_lm`` with the JAX
     launcher's ``run_lm`` defaults plus ``extra``. Every kernel of its
@@ -2665,10 +2830,15 @@ def phase_train_lm(H, torch, tag, arch, extra, *, num_layers=None, cpu_check=Fal
     kernels. ``cpu_check``: the first step against the same step on the CPU
     (plain versions, same params and batch), loss and Adam's mu. ``also``:
     other schedules, run after the main path with its own schedule again,
-    all under deterministic algorithms: their losses must be bit-identical."""
+    all under deterministic algorithms: their losses must be bit-identical.
+    ``falling``: the loss of step 0's batch, taken again with the trained
+    params (``step.loss``, no update), must be below its first value (each
+    step draws a fresh batch of near-uniform tokens, so the step losses
+    themselves need not fall in a few steps)."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.launch.train import build_parser, lm_batch, train_lm
     from repro_torch.models.transformer.model import init_params, make_train_step
+    from repro_torch.roofline import model_flops
     from repro_torch.train.optimizer import tree_map
 
     t_phase = time.perf_counter()
@@ -2701,6 +2871,15 @@ def phase_train_lm(H, torch, tag, arch, extra, *, num_layers=None, cpu_check=Fal
     losses, summary = trained.losses, trained.summary
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"{arch}: non-finite loss {losses}")
+    if falling:
+        with torch.no_grad():
+            again = float(trained.step.loss(trained.params, lm_batch(cfg, args, 0, H.dev)))
+        log(f"[train-lm] {tag} {arch} step 0's batch: loss {losses[0]!r} at the start, "
+            f"{again!r} after {args.steps} steps ({again - losses[0]:+.6f}); the last step's "
+            f"loss {'below' if losses[-1] < losses[0] else 'not below'} the first's [{H.card}]")
+        if not again < losses[0]:
+            raise AssertionError(f"{arch}: step 0's batch lost no loss in {args.steps} steps "
+                                 f"({losses[0]} -> {again})")
     median = statistics.median(trained.step_s[1:])
     state_gb = 16 * summary["params"] / 1e9
     log(f"[train-lm] {tag} {arch} full width{cut} ({summary['params']} params, fp32; params + "
@@ -2731,9 +2910,11 @@ def phase_train_lm(H, torch, tag, arch, extra, *, num_layers=None, cpu_check=Fal
         parts.append(f"{name} {calls} launches (forward and recompute) {mine:.3f} ms "
                      f"({mine / device_ms:.3f} of device time), its plain backward "
                      + (f"{back:.3f} ms ({back / device_ms:.3f})" if back > 0 else "not measured"))
+    flops = model_flops(cfg, ShapeConfig("train", args.seq, args.batch, "train"), training=True)
     log(f"[profile] {tag} {arch} one train step (profiled): wall {wall_ms:.3f} ms, device busy "
-        f"{device_ms:.3f} ms ({device_ms / wall_ms:.3f} of wall); " + "; ".join(parts)
-        + f" [{H.card}]")
+        f"{device_ms:.3f} ms ({device_ms / wall_ms:.3f} of wall); model FLOPs {flops:.6g} "
+        f"(model_flops), over the median step {flops / median / CARD.fp32_flops:.4f} of the fp32 "
+        f"peak; " + "; ".join(parts) + f" [{H.card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
 
@@ -2825,6 +3006,23 @@ def phase_lm_training(H, torch):
                    num_layers=36)
 
 
+def phase_frontend_lm(H, torch):
+    """Phase 17: the modality-frontend archs at full width and depth, each
+    served through ``phase_serve_lm`` (prompt 512: 128 frontend rows and 384
+    tokens) and trained through ``phase_train_lm`` (seq 256: 64 frontend
+    rows, ``--chunks 2``, 4 steps): 17a musicgen-large (audio frontend,
+    plain rope, gelu MLP; flash at 32/32 heads, hd 64), 17b qwen2-vl-2b
+    (vision frontend, m-rope, GQA 12/2 at hd 128; flash masked by the
+    t-row)."""
+    for tag, arch in (("17a", "musicgen-large"), ("17b", "qwen2-vl-2b")):
+        t0 = time.perf_counter()
+        phase_serve_lm(H, torch, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[serve-lm] {tag} {arch} serving: phase {time.perf_counter() - t0:.1f} s")
+        phase_train_lm(H, torch, tag, arch, ["--chunks", "2", "--steps", "4"], falling=True)
+
+
 def main() -> int:
     import torch
 
@@ -2899,6 +3097,7 @@ def main() -> int:
     phase("15a", phase_overlap)
     phase("15b", phase_roofline)
     phase("16", phase_lm_training)
+    phase("17", phase_frontend_lm)
 
     kernels = []
     for name, replaces in REPLACES.items():
@@ -2913,7 +3112,7 @@ def main() -> int:
         })
     log("[compare] largest share of the tolerance used, per kernel: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
-    log(f"[done] all 16 phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] all 17 phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card_line}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

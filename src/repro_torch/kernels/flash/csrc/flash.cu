@@ -3,13 +3,18 @@
 // Replaces the Pallas TPU kernel flash_attention_kernel
 // (src/repro/kernels/flash/kernel.py:74, pallas_call :102, body :29).
 //
-// For every batch b, query head h and query row i (positions are 0-based
-// row indices of q and of k/v):
+// For every batch b, query head h and query row i, with qp_i and kp_j the
+// positions of query row i and key j:
 //   s_ij = softcap( scale * (q_i . k_j) )          scale = 1/sqrt(hd)
-//   ok_ij = j <= i  and  (window <= 0  or  i - j < window)
+//   ok_ij = kp_j <= qp_i  and  (window <= 0  or  qp_i - kp_j < window)
 //   out_i = sum_j p_ij v_j / max(sum_j p_ij, 1e-30),  p_ij = ok_ij exp(s_ij - m_i)
 // with an online softmax over KV tiles (running max m, sum l, accumulator),
 // in fp32 whatever the input type (fp32 or bf16; the output takes q's type).
+// Positions are int32 vectors q_pos (Sq) and kv_pos (Skv), both
+// non-decreasing (the model's rope positions, or m-rope's t-row, where a
+// frontend prefix shares t = 0 and so sees itself both ways); null pointers
+// stand for 0-based row indices, the index path, a template instance of
+// its own that is today's kernel unchanged.
 // GQA: query head h reads kv head h / (H / KV) — the Pallas kernel's kv_row
 // fold (:99) in the model's (B, S, heads, dim) layout, which this kernel
 // reads and writes directly, so the op moves no axis.
@@ -55,6 +60,14 @@
 //   KV tiles wholly above the diagonal or outside the window are not
 //   visited; inside a tile, a warp whose 16 rows see none of its keys
 //   skips it, and key groups past the warp's last row are not multiplied.
+//   With positions, the same bounds come from positions: monotone vectors
+//   make the block's key range [first key within the window of its first
+//   row's position, last key at or before its last row's position] a
+//   search each (by the whole warp, 32 probes a round), and a tile is
+//   skipped or fully unmasked by its
+//   first and last key's positions (kept in shared memory beside K, one
+//   4-byte cp.async a key; each thread keeps its two rows' positions in
+//   registers).
 // * Why mma.sync and not wgmma: wgmma TF32 needs both operands K-major in
 //   shared memory, so V would be transposed on its way in, and its operands
 //   come from shared memory, so the split tiles of Q, K and V would all
@@ -76,6 +89,7 @@
 //   bf16 <= 64:   NW 8, BKV 64:  55,296 B, 178 registers: 1 (registers)
 //   bf16 <= 128:  NW 8, BKV 64: 104,448 B, 224 registers: 1 (registers)
 //   bf16 <= 256:  NW 4, BKV 32: 101,376 B, 240 registers: 2
+// The positions' instances add 8 BKV bytes (two tiles of key positions).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,6 +106,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 16 bytes global -> shared; bytes past `src_bytes` (0..16) are zero-filled
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes));
+}
+// 4 bytes global -> shared; zero-filled when src_bytes is 0
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -142,6 +161,26 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// How many of a[0..n) (non-decreasing) are <= x, found by a whole warp
+// (every lane calls it with the same x): each round probes 32 evenly
+// spaced entries of [lo, hi) at once, so S <= 1024 takes two dependent
+// loads, where a one-thread bisection takes log2(S).
+__device__ __forceinline__ int warp_upper_bound(const int* a, int n, int x) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int idx = lo + lane * step;
+    // the probes <= x are a prefix of the lanes: a is non-decreasing
+    const int c = __popc(__ballot_sync(0xffffffffu, idx < hi && a[idx] <= x));
+    if (c == 0) return lo;
+    const int next_hi = min(hi, lo + c * step);
+    lo += (c - 1) * step + 1;
+    hi = next_hi;
+  }
+  return lo;
+}
 
 // Which 16-byte chunks of a staged tile one thread copies: column chunk c of
 // rows r0, r0 + step, ... (chunks per row: cols_p / (16 / sizeof(T))).
@@ -205,12 +244,16 @@ __device__ __forceinline__ void split_tile(uint2* dst, int sp_stride, const floa
 //   fp32 (one raw buffer, split once into a {big, small} buffer that the
 //   warps' B fragments read, which frees the raw buffer for the next tile):
 //     wait for tile it; sync; split it; sync; issue tile it + 1; multiply it.
-template <typename T, int NW, int BKV, int HDV>
+// POS: mask by q_pos / kv_pos (key positions staged with their K tile, in a
+// ring of two whatever RAW is: tile it + 1's land while tile it's are read).
+template <typename T, int NW, int BKV, int HDV, bool POS>
 __global__ void __launch_bounds__(NW * 32, 1)
-flash_kernel(const T* __restrict__ q,  // (B, Sq, H, hd)
-             const T* __restrict__ k,  // (B, Skv, KV, hd)
-             const T* __restrict__ v,  // (B, Skv, KV, hd_v)
-             T* __restrict__ out,      // (B, Sq, H, hd_v)
+flash_kernel(const T* __restrict__ q,        // (B, Sq, H, hd)
+             const T* __restrict__ k,        // (B, Skv, KV, hd)
+             const T* __restrict__ v,        // (B, Skv, KV, hd_v)
+             T* __restrict__ out,            // (B, Sq, H, hd_v)
+             const int* __restrict__ q_pos,  // (Sq,), POS only
+             const int* __restrict__ kv_pos, // (Skv,), POS only
              int Sq, int Skv, int H, int KV, int hd, int hdv, float scale, int window,
              float softcap, bool vec) {
   constexpr bool kF32 = sizeof(T) == 4;
@@ -231,6 +274,7 @@ flash_kernel(const T* __restrict__ q,  // (B, Sq, H, hd)
   T* Vs = Ks + RAW * BKV * qst;                 // RAW x BKV x vst
   uint2* Ksp = reinterpret_cast<uint2*>(Vs + RAW * BKV * vst);  // fp32: BKV x kst2
   uint2* Vsp = Ksp + BKV * kst2;                              // fp32: BKV x vst2
+  int* Kps = reinterpret_cast<int*>(kF32 ? Vsp + BKV * vst2 : Ksp);  // POS: 2 x BKV
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - (bh / H) * H;
@@ -241,9 +285,22 @@ flash_kernel(const T* __restrict__ q,  // (B, Sq, H, hd)
   const int row_lo = q0 + warp * 16, row_hi = row_lo + 15;
 
   // causal: no key after the block's last row; window: none before its reach
-  const int kv_end = min(Skv, q0 + BQ);
-  int kv_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kv_begin = ((q0 - window + 1) / BKV) * BKV;
+  int kv_end, kv_begin = 0;
+  // POS: the warp's first and last rows' positions, the keys its last row
+  // sees, and this thread's two rows' positions
+  int qw_lo = 0, qw_hi = 0, warp_end = 0, qp[2] = {0, 0};
+  if constexpr (POS) {
+    kv_end = warp_upper_bound(kv_pos, Skv, q_pos[min(q0 + BQ, Sq) - 1]);
+    if (window > 0) kv_begin = (warp_upper_bound(kv_pos, Skv, q_pos[q0] - window) / BKV) * BKV;
+    qw_lo = q_pos[min(row_lo, Sq - 1)];
+    qw_hi = q_pos[min(row_hi, Sq - 1)];
+    warp_end = warp_upper_bound(kv_pos, Skv, qw_hi);
+    qp[0] = q_pos[min(row_lo + g, Sq - 1)];
+    qp[1] = q_pos[min(row_lo + g + 8, Sq - 1)];
+  } else {
+    kv_end = min(Skv, q0 + BQ);
+    if (window > 0 && q0 - window + 1 > 0) kv_begin = ((q0 - window + 1) / BKV) * BKV;
+  }
   const int ntiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
 
   const T* qbase = q + ((long long)b * Sq * H + h) * hd + (long long)q0 * H * hd;
@@ -257,6 +314,13 @@ flash_kernel(const T* __restrict__ q,  // (B, Sq, H, hd)
                       hd, hdp, vec, kmap);
     stage<T, THREADS>(Vs + buf * BKV * vst, vst, vbase + k0 * vstride, vstride, BKV, Skv - k0,
                       hdv, hdvp, vec, vmap);
+    if constexpr (POS) {
+      if (threadIdx.x < BKV) {
+        const bool in = k0 + (int)threadIdx.x < Skv;
+        cp_async4(Kps + (tile & 1) * BKV + threadIdx.x, in ? kv_pos + k0 + threadIdx.x : kv_pos,
+                  in ? 4 : 0);
+      }
+    }
   };
   stage<T, THREADS>(Qs, qst, qbase, (long long)H * hd, BQ, Sq - q0, hd, hdp, vec, kmap);
   if (ntiles > 0) stage_kv(0);
@@ -281,8 +345,13 @@ flash_kernel(const T* __restrict__ q,  // (B, Sq, H, hd)
     if (it + 1 < ntiles) stage_kv(it + 1);  // lands while this tile is multiplied
     cp_async_commit();
 
-    const bool skip = row_lo >= Sq || k0 > row_hi ||
-                      (window > 0 && k0 + BKV - 1 < row_lo - window + 1);
+    const int* kp = Kps + (it & 1) * BKV;  // POS: this tile's key positions
+    bool skip;
+    if constexpr (POS)
+      skip = row_lo >= Sq || k0 >= warp_end ||
+             (window > 0 && qw_lo - kp[min(BKV, Skv - k0) - 1] >= window);
+    else
+      skip = row_lo >= Sq || k0 > row_hi || (window > 0 && k0 + BKV - 1 < row_lo - window + 1);
     if (skip) continue;
 
     // ------------------------------------------------------ S = Q.K^T --
@@ -341,8 +410,11 @@ flash_kernel(const T* __restrict__ q,  // (B, Sq, H, hd)
     // -------------------------------------------- mask, online softmax --
     // thread holds rows row_lo + g (c = 0, 1) and + 8 (c = 2, 3), keys
     // k0 + 8 j + 2 t + (c & 1)
-    const bool full = k0 + BKV - 1 <= row_lo && k0 + BKV <= Skv &&
-                      (window <= 0 || row_hi - k0 < window);
+    bool full;
+    if constexpr (POS)
+      full = k0 + BKV <= Skv && kp[BKV - 1] <= qw_lo && (window <= 0 || qw_hi - kp[0] < window);
+    else
+      full = k0 + BKV - 1 <= row_lo && k0 + BKV <= Skv && (window <= 0 || row_hi - k0 < window);
     uint32_t okbits = 0xffffffffu;
     float mx[2] = {kNeg, kNeg};
 #pragma unroll
@@ -352,9 +424,15 @@ flash_kernel(const T* __restrict__ q,  // (B, Sq, H, hd)
         float x = s[j][c] * scale;
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
         if (!full) {
-          const int row = row_lo + g + (c >> 1) * 8;
-          const int key = k0 + j * 8 + 2 * t + (c & 1);
-          const bool ok = key < Skv && key <= row && (window <= 0 || row - key < window);
+          const int kl = j * 8 + 2 * t + (c & 1);
+          bool ok;
+          if constexpr (POS) {
+            const int qpos = qp[c >> 1], kpos = kp[kl];
+            ok = k0 + kl < Skv && kpos <= qpos && (window <= 0 || qpos - kpos < window);
+          } else {
+            const int row = row_lo + g + (c >> 1) * 8, key = k0 + kl;
+            ok = key < Skv && key <= row && (window <= 0 || row - key < window);
+          }
           if (!ok) {
             okbits &= ~(1u << (j * 4 + c));
             x = kNeg;
@@ -398,7 +476,11 @@ flash_kernel(const T* __restrict__ q,  // (B, Sq, H, hd)
 
     // ------------------------------------------------------- O += P.V --
     // keys past kv_end or past the warp's last row carry p = 0
-    const int kmax = min(kv_end, row_hi + 1) - k0;
+    int kmax;
+    if constexpr (POS)
+      kmax = warp_end - k0;
+    else
+      kmax = min(kv_end, row_hi + 1) - k0;
     if constexpr (kF32) {
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -471,24 +553,25 @@ flash_kernel(const T* __restrict__ q,  // (B, Sq, H, hd)
   }
 }
 
-template <typename T, int NW, int BKV, int HDV>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-           int H, int KV, int hd, int hdv, float scale, int window, float softcap,
-           cudaStream_t stream) {
+template <typename T, int NW, int BKV, int HDV, bool POS>
+int launch(const void* q, const void* k, const void* v, void* out, const int* q_pos,
+           const int* kv_pos, int B, int Sq, int Skv, int H, int KV, int hd, int hdv, float scale,
+           int window, float softcap, cudaStream_t stream) {
   constexpr int BQ = 16 * NW, PAD = 16 / sizeof(T);
   const int hdp = (hd + 15) & ~15, hdvp = (hdv + 15) & ~15;
   constexpr int RAW = sizeof(T) == 4 ? 1 : 2;
   size_t smem = sizeof(T) * ((size_t)BQ * (hdp + PAD) + RAW * (size_t)BKV * (hdp + PAD) +
                              RAW * (size_t)BKV * (hdvp + PAD));
   if (sizeof(T) == 4) smem += sizeof(uint2) * (size_t)BKV * ((hdp + 4) + (hdvp + 2));
+  if (POS) smem += 2 * sizeof(int) * (size_t)BKV;
   static size_t opted = 0;  // dynamic shared memory this instantiation may use
   if (smem > opted) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, NW, BKV, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_kernel<T, NW, BKV, HDV, POS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     // all of the SM's unified memory as shared memory, so that every block
     // the registers allow can be resident
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_kernel<T, NW, BKV, HDV>,
+      err = cudaFuncSetAttribute(flash_kernel<T, NW, BKV, HDV, POS>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  (int)cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
@@ -498,44 +581,59 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   const bool vec = hd % V == 0 && hdv % V == 0 &&
                    (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) == 0;
   const dim3 grid((unsigned)(B * H), (unsigned)((Sq + BQ - 1) / BQ));
-  flash_kernel<T, NW, BKV, HDV><<<grid, NW * 32, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, H, KV, hd, hdv, scale, window,
-      softcap, vec);
+  flash_kernel<T, NW, BKV, HDV, POS><<<grid, NW * 32, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, q_pos, kv_pos, Sq, Skv, H, KV, hd, hdv,
+      scale, window, softcap, vec);
   return (int)cudaGetLastError();
 }
 
 // (warps, KV tile, widest head dim) by type and head dim; see the note above
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-             int H, int KV, int hd, int hdv, float scale, int window, float softcap,
-             cudaStream_t s) {
+template <typename T, bool POS>
+int dispatch(const void* q, const void* k, const void* v, void* out, const int* qp,
+             const int* kp, int B, int Sq, int Skv, int H, int KV, int hd, int hdv, float scale,
+             int window, float softcap, cudaStream_t s) {
   constexpr bool kF32 = sizeof(T) == 4;
   const int widest = ((hd > hdv ? hd : hdv) + 15) & ~15;
   if (widest <= 64)
-    return launch<T, 8, kF32 ? 32 : 64, 64>(q, k, v, out, B, Sq, Skv, H, KV, hd, hdv, scale,
-                                            window, softcap, s);
+    return launch<T, 8, kF32 ? 32 : 64, 64, POS>(q, k, v, out, qp, kp, B, Sq, Skv, H, KV, hd,
+                                                 hdv, scale, window, softcap, s);
   if (widest <= 128)
-    return launch<T, 8, kF32 ? 32 : 64, 128>(q, k, v, out, B, Sq, Skv, H, KV, hd, hdv, scale,
-                                             window, softcap, s);
-  return launch<T, 4, kF32 ? 16 : 32, 256>(q, k, v, out, B, Sq, Skv, H, KV, hd, hdv, scale,
-                                           window, softcap, s);
+    return launch<T, 8, kF32 ? 32 : 64, 128, POS>(q, k, v, out, qp, kp, B, Sq, Skv, H, KV, hd,
+                                                  hdv, scale, window, softcap, s);
+  return launch<T, 4, kF32 ? 16 : 32, 256, POS>(q, k, v, out, qp, kp, B, Sq, Skv, H, KV, hd,
+                                                hdv, scale, window, softcap, s);
+}
+
+template <typename T>
+int dispatch_pos(const void* q, const void* k, const void* v, void* out, const int* qp,
+                 const int* kp, int B, int Sq, int Skv, int H, int KV, int hd, int hdv,
+                 float scale, int window, float softcap, cudaStream_t s) {
+  if (qp != nullptr)
+    return dispatch<T, true>(q, k, v, out, qp, kp, B, Sq, Skv, H, KV, hd, hdv, scale, window,
+                             softcap, s);
+  return dispatch<T, false>(q, k, v, out, qp, kp, B, Sq, Skv, H, KV, hd, hdv, scale, window,
+                            softcap, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Launches on `stream`; returns the
-// cudaError_t of the launch (0 = success).
-extern "C" int flash_forward(const void* q, const void* k, const void* v, void* out, int dtype,
-                             int B, int Sq, int Skv, int H, int KV, int hd, int hdv,
-                             float scale, int window, float softcap, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. q_pos / kv_pos: int32 positions of the
+// query rows and keys, both non-decreasing, or both null for row indices.
+// Launches on `stream`; returns the cudaError_t of the launch (0 = success).
+extern "C" int flash_forward(const void* q, const void* k, const void* v, void* out,
+                             const int* q_pos, const int* kv_pos, int dtype, int B, int Sq,
+                             int Skv, int H, int KV, int hd, int hdv, float scale, int window,
+                             float softcap, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || hd <= 0 ||
-      hd > 256 || hdv <= 0 || hdv > 256 || (Sq + 63) / 64 > 65535)
+      hd > 256 || hdv <= 0 || hdv > 256 || (Sq + 63) / 64 > 65535 ||
+      (q_pos == nullptr) != (kv_pos == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, B, Sq, Skv, H, KV, hd, hdv, scale, window, softcap, s);
+    return dispatch_pos<float>(q, k, v, out, q_pos, kv_pos, B, Sq, Skv, H, KV, hd, hdv, scale,
+                               window, softcap, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, KV, hd, hdv, scale, window,
-                                   softcap, s);
+    return dispatch_pos<__nv_bfloat16>(q, k, v, out, q_pos, kv_pos, B, Sq, Skv, H, KV, hd, hdv,
+                                       scale, window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

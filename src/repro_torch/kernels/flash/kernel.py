@@ -4,13 +4,20 @@
 ``flash_attention_kernel`` (``pallas_call`` at ``:102``). It takes the
 model's layout — q (B, Sq, H, hd), k (B, Skv, KV, hd), v (B, Skv, KV, hd_v),
 float32 or bfloat16 — and returns (B, Sq, H, hd_v) in q's dtype: causal
-attention with optional sliding ``window`` and tanh ``softcap``, query and
-key positions both 0-based row indices. On CUDA tensors it launches
+attention with optional sliding ``window`` and tanh ``softcap``. Query and
+key positions are 0-based row indices, or the int32 vectors ``q_pos`` (Sq,)
+and ``kv_pos`` (Skv,) on the tensors' device, both non-decreasing (key j is
+seen by row i when ``kv_pos[j] <= q_pos[i]``, and within the window of
+``q_pos[i]``). On CUDA tensors it launches
 ``csrc/flash.cu`` (and counts the launch in ``.launches``); on CPU tensors
 it returns the plain version ``ref.flash_attention_ref``, whose KV block is
 ``kv_block`` (the kernel tiles KV by 16, 32 or 64 keys whatever it is).
-Anything else raises: a wrong device, dtype, shape, head grouping or a
-non-contiguous tensor.
+Anything else raises: a wrong device, dtype, shape, head grouping, a
+non-contiguous tensor, one position vector without the other, or positions
+that decrease (the kernel skips KV tiles by their first and last keys'
+positions). Reading the positions to check their order is a host sync, so
+a caller that has checked them where it built them (the model, once a
+step) passes ``ordered=True`` and the wrapper reads nothing.
 """
 
 from __future__ import annotations
@@ -31,12 +38,19 @@ MAX_HEAD_DIM = 256  # the kernel's shared-memory tiles fit up to 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def check_order(name: str, pos: torch.Tensor) -> None:
+    """Raise unless the position vector ``pos`` is non-decreasing (one host
+    read of it)."""
+    if pos.numel() > 1 and bool((pos[1:] < pos[:-1]).any()):
+        raise ValueError(f"{name} decreases: the kernel takes non-decreasing positions")
+
+
 @functools.cache
 def library() -> BuiltLibrary:
     """The built and loaded kernel library (compiled at the first call)."""
     built = load_library("flash", [SOURCE])
     fn = built.lib.flash_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -51,10 +65,17 @@ def flash_attention_kernel(
     window: int = 0,
     softcap: float = 0.0,
     kv_block: int = 512,
+    q_pos: torch.Tensor | None = None,  # (Sq,) int32
+    kv_pos: torch.Tensor | None = None,  # (Skv,) int32
+    ordered: bool = False,
 ) -> torch.Tensor:  # (B, Sq, H, hd_v)
-    """Causal (windowed, softcapped) GQA attention."""
-    if not takes_kernel(q, k, v):
-        return flash_attention_ref(q, k, v, window=window, softcap=softcap, kv_block=kv_block)
+    """Causal (windowed, softcapped) GQA attention, masked by position;
+    ``ordered``: the caller has checked that the positions do not decrease."""
+    if (q_pos is None) != (kv_pos is None):
+        raise ValueError("give both q_pos and kv_pos, or neither")
+    if not takes_kernel(q, k, v, q_pos, kv_pos):
+        return flash_attention_ref(q, k, v, window=window, softcap=softcap, kv_block=kv_block,
+                                   q_pos=q_pos, kv_pos=kv_pos)
     b, sq, h, hd = q.shape
     _, skv, kv, _ = k.shape
     hd_v = v.shape[-1]
@@ -67,6 +88,11 @@ def flash_attention_kernel(
         raise ValueError(f"{h} query heads do not group onto {kv} kv heads")
     if not (1 <= hd <= MAX_HEAD_DIM and 1 <= hd_v <= MAX_HEAD_DIM):
         raise ValueError(f"head dims hd={hd} hd_v={hd_v}: the kernel takes 1..{MAX_HEAD_DIM}")
+    if q_pos is not None:
+        for name, pos, n in (("q_pos", q_pos, sq), ("kv_pos", kv_pos, skv)):
+            check_tensor(name, pos, torch.int32, (n,))
+            if not ordered:
+                check_order(name, pos)
     out = torch.empty((b, sq, h, hd_v), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -76,7 +102,9 @@ def flash_attention_kernel(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if q_pos is None else q_pos.data_ptr(),
+            None if kv_pos is None else kv_pos.data_ptr(), DTYPES[q.dtype],
             b, sq, skv, h, kv, hd, hd_v, softmax_scale(hd), int(window), float(softcap), stream,
         )
     if err != 0:

@@ -11,7 +11,11 @@ raises without a card; ``cpu`` asks for the CPU). Weights are random, drawn
 on the device from ``--seed``; ``--full-arch`` takes the published widths
 and depth, else the arch's smoke config. On the card the prefill's
 attention runs the hand-written flash kernel and Mamba's scan the SSD
-kernel (zamba2's hybrid stage runs both). The prefill fills a prompt-width
+kernel (zamba2's hybrid stage runs both). On a frontend arch
+(musicgen-large, qwen2-vl-2b) the prompt's first ``int(prompt_len ·
+frontend_frac)`` rows are precomputed frontend embeddings drawn from
+``--seed`` (``data.tokens.frontend_embeds``), the rest tokens, as the JAX
+launcher draws them. The prefill fills a prompt-width
 cache, which is spliced into the wider decode cache (the JAX driver's
 host-side splice), and each decode step feeds back its argmax token. The
 printed result carries the JAX driver's keys plus ``tokens_per_s`` (tokens
@@ -30,9 +34,10 @@ import torch
 
 from repro_torch.configs import ArchConfig, ShapeConfig, get_arch
 from repro_torch.core.cli import resolve_device
-from repro_torch.data.tokens import token_batch
+from repro_torch.data.tokens import frontend_embeds, token_batch
 from repro_torch.models.transformer.model import (
-    Topology, check_supported, init_cache, init_params, make_prefill_step, make_serve_step,
+    Topology, check_supported, frontend_rows, init_cache, init_params, make_prefill_step,
+    make_serve_step,
 )
 
 
@@ -72,13 +77,22 @@ def splice(dst: dict, src: dict) -> dict:
     return dst
 
 
+def prompt_batch(prompt: torch.Tensor, frontend: torch.Tensor | None) -> dict:
+    """The prefill's batch: ``tokens`` and, on a frontend arch, the rows
+    ahead of them."""
+    return {"tokens": prompt} if frontend is None else {"tokens": prompt,
+                                                        "frontend_embeds": frontend}
+
+
 @torch.inference_mode()
 def generate(cfg: ArchConfig, topo: Topology, params: dict, prompt: torch.Tensor,
-             decode_steps: int) -> Generation:
-    """Prefill ``prompt`` (B, S) and decode ``decode_steps`` greedy tokens
-    on the prompt's device."""
+             decode_steps: int, frontend: torch.Tensor | None = None) -> Generation:
+    """Prefill ``prompt`` (B, S_text), after the frontend embeddings
+    ``frontend`` (B, s_front, d) where the arch has a frontend, and decode
+    ``decode_steps`` greedy tokens on the prompt's device."""
     dev = prompt.device
-    b, plen = prompt.shape
+    b = prompt.shape[0]
+    plen = prompt.shape[1] + (0 if frontend is None else frontend.shape[1])
     pshape = ShapeConfig("serve_prefill", plen, b, "prefill")
     dshape = ShapeConfig("serve_decode", plen + decode_steps + 16, b, "decode")
     prefill = make_prefill_step(cfg, topo, pshape)
@@ -87,7 +101,7 @@ def generate(cfg: ArchConfig, topo: Topology, params: dict, prompt: torch.Tensor
     pcache = init_cache(cfg, topo, pshape, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, pcache = prefill(params, pcache, {"tokens": prompt})
+    logits, pcache = prefill(params, pcache, prompt_batch(prompt, frontend))
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -109,14 +123,26 @@ def generate(cfg: ArchConfig, topo: Topology, params: dict, prompt: torch.Tensor
 
 @dataclasses.dataclass
 class Served:
-    """One ``serve`` run: the printed summary and what produced it."""
+    """One ``serve`` run: the printed summary and what produced it (the
+    prompt's tokens and, on a frontend arch, its frontend embeddings)."""
 
     summary: dict
     cfg: ArchConfig
     topo: Topology
     params: dict
     prompt: torch.Tensor
+    frontend_embeds: torch.Tensor | None
     generation: Generation
+
+    @property
+    def prompt_len(self) -> int:
+        """Rows of the prompt: frontend rows and tokens."""
+        return self.prompt.shape[1] + (0 if self.frontend_embeds is None
+                                       else self.frontend_embeds.shape[1])
+
+    def batch(self) -> dict:
+        """The prefill's batch of this run."""
+        return prompt_batch(self.prompt, self.frontend_embeds)
 
 
 def serve(args) -> Served:
@@ -128,11 +154,16 @@ def serve(args) -> Served:
         torch.cuda.reset_peak_memory_stats(device)
     topo = Topology(num_stages=max(args.stages, 1), num_micro=args.chunks)
     params = init_params(cfg, seed=args.seed, num_stages=topo.num_stages, device=device)
+    s_front = frontend_rows(cfg, args.prompt_len)
+    n_text = args.prompt_len - s_front
     prompt = torch.from_numpy(token_batch(
-        batch=args.batch, seq=args.prompt_len, vocab=cfg.vocab_size, seed=args.seed,
-    )[:, :-1][:, :args.prompt_len].astype(np.int64)).to(device)
+        batch=args.batch, seq=n_text, vocab=cfg.vocab_size, seed=args.seed,
+    )[:, :-1][:, :n_text].astype(np.int64)).to(device)
+    frontend = torch.from_numpy(frontend_embeds(
+        batch=args.batch, seq=s_front, d_model=cfg.d_model, seed=args.seed,
+    )).to(device) if s_front else None
 
-    gen = generate(cfg, topo, params, prompt, args.decode_steps)
+    gen = generate(cfg, topo, params, prompt, args.decode_steps, frontend)
     n_tokens = int(gen.tokens.size)
     summary = {
         "arch": cfg.name,
@@ -148,7 +179,7 @@ def serve(args) -> Served:
         "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
-    return Served(summary, cfg, topo, params, prompt, gen)
+    return Served(summary, cfg, topo, params, prompt, frontend, gen)
 
 
 def _leaves(tree: dict):

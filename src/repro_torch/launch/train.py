@@ -33,12 +33,14 @@ evaluate over the plan, since no full graph exists:
 
 ``--mode lm`` trains the LM pool (``run_lm``, the JAX launcher's other
 mode; default arch mamba2-130m) on synthetic token batches: the dense GQA
-archs, mamba2-130m and the zamba2 hybrid, under ``--schedule fill_drain``
-or ``interleaved`` (``--stages`` virtual stages walked on the one card).
-Its archs run their smoke config unless ``--full-arch`` is given; on the
-card attention runs the flash kernel and Mamba's scan the SSD kernel, in
-the forward and in each recompute. MoE, MLA, m-rope and the frontends
-raise naming ROADMAP queue 1 item 16:
+archs, musicgen-large and qwen2-vl-2b (precomputed frontend embeddings
+ahead of the tokens; qwen2-vl with m-rope), mamba2-130m and the zamba2
+hybrid, under ``--schedule fill_drain`` or ``interleaved`` (``--stages``
+virtual stages walked on the one card). Its archs run their smoke config
+unless ``--full-arch`` is given; on the card attention runs the flash
+kernel and Mamba's scan the SSD kernel, in the forward and in each
+recompute. MoE, MLA and the multi-token-prediction head raise naming
+ROADMAP queue 1 item 16:
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
         --arch mamba2-130m --full-arch --stages 2 --chunks 2 --steps 50
@@ -294,15 +296,23 @@ class TrainedLM:
 
 
 def lm_batch(cfg, args, step: int, device):
-    """Step ``step``'s token batch (B, seq+1) on ``device``: ``token_batch``
-    from ``--seed``, as the JAX launcher draws it."""
+    """Step ``step``'s batch on ``device``, as the JAX launcher draws it:
+    tokens (B, seq - s_front + 1) from ``token_batch`` with ``--seed``, and
+    on a frontend arch ``frontend_embeds`` (B, s_front, d) seeded with the
+    step index (the launcher's ``seed=i``, not ``--seed``)."""
     import torch
 
-    from repro_torch.data.tokens import token_batch
+    from repro_torch.data.tokens import frontend_embeds, token_batch
+    from repro_torch.models.transformer.model import frontend_rows
 
-    return {"tokens": torch.from_numpy(token_batch(
-        batch=args.batch, seq=args.seq, vocab=cfg.vocab_size, seed=args.seed, step=step,
+    s_front = frontend_rows(cfg, args.seq)
+    batch = {"tokens": torch.from_numpy(token_batch(
+        batch=args.batch, seq=args.seq - s_front, vocab=cfg.vocab_size, seed=args.seed, step=step,
     )).to(device)}
+    if s_front:
+        batch["frontend_embeds"] = torch.from_numpy(frontend_embeds(
+            batch=args.batch, seq=s_front, d_model=cfg.d_model, seed=step)).to(device)
+    return batch
 
 
 def train_lm(cfg, args, on_step=None) -> TrainedLM:

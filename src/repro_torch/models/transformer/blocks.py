@@ -9,8 +9,8 @@ a layer's cache entries in place into the cache view it is given (a slice
 of the model's stacked cache) and returns that view: a 7B model's cache is
 gigabytes, and decoding copies none of it.
 
-Only GQA attention with rope and Mamba2 blocks build here; MoE, MLA and
-m-rope wait for ROADMAP queue 1 item 16 (``model.check_supported`` says so
+Only GQA attention with rope or m-rope and Mamba2 blocks build here; MoE
+and MLA wait for ROADMAP queue 1 item 16 (``model.check_supported`` says so
 before any block is built).
 """
 
@@ -21,7 +21,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash.ops import flash_attention
 from repro_torch.models.transformer.attention import decode_attention
-from repro_torch.models.transformer.common import apply_rope, normal_init, rms_norm
+from repro_torch.models.transformer.common import apply_mrope, apply_rope, normal_init, rms_norm
 from repro_torch.models.transformer.ffn import ffn_apply, ffn_init
 from repro_torch.models.transformer.ssm import mamba2_apply, mamba2_init
 
@@ -71,7 +71,7 @@ def init_mamba_block(cfg: ArchConfig, gen: torch.Generator, *, lead=(), dtype=to
 
 def _project_qkv(cfg: ArchConfig, p: dict, h_in: torch.Tensor, positions: torch.Tensor):
     """-> (q (B,S,H,hd), k (B,S,KV,hd), v (B,S,KV,hd), cache entry {'k','v'}),
-    k post-rope."""
+    k post-rope. ``positions``: (S,), or (3, S) for m-rope."""
     b, s, _ = h_in.shape
     hd = cfg.head_dim
     q, k, v = h_in @ p["w_q"], h_in @ p["w_k"], h_in @ p["w_v"]
@@ -80,7 +80,10 @@ def _project_qkv(cfg: ArchConfig, p: dict, h_in: torch.Tensor, positions: torch.
     q = q.reshape(b, s, cfg.num_heads, hd)
     k = k.reshape(b, s, cfg.num_kv_heads, hd)
     v = v.reshape(b, s, cfg.num_kv_heads, hd)
-    if cfg.rope_kind == "rope":
+    if cfg.rope_kind == "mrope":
+        q = apply_mrope(q, positions, theta=cfg.rope_theta)
+        k = apply_mrope(k, positions, theta=cfg.rope_theta)
+    elif cfg.rope_kind == "rope":
         q = apply_rope(q, positions, theta=cfg.rope_theta)
         k = apply_rope(k, positions, theta=cfg.rope_theta)
     return q, k, v, {"k": k, "v": v}
@@ -90,10 +93,17 @@ def attn_apply(cfg: ArchConfig, p: dict, h_in: torch.Tensor, *, positions: torch
                window: int, kv_block: int = 512, return_cache: bool = False):
     """Full-sequence causal attention through the flash op: the hand-written
     kernel on the card, ``blocked_attention`` (KV blocks of ``kv_block``) on
-    the CPU. ``positions`` must be ``arange(S)`` (the flash op's own)."""
+    the CPU. ``positions`` (int32, from ``model.make_positions``) rotate q
+    and k. m-rope archs mask by their t-row ``positions[0]``, so a frontend
+    prefix (all t = 0) sees itself both ways, as the reference masks; the
+    model checks its order where it builds it, so the kernel reads nothing.
+    The other archs' positions are ``arange(S)``, which the kernel's index
+    path masks by without reading them."""
     b, s, _ = h_in.shape
     q, k, v, entry = _project_qkv(cfg, p, h_in, positions)
-    out = flash_attention(q, k, v, window, cfg.attn_softcap, kv_block)
+    lin = positions[0] if cfg.rope_kind == "mrope" else None
+    out = flash_attention(q, k, v, window, cfg.attn_softcap, kv_block, q_pos=lin, kv_pos=lin,
+                          ordered=True)
     out = out.reshape(b, s, -1) @ p["w_o"]
     return (out, entry) if return_cache else out
 
@@ -110,9 +120,14 @@ def attn_decode_apply(cfg: ArchConfig, p: dict, h_in: torch.Tensor, cache: dict,
                       cur_pos: int, window: int):
     """One new token (h_in (B, 1, d)) against a ring-buffer cache
     ({'k','v'} of (B, W, KV, hd)); writes its k/v into slot cur_pos mod W in
-    place. -> (out (B, 1, d), cache)."""
+    place. -> (out (B, 1, d), cache). m-rope rotates the token by
+    ``cur_pos`` on all three axes, as the reference's decode does
+    (``repro.models.transformer.blocks.attn_decode_apply``), not by the t
+    its prefill would give it (``cur_pos - s_front + 1``): the reference's
+    decode and its own prefill disagree there, and the port copies it."""
     b = h_in.shape[0]
-    pos = torch.full((1,), cur_pos, dtype=torch.int64, device=h_in.device)
+    shape = (3, 1) if cfg.rope_kind == "mrope" else (1,)
+    pos = torch.full(shape, cur_pos, dtype=torch.int32, device=h_in.device)
     q, k_new, v_new, _ = _project_qkv(cfg, p, h_in, pos)
     w = cache["k"].shape[1]
     slot = cur_pos % w

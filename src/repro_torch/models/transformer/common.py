@@ -1,7 +1,6 @@
-"""Shared transformer primitives: norms, rope, initializers.
+"""Shared transformer primitives: norms, rope and m-rope, initializers.
 
-Counterpart of ``repro.models.transformer.common`` (m-rope waits for the
-VLM frontend, ROADMAP queue 1 item 16).
+Counterpart of ``repro.models.transformer.common``.
 """
 
 from __future__ import annotations
@@ -48,7 +47,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float) -> tor
     (..., S) integers. Rotates the full head_dim (half-split convention)."""
     hd = x.shape[-1]
     inv = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
-    ang = positions[..., None].float() * inv  # (..., S, hd/2)
+    return _rotate(x, positions[..., None].float() * inv)  # angles (..., S, hd/2)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
+                sections=(2, 1, 1)) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): positions (3, ..., S) for (t, h, w); the
+    head_dim/2 frequency slots are split across the three components in
+    ``sections`` proportion, the last taking the remainder."""
+    hd = x.shape[-1]
+    half = hd // 2
+    total = sum(sections)
+    sizes = [half * s // total for s in sections]
+    sizes[-1] = half - sum(sizes[:-1])
+    inv = rope_freqs(hd, theta, device=x.device)  # (half,)
+    # each frequency slot takes the position component of its section
+    pos = torch.cat([positions[c, ..., None].expand(*positions.shape[1:], n)
+                     for c, n in enumerate(sizes)], dim=-1)  # (..., S, half)
+    return _rotate(x, pos.float() * inv)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, hd) rotated by angles (..., S, hd/2), half-split, in
+    float32, cast back to x's dtype."""
     cos = torch.cos(ang)[..., None, :]  # (..., S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

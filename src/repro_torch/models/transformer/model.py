@@ -25,9 +25,11 @@ leaves its cache as it was, and its parameters get zero gradients. The
 serving steps update the cache in place and return it; the train step
 updates the params and the Adam state in place and returns them.
 
-Dense GQA archs with rope, ``ssm`` archs and the zamba2 hybrid build;
-``check_supported`` raises for the rest (MoE, MLA, m-rope, frontends, the
-multi-token-prediction head), naming ROADMAP queue 1 item 16.
+Dense GQA archs with rope or m-rope, the modality-frontend archs
+(musicgen-large, qwen2-vl-2b: precomputed ``frontend_embeds`` ahead of the
+tokens), ``ssm`` archs and the zamba2 hybrid build; ``check_supported``
+raises for the rest (MoE, MLA, the multi-token-prediction head), naming
+ROADMAP queue 1 item 16.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig, pipeline_padding
+from repro_torch.kernels.flash.kernel import check_order
 from repro_torch.models.transformer import blocks as B
 from repro_torch.models.transformer.common import normal_init, rms_norm, softcap
 from repro_torch.train import optimizer as opt_lib
@@ -80,18 +83,16 @@ class Topology:
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for an arch whose blocks are not ported
-    yet (MoE, MLA, m-rope, modality frontends, multi-token prediction)."""
+    yet (MoE, MLA, multi-token prediction)."""
     missing = []
-    if cfg.arch_type not in ("dense", "ssm", "hybrid"):
+    if cfg.arch_type not in ("dense", "ssm", "hybrid", "audio", "vlm"):
         missing.append(f"arch_type {cfg.arch_type!r}")
     if cfg.num_experts:
         missing.append("MoE blocks")
     if cfg.arch_type != "ssm" and cfg.attn_kind != "gqa":
         missing.append(f"{cfg.attn_kind} attention")
-    if cfg.rope_kind not in ("rope", "none"):
+    if cfg.rope_kind not in ("rope", "mrope", "none"):
         missing.append(f"{cfg.rope_kind} positions")
-    if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend")
     if cfg.mtp:
         missing.append("the multi-token-prediction head")
     if missing:
@@ -144,7 +145,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, num_stages: int = 1,
     lead = (num_stages, _stacked_slots(cfg, num_stages))
     if cfg.arch_type == "hybrid":
         params["shared_attn"] = B.init_block(cfg, gen, dtype=dtype)
-    init = B.init_block if cfg.arch_type == "dense" else B.init_mamba_block
+    init = B.init_mamba_block if cfg.arch_type in ("ssm", "hybrid") else B.init_block
     params["blocks"] = init(cfg, gen, lead=lead, dtype=dtype)
     return params
 
@@ -196,13 +197,34 @@ def _slot_extras(ex: dict, *index) -> dict:
 # ------------------------------------------------------------ embeddings --
 
 
+def frontend_rows(cfg: ArchConfig, seq: int) -> int:
+    """Rows of a ``seq``-long sequence that the modality frontend fills."""
+    return int(seq * cfg.frontend_frac) if cfg.frontend != "none" else 0
+
+
 def embed_inputs(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
-    return params["embed"][batch["tokens"].long()]  # (B, S, d)
+    """(B, S, d): the token embeddings, after ``batch["frontend_embeds"]``
+    (B, s_front, d) on a frontend arch."""
+    x = params["embed"][batch["tokens"].long()]  # (B, S_text, d)
+    if cfg.frontend != "none":
+        x = torch.cat([batch["frontend_embeds"].to(x.dtype), x], dim=1)
+    return x
 
 
 def make_positions(cfg: ArchConfig, seq: int, device=None) -> torch.Tensor:
-    """(S,) rope positions."""
-    return torch.arange(seq, dtype=torch.int64, device=device)
+    """(S,) int32 rope positions, or (3, S) for m-rope: the frontend rows on
+    a side x side grid at t = 0, then the text at t = h = w = 1, 2, ...
+    Built from numpy, as the reference builds them. The t-row, the flash
+    kernel's mask order (``blocks.attn_apply``), never decreases."""
+    if cfg.rope_kind != "mrope":
+        return torch.arange(seq, dtype=torch.int32, device=device)
+    s_front = frontend_rows(cfg, seq)
+    side = max(1, int(math.sqrt(max(s_front, 1))))
+    idx = np.arange(seq)
+    t = np.where(idx < s_front, 0, idx - s_front + 1)
+    hh = np.where(idx < s_front, (idx // side) % side, idx - s_front + 1)
+    ww = np.where(idx < s_front, idx % side, idx - s_front + 1)
+    return torch.from_numpy(np.stack([t, hh, ww]).astype(np.int32)).to(device)
 
 
 def lm_head_logits(cfg: ArchConfig, params: dict, y: torch.Tensor) -> torch.Tensor:
@@ -216,18 +238,30 @@ def lm_head_logits(cfg: ArchConfig, params: dict, y: torch.Tensor) -> torch.Tens
 
 def batch_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
     """{name: (shape, dtype)} of one step's input batch: decode ``tokens``
-    (B,) and ``pos``; prefill ``tokens`` (B, S); train ``tokens`` (B, S+1),
-    the last column the labels' shift."""
+    (B,) and ``pos``; prefill ``tokens`` (B, S - s_front); train ``tokens``
+    (B, S - s_front + 1), the last column the labels' shift; on a frontend
+    arch also ``frontend_embeds`` (B, s_front, d), s_front =
+    ``frontend_rows(cfg, S)``."""
     bsz, seq = shape.global_batch, shape.seq_len
     if shape.kind == "decode":
         return {"tokens": ((bsz,), torch.int32), "pos": ((), torch.int32)}
-    return {"tokens": ((bsz, seq + (1 if shape.kind == "train" else 0)), torch.int32)}
+    s_front = frontend_rows(cfg, seq)
+    specs = {"tokens": ((bsz, seq - s_front + (1 if shape.kind == "train" else 0)), torch.int32)}
+    if cfg.frontend != "none":
+        specs["frontend_embeds"] = ((bsz, s_front, cfg.d_model), torch.float32)
+    return specs
 
 
-def labels_from_batch(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """(labels (B, S) int64, mask (B, S) float32): the next tokens and
-    ``labels >= 0``."""
-    labels = batch["tokens"][:, 1:].long()
+def labels_from_batch(batch: dict, seq: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(labels (B, S) int64, mask (B, S) float32) aligned with the
+    concatenated sequence of ``seq`` rows: the next tokens, after -1 for
+    each of the ``seq - (tokens - 1)`` frontend rows, and ``labels >= 0``."""
+    toks = batch["tokens"]
+    labels = toks[:, 1:].long()
+    s_front = seq - (toks.shape[1] - 1)
+    if s_front > 0:
+        pad = torch.full((toks.shape[0], s_front), -1, dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
     return labels, (labels >= 0).float()
 
 
@@ -371,7 +405,8 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
     (each checkpointed), the gradients of every parameter (zeros for a
     skipped slot), and one Adam update (``optimizer.adam(lr)``, the
     reference's defaults) applied to ``params`` and ``opt_state`` in place.
-    ``step.optimizer`` is the optimizer, for ``init``."""
+    ``step.optimizer`` is the optimizer, for ``init``; ``step.loss(params,
+    batch)`` the step's loss without the update."""
     check_supported(cfg)
     if topo.schedule not in ("fill_drain", "interleaved"):
         raise ValueError(
@@ -396,7 +431,7 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
     extras = make_extras(cfg, topo.num_stages)
     per = _stacked_slots(cfg, topo.num_stages)
     optimizer = opt_lib.adam(lr)
-    want = batch_specs(cfg, shape)["tokens"][0]
+    want = {name: spec[0] for name, spec in batch_specs(cfg, shape).items()}
 
     def chunk_loss(params, yi, li, mi):
         logits = lm_head_logits(cfg, params, yi)
@@ -406,7 +441,8 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
         return ((lse - ll) * mi).sum(), mi.sum()
 
     def loss_fn(params, batch):
-        x = embed_inputs(cfg, params, {"tokens": batch["tokens"][:, :-1]})
+        # frontend rows, where there are any, split into micro-batches with x
+        x = embed_inputs(cfg, params, dict(batch, tokens=batch["tokens"][:, :-1]))
         positions = make_positions(cfg, seq, device=x.device)
         stage = _stage_fn(cfg, topo, extras, _unstacked(params["blocks"], per),
                           params.get("shared_attn"), "train", positions=positions)
@@ -417,7 +453,7 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
             else:
                 acts[m] = stage(s, acts[m], None)
         y = torch.cat(acts)
-        labels, mask = labels_from_batch(batch)
+        labels, mask = labels_from_batch(batch, seq)
         bsz = y.shape[0]
         chunks = min(topo.loss_chunks, bsz)
         # chunk along the MINOR batch dim, as the reference does: chunk i
@@ -433,9 +469,9 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
         return total / torch.clamp(count, min=1.0)
 
     def train_step(params: dict, opt_state, batch: dict):
-        if tuple(batch["tokens"].shape) != want:
-            raise ValueError(f"tokens of shape {tuple(batch['tokens'].shape)}, step built for "
-                             f"{want}")
+        got = {name: tuple(batch[name].shape) for name in want if name in batch}
+        if got != want:
+            raise ValueError(f"batch of shapes {got}, step built for {want}")
         leaves = opt_lib.tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss = loss_fn(leaves, batch)
         flat = opt_lib.tree_leaves(leaves)
@@ -446,29 +482,47 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
         return params, opt_state, {"loss": loss.detach()}
 
     train_step.optimizer = optimizer
+    train_step.loss = loss_fn
     return train_step
 
 
+def _prefill(cfg: ArchConfig, topo: Topology, extras: dict, params: dict, cache: dict,
+             batch: dict, seq: int, positions: torch.Tensor | None = None):
+    """The prefill of ``make_prefill_step``, at ``positions`` when given: a
+    check's positions (the m-rope decode's own), of ``make_positions``'
+    shape, whose mask row is checked here never to decrease, as the flash
+    kernel needs (``make_positions``' never does, by construction)."""
+    # frontend rows, where there are any, split into micro-batches with x
+    x = embed_inputs(cfg, params, batch)
+    if x.shape[1] != seq:
+        raise ValueError(f"prompt of {x.shape[1]} rows, step built for {seq}")
+    if positions is None:
+        positions = make_positions(cfg, seq, device=x.device)
+    else:
+        want = (3, seq) if cfg.rope_kind == "mrope" else (seq,)
+        if tuple(positions.shape) != want:
+            raise ValueError(f"positions of shape {tuple(positions.shape)}, the step needs {want}")
+        check_order("positions", positions[0] if cfg.rope_kind == "mrope" else positions)
+        positions = positions.to(x.device, torch.int32)
+    stage = _stage_fn(cfg, topo, extras, lambda s, i: _slot(params["blocks"], s, i),
+                      params.get("shared_attn"), "prefill", positions=positions)
+    acts = _micro_split(x, topo)
+    _run_stages(stage, _fill_drain_order(topo.num_stages, topo.num_micro), acts, cache)
+    y_last = torch.cat([a[:, -1] for a in acts])
+    return lm_head_logits(cfg, params, y_last), cache
+
+
 def make_prefill_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> Callable:
-    """Full-sequence prefill: ``step(params, cache, {"tokens": (B, S)}) ->
-    (last-token logits (B, V) float32, cache)``, the cache (from
-    ``init_cache`` at ``shape``) filled in place."""
+    """Full-sequence prefill: ``step(params, cache, {"tokens": (B, S -
+    s_front)[, "frontend_embeds": (B, s_front, d)]}) -> (last-token logits
+    (B, V) float32, cache)``, the cache (from ``init_cache`` at ``shape``)
+    filled in place."""
     check_supported(cfg)
     seq = shape.seq_len
     extras = make_extras(cfg, topo.num_stages)
-    order = _fill_drain_order(topo.num_stages, topo.num_micro)
 
     def prefill_step(params: dict, cache: dict, batch: dict):
-        x = embed_inputs(cfg, params, batch)
-        if x.shape[1] != seq:
-            raise ValueError(f"prompt of {x.shape[1]} tokens, step built for {seq}")
-        stage = _stage_fn(cfg, topo, extras, lambda s, i: _slot(params["blocks"], s, i),
-                          params.get("shared_attn"), "prefill",
-                          positions=make_positions(cfg, seq, device=x.device))
-        acts = _micro_split(x, topo)
-        _run_stages(stage, order, acts, cache)
-        y_last = torch.cat([a[:, -1] for a in acts])
-        return lm_head_logits(cfg, params, y_last), cache
+        return _prefill(cfg, topo, extras, params, cache, batch, seq)
 
     return prefill_step
 

@@ -4,9 +4,9 @@ Counterpart of ``repro.roofline.analysis.HW``, whose constants are a TPU
 v5e's. Here the constants are those of the CUDA card the device query
 names (``torch.cuda.get_device_name``), looked up in a table of data-sheet
 values; a card the table does not hold raises rather than borrowing
-another card's rates. The reference's HLO walk, ``roofline_report``,
-``model_flops`` and ``collective_bytes`` serve the transformer dry run and
-are not ported here.
+another card's rates. ``model_flops`` is the reference's analytic count,
+copied. The reference's HLO walk, ``roofline_report`` and
+``collective_bytes`` serve the transformer dry run and are not ported here.
 """
 
 from __future__ import annotations
@@ -40,6 +40,21 @@ class HW:
             raise KeyError(
                 f"no data-sheet rates for {device_name!r}; known cards: {sorted(DATA_SHEET)}"
             ) from None
+
+
+def model_flops(cfg, shape, *, training: bool) -> float:
+    """Analytic MODEL_FLOPS: 6·N_active·D for training, 2·N_active·D for a
+    forward/serve step (D = tokens processed in the step; ``shape.kind``
+    decides, ``training`` is the reference's unused flag)."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n_active * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n_active * tokens
+    tokens = shape.global_batch  # decode: one token per sequence
+    return 2.0 * n_active * tokens
 
 
 # NVIDIA H100 data sheet, SXM part (the name the device query gives the

@@ -165,3 +165,15 @@ def test_three_tf32_split_holds_plain_version(passes):
         close(got, want)
     else:  # one TF32 pass keeps ~11 bits: the 1e-5 parity fails, as it must
         assert not np.allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_order_check_refuses_decreasing_positions():
+    """``check_order`` takes repeated and rising positions (an m-rope t-row)
+    and a vector of one, and refuses a decrease anywhere."""
+    from repro_torch.kernels.flash.kernel import check_order
+
+    check_order("q_pos", torch.tensor([0, 0, 0, 1, 2, 2, 3], dtype=torch.int32))
+    check_order("q_pos", torch.tensor([7], dtype=torch.int32))
+    for bad in ([1, 0], [0, 0, 1, 2, 1], [0, 1, 2, 3, 4, 5, 6, -1]):
+        with pytest.raises(ValueError, match="kv_pos decreases"):
+            check_order("kv_pos", torch.tensor(bad, dtype=torch.int32))

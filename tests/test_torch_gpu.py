@@ -443,6 +443,77 @@ def test_flash_kernel_rejects_bad_inputs_on_card(cuda):
         FK.flash_attention_kernel(q.half(), k.half(), v.half())
 
 
+def _t_row(dev, s, s_front):
+    """m-rope's t-row (``model.make_positions``): the frontend rows at 0,
+    then 1, 2, ... for the text."""
+    idx = torch.arange(s, dtype=torch.int32)
+    return torch.where(idx < s_front, 0, idx - s_front + 1).to(torch.int32).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,hd,s_front,window", [
+    (4, 512, 12, 2, 128, 128, 0),  # qwen2-vl's prefill launch
+    (4, 256, 12, 2, 128, 64, 0),  # qwen2-vl's training launch
+    (2, 300, 8, 2, 128, 100, 0),  # a prefix that ends inside a KV tile
+    (2, 300, 8, 2, 128, 100, 40),  # a prefix and a window
+    (2, 257, 8, 4, 64, 33, 20),
+    (1, 200, 4, 2, 256, 50, 0),
+    (2, 70, 4, 2, 128, 70, 0),  # all frontend: every row sees every row
+])
+def test_flash_kernel_masks_by_positions_on_card(cuda, dtype, tol, b, s, h, kv, hd, s_front,
+                                                 window):
+    q, k, v = _flash_inputs(cuda, b, s, h, kv, hd, dtype=dtype, seed=s + s_front)
+    pos = _t_row(cuda, s, s_front)
+    before = FK.flash_attention_kernel.launches
+    got = FK.flash_attention_kernel(q, k, v, window=window, q_pos=pos, kv_pos=pos)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_kernel.launches == before + 1
+    want = flash_attention_ref(q, k, v, window=window, q_pos=pos, kv_pos=pos)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,window", [(300, 0), (513, 60)])
+def test_flash_kernel_masks_by_repeated_positions_on_card(cuda, s, window):
+    """Sorted random positions with runs of equal values, Sq != Skv."""
+    rng = np.random.default_rng(s)
+    q, k, v = _flash_inputs(cuda, 2, s, 8, 2, 128, seed=s)
+    k, v = k[:, : s - 37].contiguous(), v[:, : s - 37].contiguous()
+    q_pos = torch.from_numpy(np.sort(rng.integers(0, s // 3, s)).astype(np.int32)).to(cuda)
+    kv_pos = torch.from_numpy(np.sort(rng.integers(0, s // 3, s - 37)).astype(np.int32)).to(cuda)
+    got = FK.flash_attention_kernel(q, k, v, window=window, q_pos=q_pos, kv_pos=kv_pos)
+    want = flash_attention_ref(q, k, v, window=window, q_pos=q_pos, kv_pos=kv_pos)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hd,window", [(512, 128, 0), (300, 64, 100), (129, 256, 0)])
+def test_flash_kernel_arange_positions_equal_the_index_path_on_card(cuda, dtype, s, hd, window):
+    """Positions arange(S) give the null-pointer (index) launch's output bit
+    for bit: the same tiles, in the same order, with the same mask."""
+    q, k, v = _flash_inputs(cuda, 2, s, 8, 4, hd, dtype=dtype, seed=s)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)
+    index = FK.flash_attention_kernel(q, k, v, window=window)
+    by_pos = FK.flash_attention_kernel(q, k, v, window=window, q_pos=pos, kv_pos=pos)
+    assert torch.equal(index, by_pos)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_rejects_bad_positions_on_card(cuda):
+    q, k, v = _flash_inputs(cuda, 1, 64, 4, 2, 32)
+    pos = torch.arange(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="decreases"):
+        FK.flash_attention_kernel(q, k, v, q_pos=pos.flip(0).contiguous(), kv_pos=pos)
+    with pytest.raises(ValueError, match="both"):
+        FK.flash_attention_kernel(q, k, v, q_pos=pos)
+    with pytest.raises(TypeError):
+        FK.flash_attention_kernel(q, k, v, q_pos=pos.long(), kv_pos=pos.long())
+    with pytest.raises(ValueError, match="shape"):
+        FK.flash_attention_kernel(q, k, v, q_pos=pos[:32], kv_pos=pos)
+
+
 def _ssd_inputs(dev, b, s, h, p, n, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, s, h, p)) * 0.5
@@ -503,7 +574,8 @@ def test_ssd_op_on_card_refuses_nonzero_h0(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "mamba2-130m", "musicgen-large",
+                                  "qwen2-vl-2b"])
 def test_lm_serving_on_card_goes_through_kernels(cuda, arch):
     """Smoke-size serving on the card launches its kernel once per layer and
     micro-batch in the prefill, and decodes the same tokens as the CPU."""
@@ -514,15 +586,16 @@ def test_lm_serving_on_card_goes_through_kernels(cuda, arch):
     served = lm_serve.serve(args)
     layers = served.cfg.num_layers
     assert wrapper.launches == layers * args.chunks
+    front = None if served.frontend_embeds is None else served.frontend_embeds.cpu()
     cpu_gen = lm_serve.generate(served.cfg, served.topo, _tree_to(served.params, "cpu"),
-                                served.prompt.cpu(), args.decode_steps)
+                                served.prompt.cpu(), args.decode_steps, front)
     torch.testing.assert_close(served.generation.prefill_logits.cpu(), cpu_gen.prefill_logits,
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(served.generation.tokens, cpu_gen.tokens)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b", "qwen2-vl-2b"])
 def test_lm_train_step_on_card_matches_cpu(cuda, arch):
     """A smoke-size train step on the card (its forward and recompute through
     the kernels) gives the CPU step's loss at 1e-4 from the same params and
@@ -542,6 +615,8 @@ def test_lm_train_step_on_card_matches_cpu(cuda, arch):
     layers = {"ssd": trained.topo.num_micro * cfg.num_layers, "flash": 0}
     if arch == "zamba2-7b":  # one mamba slot and one shared-block application
         layers = {"ssd": trained.topo.num_micro, "flash": trained.topo.num_micro}
+    if arch == "qwen2-vl-2b":  # attention slots only, masked by m-rope's t-row
+        layers = {"ssd": 0, "flash": trained.topo.num_micro * cfg.num_layers}
     # forward and recompute: two calls per slot and micro-batch
     assert SSK.ssd_kernel.launches == 2 * layers["ssd"]
     assert FK.flash_attention_kernel.launches == 2 * layers["flash"]

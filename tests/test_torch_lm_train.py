@@ -260,10 +260,23 @@ def test_batch_specs_and_labels_match_jax():
         assert {k: tuple(v.shape) for k, v in want.items()} == {k: v[0] for k, v in got.items()}
     toks = tokens(cfg.vocab_size, 0)
     toks[1, 5] = -1  # an ignored label
-    labels, mask = TM.labels_from_batch({"tokens": torch.from_numpy(toks)})
+    labels, mask = TM.labels_from_batch({"tokens": torch.from_numpy(toks)}, SEQ)
     j_labels, j_mask = JM._labels_from_batch(jcfg, {"tokens": jnp.asarray(toks)}, SEQ)
     np.testing.assert_array_equal(labels.numpy(), np.asarray(j_labels))
     np.testing.assert_array_equal(mask.numpy(), np.asarray(j_mask))
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-2b"])
+def test_cli_lm_trains_the_frontend_archs(arch, capsys):
+    """``--mode lm`` at smoke size on the frontend archs: finite losses, the
+    JAX init's parameter count, the summary printed."""
+    out = tlaunch.main(["--mode", "lm", "--arch", arch, "--device", "cpu", "--steps", "3",
+                        "--seq", "64", "--batch", "4", "--log-every", "0"])
+    assert out["arch"] == arch and np.isfinite([out["first_loss"], out["last_loss"]]).all()
+    shapes = jax.eval_shape(lambda k: JM.init_params(jax_arch(arch, smoke=True), k,
+                                                     num_stages=1), jax.random.PRNGKey(0))
+    assert out["params"] == sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(shapes))
+    assert str(out) in capsys.readouterr().out
 
 
 def test_cli_lm_returns_the_reference_keys(capsys):

@@ -3,8 +3,8 @@
 At smoke size on the CPU: the driver's accounting; its greedy tokens
 against a greedy loop over the JAX package's own prefill and serve steps
 from the same (JAX-initialized) params; its refusal to run without a card
-unless ``--device cpu`` is given; and the archs this slice does not build
-raising ``NotImplementedError`` with their ROADMAP item.
+unless ``--device cpu`` is given; and the archs the port does not build yet
+(MoE, MLA) raising ``NotImplementedError`` with their ROADMAP item.
 """
 
 import jax
@@ -23,7 +23,7 @@ from repro_torch.launch import serve as S
 from repro_torch.models.transformer import model as TM
 from repro_torch.models.transformer.convert import params_from_jax
 
-UNSUPPORTED = ["deepseek-v3-671b", "arctic-480b", "qwen2-vl-2b", "musicgen-large"]
+UNSUPPORTED = ["deepseek-v3-671b", "arctic-480b"]
 
 
 def args(*extra):
@@ -31,7 +31,8 @@ def args(*extra):
         ["--prompt-len", "32", "--decode-steps", "4", "--batch", "4", *extra])
 
 
-@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "mamba2-130m", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "mamba2-130m", "zamba2-7b",
+                                  "musicgen-large", "qwen2-vl-2b"])
 def test_run_on_cpu_counts_tokens(arch, capsys):
     out = S.run(args("--arch", arch, "--device", "cpu"))
     assert out["tokens_generated"] == 4 * (4 + 1)

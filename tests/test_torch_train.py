@@ -373,6 +373,7 @@ def test_train_cli_trains_on_cpu_and_targets_cuda_by_default(capsys):
 
 @pytest.mark.parametrize("argv, match", [
     (["--mode", "lm", "--arch", "deepseek-v3-671b"], "item 16"),
+    (["--mode", "lm", "--arch", "arctic-480b"], "item 16"),
 ])
 def test_train_cli_unported_paths_raise_by_item(argv, match):
     with pytest.raises(NotImplementedError, match=match):
