@@ -23,14 +23,19 @@ exit:
    must be exactly 0, an out-of-range index -> NaN row, also when it sits
    only in a zero-norm padding slot; SpMM with live slots interleaved with
    zero-norm ones at W 1/31/33/129 x R 1/40/48/8192). Flash attention at
-   atol/rtol 1e-5: the codeqwen prefill's launch shape (4 x 512 tokens, 32
+   atol/rtol 1e-5 against its plain version run in float64 (at arctic's
+   activations the float32 plain version itself nears 1e-5): the codeqwen
+   prefill's launch shape (4 x 512 tokens, 32
    heads of 128, causal), GQA 32/16, 32/8 and 8/1, window 128 and 100
    (crossing tile edges), softcap 50, S 1/63/64/65/127/129/200/513, hd/hd_v
    64/64, 128/128, 128/64, 256/256 and 96/64, zamba2's hd 112 (32 heads, B
    4 and 8, S 512 and 256), and bf16 at 2e-2; phase 17's launches as the
    model makes them: musicgen (4 x 512 and 4 x 256, 32/32 heads, hd 64,
    by row index) and qwen2-vl (the same rows, 12/2 heads, hd 128, masked by
-   the m-rope t-row with 128 and 64 frontend rows at t = 0); the position
+   the m-rope t-row with 128 and 64 frontend rows at t = 0); phase 18's:
+   arctic (GQA 56/8, hd 128) and deepseek's MLA (128/128 heads at q/k head
+   dim 192 and v head dim 128), 4 x 512 and 4 x 256, and MLA's dims at S
+   300 with window 100 and in bf16; the position
    mask's edges in fp32 and bf16 (a prefix ending inside a KV tile, a
    prefix and window 40, every row in the prefix, hd 64 and 256); and the
    null-pointer (index) launch equal to positions arange(S) bit for bit.
@@ -66,7 +71,9 @@ exit:
    launches (4 x 512 and 4 x 256 tokens; flash at hd 112, SSD at 112 heads
    and N 64) and flash at musicgen's and qwen2-vl's (the same rows; the
    bound counts the pairs qwen2-vl's positions need; musicgen's launch also
-   by the position path at positions arange, which no rope arch runs), flash beside
+   by the position path at positions arange, which no rope arch runs) and
+   at phase 18's prefill launches (arctic GQA 56/8 and deepseek MLA 192/128,
+   4 x 512), flash beside
    ``scaled_dot_product_attention`` on the same fp32 tensors (``is_causal``,
    or the positions' boolean ``attn_mask``, GQA by ``enable_gqa``), whose
    device kernels one ``torch.profiler`` pass names; the SSD call's
@@ -213,6 +220,22 @@ exit:
    positions (512 on all three m-rope axes, as the reference's decode
    rotates), and the gap to a prefill at ``make_positions(513)`` (t 385)
    is printed: the reference's own decode/prefill inconsistency.
+18. The MoE archs at full width, each served as phase 8 serves codeqwen
+   but cut to one layer (fp32 weights: arctic-480b 14.07e9 params, 56.3
+   GB; deepseek-v3-671b 13.41e9, 53.6 GB), the flash kernel 1 x 2 times in
+   the prefill, then trained as phase 16 trains with fewer experts (16 B a
+   param of state), the loss of step 0's batch falling. The decode is held
+   at 1e-3 to a fresh prefill whose experts drop no token (one row a
+   micro-batch, capacity its tokens; decode drops none), and the gap to
+   the prefill at the reference's capacity, which drops, is printed.
+   18a arctic-480b
+   (GQA 56/8 at hd 128, softmax top-2 of 128 experts, the dense residual)
+   trained at 2 layers and 8 experts (2.577e9 params), ``--stages 2
+   --chunks 2``, 4 steps, fill_drain and interleaved run again under
+   deterministic algorithms, bit-identical. 18b deepseek-v3-671b (MLA, the
+   flash kernel at q/k head dim 192 and v head dim 128; sigmoid top-8 of
+   256, one shared expert, the multi-token-prediction head) trained at 1
+   layer and 16 experts (2.841e9 params), ``--chunks 2``, 4 steps.
 
 Every bound divides by the card's data-sheet rates from
 ``repro_torch.roofline.analysis.HW``, which knows the card by its name.
@@ -225,6 +248,7 @@ no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2310,21 +2334,30 @@ def compare_flash(H, label, q, k, v, window=0, softcap=0.0, tol=FLASH_ATOL, out=
                   q_pos=None, kv_pos=None):
     """Flash kernel vs its plain version on the same card inputs (``out``:
     the kernel's output from the main path, else launched here), masked by
-    ``q_pos``/``kv_pos`` where given. bf16 errors are kept apart from the
-    fp32 ones the ``kernels`` line reports."""
-    from repro_torch.kernels.flash.ref import flash_attention_ref
-
+    ``q_pos``/``kv_pos`` where given. The plain version runs in float64
+    (``plain64``). bf16 errors are kept apart from the fp32 ones the
+    ``kernels`` line reports."""
     pos = {"q_pos": q_pos, "kv_pos": kv_pos}
     got = H.FK.flash_attention_kernel(q, k, v, window=window, softcap=softcap, **pos) \
         if out is None else out
     H.torch.cuda.synchronize()
-    want = flash_attention_ref(q, k, v, window=window, softcap=softcap, **pos)
+    want = plain64(q, k, v, window=window, softcap=softcap, **pos)
     b, s, h, hd = q.shape
     key = "flash_attention_kernel" + ("" if q.dtype == H.torch.float32 else " bf16")
     front = "" if q_pos is None else f" t0={int((q_pos == q_pos[0]).sum()):3d}"
     return H._held(key, label, got, want, None,
                    f"B={b} S={s:4d} H={h:2d} KV={k.shape[2]:2d} hd={hd:3d} hd_v={v.shape[-1]:3d} "
                    f"win={window} cap={softcap} {str(q.dtype)[6:]}{front}", atol=tol, rtol=tol)
+
+
+def plain64(q, k, v, **kw):
+    """The flash kernel's plain version on the same inputs, computed in
+    float64: at a full-width model's activations (arctic-480b's scores reach
+    ~30) its float32 rounding alone moves the output by nearly the 1e-5
+    tolerance (``KernelCapture.compare`` prints the share it uses)."""
+    from repro_torch.kernels.flash.ref import flash_attention_ref
+
+    return flash_attention_ref(q.double(), k.double(), v.double(), **kw)
 
 
 def sdpa_call(torch, q, k, v, q_pos=None, kv_pos=None):
@@ -2346,13 +2379,18 @@ def sdpa_call(torch, q, k, v, q_pos=None, kv_pos=None):
 
 def sdpa_tolerance_used(torch, q, k, v, q_pos=None, kv_pos=None):
     """How close ``scaled_dot_product_attention`` (``sdpa_call``) comes to
-    the flash tolerance against the plain version on the same fp32 inputs
-    (the yardstick's own accuracy, beside the kernel's; not enforced)."""
-    from repro_torch.kernels.flash.ref import flash_attention_ref
+    the flash tolerance against the plain version (in float64, ``plain64``)
+    on the same fp32 inputs (the yardstick's own accuracy, beside the
+    kernel's; not enforced)."""
+    return tolerance_used(sdpa_call(torch, q, k, v, q_pos, kv_pos)(),
+                          plain64(q, k, v, q_pos=q_pos, kv_pos=kv_pos))
 
-    got = sdpa_call(torch, q, k, v, q_pos, kv_pos)()
-    want = flash_attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos)
-    return float(((got - want).abs() / (FLASH_ATOL + FLASH_RTOL * want.abs())).max())
+
+def tolerance_used(got, want):
+    """The largest share of the flash tolerance that ``got`` uses against
+    ``want`` (1 = at it)."""
+    diff = (got.double() - want.double()).abs()
+    return float((diff / (FLASH_ATOL + FLASH_RTOL * want.double().abs())).max())
 
 
 def compare_ssd(H, label, x, dt, loga, B, C, chunk, out=None):
@@ -2401,6 +2439,20 @@ def phase_compare_lm(H, torch):
     # launches (4 rows a micro-batch) and the whole batch of 8
     for b, s in ((4, 512), (4, 256), (8, 512), (8, 256)):
         compare_flash(H, f"zamba2 hd 112, B {b} S {s}", *flash_inputs(H, b, s, 32, 32, 112))
+    # phase 18's launches, prefill (S 512) and training (S 256), 4 rows a
+    # micro-batch: arctic's GQA 56/8 (a grouping of 7) at hd 128, and
+    # deepseek's MLA, MHA 128/128 at q/k head dim 192 and v head dim 128
+    # (the HDV = 256 tiles: the output columns past 128 are neither read
+    # nor written); then MLA's dims ragged, windowed and in bf16
+    for s in (512, 256):
+        compare_flash(H, f"arctic GQA 56/8, B 4 S {s}", *flash_inputs(H, 4, s, 56, 8, 128))
+        compare_flash(H, f"deepseek MLA 192/128, B 4 S {s}",
+                      *flash_inputs(H, 4, s, 128, 128, 192, hd_v=128))
+    compare_flash(H, "MLA 192/128, S 300, window 100",
+                  *flash_inputs(H, 2, 300, 8, 8, 192, hd_v=128), window=100)
+    compare_flash(H, "MLA 192/128, S 300", *flash_inputs(H, 2, 300, 8, 8, 192, hd_v=128,
+                                                         dtype=torch.bfloat16),
+                  tol=FLASH_BF16_TOL)
     # phase 17's launches: musicgen (MHA 32/32, hd 64, the index path) and
     # qwen2-vl (GQA 12/2, hd 128, masked by the m-rope t-row: 128 and 64
     # frontend rows at t = 0, each seeing all the others)
@@ -2507,6 +2559,12 @@ def phase_timing_lm(H, torch):
         flash_timing(f"one qwen2-vl {what} launch (4 x {s} rows, 12/2 heads, hd 128, m-rope "
                      f"t-row with {s // 4} frontend rows, fp32)",
                      *flash_inputs(H, 4, s, 12, 2, 128), pos=t_row(H, "qwen2-vl-2b", s))
+
+    # phase 18's prefill launches
+    flash_timing("one arctic prefill launch (4 x 512 tokens, GQA 56/8, hd 128, causal, fp32)",
+                 *flash_inputs(H, 4, 512, 56, 8, 128))
+    flash_timing("one deepseek MLA prefill launch (4 x 512 tokens, 128/128 heads, hd 192, hd_v "
+                 "128, causal, fp32)", *flash_inputs(H, 4, 512, 128, 128, 192, hd_v=128))
 
     for s in (512, 256):
         x, dt, loga, B, C = ssd_inputs(H, 4, s, 112, 64, 64)
@@ -2666,22 +2724,44 @@ class KernelCapture:
 
     def compare(self, H, torch, label):
         """Hold every kept call against the plain version on its own inputs;
-        returns the largest share of the flash tolerance that
-        ``scaled_dot_product_attention`` uses on the same global, uncapped
-        calls."""
-        sdpa_used = 0.0
+        returns the largest shares of the flash tolerance that
+        ``scaled_dot_product_attention`` (on the global, uncapped calls) and
+        the float32 plain version use against the float64 one."""
+        from repro_torch.kernels.flash.ref import flash_attention_ref
+
+        sdpa_used = plain32_used = 0.0
         for name, calls in self.captured.items():
             for i, (a, kw, out) in enumerate(calls):
                 if name == "flash_attention_kernel":
                     pos = {"q_pos": kw.get("q_pos"), "kv_pos": kw.get("kv_pos")}
-                    compare_flash(H, f"{label} call {i:3d}", *a, window=kw["window"],
-                                  softcap=kw["softcap"], out=out, **pos)
+                    args = {"window": kw["window"], "softcap": kw["softcap"], **pos}
+                    compare_flash(H, f"{label} call {i:3d}", *a, out=out, **args)
+                    plain32_used = max(plain32_used, tolerance_used(
+                        flash_attention_ref(*a, **args), plain64(*a, **args)))
                     if kw["window"] == 0 and kw["softcap"] == 0.0:
                         sdpa_used = max(sdpa_used, sdpa_tolerance_used(torch, *a, **pos))
                 else:
                     compare_ssd(H, f"{label} call {i:3d}", *a, kw["chunk"], out=out)
         self.captured = {}
-        return sdpa_used
+        return sdpa_used, plain32_used
+
+
+@contextlib.contextmanager
+def no_expert_drops():
+    """While active, every expert of an MoE call takes all of the call's
+    tokens (``moe.expert_capacity`` = T): no call drops a token. A decode
+    step routes b_mb <= 8 tokens a call at capacity >= 8 and drops none; a
+    prefill at the reference's capacity may drop (arctic-480b and
+    deepseek-v3-671b do at full width), so decode is held to a prefill that
+    drops none."""
+    from repro_torch.models.transformer import moe
+
+    inner = moe.expert_capacity
+    moe.expert_capacity = lambda tokens, *args, **kw: tokens
+    try:
+        yield
+    finally:
+        moe.expert_capacity = inner
 
 
 def active_slots(cfg, num_stages=1) -> dict:
@@ -2696,12 +2776,22 @@ def active_slots(cfg, num_stages=1) -> dict:
     return {name: int(ex["active"].sum())}
 
 
-def phase_serve_lm(H, torch, arch):
-    """Phases 8, 9 and 16c's serving: serve ``arch`` at full width through
-    ``repro_torch.launch.serve``; each kernel of its blocks must launch once
-    per active layer slot and micro-batch in the prefill. Each slot's own
-    kernel inputs and output from micro-batch 0 are captured on the way and
-    held against the plain version; the first decode step's logits are held
+def cut_config(cfg, cut):
+    """(``cfg`` with the fields of ``cut`` replaced, a note of the cut)."""
+    if not cut:
+        return cfg, ""
+    note = ", cut: " + ", ".join(f"{k} {getattr(cfg, k)} -> {v}" for k, v in cut.items())
+    return dataclasses.replace(cfg, **cut), note
+
+
+def phase_serve_lm(H, torch, arch, cut=None):
+    """Phases 8, 9, 16c, 17 and 18's serving: serve ``arch`` at full width
+    (its config's fields ``cut``, e.g. the depth, replaced where given)
+    through ``repro_torch.launch.serve``; each kernel of its blocks must
+    launch once per active layer slot and micro-batch in the prefill. Each
+    slot's own kernel inputs and output from micro-batch 0 are captured on
+    the way and held against the plain version; the first decode step's
+    logits are held
     against a fresh prefill over the prompt (frontend rows included) plus the
     first token. On m-rope (qwen2-vl) the fresh prefill's last row takes the
     positions the decode gives it, (plen, plen, plen) as the reference's
@@ -2715,9 +2805,10 @@ def phase_serve_lm(H, torch, arch):
         _prefill, init_cache, make_extras, make_positions)
 
     args = build_parser().parse_args(["--arch", arch, *LM_SERVE_ARGS])
-    slots = active_slots(get_arch(arch, smoke=not args.full_arch))
+    cfg, cut_note = cut_config(get_arch(arch, smoke=not args.full_arch), cut)
+    slots = active_slots(cfg)
     with KernelCapture(slots) as cap:
-        served = serve(args)
+        served = serve(args, cfg)
     torch.cuda.synchronize()
     summary, gen = served.summary, served.generation
     for name, n in slots.items():
@@ -2733,11 +2824,13 @@ def phase_serve_lm(H, torch, arch):
         if logits.shape != (args.batch, served.cfg.vocab_size) or not bool(logits.isfinite().all()):
             raise AssertionError(f"{arch}: logits of shape {tuple(logits.shape)} or non-finite")
 
-    sdpa_used = cap.compare(H, torch, f"{arch} prefill micro-batch 0")
+    sdpa_used, plain32_used = cap.compare(H, torch, f"{arch} prefill micro-batch 0")
     if "flash_attention_kernel" in slots:
-        log(f"[serve-lm] {arch} layers' own inputs, share of the flash tolerance used at most: "
-            f"flash kernel {H.used['flash_attention_kernel']:.3f} (all compares), "
-            f"scaled_dot_product_attention {sdpa_used:.3f} (these layers) [{H.card}]")
+        log(f"[serve-lm] {arch} layers' own inputs, share of the flash tolerance used at most "
+            f"against the float64 plain version: flash kernel "
+            f"{H.used['flash_attention_kernel']:.3f} (all compares), "
+            f"scaled_dot_product_attention {sdpa_used:.3f}, the float32 plain version "
+            f"{plain32_used:.3f} (these layers) [{H.card}]")
 
     # decode vs prefill: the logits at position prompt_len, two ways
     b, plen = served.prompt.shape[0], served.prompt_len
@@ -2745,8 +2838,8 @@ def phase_serve_lm(H, torch, arch):
     longer = dict(served.batch(), tokens=torch.cat([served.prompt, tok0[:, None]], dim=1))
     shape = ShapeConfig("check", plen + 1, b, "prefill")
 
-    def fresh_prefill(positions=None):
-        cfg, topo = served.cfg, served.topo
+    def fresh_prefill(positions=None, topo=None):
+        cfg, topo = served.cfg, topo or served.topo
         with torch.inference_mode():
             logits, _ = _prefill(cfg, topo, make_extras(cfg, topo.num_stages), served.params,
                                  init_cache(cfg, topo, shape, device=H.dev), longer, plen + 1,
@@ -2759,10 +2852,22 @@ def phase_serve_lm(H, torch, arch):
     if mrope:  # the decode's own positions for the last row
         own = torch.from_numpy(np.concatenate([make_positions(served.cfg, plen).numpy(),
                                                np.full((3, 1), plen, np.int32)], axis=1))
-    fresh = fresh_prefill(own)
+    moe_note = reference_gap = ""
+    if served.cfg.num_experts:  # one row a micro-batch, each expert taking all its tokens
+        with no_expert_drops():
+            fresh = fresh_prefill(own, dataclasses.replace(served.topo, num_micro=b))
+        at_capacity = fresh_prefill(own)
+        gap = float((gen.first_decode_logits - at_capacity).abs().max())
+        gap_agree = int((gen.first_decode_logits.argmax(-1) == at_capacity.argmax(-1)).sum())
+        moe_note = (f" with no expert drops (one row a micro-batch, capacity its {plen + 1} "
+                    "tokens)")
+        reference_gap = (f"; against the served topology's prefill at the reference's capacity, "
+                         f"which drops: max |logit diff| {gap:.6g}, argmax agree {gap_agree}/{b}, "
+                         "measured, not held")
+    else:
+        fresh = fresh_prefill(own)
     err = float((gen.first_decode_logits - fresh).abs().max())
     agree = int((gen.first_decode_logits.argmax(-1) == fresh.argmax(-1)).sum())
-    reference_gap = ""
     if mrope:
         at_t = fresh_prefill()
         gap = float((gen.first_decode_logits - at_t).abs().max())
@@ -2780,13 +2885,14 @@ def phase_serve_lm(H, torch, arch):
                          for name, n in slots.items())
     front = "" if served.frontend_embeds is None else \
         f" ({served.frontend_embeds.shape[1]} frontend rows)"
-    log(f"[serve-lm] {arch} full width ({summary['params']} params, fp32), batch {b}, prompt "
+    log(f"[serve-lm] {arch} full width{cut_note} ({summary['params']} params, fp32), batch {b}, "
+        f"prompt "
         f"{plen}{front}, {args.decode_steps} decode steps, {args.chunks} micro-batches: prefill_s "
         f"{summary['prefill_s']}, decode_s_per_tok {summary['decode_s_per_tok']}, tokens_per_s "
         f"{summary['tokens_per_s']}, peak_mem_gb {summary['peak_mem_gb']}, sample "
         f"{summary['sample']}; {launched}; decode vs fresh {plen + 1}-row prefill"
-        f"{' at the decode positions' if mrope else ''}: max |logit diff| {err:.6g} (limit "
-        f"{DECODE_VS_PREFILL_ATOL}), argmax agree {agree}/{b}{reference_gap} [{H.card}]")
+        f"{' at the decode positions' if mrope else ''}{moe_note}: max |logit diff| {err:.6g} "
+        f"(limit {DECODE_VS_PREFILL_ATOL}), argmax agree {agree}/{b}{reference_gap} [{H.card}]")
     profile_steps(H, torch, arch, served,
                   tuple(part for name in slots for part in LM_KERNEL_PARTS[name]))
     return summary
@@ -2817,10 +2923,11 @@ def flat_cpu(tree, prefix=""):
     return out
 
 
-def phase_train_lm(H, torch, tag, arch, extra, *, num_layers=None, cpu_check=False,
+def phase_train_lm(H, torch, tag, arch, extra, *, cut=None, cpu_check=False,
                    also=(), falling=False):
-    """Phase 16: train ``arch`` at full width (depth cut to ``num_layers``
-    slots) through ``repro_torch.launch.train.train_lm`` with the JAX
+    """Phase 16: train ``arch`` at full width (its config's fields ``cut``,
+    e.g. the depth, replaced where given) through
+    ``repro_torch.launch.train.train_lm`` with the JAX
     launcher's ``run_lm`` defaults plus ``extra``. Every kernel of its
     blocks launches twice (forward and recompute) per active slot,
     micro-batch and step; each call of the first forward is held against
@@ -2829,8 +2936,9 @@ def phase_train_lm(H, torch, tag, arch, extra, *, num_layers=None, cpu_check=Fal
     kernel launches and shares, the plain backward's device time, the top
     kernels. ``cpu_check``: the first step against the same step on the CPU
     (plain versions, same params and batch), loss and Adam's mu. ``also``:
-    other schedules, run after the main path with its own schedule again,
-    all under deterministic algorithms: their losses must be bit-identical.
+    other schedules, run after the main path (its state freed) with its own
+    schedule again, all under deterministic algorithms: their losses must
+    be bit-identical.
     ``falling``: the loss of step 0's batch, taken again with the trained
     params (``step.loss``, no update), must be below its first value (each
     step draws a fresh batch of near-uniform tokens, so the step losses
@@ -2843,11 +2951,7 @@ def phase_train_lm(H, torch, tag, arch, extra, *, num_layers=None, cpu_check=Fal
 
     t_phase = time.perf_counter()
     args = build_parser().parse_args([*LM_TRAIN_ARGS, "--arch", arch, *extra])
-    cfg = get_arch(arch, smoke=not args.full_arch)
-    cut = ""
-    if num_layers is not None:
-        cut = f", cut to {num_layers} of {cfg.num_layers} layer slots"
-        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    cfg, cut_note = cut_config(get_arch(arch, smoke=not args.full_arch), cut)
     first = {name: n * args.chunks for name, n in active_slots(cfg, args.stages).items()}
     mu_card = {}
 
@@ -2865,9 +2969,6 @@ def phase_train_lm(H, torch, tag, arch, extra, *, num_layers=None, cpu_check=Fal
                                  f"{args.steps} steps, want {want} (forward and recompute x "
                                  f"{n} slot calls)")
         H.launches[name] = H.launches.get(name, 0) + want
-    if also:
-        schedules_bit_identical(H, torch, tag, cfg, [*LM_TRAIN_ARGS, "--arch", arch, *extra],
-                                (args.schedule, *also), first)
     losses, summary = trained.losses, trained.summary
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"{arch}: non-finite loss {losses}")
@@ -2882,13 +2983,19 @@ def phase_train_lm(H, torch, tag, arch, extra, *, num_layers=None, cpu_check=Fal
                                  f"({losses[0]} -> {again})")
     median = statistics.median(trained.step_s[1:])
     state_gb = 16 * summary["params"] / 1e9
-    log(f"[train-lm] {tag} {arch} full width{cut} ({summary['params']} params, fp32; params + "
+    log(f"[train-lm] {tag} {arch} full width{cut_note} ({summary['params']} params, fp32; "
+        f"params + "
         f"grads + Adam mu/nu {state_gb:.3f} GB), topology {trained.topo}, seq {args.seq}, batch "
         f"{args.batch}, lr {args.lr}: losses {losses}; step s {trained.step_s}; median step "
         f"after the first {median:.6f} s, {args.batch * args.seq / median:.1f} tokens/s; peak "
         f"allocated {summary['peak_mem_gb']:.3f} GB ({summary['peak_mem_gb'] - state_gb:.3f} "
         f"beyond the state); launches {cap.launches} [{H.card}]")
-    cap.compare(H, torch, f"{arch} train step 0 forward")
+    _, plain32_used = cap.compare(H, torch, f"{arch} train step 0 forward")
+    if "flash_attention_kernel" in first:
+        log(f"[train-lm] {tag} {arch} step 0's flash calls, share of the tolerance used at most "
+            f"against the float64 plain version: flash kernel "
+            f"{H.used['flash_attention_kernel']:.3f} (all compares so far), the float32 plain "
+            f"version {plain32_used:.3f} [{H.card}]")
 
     batch = lm_batch(cfg, args, args.steps, H.dev)
     wall_ms, kernels, events = profiled(
@@ -2951,6 +3058,9 @@ def phase_train_lm(H, torch, tag, arch, extra, *, num_layers=None, cpu_check=Fal
     del trained, batch
     gc.collect()
     torch.cuda.empty_cache()
+    if also:
+        schedules_bit_identical(H, torch, tag, cfg, [*LM_TRAIN_ARGS, "--arch", arch, *extra],
+                                (args.schedule, *also), first)
     log(f"[train-lm] {tag} {arch}: phase {time.perf_counter() - t_phase:.1f} s")
     return summary
 
@@ -2979,6 +3089,8 @@ def schedules_bit_identical(H, torch, tag, cfg, argv, schedules, kernels):
                 f"{statistics.median(trained.step_s[1:]):.6f} s; launches {cap.launches} "
                 f"[{H.card}]")
             del trained
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         torch.use_deterministic_algorithms(False)
     first = runs[schedules[0]]
@@ -2996,14 +3108,14 @@ def phase_lm_training(H, torch):
                    ["--stages", "2", "--chunks", "2", "--steps", "6"], cpu_check=True,
                    also=("interleaved",))
     phase_train_lm(H, torch, "16b", "codeqwen1.5-7b", ["--chunks", "2", "--steps", "4"],
-                   num_layers=8)
+                   cut={"num_layers": 8})
     t0 = time.perf_counter()
     phase_serve_lm(H, torch, "zamba2-7b")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[serve-lm] 16c zamba2-7b serving: phase {time.perf_counter() - t0:.1f} s")
     phase_train_lm(H, torch, "16c", "zamba2-7b", ["--chunks", "2", "--steps", "4"],
-                   num_layers=36)
+                   cut={"num_layers": 36})
 
 
 def phase_frontend_lm(H, torch):
@@ -3021,6 +3133,35 @@ def phase_frontend_lm(H, torch):
         torch.cuda.empty_cache()
         log(f"[serve-lm] {tag} {arch} serving: phase {time.perf_counter() - t0:.1f} s")
         phase_train_lm(H, torch, tag, arch, ["--chunks", "2", "--steps", "4"], falling=True)
+
+
+MOE_PHASES = (  # phase 18: (tag, arch, serving cut, training cut, training flags, schedules)
+    ("18a", "arctic-480b", {"num_layers": 1}, {"num_layers": 2, "num_experts": 8},
+     ["--stages", "2", "--chunks", "2", "--steps", "4"], ("interleaved",)),
+    ("18b", "deepseek-v3-671b", {"num_layers": 1}, {"num_layers": 1, "num_experts": 16},
+     ["--chunks", "2", "--steps", "4"], ()),
+)
+
+
+def phase_moe_lm(H, torch):
+    """Phase 18: the MoE archs at full width, served through
+    ``phase_serve_lm`` cut to one layer (arctic-480b 14.07e9 params,
+    deepseek-v3-671b 13.41e9: fp32 weights of 56.3 and 53.6 GB) and trained
+    through ``phase_train_lm`` with fewer experts (16 B a param of state):
+    18a arctic-480b (GQA 56/8 at hd 128, softmax top-2, the dense residual)
+    trained at 2 layers and 8 of 128 experts, fill_drain and interleaved
+    over 2 stages bit-identical with the MoE combine in the step; 18b
+    deepseek-v3-671b (MLA: flash at q/k head dim 192 and v head dim 128,
+    sigmoid top-8, a shared expert, the multi-token-prediction head)
+    trained at 1 layer and 16 of 256 experts. Each training's step-0
+    batch must lose loss."""
+    for tag, arch, serve_cut, train_cut, extra, also in MOE_PHASES:
+        t0 = time.perf_counter()
+        phase_serve_lm(H, torch, arch, cut=serve_cut)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[serve-lm] {tag} {arch} serving: phase {time.perf_counter() - t0:.1f} s")
+        phase_train_lm(H, torch, tag, arch, extra, cut=train_cut, also=also, falling=True)
 
 
 def main() -> int:
@@ -3098,6 +3239,7 @@ def main() -> int:
     phase("15b", phase_roofline)
     phase("16", phase_lm_training)
     phase("17", phase_frontend_lm)
+    phase("18", phase_moe_lm)
 
     kernels = []
     for name, replaces in REPLACES.items():
@@ -3112,7 +3254,7 @@ def main() -> int:
         })
     log("[compare] largest share of the tolerance used, per kernel: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
-    log(f"[done] all 17 phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] all 18 phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card_line}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -32,9 +32,15 @@
 // * A block of NW warps owns BQ = 16 NW query rows of one (b, h); each warp
 //   owns 16 rows. S = Q.K^T for a 16 x BKV tile, the running (m, l) of its
 //   two rows per thread and the 16 x hd_v output stay in registers, in the
-//   mma accumulator layout; P never leaves registers. S is summed in two
-//   accumulator sets (even and odd 8-wide k-steps) so that consecutive MMAs
-//   do not wait on each other.
+//   mma accumulator layout; P never leaves registers.
+// * fp32 accumulates in short chains: each 16-wide k-step of S, and each
+//   KV tile's share of a block of 8 output tiles of P.V, goes into a fresh
+//   accumulator that is then added to S or O with an fp32 add. An MMA adds
+//   its accumulator input with truncation at that input's magnitude, so
+//   one long chain (S over all of hd, O over all keys) drifts with the
+//   chain's length: at a full-width model's activations (arctic-480b,
+//   scores to ~30) it held the output further from float64 than the
+//   1e-5 tolerance allows, the short chains well inside it (PERF.md §6).
 // * fp32 runs 3xTF32: each operand x is split into big = tf32(x) and
 //   small = tf32(x - big), and a product is a_small.b_big + a_big.b_small +
 //   a_big.b_big, accumulated in fp32 (mma.sync.m16n8k8 TF32), for S and for
@@ -83,13 +89,14 @@
 // 16 bytes, RAW = 1 for fp32 and 2 for bf16, plus 8 BKV ((hd + 4) +
 // (hd_v + 2)) B of split pairs for fp32; registers a thread from -Xptxas
 // -v (no spills unless noted); resident blocks an SM:
-//   fp32 <= 64:   NW 8, BKV 32:  86,528 B, 210 registers: 1 (registers)
-//   fp32 <= 128:  NW 8, BKV 32: 168,448 B, 238 registers: 1
-//   fp32 <= 256:  NW 4, BKV 16: 166,144 B, 255 registers (12-byte spill): 1
-//   bf16 <= 64:   NW 8, BKV 64:  55,296 B, 178 registers: 1 (registers)
-//   bf16 <= 128:  NW 8, BKV 64: 104,448 B, 224 registers: 1 (registers)
+//   fp32 <= 64:   NW 8, BKV 32:  86,528 B, 242 registers: 1 (registers)
+//   fp32 <= 128:  NW 8, BKV 32: 168,448 B, 255 registers (16-byte spill): 1
+//   fp32 <= 256:  NW 4, BKV 16: 166,144 B, 255 registers: 1
+//   bf16 <= 64:   NW 8, BKV 64:  55,296 B, 180 registers: 1 (registers)
+//   bf16 <= 128:  NW 8, BKV 64: 104,448 B, 226 registers: 1 (registers)
 //   bf16 <= 256:  NW 4, BKV 32: 101,376 B, 240 registers: 2
-// The positions' instances add 8 BKV bytes (two tiles of key positions).
+// The positions' instances add 8 BKV bytes (two tiles of key positions),
+// and fp32 spills there: 28 bytes at <= 128, 12 at <= 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -360,9 +367,6 @@ flash_kernel(const T* __restrict__ q,        // (B, Sq, H, hd)
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     const T* qa = Qs + (warp * 16 + g) * qst;
     if constexpr (kF32) {
-      float s2[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) s2[j][0] = s2[j][1] = s2[j][2] = s2[j][3] = 0.f;
       auto step = [&](int kk, float (&acc)[NT][4]) {
         uint32_t ab[4], as[4];
         split(qa[kk + t], ab[0], as[0]);
@@ -383,15 +387,19 @@ flash_kernel(const T* __restrict__ q,        // (B, Sq, H, hd)
 #pragma unroll
         for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ab, b0[j].x, b1[j].x);
       };
+      // each 16-wide k-step into a fresh accumulator, added to S in fp32
 #pragma unroll 4
       for (int kk = 0; kk < hdp; kk += 16) {
-        step(kk, s);
-        step(kk + 8, s2);
+        float part[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.f;
+        step(kk, part);
+        step(kk + 8, part);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[j][c] += part[j][c];
       }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] += s2[j][c];
     } else {
       const __nv_bfloat16* qb = reinterpret_cast<const __nv_bfloat16*>(qa);
       const __nv_bfloat16* kbb = reinterpret_cast<const __nv_bfloat16*>(Kb);
@@ -482,35 +490,46 @@ flash_kernel(const T* __restrict__ q,        // (B, Sq, H, hd)
     else
       kmax = min(kv_end, row_hi + 1) - k0;
     if constexpr (kF32) {
+      // each block of 8 output tiles gathers this tile's keys in a fresh
+      // accumulator, added to O in fp32
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        if (j * 8 < kmax) {
-          uint32_t ab[4], as[4];
-          split(s[j][0], ab[0], as[0]);  // (g,   key 2t)
-          split(s[j][2], ab[1], as[1]);  // (g+8, key 2t)
-          split(s[j][1], ab[2], as[2]);  // (g,   key 2t+1)
-          split(s[j][3], ab[3], as[3]);  // (g+8, key 2t+1)
-          const uint2* vb = Vsp + (j * 8 + 2 * t) * vst2 + g;
+      for (int n0 = 0; n0 < NV; n0 += 8) {
+        if (n0 * 8 < hdvp) {
+          float acc[8][4];
 #pragma unroll
-          for (int n0 = 0; n0 < NV; n0 += 8) {
-            uint2 b0[8], b1[8];
+          for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll
-            for (int n = 0; n < 8; ++n) {
-              if ((n0 + n) * 8 < hdvp) {
-                b0[n] = vb[(n0 + n) * 8];
-                b1[n] = vb[vst2 + (n0 + n) * 8];
+          for (int j = 0; j < NT; ++j) {
+            if (j * 8 < kmax) {
+              uint32_t ab[4], as[4];
+              split(s[j][0], ab[0], as[0]);  // (g,   key 2t)
+              split(s[j][2], ab[1], as[1]);  // (g+8, key 2t)
+              split(s[j][1], ab[2], as[2]);  // (g,   key 2t+1)
+              split(s[j][3], ab[3], as[3]);  // (g+8, key 2t+1)
+              const uint2* vb = Vsp + (j * 8 + 2 * t) * vst2 + g;
+              uint2 b0[8], b1[8];
+#pragma unroll
+              for (int n = 0; n < 8; ++n) {
+                if ((n0 + n) * 8 < hdvp) {
+                  b0[n] = vb[(n0 + n) * 8];
+                  b1[n] = vb[vst2 + (n0 + n) * 8];
+                }
               }
+#pragma unroll
+              for (int n = 0; n < 8; ++n)
+                if ((n0 + n) * 8 < hdvp) mma_tf32(acc[n], as, b0[n].x, b1[n].x);
+#pragma unroll
+              for (int n = 0; n < 8; ++n)
+                if ((n0 + n) * 8 < hdvp) mma_tf32(acc[n], ab, b0[n].y, b1[n].y);
+#pragma unroll
+              for (int n = 0; n < 8; ++n)
+                if ((n0 + n) * 8 < hdvp) mma_tf32(acc[n], ab, b0[n].x, b1[n].x);
             }
-#pragma unroll
-            for (int n = 0; n < 8; ++n)
-              if ((n0 + n) * 8 < hdvp) mma_tf32(o[n0 + n], as, b0[n].x, b1[n].x);
-#pragma unroll
-            for (int n = 0; n < 8; ++n)
-              if ((n0 + n) * 8 < hdvp) mma_tf32(o[n0 + n], ab, b0[n].y, b1[n].y);
-#pragma unroll
-            for (int n = 0; n < 8; ++n)
-              if ((n0 + n) * 8 < hdvp) mma_tf32(o[n0 + n], ab, b0[n].x, b1[n].x);
           }
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) o[n0 + n][c] += acc[n][c];
         }
       }
     } else {

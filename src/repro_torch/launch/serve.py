@@ -145,9 +145,10 @@ class Served:
         return prompt_batch(self.prompt, self.frontend_embeds)
 
 
-def serve(args) -> Served:
-    """Build the model on ``--device``, serve one batch, summarize."""
-    cfg = get_arch(args.arch, smoke=not args.full_arch)
+def serve(args, cfg: ArchConfig | None = None) -> Served:
+    """Build the model on ``--device``, serve one batch, summarize. ``cfg``:
+    a built config (a caller may cut its depth), else ``--arch``'s."""
+    cfg = get_arch(args.arch, smoke=not args.full_arch) if cfg is None else cfg
     check_supported(cfg)
     device = resolve_device(args.device)
     if device.type == "cuda":

@@ -34,13 +34,13 @@ evaluate over the plan, since no full graph exists:
 ``--mode lm`` trains the LM pool (``run_lm``, the JAX launcher's other
 mode; default arch mamba2-130m) on synthetic token batches: the dense GQA
 archs, musicgen-large and qwen2-vl-2b (precomputed frontend embeddings
-ahead of the tokens; qwen2-vl with m-rope), mamba2-130m and the zamba2
-hybrid, under ``--schedule fill_drain`` or ``interleaved`` (``--stages``
-virtual stages walked on the one card). Its archs run their smoke config
-unless ``--full-arch`` is given; on the card attention runs the flash
-kernel and Mamba's scan the SSD kernel, in the forward and in each
-recompute. MoE, MLA and the multi-token-prediction head raise naming
-ROADMAP queue 1 item 16:
+ahead of the tokens; qwen2-vl with m-rope), mamba2-130m, the zamba2
+hybrid, and the MoE archs arctic-480b and deepseek-v3-671b (MLA and the
+multi-token-prediction head), under ``--schedule fill_drain`` or
+``interleaved`` (``--stages`` virtual stages walked on the one card). Its
+archs run their smoke config unless ``--full-arch`` is given; on the card
+attention runs the flash kernel and Mamba's scan the SSD kernel, in the
+forward and in each recompute:
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
         --arch mamba2-130m --full-arch --stages 2 --chunks 2 --steps 50

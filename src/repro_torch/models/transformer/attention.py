@@ -49,20 +49,22 @@ def blocked_attention(
     attn_softcap: float = 0.0,
     kv_block: int = 512,
 ) -> torch.Tensor:
-    """Causal attention, O(Sq · kv_block) live scores. Returns
-    (B, Sq, H, hd_v) in ``q``'s dtype; K and V head dims may differ."""
+    """Causal attention, O(Sq · kv_block) live scores, computed in float32
+    (float64 for float64 inputs). Returns (B, Sq, H, hd_v) in ``q``'s dtype;
+    K and V head dims may differ."""
     b, sq, h, hd = q.shape
     skv, kv_heads = k.shape[1], k.shape[2]
     hd_v = v.shape[-1]
     g = h // kv_heads
-    qg = q.reshape(b, sq, kv_heads, g, hd).float() * softmax_scale(hd)
+    dt = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, sq, kv_heads, g, hd).to(dt) * softmax_scale(hd)
 
-    m = torch.full((b, kv_heads, g, sq), _NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, kv_heads, g, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, kv_heads, g, sq, hd_v), dtype=torch.float32, device=q.device)
+    m = torch.full((b, kv_heads, g, sq), _NEG, dtype=dt, device=q.device)
+    l = torch.zeros((b, kv_heads, g, sq), dtype=dt, device=q.device)
+    acc = torch.zeros((b, kv_heads, g, sq, hd_v), dtype=dt, device=q.device)
     for c0 in range(0, max(skv, 1), kv_block):
-        k_i = k[:, c0:c0 + kv_block].float()
-        v_i = v[:, c0:c0 + kv_block].float()
+        k_i = k[:, c0:c0 + kv_block].to(dt)
+        v_i = v[:, c0:c0 + kv_block].to(dt)
         ok = _mask_ok(q_pos, kv_pos[c0:c0 + kv_block], window)  # (Sq, c)
         s = torch.einsum("bqkgd,bckd->bkgqc", qg, k_i)
         s = _softcap(s, attn_softcap)

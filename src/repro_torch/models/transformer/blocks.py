@@ -9,9 +9,11 @@ a layer's cache entries in place into the cache view it is given (a slice
 of the model's stacked cache) and returns that view: a 7B model's cache is
 gigabytes, and decoding copies none of it.
 
-Only GQA attention with rope or m-rope and Mamba2 blocks build here; MoE
-and MLA wait for ROADMAP queue 1 item 16 (``model.check_supported`` says so
-before any block is built).
+Attention is GQA with rope or m-rope, or MLA (deepseek-v3: low-rank q and
+kv, rope on a 64-wide part with one key rope shared by the heads, and a
+compressed ``ckv`` cache that decode expands through ``w_uk``/``w_uv``);
+the FFN is dense or MoE (``moe.moe_apply``, routed over the tokens of one
+call: one (stage, micro-batch)).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from repro_torch.kernels.flash.ops import flash_attention
 from repro_torch.models.transformer.attention import decode_attention
 from repro_torch.models.transformer.common import apply_mrope, apply_rope, normal_init, rms_norm
 from repro_torch.models.transformer.ffn import ffn_apply, ffn_init
+from repro_torch.models.transformer.moe import moe_apply, moe_init
 from repro_torch.models.transformer.ssm import mamba2_apply, mamba2_init
 
 
@@ -30,9 +33,24 @@ from repro_torch.models.transformer.ssm import mamba2_apply, mamba2_init
 
 
 def init_attn_params(cfg: ArchConfig, gen: torch.Generator, *, lead=(), dtype=torch.float32) -> dict:
-    """GQA projections (and QKV biases), each with leading dims ``lead``."""
+    """GQA projections (and QKV biases), or MLA's low-rank projections and
+    norms, each with leading dims ``lead``."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lead = tuple(lead)
+    if cfg.attn_kind == "mla":
+        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        r = cfg.kv_lora_rank
+        zeros = lambda n: torch.zeros((*lead, n), dtype=dtype, device=gen.device)
+        return {
+            "w_dq": normal_init(gen, (*lead, d, cfg.q_lora_rank), dtype=dtype),
+            "ln_q": zeros(cfg.q_lora_rank),
+            "w_uq": normal_init(gen, (*lead, cfg.q_lora_rank, h * qk), dtype=dtype),
+            "w_dkv": normal_init(gen, (*lead, d, r + cfg.qk_rope_head_dim), dtype=dtype),
+            "ln_kv": zeros(r),
+            "w_uk": normal_init(gen, (*lead, r, h * cfg.qk_nope_head_dim), dtype=dtype),
+            "w_uv": normal_init(gen, (*lead, r, h * cfg.v_head_dim), dtype=dtype),
+            "w_o": normal_init(gen, (*lead, h * cfg.v_head_dim, d), dtype=dtype),
+        }
     p = {
         "w_q": normal_init(gen, (*lead, d, h * hd), dtype=dtype),
         "w_k": normal_init(gen, (*lead, d, kv * hd), dtype=dtype),
@@ -46,13 +64,20 @@ def init_attn_params(cfg: ArchConfig, gen: torch.Generator, *, lead=(), dtype=to
 
 
 def init_block(cfg: ArchConfig, gen: torch.Generator, *, lead=(), dtype=torch.float32) -> dict:
-    """One attention + FFN layer slot (stacked over ``lead``)."""
+    """One attention + FFN (or MoE) layer slot (stacked over ``lead``)."""
     d = cfg.d_model
     zeros = lambda: torch.zeros((*lead, d), dtype=dtype, device=gen.device)
     p = {"ln1": zeros(), "ln2": zeros(), "attn": init_attn_params(cfg, gen, lead=lead, dtype=dtype)}
     if cfg.sandwich_norms:
         p["ln1_post"], p["ln2_post"] = zeros(), zeros()
-    p["ffn"] = ffn_init(gen, d, cfg.d_ff, kind=cfg.mlp_kind, lead=lead, dtype=dtype)
+    if cfg.num_experts:
+        p["moe"] = moe_init(
+            gen, d, cfg.d_ff, num_experts=cfg.num_experts, num_shared=cfg.num_shared_experts,
+            dense_residual=cfg.moe_dense_residual, router_kind=cfg.router_kind,
+            mlp_kind=cfg.mlp_kind, lead=lead, dtype=dtype,
+        )
+    else:
+        p["ffn"] = ffn_init(gen, d, cfg.d_ff, kind=cfg.mlp_kind, lead=lead, dtype=dtype)
     return p
 
 
@@ -70,9 +95,26 @@ def init_mamba_block(cfg: ArchConfig, gen: torch.Generator, *, lead=(), dtype=to
 
 
 def _project_qkv(cfg: ArchConfig, p: dict, h_in: torch.Tensor, positions: torch.Tensor):
-    """-> (q (B,S,H,hd), k (B,S,KV,hd), v (B,S,KV,hd), cache entry {'k','v'}),
-    k post-rope. ``positions``: (S,), or (3, S) for m-rope."""
+    """-> (q (B,S,H,hd), k (B,S,KV,hd), v (B,S,KV,hd_v), cache entry), k
+    post-rope. ``positions``: (S,), or (3, S) for m-rope. The entry is what
+    prefill persists: {'k','v'} for GQA; for MLA the compressed {'ckv'}
+    (B, S, kv_lora + rope) = normed ckv ‖ k_rope, where q and k have head
+    dim nope + rope and v ``v_head_dim``, and every head shares k_rope."""
     b, s, _ = h_in.shape
+    if cfg.attn_kind == "mla":
+        h, nope, rope, r = (cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                            cfg.kv_lora_rank)
+        cq = rms_norm(h_in @ p["w_dq"], p["ln_q"], eps=cfg.norm_eps)
+        q_nope, q_rope = (cq @ p["w_uq"]).reshape(b, s, h, nope + rope).split([nope, rope], -1)
+        q_rope = apply_rope(q_rope, positions, theta=cfg.rope_theta)
+        ckv, k_rope = (h_in @ p["w_dkv"]).split([r, rope], -1)
+        ckv = rms_norm(ckv, p["ln_kv"], eps=cfg.norm_eps)
+        k_rope = apply_rope(k_rope[:, :, None, :], positions, theta=cfg.rope_theta)
+        k_nope = (ckv @ p["w_uk"]).reshape(b, s, h, nope)
+        v = (ckv @ p["w_uv"]).reshape(b, s, h, cfg.v_head_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b, s, h, rope)], dim=-1)
+        return q, k, v, {"ckv": torch.cat([ckv, k_rope[:, :, 0]], dim=-1)}
     hd = cfg.head_dim
     q, k, v = h_in @ p["w_q"], h_in @ p["w_k"], h_in @ p["w_v"]
     if cfg.qkv_bias:
@@ -119,8 +161,10 @@ def ring_positions(cur_pos: int, w_local: int, *, device=None) -> torch.Tensor:
 def attn_decode_apply(cfg: ArchConfig, p: dict, h_in: torch.Tensor, cache: dict, *,
                       cur_pos: int, window: int):
     """One new token (h_in (B, 1, d)) against a ring-buffer cache
-    ({'k','v'} of (B, W, KV, hd)); writes its k/v into slot cur_pos mod W in
-    place. -> (out (B, 1, d), cache). m-rope rotates the token by
+    ({'k','v'} of (B, W, KV, hd), or MLA's {'ckv'} of (B, W, kv_lora +
+    rope)); writes its entry into slot cur_pos mod W in place. MLA then
+    expands the whole compressed cache through ``w_uk``/``w_uv`` (the
+    reference's recompute form). -> (out (B, 1, d), cache). m-rope rotates the token by
     ``cur_pos`` on all three axes, as the reference's decode does
     (``repro.models.transformer.blocks.attn_decode_apply``), not by the t
     its prefill would give it (``cur_pos - s_front + 1``): the reference's
@@ -128,20 +172,33 @@ def attn_decode_apply(cfg: ArchConfig, p: dict, h_in: torch.Tensor, cache: dict,
     b = h_in.shape[0]
     shape = (3, 1) if cfg.rope_kind == "mrope" else (1,)
     pos = torch.full(shape, cur_pos, dtype=torch.int32, device=h_in.device)
-    q, k_new, v_new, _ = _project_qkv(cfg, p, h_in, pos)
-    w = cache["k"].shape[1]
-    slot = cur_pos % w
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
+    q, k_new, v_new, entry = _project_qkv(cfg, p, h_in, pos)
+    if cfg.attn_kind == "mla":
+        w = cache["ckv"].shape[1]
+        cache["ckv"][:, cur_pos % w] = entry["ckv"][:, 0]
+        h, nope, rope = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        ckv_all, kr_all = cache["ckv"].split([cfg.kv_lora_rank, rope], -1)
+        k_nope = (ckv_all @ p["w_uk"]).reshape(b, w, h, nope)
+        v_all = (ckv_all @ p["w_uv"]).reshape(b, w, h, cfg.v_head_dim)
+        k_all = torch.cat([k_nope, kr_all[:, :, None, :].expand(b, w, h, rope)], dim=-1)
+    else:
+        w = cache["k"].shape[1]
+        cache["k"][:, cur_pos % w] = k_new[:, 0]
+        cache["v"][:, cur_pos % w] = v_new[:, 0]
+        k_all, v_all = cache["k"], cache["v"]
     kv_pos = ring_positions(cur_pos, w, device=h_in.device)
-    out = decode_attention(q[:, 0], cache["k"], cache["v"], kv_pos, cur_pos, window=window,
+    out = decode_attention(q[:, 0], k_all, v_all, kv_pos, cur_pos, window=window,
                            attn_softcap=cfg.attn_softcap)
     return out.reshape(b, 1, -1) @ p["w_o"], cache
 
 
 def init_attn_cache(cfg: ArchConfig, mb: int, w_local: int, *, dtype=torch.float32,
                     device=None) -> dict:
-    """One layer's decode cache. Positions are implicit (ring_positions)."""
+    """One layer's decode cache: {'k','v'}, or MLA's compressed {'ckv'}.
+    Positions are implicit (ring_positions)."""
+    if cfg.attn_kind == "mla":
+        width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+        return {"ckv": torch.zeros((mb, w_local, width), dtype=dtype, device=device)}
     shape = (mb, w_local, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -151,12 +208,22 @@ def init_attn_cache(cfg: ArchConfig, mb: int, w_local: int, *, dtype=torch.float
 
 
 def _ffn_tail(cfg: ArchConfig, lp: dict, h: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """Residual attention output, then the residual FFN (sandwich norms on
-    gemma2)."""
+    """Residual attention output, then the residual FFN or MoE (sandwich
+    norms on gemma2). The MoE routes the B·S tokens of ``h`` (one
+    micro-batch) in one call; its aux loss is discarded, as the
+    reference's blocks discard it."""
     if cfg.sandwich_norms:
         a = rms_norm(a, lp["ln1_post"], eps=cfg.norm_eps)
     h = h + a
-    f = ffn_apply(lp["ffn"], rms_norm(h, lp["ln2"], eps=cfg.norm_eps), kind=cfg.mlp_kind)
+    x = rms_norm(h, lp["ln2"], eps=cfg.norm_eps)
+    if cfg.num_experts:
+        b, s, d = x.shape
+        f, _aux = moe_apply(lp["moe"], x.reshape(b * s, d), num_experts=cfg.num_experts,
+                            k=cfg.experts_per_token, router_kind=cfg.router_kind,
+                            mlp_kind=cfg.mlp_kind)
+        f = f.reshape(b, s, d)
+    else:
+        f = ffn_apply(lp["ffn"], x, kind=cfg.mlp_kind)
     if cfg.sandwich_norms:
         f = rms_norm(f, lp["ln2_post"], eps=cfg.norm_eps)
     return h + f

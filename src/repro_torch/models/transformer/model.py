@@ -11,13 +11,15 @@ for training under ``schedule="interleaved"`` in the order of
 Parameters and caches keep the JAX layout, so the two compare leaf by leaf:
 
 * params: ``embed`` (V, d), ``final_ln`` (d,), ``head`` (d, V) unless tied,
+  ``mtp_proj`` (d, d) on an arch with the multi-token-prediction head,
   ``blocks``, each leaf stacked (num_stages, layers_per_stage, ...), and for
   the zamba2 hybrid ``shared_attn``, one attention block outside the stack
   (``blocks`` then holds only the mamba slots);
 * caches: each leaf (num_stages, num_micro, slots, b_mb, ...) — attention
-  ``k``/``v`` (…, W, KV, hd), Mamba ``ssm`` (…, h, P, N) float32 and
-  ``conv`` (…, width-1, conv_dim); the hybrid's cache is ``{"mamba": …,
-  "attn": …}``, one attention slot per group.
+  ``k``/``v`` (…, W, KV, hd) or MLA's compressed ``ckv`` (…, W, kv_lora +
+  rope), Mamba ``ssm`` (…, h, P, N) float32 and ``conv`` (…, width-1,
+  conv_dim); the hybrid's cache is ``{"mamba": …, "attn": …}``, one
+  attention slot per group.
 
 Per-slot extras (``active``, ``window``) are numpy arrays read as Python
 numbers: a padding slot (``active == 0``) is skipped, so it is the identity,
@@ -25,11 +27,12 @@ leaves its cache as it was, and its parameters get zero gradients. The
 serving steps update the cache in place and return it; the train step
 updates the params and the Adam state in place and returns them.
 
-Dense GQA archs with rope or m-rope, the modality-frontend archs
-(musicgen-large, qwen2-vl-2b: precomputed ``frontend_embeds`` ahead of the
-tokens), ``ssm`` archs and the zamba2 hybrid build; ``check_supported``
-raises for the rest (MoE, MLA, the multi-token-prediction head), naming
-ROADMAP queue 1 item 16.
+Every arch of the JAX package builds: dense GQA archs with rope or m-rope,
+the modality-frontend archs (musicgen-large, qwen2-vl-2b: precomputed
+``frontend_embeds`` ahead of the tokens), ``ssm`` archs, the zamba2 hybrid,
+and the MoE archs (arctic-480b; deepseek-v3-671b with MLA and the
+multi-token-prediction head). ``check_supported`` raises for a config of a
+kind the port does not know.
 """
 
 from __future__ import annotations
@@ -47,9 +50,6 @@ from repro_torch.kernels.flash.kernel import check_order
 from repro_torch.models.transformer import blocks as B
 from repro_torch.models.transformer.common import normal_init, rms_norm, softcap
 from repro_torch.train import optimizer as opt_lib
-
-ROADMAP_ITEM = "ROADMAP queue 1 item 16"
-
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
@@ -82,23 +82,16 @@ class Topology:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for an arch whose blocks are not ported
-    yet (MoE, MLA, multi-token prediction)."""
-    missing = []
-    if cfg.arch_type not in ("dense", "ssm", "hybrid", "audio", "vlm"):
-        missing.append(f"arch_type {cfg.arch_type!r}")
-    if cfg.num_experts:
-        missing.append("MoE blocks")
-    if cfg.arch_type != "ssm" and cfg.attn_kind != "gqa":
-        missing.append(f"{cfg.attn_kind} attention")
+    """Raise ``NotImplementedError`` for a block kind the port does not build."""
+    unknown = []
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "audio", "vlm"):
+        unknown.append(f"arch_type {cfg.arch_type!r}")
+    if cfg.arch_type != "ssm" and cfg.attn_kind not in ("gqa", "mla"):
+        unknown.append(f"{cfg.attn_kind} attention")
     if cfg.rope_kind not in ("rope", "mrope", "none"):
-        missing.append(f"{cfg.rope_kind} positions")
-    if cfg.mtp:
-        missing.append("the multi-token-prediction head")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch yet ({ROADMAP_ITEM})"
-        )
+        unknown.append(f"{cfg.rope_kind} positions")
+    if unknown:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(unknown)} not built by repro_torch")
 
 
 # ------------------------------------------------------------- stacking --
@@ -142,6 +135,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, num_stages: int = 1,
     }
     if not cfg.tie_embeddings:
         params["head"] = normal_init(gen, (cfg.d_model, cfg.vocab_size), dtype=dtype)
+    if cfg.mtp:
+        params["mtp_proj"] = normal_init(gen, (cfg.d_model, cfg.d_model), dtype=dtype)
     lead = (num_stages, _stacked_slots(cfg, num_stages))
     if cfg.arch_type == "hybrid":
         params["shared_attn"] = B.init_block(cfg, gen, dtype=dtype)
@@ -438,7 +433,16 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
         # masked mean accumulated as (sum, count)
         lse = torch.logsumexp(logits, dim=-1)
         ll = logits.gather(-1, li.clamp(min=0)[..., None])[..., 0]
-        return ((lse - ll) * mi).sum(), mi.sum()
+        total = ((lse - ll) * mi).sum()
+        if cfg.mtp:
+            # multi-token-prediction aux head (deepseek-v3): position t
+            # predicts t + 2, weight 0.3, over the main mask's count
+            logits2 = lm_head_logits(cfg, params, yi @ params["mtp_proj"])[:, :-1]
+            mi2 = mi[:, 1:] * mi[:, :-1]
+            lse2 = torch.logsumexp(logits2, dim=-1)
+            ll2 = logits2.gather(-1, li[:, 1:].clamp(min=0)[..., None])[..., 0]
+            total = total + 0.3 * ((lse2 - ll2) * mi2).sum()
+        return total, mi.sum()
 
     def loss_fn(params, batch):
         # frontend rows, where there are any, split into micro-batches with x

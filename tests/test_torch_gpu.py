@@ -47,6 +47,7 @@ from repro_torch.kernels.ssd.ops import ssd as ssd_op
 from repro_torch.kernels.ssd.ref import ssd_chunk_scan
 from repro_torch.launch import serve as lm_serve
 from repro_torch.models.gnn.net import build_gnn, build_paper_gat, chunk_keys
+from repro_torch.models.transformer import moe as tmoe
 from repro_torch.train import optimizer as topt
 
 H = 4
@@ -384,6 +385,8 @@ def _flash_inputs(dev, b, s, h, kv, hd, hd_v=None, dtype=torch.float32, seed=0):
     (1, 513, 8, 8, 128, None, 0, 0.0),
     (2, 96, 4, 2, 48, 16, 0, 0.0),
     (1, 70, 2, 1, 256, 256, 0, 0.0),
+    (2, 256, 14, 2, 128, None, 0, 0.0),  # arctic's grouping of 7 query heads
+    (2, 300, 8, 8, 192, 128, 0, 0.0),  # MLA's q/k and v head dims
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, b, s, h, kv, hd, hd_v, window, cap):
     q, k, v = _flash_inputs(cuda, b, s, h, kv, hd, hd_v, seed=s + h)
@@ -929,3 +932,38 @@ def test_streamed_compiled_step_data_parallel_bitwise_on_card(cuda):
     (p1, l1), (p2, l2) = runs
     assert all(torch.equal(a, b) for a, b in zip(l1, l2))
     assert all(torch.equal(a[k], b[k]) for a, b in zip(p1, p2) for k in a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("router_kind,shared,dense", [("softmax", 0, True), ("sigmoid", 1, False)])
+def test_moe_apply_deterministic_on_card(cuda, router_kind, shared, dense):
+    """The MoE layer (arctic's and deepseek's kinds, at a capacity that
+    drops tokens) on the card: output and gradients within 1e-5 of the CPU's
+    from the same params, and under deterministic algorithms two forward
+    and backward passes bit-identical (the combine is a gather, the
+    gathers' backward a deterministic index-put)."""
+    gen = torch.Generator().manual_seed(0)
+    p = tmoe.moe_init(gen, 64, 32, num_experts=8, num_shared=shared, dense_residual=dense,
+                      router_kind=router_kind)
+    x = torch.randn((96, 64), generator=gen)
+    r = torch.randn((96, 64), generator=gen)
+    kw = dict(num_experts=8, k=2, router_kind=router_kind, capacity_factor=0.5)
+
+    def run(dev):
+        leaves = topt.tree_map(lambda t: t.detach().to(dev).requires_grad_(True), p)
+        xd = x.detach().to(dev).requires_grad_(True)
+        out, _ = tmoe.moe_apply(leaves, xd, **kw)
+        (out * r.to(dev)).sum().backward()
+        grads = [g for g in topt.tree_leaves(topt.tree_map(lambda t: t.grad, leaves))
+                 if g is not None]
+        return [out.detach(), xd.grad, *grads]
+
+    want = run("cpu")
+    torch.use_deterministic_algorithms(True)
+    try:
+        first, again = run(cuda), run(cuda)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(torch.equal(a, b) for a, b in zip(first, again, strict=True))
+    for got, ref in zip(first, want, strict=True):
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)

@@ -3,8 +3,8 @@
 At smoke size on the CPU: the driver's accounting; its greedy tokens
 against a greedy loop over the JAX package's own prefill and serve steps
 from the same (JAX-initialized) params; its refusal to run without a card
-unless ``--device cpu`` is given; and the archs the port does not build yet
-(MoE, MLA) raising ``NotImplementedError`` with their ROADMAP item.
+unless ``--device cpu`` is given; and the MoE archs (arctic-480b,
+deepseek-v3-671b with MLA) served through the CLI.
 """
 
 import jax
@@ -23,7 +23,7 @@ from repro_torch.launch import serve as S
 from repro_torch.models.transformer import model as TM
 from repro_torch.models.transformer.convert import params_from_jax
 
-UNSUPPORTED = ["deepseek-v3-671b", "arctic-480b"]
+MOE_ARCHS = ["deepseek-v3-671b", "arctic-480b"]
 
 
 def args(*extra):
@@ -69,7 +69,7 @@ def jax_greedy(arch, params, prompt, steps):
     return np.stack(out, axis=1)
 
 
-@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "gemma2-27b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "gemma2-27b", "mamba2-130m", *MOE_ARCHS])
 def test_tokens_match_jax_greedy_loop(arch):
     jcfg = jax_arch(arch, smoke=True)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0), num_stages=1, dtype=jnp.float32)
@@ -89,9 +89,16 @@ def test_default_device_raises_without_a_card():
         S.run(args("--arch", "codeqwen1.5-7b"))
 
 
-@pytest.mark.parametrize("arch", UNSUPPORTED)
-def test_unsupported_archs_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
-        S.run(args("--arch", arch, "--device", "cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
-        TM.init_params(get_arch(arch, smoke=True))
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_unsupported_archs_name_their_roadmap_item(arch, capsys):
+    """The MoE archs serve through the CLI on the CPU at smoke size: the
+    tokens generated, the JAX init's parameter count (experts, router and
+    its bias, MLA's projections, the multi-token-prediction head), the
+    summary printed. Their greedy tokens are held against the JAX loop in
+    ``tests/test_torch_moe.py``."""
+    out = S.run(args("--arch", arch, "--device", "cpu"))
+    assert out["arch"] == arch and out["tokens_generated"] == 4 * (4 + 1)
+    shapes = jax.eval_shape(lambda k: JM.init_params(jax_arch(arch, smoke=True), k,
+                                                     num_stages=1), jax.random.PRNGKey(0))
+    assert out["params"] == sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(shapes))
+    assert len(out["sample"]) == 5 and str(out["tokens_generated"]) in capsys.readouterr().out
