@@ -236,6 +236,31 @@ exit:
    flash kernel at q/k head dim 192 and v head dim 128; sigmoid top-8 of
    256, one shared expert, the multi-token-prediction head) trained at 1
    layer and 16 experts (2.841e9 params), ``--chunks 2``, 4 steps.
+19. The dry run (``repro_torch.launch.dryrun``) against the card. The
+   codeqwen1.5-7b prefill at phase 8's shapes (full width, 512 tokens,
+   batch 8, 2 micro-batches) and its 8-layer training step at phase 16b's
+   (seq 256, batch 8, 2 micro-batches, 4 loss chunks, remat), each run once
+   under ``roofline.counter.OpCounter`` on the card and once on meta: the
+   aten FLOPs and bytes equal op for op, the kernel calls equal to the
+   wrappers' launch counts, the flash operations equal to
+   ``roofline.kernel_cost``'s count, and the step's increment of the
+   counter's peak over what was resident at entry within 10% of the
+   increment of ``torch.cuda.max_memory_allocated`` (from a reset) over
+   what the card held at entry; beside each, the step's
+   median wall (outside the counter) over the dry run's ``bound_s``. The
+   long-context windows: codeqwen1.5-7b at full width with
+   ``long_context_window`` cut to 64, decoded from an empty ring through
+   positions 0-80 (the ring wraps after 64), the last step's logits within
+   1e-3 of a fresh 81-row prefill whose layers all take window 64 (the
+   flash kernel's window path).
+20. The ``examples/torch/`` scripts, each in a subprocess on its default
+   device (the card), all five started together: each must exit 0.
+   ``pipeline_parallel_gnn`` and ``scaling_larger_graphs`` take the CPU
+   test's smaller arguments: at their defaults they took 95.7 s. Beside
+   them, after phase 19, phase 19's full-width predictions count on meta in
+   two processes with no CUDA device (codeqwen1.5-7b at all four shapes;
+   deepseek-v3-671b at train_4k): each one-card verdict (peak against the
+   card's 80 GiB, the dominant term) prints after the examples.
 
 Every bound divides by the card's data-sheet rates from
 ``repro_torch.roofline.analysis.HW``, which knows the card by its name.
@@ -251,6 +276,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -278,9 +304,6 @@ GCN_GRAD_RTOL = 1e-5
 # bytes/s, fp32 FLOP/s on the CUDA cores, dense TF32 FLOP/s), read in main()
 # for the card the script runs on; every bound below divides by them
 CARD = None
-# the flash and SSD kernels' fp32 scheme: three TF32 tensor-core products per
-# operation
-TF32_PASSES = 3
 # floors for the redesigned kernels' times on this card, printed against the
 # measured times, not enforced: flash and padded SpMM, their first versions'
 # times over 1.5; bucket SpMM, its first version's time; SSD, one prefill
@@ -2232,63 +2255,38 @@ def phase_roofline(H, torch):
 # ------------------------------------------------- LM serving (phases 2, 5, 8, 9) --
 
 
-def flash_pairs(sq, skv, window, q_pos=None, kv_pos=None):
-    """(query, key) pairs that causal (windowed) attention needs, per head:
-    by row index, or by the positions (key j for row i when kv_pos[j] <=
-    q_pos[i], within the window)."""
-    if q_pos is not None:
-        import numpy as np
-
-        qp, kp = q_pos.cpu().numpy(), kv_pos.cpu().numpy()
-        hi = np.searchsorted(kp, qp, side="right")
-        lo = np.searchsorted(kp, qp - window, side="right") if window > 0 else 0
-        return int((hi - lo).sum())
-    total = 0
-    for i in range(sq):
-        lo = max(0, i - window + 1) if window > 0 else 0
-        total += max(0, min(i, skv - 1) - lo + 1)
-    return total
-
-
 def flash_bound(q, k, v, window=0, q_pos=None, kv_pos=None):
     """(bound_ms, bound_by, bytes, ops, cuda_core_ms) of one fp32 flash
-    launch: q, k, v read once and the output written once; per needed
+    launch, from ``roofline.kernel_cost.flash_cost`` (the count the dry run
+    reads): q, k, v read once and the output written once; per needed
     (query, key) pair a hd-long dot product and a hd_v-long multiply-add (2
-    operations each) plus 4 softmax operations (max, subtract, exp, sum);
-    with positions, the pairs their mask needs.
-    The bound counts them as the fp32-accurate kernel issues them, three TF32
-    tensor-core products each (3xTF32) at the TF32 rate; ``cuda_core_ms`` is
-    the same count at the fp32 CUDA-core rate, printed beside it."""
-    b, sq, h, hd = q.shape
-    hd_v = v.shape[-1]
-    nbytes = (q.numel() + k.numel() + v.numel() + b * sq * h * hd_v) * q.element_size()
-    ops = b * h * flash_pairs(sq, k.shape[1], window, q_pos, kv_pos) * (2 * hd + 2 * hd_v + 4)
-    if q_pos is not None:  # the two position vectors, read once
-        nbytes += (q_pos.numel() + kv_pos.numel()) * q_pos.element_size()
-    t_bytes = nbytes / CARD.hbm_bw * 1e3
-    t_ops = TF32_PASSES * ops / CARD.tf32_flops * 1e3
+    operations each) plus 4 softmax operations; with positions, the pairs
+    their mask needs. The bound counts the operations as the fp32-accurate
+    kernel issues them, three TF32 tensor-core products each (3xTF32) at the
+    TF32 rate; ``cuda_core_ms`` is the same count at the fp32 CUDA-core
+    rate, printed beside it."""
+    from repro_torch.kernels.flash.kernel import cost
+    from repro_torch.roofline.kernel_cost import bound
+
+    ops, nbytes = cost(q, k, v, window=window, q_pos=q_pos, kv_pos=kv_pos)
+    t_bytes, t_ops = (t * 1e3 for t in bound(ops, nbytes, CARD))
     return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops,
             ops / CARD.fp32_flops * 1e3)
 
 
 def ssd_bound(x, B, chunk):
-    """(bound_ms, bound_by, bytes, ops, cuda_core_ms) of one SSD wrapper call:
-    x, dt, loga, B, C read once, y and the final state written once; per
-    chunk and head the causal half of C·Bᵀ and of G·(x·dt), C·Hᵀ and the
-    state update, as multiply-adds (2 operations). The bound counts them as
-    the kernel issues them, three TF32 tensor-core products each (3xTF32) at
-    the TF32 rate; ``cuda_core_ms`` is the same count at the fp32 CUDA-core
-    rate, printed beside it."""
-    b, s, h, p = x.shape
-    n = B.shape[-1]
-    nbytes = 4 * (2 * x.numel() + 2 * b * s * h + 2 * b * s * n + b * h * p * n)
-    ops = 0
-    for c0 in range(0, s, chunk):
-        q = min(chunk, s - c0)  # the last chunk's padding does no needed work
-        tri = q * (q + 1) // 2
-        ops += b * h * 2 * (tri * n + tri * p + 2 * q * p * n)
-    t_bytes = nbytes / CARD.hbm_bw * 1e3
-    t_ops = TF32_PASSES * ops / CARD.tf32_flops * 1e3
+    """(bound_ms, bound_by, bytes, ops, cuda_core_ms) of one SSD wrapper call,
+    from ``roofline.kernel_cost.ssd_cost``: x, dt, loga, B, C read once, y
+    and the final state written once; per chunk and head the causal half of
+    C·Bᵀ and of G·(x·dt), C·Hᵀ and the state update, as multiply-adds. The
+    bound counts them as the kernel issues them, three TF32 tensor-core
+    products each (3xTF32) at the TF32 rate; ``cuda_core_ms`` is the same
+    count at the fp32 CUDA-core rate, printed beside it."""
+    from repro_torch.kernels.ssd.kernel import cost
+    from repro_torch.roofline.kernel_cost import bound
+
+    ops, nbytes = cost(x, B, chunk=chunk)
+    t_bytes, t_ops = (t * 1e3 for t in bound(ops, nbytes, CARD))
     return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops,
             ops / CARD.fp32_flops * 1e3)
 
@@ -3164,6 +3162,296 @@ def phase_moe_lm(H, torch):
         phase_train_lm(H, torch, tag, arch, extra, cut=train_cut, also=also, falling=True)
 
 
+# ------------------------------------------------- the dry run (phase 19) --
+
+DRYRUN_PREDICTIONS = (  # full width on meta, one process each, beside phase 20
+    [("codeqwen1.5-7b", s) for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")],
+    [("deepseek-v3-671b", "train_4k")])
+# deepseek-v3-671b x train_4k, the longest, counted in 110.1 s on the card's
+# host (niced, beside phases 2-18)
+PREDICTION_TIMEOUT_S = 300
+DRYRUN_OUT = ROOT / "build" / "dryrun_predictions"
+PEAK_RTOL = 0.10  # the step's peak increment: counter against the card's allocator
+LONG_WINDOW = 64  # phase 19's long-context window (the configs' 8192 needs > 8k decode steps)
+LONG_STEPS = 81  # positions 0-80: the ring wraps after 64
+STEP_REPEATS = 3  # timed runs of each counted step (their median)
+
+
+def start_predictions():
+    """Start one process for each group of ``DRYRUN_PREDICTIONS`` (one core
+    each, with no CUDA device: the counts run on meta), each running its
+    dry runs one after another; ``report_predictions`` reads their reports.
+    Returns ``(start time, [(process, log path, log file), ...])``."""
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    procs = []
+    for i, group in enumerate(DRYRUN_PREDICTIONS):
+        code = ("from repro_torch.launch.dryrun import run_one\n"
+                f"for arch, shape in {group!r}:\n"
+                f"    run_one(arch, shape, out_dir={str(DRYRUN_OUT)!r})\n")
+        path = DRYRUN_OUT / f"predictions{i}.log"
+        log_file = open(path, "w")
+        procs.append((subprocess.Popen([sys.executable, "-c", code], env=env, stdout=log_file,
+                                       stderr=subprocess.STDOUT), path, log_file))
+    return time.perf_counter(), procs
+
+
+def stop_predictions(predictions):
+    """End the prediction processes that still run (the smoke stops what it
+    starts)."""
+    for proc, _, log_file in predictions[1]:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log_file.close()
+
+
+def counted_on_card_and_meta(H, torch, label, cfg, topo, shape):
+    """Build ``shape``'s step on the card (``dryrun.build_step``, params from
+    seed 0) and run it once under ``OpCounter``, then the same step on meta;
+    hold the aten FLOPs and bytes equal op for op, the kernel calls equal to
+    the wrappers' launch counts, the flash operations equal to
+    ``kernel_cost``'s count, and the counter's peak within 10% of the card
+    allocator's peak over the same step (from a reset; what else the card
+    held at entry taken off). Then time the step outside the counter (the
+    median of ``STEP_REPEATS``) beside the meta count's roofline bound.
+    Returns the card's step inputs' params (for reuse) freed of the rest."""
+    from repro_torch.launch.dryrun import build_step, count_step
+    from repro_torch.roofline.analysis import collective_bytes, model_flops, roofline_report
+    from repro_torch.roofline.kernel_cost import flash_cost
+
+    step, inputs = build_step(cfg, shape, topo, device=H.dev)
+    torch.cuda.synchronize()
+    wrappers = {"flash_attention_kernel": H.FK.flash_attention_kernel,
+                "ssd_kernel": H.DK.ssd_kernel}
+    before = {name: w.launches for name, w in wrappers.items()}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    card = count_step(step, inputs)
+    torch.cuda.synchronize()
+    card_total = torch.cuda.max_memory_allocated()
+    launched = {name: w.launches - before[name] for name, w in wrappers.items()}
+    meta_step, meta_inputs = build_step(cfg, shape, topo, device="meta")
+    meta = count_step(meta_step, meta_inputs)
+    del meta_step, meta_inputs
+    if dict(meta.flops_by_op) != dict(card.flops_by_op) or \
+            dict(meta.bytes_by_op) != dict(card.bytes_by_op):
+        diff = {k: (card.bytes_by_op.get(k), meta.bytes_by_op.get(k))
+                for k in set(card.bytes_by_op) | set(meta.bytes_by_op)
+                if card.bytes_by_op.get(k) != meta.bytes_by_op.get(k)}
+        raise AssertionError(f"{label}: meta and card aten counts differ: FLOPs "
+                             f"{card.aten_flops} vs {meta.aten_flops}; bytes by op {diff}")
+    if meta.kernel_calls != card.kernel_calls or meta.kernel_ops != card.kernel_ops:
+        raise AssertionError(f"{label}: kernel calls or operations differ, card "
+                             f"{card.kernel_calls} {card.kernel_ops}, meta {meta.kernel_calls} "
+                             f"{meta.kernel_ops}")
+    if {k: v for k, v in launched.items() if v} != dict(card.kernel_calls):
+        raise AssertionError(f"{label}: the counter saw {dict(card.kernel_calls)}, the wrappers "
+                             f"launched {launched}")
+    calls = card.kernel_calls.get("flash_attention_kernel", 0)
+    b_mb = shape.global_batch // topo.num_micro
+    want_ops = calls * flash_cost(b_mb, shape.seq_len, shape.seq_len, cfg.num_heads,
+                                  cfg.num_kv_heads, cfg.head_dim, cfg.head_dim, 4)[0]
+    if card.kernel_ops.get("flash_attention_kernel", 0) != want_ops:
+        raise AssertionError(f"{label}: flash operations {card.kernel_ops} != {want_ops}")
+    # the step's own memory: what it added over what was live at entry
+    # (params, cache, batch are most of the total and need no counting)
+    counted_inc = card.peak_bytes - card.entry_bytes
+    card_inc = card_total - held
+    ratio = counted_inc / card_inc
+    if abs(ratio - 1.0) > PEAK_RTOL:
+        raise AssertionError(f"{label}: the counter's peak increment {counted_inc} B is "
+                             f"{ratio:.4f} of the card's {card_inc} B (limit 1 +- {PEAK_RTOL})")
+    for name in launched:
+        H.launches[name] = H.launches.get(name, 0) + launched[name]
+
+    times = []
+    for _ in range(STEP_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad() if shape.kind != "train" else contextlib.nullcontext():
+            step(*inputs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    median = statistics.median(times)
+    counts = meta.report()
+    device_bytes = counts["bytes"]["aten"] + sum(counts["bytes"]["kernels"].values())
+    report = roofline_report(aten_flops=meta.aten_flops, kernel_ops=counts["flops"]["kernels"],
+                             device_bytes=device_bytes,
+                             device_collective=collective_bytes(counts["collectives"]), chips=1,
+                             model_flops_global=model_flops(cfg, shape,
+                                                            training=shape.kind == "train"),
+                             hw=CARD)
+    log(f"[dryrun-card] {label}: meta == card: aten {card.aten_flops} FLOPs "
+        f"({dict(card.flops_by_op)}), {card.aten_bytes} B over {len(card.bytes_by_op)} ops; "
+        f"kernel calls {dict(card.kernel_calls)} == launches; flash operations "
+        f"{card.kernel_ops.get('flash_attention_kernel', 0)} == kernel_cost; peak increment "
+        f"over entry: counter {counted_inc / 1e9:.6f} GB (peak {card.peak_bytes / 1e9:.6f} less "
+        f"resident {card.entry_bytes / 1e9:.6f}), card {card_inc / 1e9:.6f} GB "
+        f"(max_memory_allocated {card_total / 1e9:.6f} less held {held / 1e9:.6f}), ratio "
+        f"{ratio:.4f}; totals less what the card held outside the step: ratio "
+        f"{card.peak_bytes / (card_total - (held - card.entry_bytes)):.4f}; step (median of "
+        f"{STEP_REPEATS}, outside "
+        f"the counter) {median:.6f} s, dry-run bound_s {report['bound_s']:.6f} s "
+        f"({report['dominant']}: compute {report['compute_s']:.6f}, memory "
+        f"{report['memory_s']:.6f}), step / bound {median / report['bound_s']:.3f} [{H.card}]")
+    params = inputs[0]
+    del step, inputs, card, meta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params
+
+
+def long_context_decode(H, torch, cfg, params):
+    """Decode ``cfg`` (full width) with ``long_context_window`` cut to 64 from
+    an empty ring through positions 0-80, one token a step (the ring wraps
+    after 64), and hold the last step's logits within 1e-3 of the last row
+    of a fresh 81-row prefill of the same config whose layers all take
+    window 64: the flash kernel's window path."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.models.transformer.model import (
+        Topology, init_cache, make_prefill_step, make_serve_step)
+
+    b = 4
+    lcfg = dataclasses.replace(cfg, long_context_window=LONG_WINDOW)
+    topo = Topology(num_stages=1, num_micro=1, long_context=True)
+    dshape = ShapeConfig("long", LONG_STEPS, b, "decode")
+    toks = torch.from_numpy(token_batch(batch=b, seq=LONG_STEPS, vocab=cfg.vocab_size, seed=0)[
+        :, :LONG_STEPS].astype("int32")).to(H.dev)
+    cache = init_cache(lcfg, topo, dshape, device=H.dev)
+    ring = cache["k"].shape[4]
+    step = make_serve_step(lcfg, topo, dshape)
+    H.FK.flash_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for pos in range(LONG_STEPS):
+            _, cache, logits = step(params, cache, {"tokens": toks[:, pos], "pos": pos})
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    del cache
+    wcfg = dataclasses.replace(cfg, window_size=LONG_WINDOW)
+    pshape = ShapeConfig("check", LONG_STEPS, b, "prefill")
+    ptopo = Topology(num_stages=1, num_micro=1)
+    with torch.inference_mode():
+        fresh, _ = make_prefill_step(wcfg, ptopo, pshape)(
+            params, init_cache(wcfg, ptopo, pshape, device=H.dev), {"tokens": toks})
+    torch.cuda.synchronize()
+    launched = H.FK.flash_attention_kernel.launches
+    if launched != cfg.num_layers:
+        raise AssertionError(f"long context: flash launched {launched} times in the windowed "
+                             f"prefill, want {cfg.num_layers}")
+    H.launches["flash_attention_kernel"] += launched
+    err = float((logits - fresh).abs().max())
+    agree = int((logits.argmax(-1) == fresh.argmax(-1)).sum())
+    if not err <= DECODE_VS_PREFILL_ATOL:
+        raise AssertionError(f"long context: decode at position {LONG_STEPS - 1} differs from "
+                             f"the windowed prefill by {err:.3g}")
+    log(f"[dryrun-card] long context: {cfg.name} full width, long_context_window "
+        f"{cfg.long_context_window} -> {LONG_WINDOW}, batch {b}: ring of {ring} slots, "
+        f"{LONG_STEPS} decode steps from empty ({decode_s:.3f} s, "
+        f"{decode_s / LONG_STEPS * 1e3:.3f} ms a step) vs a fresh {LONG_STEPS}-row prefill at "
+        f"window {LONG_WINDOW} ({launched} flash launches, window path): max |logit diff| "
+        f"{err:.6g} (limit {DECODE_VS_PREFILL_ATOL}), argmax agree {agree}/{b} [{H.card}]")
+
+
+def report_predictions(H, torch, predictions):
+    """Wait for the prediction processes (at most ``PREDICTION_TIMEOUT_S``
+    from their start) and print each one-card verdict: peak against the
+    card's memory, the dominant term; they are predictions at the
+    data-sheet rates."""
+    t0, procs = predictions
+    for proc, path, log_file in procs:
+        proc.wait(timeout=max(1.0, PREDICTION_TIMEOUT_S - (time.perf_counter() - t0)))
+        log_file.flush()
+        if proc.returncode != 0:
+            raise AssertionError(f"the dry runs failed ({proc.returncode}): "
+                                 f"{path.read_text()[-2000:]}")
+    log(f"[dryrun] predictions: {time.perf_counter() - t0:.1f} s from their start to the last "
+        f"report, {len(procs)} processes beside phase 20")
+    for arch, shape in itertools.chain(*DRYRUN_PREDICTIONS):
+        r = json.loads((DRYRUN_OUT / f"{arch}__{shape}__1card.json").read_text())
+        mem, rf = r["memory"], r["roofline"]
+        log(f"[dryrun] prediction {arch} x {shape} (meta, full width, {r['num_micro']} "
+            f"micro-batches, counted in {r['count_s']} s beside phase 20): peak "
+            f"{mem['peak_estimate_gib']} GiB {'fits' if mem['fits'] else 'does NOT fit'} the "
+            f"{mem['card_gib']} GiB card; aten {r['flops']['aten']:.6g} FLOPs, kernels "
+            f"{r['flops']['kernels']}, {r['bytes']['total']:.6g} B; dominant "
+            f"{rf['dominant']} ({rf['bound_s']:.6g} s: compute {rf['compute_s']:.6g}, memory "
+            f"{rf['memory_s']:.6g}) at the data-sheet rates of {r['card']} [{H.card}]")
+
+
+def phase_dryrun(H, torch):
+    """Phase 19: the dry run against the card. The codeqwen1.5-7b prefill at
+    phase 8's shapes (full width, 512 tokens, batch 8, 2 micro-batches) and
+    its 8-layer training step at phase 16b's (seq 256, batch 8, 2
+    micro-batches, 4 loss chunks, remat), each counted on the card and on
+    meta (``counted_on_card_and_meta``); the long-context windows on the
+    card (``long_context_decode``). The full-width predictions count
+    beside phase 20 (``start_predictions``, ``report_predictions``)."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models.transformer.model import Topology
+
+    cfg = get_arch("codeqwen1.5-7b")
+    params = counted_on_card_and_meta(
+        H, torch, "codeqwen1.5-7b prefill (phase 8: 512 tokens, batch 8, 2 micro-batches)", cfg,
+        Topology(num_stages=1, num_micro=2), ShapeConfig("serve_prefill", 512, 8, "prefill"))
+    long_context_decode(H, torch, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=8)
+    counted_on_card_and_meta(
+        H, torch, "codeqwen1.5-7b train step, 8 layers (phase 16b: seq 256, batch 8, 2 "
+        "micro-batches, 4 loss chunks, remat)", cut,
+        Topology(num_stages=1, num_micro=2, loss_chunks=4), ShapeConfig("cli", 256, 8, "train"))
+
+
+EXAMPLES = (  # phase 20: (script, arguments): the defaults, or the CPU test's where
+    # the defaults took over 60 s on the card (95.7 s each, the five started together)
+    ("quickstart", []),
+    ("serve_batched", []),
+    ("lm_pretrain", []),
+    ("pipeline_parallel_gnn", ["--dataset", "karate", "--epochs", "2"]),
+    ("scaling_larger_graphs", ["--dataset", "karate", "--num-nodes", "2048", "--chunks", "4",
+                               "--epochs", "1"]),
+)
+EXAMPLE_TIMEOUT_S = 300
+
+
+def phase_examples(H, torch):
+    """Phase 20: each ``examples/torch/`` script in a subprocess of its own,
+    on its default device (the card), all started together; each must exit
+    0. Prints each one's wall seconds and its last line."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for name, argv in EXAMPLES:
+        path = ROOT / "examples" / "torch" / f"{name}.py"
+        procs.append((name, argv, time.perf_counter(), subprocess.Popen(
+            [sys.executable, str(path), *argv], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, argv, t0, proc in procs:
+        try:
+            out, _ = proc.communicate(
+                timeout=max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        wall = time.perf_counter() - t0
+        lines = [line for line in out.splitlines() if line.strip()]
+        args = f"the CPU test's arguments {' '.join(argv)} (the defaults take over 60 s)" \
+            if argv else "the defaults"
+        log(f"[examples] {name}, {args}: exit {proc.returncode} in "
+            f"{wall:.1f} s; last line: {lines[-1][:200] if lines else ''} [{H.card}]")
+        if proc.returncode != 0:
+            failed.append(name)
+            log("\n".join(lines[-30:]))
+    if failed:
+        raise AssertionError(f"examples failed on the card: {failed}")
+
+
 def main() -> int:
     import torch
 
@@ -3203,6 +3491,32 @@ def main() -> int:
                 log(f"[build] {line.strip()}")
 
     H = Harness(torch, K, S, torch.device("cuda"), card_line, FK=FK, DK=DK)
+    run_phases(H, torch)
+
+    kernels = []
+    for name, replaces in REPLACES.items():
+        tm = H.timing[name]
+        if not H.launches.get(name):
+            raise AssertionError(f"{name} was not launched on its main path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": replaces,
+            "launches": H.launches[name], "max_abs_err": H.err[name],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+        })
+    log("[compare] largest share of the tolerance used, per kernel: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
+    log(f"[done] all 20 phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"[card] {card_line}")
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(H, torch):
+    """Phases 2-20, each timed."""
 
     def phase(label, fn, *args):
         t0 = time.perf_counter()
@@ -3240,27 +3554,16 @@ def main() -> int:
     phase("16", phase_lm_training)
     phase("17", phase_frontend_lm)
     phase("18", phase_moe_lm)
-
-    kernels = []
-    for name, replaces in REPLACES.items():
-        tm = H.timing[name]
-        if not H.launches.get(name):
-            raise AssertionError(f"{name} was not launched on its main path")
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": replaces,
-            "launches": H.launches[name], "max_abs_err": H.err[name],
-            "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
-        })
-    log("[compare] largest share of the tolerance used, per kernel: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
-    log(f"[done] all 18 phases passed in {time.perf_counter() - t_start:.1f} s")
-    log(f"[card] {card_line}")
-    log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    torch.cuda.empty_cache()
+    phase("19", phase_dryrun)
+    # phase 19's full-width predictions count on the host's other cores
+    # while the examples run: no timed phase runs beside them
+    predictions = start_predictions()
+    try:
+        phase("20", phase_examples)
+        phase("19", report_predictions, predictions)
+    finally:
+        stop_predictions(predictions)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,11 @@ seen by row i when ``kv_pos[j] <= q_pos[i]``, and within the window of
 ``q_pos[i]``). On CUDA tensors it launches
 ``csrc/flash.cu`` (and counts the launch in ``.launches``); on CPU tensors
 it returns the plain version ``ref.flash_attention_ref``, whose KV block is
-``kv_block`` (the kernel tiles KV by 16, 32 or 64 keys whatever it is).
+``kv_block`` (the kernel tiles KV by 16, 32 or 64 keys whatever it is); on
+meta tensors it checks and allocates as for a launch and returns the output
+empty. Every call hands its cost (``roofline.kernel_cost.flash_cost``) to
+an active operation counter (``kernels.kernel_call``); on meta tensors the
+positions' values come from ``kernels.host_values``.
 Anything else raises: a wrong device, dtype, shape, head grouping, a
 non-contiguous tensor, one position vector without the other, or positions
 that decrease (the kernel skips KV tiles by their first and last keys'
@@ -28,7 +32,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import check_tensor, takes_kernel
+from repro_torch.kernels import check_tensor, host_values, kernel_call, takes_kernel
 from repro_torch.kernels._build import BuiltLibrary, load_library
 from repro_torch.kernels.flash.ref import flash_attention_ref
 from repro_torch.models.transformer.attention import softmax_scale
@@ -40,7 +44,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def check_order(name: str, pos: torch.Tensor) -> None:
     """Raise unless the position vector ``pos`` is non-decreasing (one host
-    read of it)."""
+    read of it; on a meta tensor, its attached values)."""
+    if pos.is_meta:
+        pos = torch.from_numpy(host_values(pos))
     if pos.numel() > 1 and bool((pos[1:] < pos[:-1]).any()):
         raise ValueError(f"{name} decreases: the kernel takes non-decreasing positions")
 
@@ -73,9 +79,27 @@ def flash_attention_kernel(
     ``ordered``: the caller has checked that the positions do not decrease."""
     if (q_pos is None) != (kv_pos is None):
         raise ValueError("give both q_pos and kv_pos, or neither")
-    if not takes_kernel(q, k, v, q_pos, kv_pos):
+    with kernel_call("flash_attention_kernel",
+                     lambda: cost(q, k, v, window=window, q_pos=q_pos, kv_pos=kv_pos)):
+        return _flash(q, k, v, window, softcap, kv_block, q_pos, kv_pos, ordered)
+
+
+def cost(q, k, v, *, window=0, q_pos=None, kv_pos=None) -> tuple[int, int]:
+    """(operations, bytes) of one launch on these inputs
+    (``roofline.kernel_cost.flash_cost``; reads the positions' values)."""
+    from repro_torch.roofline.kernel_cost import flash_cost
+
+    b, sq, h, hd = q.shape
+    _, skv, kv, _ = k.shape
+    pos = {} if q_pos is None else {"q_pos": host_values(q_pos), "kv_pos": host_values(kv_pos)}
+    return flash_cost(b, sq, skv, h, kv, hd, v.shape[-1], q.element_size(), window, **pos)
+
+
+def _flash(q, k, v, window, softcap, kv_block, q_pos, kv_pos, ordered):
+    if not takes_kernel(q, k, v, q_pos, kv_pos, meta=True):
+        # contiguous, as the kernel writes it, so what follows runs alike on every route
         return flash_attention_ref(q, k, v, window=window, softcap=softcap, kv_block=kv_block,
-                                   q_pos=q_pos, kv_pos=kv_pos)
+                                   q_pos=q_pos, kv_pos=kv_pos).contiguous()
     b, sq, h, hd = q.shape
     _, skv, kv, _ = k.shape
     hd_v = v.shape[-1]
@@ -98,6 +122,8 @@ def flash_attention_kernel(
         return out
     if skv == 0:
         raise ValueError("no keys: Skv = 0")
+    if q.is_meta:
+        return out
     lib = library().lib
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

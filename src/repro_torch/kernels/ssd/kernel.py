@@ -8,7 +8,11 @@ state. On CUDA tensors it runs ``csrc/ssd.cu`` — three CUDA launches per
 call (chunk states, the state pass, the output), counted once per call in
 ``.launches`` — with the chunk states in a (b, h, chunks, P, N) scratch it
 allocates; on CPU tensors it returns the plain version
-``ref.ssd_chunk_scan``. Anything else raises: a wrong device, dtype, shape,
+``ref.ssd_chunk_scan``; on meta tensors it checks the shapes and
+allocates as for a launch (the shared-memory check needs the built
+library) and returns y and the state empty. Every call hands its cost
+(``roofline.kernel_cost.ssd_cost``) to an active operation counter
+(``kernels.kernel_call``). Anything else raises: a wrong device, dtype, shape,
 a non-contiguous tensor, a head dim P above 64 or a chunk above 128 (the
 kernel's register tiles), or a (P, N, chunk) whose tiles exceed a block's
 shared memory.
@@ -22,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import check_tensor, takes_kernel
+from repro_torch.kernels import check_tensor, kernel_call, takes_kernel
 from repro_torch.kernels._build import BuiltLibrary, load_library
 from repro_torch.kernels.ssd.ref import ssd_chunk_scan
 
@@ -54,8 +58,23 @@ def ssd_kernel(
     chunk: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The chunked SSD scan from a zero state -> (y, final state)."""
-    if not takes_kernel(x, dt, loga, B, C):
-        return ssd_chunk_scan(x, dt, loga, B, C, chunk=chunk)
+    with kernel_call("ssd_kernel", lambda: cost(x, B, chunk=chunk)):
+        return _ssd(x, dt, loga, B, C, chunk)
+
+
+def cost(x, B, *, chunk: int = 128) -> tuple[int, int]:
+    """(operations, bytes) of one call on these inputs
+    (``roofline.kernel_cost.ssd_cost``)."""
+    from repro_torch.roofline.kernel_cost import ssd_cost
+
+    b, s, h, p = x.shape
+    return ssd_cost(b, s, h, p, B.shape[-1], chunk)
+
+
+def _ssd(x, dt, loga, B, C, chunk):
+    if not takes_kernel(x, dt, loga, B, C, meta=True):
+        # contiguous, as the kernel writes them, so what follows runs alike on every route
+        return tuple(t.contiguous() for t in ssd_chunk_scan(x, dt, loga, B, C, chunk=chunk))
     b, s, h, p = x.shape
     n = B.shape[-1]
     check_tensor("x", x, torch.float32, (b, s, h, p))
@@ -74,6 +93,8 @@ def ssd_kernel(
     chunks = -(-s // chunk)
     states = torch.empty((b, h, chunks, p, n), dtype=torch.float32, device=x.device)
     decay = torch.empty((b, h, chunks), dtype=torch.float32, device=x.device)
+    if x.is_meta:
+        return y, state
     lib = library().lib
     smem = lib.ssd_smem_bytes(p, n, chunk)
     if smem > MAX_SMEM_BYTES:

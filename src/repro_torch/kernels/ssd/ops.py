@@ -10,15 +10,16 @@ custom VJP differentiates ``ssd_chunked``.
 
 The kernel starts from a zero state. ``h0`` is taken on the CPU route; on a
 CUDA tensor a nonzero ``h0`` raises (an all-zero one is the kernel's own
-start).
+start). On a meta tensor (the dry run) ``h0`` cannot be read: the op takes
+the kernel's zero-state start, which is what a prefill hands it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import plain_vjp
-from repro_torch.kernels.ssd.kernel import ssd_kernel
+from repro_torch.kernels import kernel_call, plain_vjp
+from repro_torch.kernels.ssd.kernel import cost, ssd_kernel
 from repro_torch.kernels.ssd.ref import ssd_chunk_scan
 
 
@@ -32,13 +33,17 @@ class _Ssd(torch.autograd.Function):
         x, dt, B, C = (t.contiguous() for t in (x, dt, B, C))
         ctx.save_for_backward(x, dt, A, B, C, h0)
         ctx.chunk = chunk
-        if h0 is not None:
-            if not x.is_cuda:
-                return ssd_chunk_scan(x, dt, _loga(dt, A), B, C, chunk=chunk, h0=h0)
-            if bool(h0.count_nonzero()):
-                raise ValueError("the SSD kernel starts from a zero state; got a nonzero "
-                                 "h0 on a CUDA tensor")
-        return ssd_kernel(x, dt, _loga(dt, A).contiguous(), B, C, chunk=chunk)
+        loga = _loga(dt, A)
+        # one kernel call for the counter (``kernels.kernel_call``), whichever route
+        with kernel_call("ssd_kernel", lambda: cost(x, B, chunk=chunk)):
+            if h0 is not None:
+                if x.is_cpu:
+                    return tuple(t.contiguous() for t in ssd_chunk_scan(
+                        x, dt, loga, B, C, chunk=chunk, h0=h0))
+                if x.is_cuda and bool(h0.count_nonzero()):
+                    raise ValueError("the SSD kernel starts from a zero state; got a nonzero "
+                                     "h0 on a CUDA tensor")
+            return ssd_kernel(x, dt, loga.contiguous(), B, C, chunk=chunk)
 
     @staticmethod
     def backward(ctx, ct_y, ct_h):

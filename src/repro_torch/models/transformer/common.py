@@ -27,8 +27,11 @@ def normal_init(
 ) -> torch.Tensor:
     """``scale``-scaled standard normals drawn from ``gen`` on ``device``
     (the generator's own device when None), scaled in place so a large leaf
-    costs one allocation."""
+    costs one allocation. On the meta device nothing is drawn: the leaf comes
+    back empty (``model.abstract_params``)."""
     device = gen.device if device is None else device
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     out = torch.randn(tuple(shape), generator=gen, device=device, dtype=torch.float32)
     return out.mul_(scale).to(dtype)
 

@@ -21,6 +21,9 @@ Parameters and caches keep the JAX layout, so the two compare leaf by leaf:
   conv_dim); the hybrid's cache is ``{"mamba": …, "attn": …}``, one
   attention slot per group.
 
+``abstract_params`` builds the parameter tree on the ``meta`` device
+(shapes and dtypes, no data): the dry run's (``launch/dryrun.py``).
+
 Per-slot extras (``active``, ``window``) are numpy arrays read as Python
 numbers: a padding slot (``active == 0``) is skipped, so it is the identity,
 leaves its cache as it was, and its parameters get zero gradients. The
@@ -46,6 +49,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig, pipeline_padding
+from repro_torch.kernels import attach_values
 from repro_torch.kernels.flash.kernel import check_order
 from repro_torch.models.transformer import blocks as B
 from repro_torch.models.transformer.common import normal_init, rms_norm, softcap
@@ -58,7 +62,10 @@ class Topology:
     attention's KV block (the CPU route of the flash op), and for training
     the schedule (``fill_drain`` or ``interleaved`` over ``num_stages /
     num_virtual`` ring positions), activation recomputation per (stage,
-    micro-batch) and the loss's batch chunks."""
+    micro-batch) and the loss's batch chunks. ``long_context`` is the
+    one-card part of the reference's ``seq_shard_decode``: a decode whose
+    layers all take ``layer_windows(long_context=True)``'s windows, over a
+    ring as wide as the largest (``cache_plan``); nothing is sharded."""
 
     num_stages: int = 1
     num_micro: int = 1
@@ -67,6 +74,7 @@ class Topology:
     num_virtual: int = 1
     remat: bool = True
     loss_chunks: int = 8
+    long_context: bool = False
 
     @property
     def pipe_devices(self) -> int:
@@ -128,7 +136,26 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, num_stages: int = 1,
     zero norms and biases, the Mamba constants; not its bits — tests that
     compare with JAX convert its params instead)."""
     check_supported(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    return _build_params(cfg, torch.Generator(device=device).manual_seed(seed), num_stages, dtype)
+
+
+class _NoDraws:
+    """Stands for the generator on the meta device, where nothing is drawn
+    (``common.normal_init`` returns empty leaves there)."""
+
+    device = torch.device("meta")
+
+
+def abstract_params(cfg: ArchConfig, num_stages: int = 1, dtype=torch.float32) -> dict:
+    """``init_params``' tree on the meta device: its shapes and dtypes, no
+    data and no draws. Counterpart of the reference's ``_abstract_params``
+    (``jax.eval_shape`` of its init)."""
+    check_supported(cfg)
+    return _build_params(cfg, _NoDraws(), num_stages, dtype)
+
+
+def _build_params(cfg: ArchConfig, gen, num_stages: int, dtype) -> dict:
+    device = gen.device
     params = {
         "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), dtype=dtype),
         "final_ln": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
@@ -145,13 +172,14 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, num_stages: int = 1,
     return params
 
 
-def make_extras(cfg: ArchConfig, num_stages: int) -> dict:
+def make_extras(cfg: ArchConfig, num_stages: int, *, long_context: bool = False) -> dict:
     """Per-layer-slot metadata, (num_stages, slots) numpy arrays: ``active``
-    (0 on pipeline padding) and ``window`` (0 = global); a hybrid's is
-    ``{"mamba": {"active"}, "attn": {"active", "window"}}``."""
+    (0 on pipeline padding) and ``window`` (0 = global; with
+    ``long_context``, every global layer takes ``cfg.long_context_window``);
+    a hybrid's is ``{"mamba": {"active"}, "attn": {"active", "window"}}``."""
     plan = stacked_shape_plan(cfg, num_stages)
     per = plan["per_stage"]
-    wins = cfg.layer_windows()
+    wins = cfg.layer_windows(long_context=long_context)
     if cfg.arch_type == "hybrid":
         every = cfg.hybrid_attn_every
         m_per, a_per = plan["mamba_per_stage"], plan["attn_per_stage"]
@@ -210,7 +238,9 @@ def make_positions(cfg: ArchConfig, seq: int, device=None) -> torch.Tensor:
     """(S,) int32 rope positions, or (3, S) for m-rope: the frontend rows on
     a side x side grid at t = 0, then the text at t = h = w = 1, 2, ...
     Built from numpy, as the reference builds them. The t-row, the flash
-    kernel's mask order (``blocks.attn_apply``), never decreases."""
+    kernel's mask order (``blocks.attn_apply``), never decreases. On the meta
+    device the values ride along (``kernels.attach_values``), so the flash
+    kernel's cost counts the pairs they mask."""
     if cfg.rope_kind != "mrope":
         return torch.arange(seq, dtype=torch.int32, device=device)
     s_front = frontend_rows(cfg, seq)
@@ -219,7 +249,9 @@ def make_positions(cfg: ArchConfig, seq: int, device=None) -> torch.Tensor:
     t = np.where(idx < s_front, 0, idx - s_front + 1)
     hh = np.where(idx < s_front, (idx // side) % side, idx - s_front + 1)
     ww = np.where(idx < s_front, idx % side, idx - s_front + 1)
-    return torch.from_numpy(np.stack([t, hh, ww]).astype(np.int32)).to(device)
+    grid = np.stack([t, hh, ww]).astype(np.int32)
+    out = torch.from_numpy(grid).to(device)
+    return attach_values(out, grid) if out.is_meta else out
 
 
 def lm_head_logits(cfg: ArchConfig, params: dict, y: torch.Tensor) -> torch.Tensor:
@@ -265,9 +297,17 @@ def labels_from_batch(batch: dict, seq: int) -> tuple[torch.Tensor, torch.Tensor
 
 def cache_plan(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> dict:
     """Static cache geometry: micro-batch rows and ring width (decode:
-    seq_len + 16 slots; prefill: seq_len)."""
+    seq_len + 16 slots, or with ``topo.long_context`` the largest window of
+    ``layer_windows(long_context=True)``, 0 for an SSM, as at
+    ``repro/models/transformer/model.py:675-680`` unsharded; prefill:
+    seq_len)."""
     b_mb = max(shape.global_batch // topo.num_micro, 1)
-    w = shape.seq_len + 16 if shape.kind == "decode" else shape.seq_len
+    if shape.kind != "decode":
+        w = shape.seq_len
+    elif topo.long_context:
+        w = max(cfg.layer_windows(long_context=True)) if cfg.arch_type != "ssm" else 0
+    else:
+        w = shape.seq_len + 16
     return {"b_mb": b_mb, "w_total": w, "w_local": w, "nm": topo.num_micro}
 
 
@@ -534,9 +574,11 @@ def make_prefill_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> Ca
 def make_serve_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> Callable:
     """One decode step: ``step(params, cache, {"tokens": (B,), "pos": int})
     -> (next tokens (B,) int32, cache, logits (B, V) float32)``, the cache
-    (from ``init_cache`` at ``shape``) updated in place at slot pos mod W."""
+    (from ``init_cache`` at ``shape``) updated in place at slot pos mod W.
+    With ``topo.long_context`` every layer attends within its long-context
+    window, over a ring that wraps at the largest (``cache_plan``)."""
     check_supported(cfg)
-    extras = make_extras(cfg, topo.num_stages)
+    extras = make_extras(cfg, topo.num_stages, long_context=topo.long_context)
     order = _fill_drain_order(topo.num_stages, topo.num_micro)
 
     def serve_step(params: dict, cache: dict, batch: dict):

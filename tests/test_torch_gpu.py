@@ -967,3 +967,34 @@ def test_moe_apply_deterministic_on_card(cuda, router_kind, shared, dense):
     assert all(torch.equal(a, b) for a, b in zip(first, again, strict=True))
     for got, ref in zip(first, want, strict=True):
         torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "mamba2-130m", "qwen2-vl-2b"])
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_meta_counts_equal_card_counts(cuda, arch, kind):
+    """``roofline.counter.OpCounter`` over one smoke-size step (B 4, S 64, 2
+    micro-batches) on the card and on meta: aten FLOPs and bytes equal op for
+    op, kernel calls equal to the wrappers' launch counts, the kernels'
+    operations equal. (The peak is held at full width in the smoke's phase
+    19: at this size the allocator's 512-byte rounding of small blocks
+    weighs.)"""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.dryrun import build_step, count_step
+    from repro_torch.models.transformer.model import Topology
+
+    cfg = get_arch(arch, smoke=True)
+    shape = ShapeConfig("x", 80 if kind == "decode" else 64, 4, kind)
+    topo = Topology(num_stages=1, num_micro=2)
+    wrappers = {"flash_attention_kernel": FK.flash_attention_kernel, "ssd_kernel": SSK.ssd_kernel}
+    step, inputs = build_step(cfg, shape, topo, device=cuda)
+    torch.cuda.synchronize()
+    before = {name: w.launches for name, w in wrappers.items()}
+    card = count_step(step, inputs)
+    torch.cuda.synchronize()
+    launched = {name: w.launches - before[name] for name, w in wrappers.items()}
+    meta = count_step(*build_step(cfg, shape, topo, device="meta"))
+    assert dict(meta.flops_by_op) == dict(card.flops_by_op)
+    assert dict(meta.bytes_by_op) == dict(card.bytes_by_op)
+    assert meta.kernel_calls == card.kernel_calls == {k: v for k, v in launched.items() if v}
+    assert meta.kernel_ops == card.kernel_ops and meta.kernel_bytes == card.kernel_bytes

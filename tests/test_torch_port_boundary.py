@@ -1,6 +1,6 @@
-"""The port stands alone: no module under ``src/repro_torch/``, and not
-``chip_smoke.py``, imports ``jax`` or the JAX package ``repro``; and every
-port module imports with ``torch`` alone."""
+"""The port stands alone: no module under ``src/repro_torch/``, no script of
+``examples/torch/``, and not ``chip_smoke.py``, imports ``jax`` or the JAX
+package ``repro``; and every port module imports with ``torch`` alone."""
 
 import ast
 import importlib
@@ -10,7 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -42,6 +43,11 @@ def test_port_files_found():
     assert (port / "kernels" / "flash" / "csrc" / "flash.cu").exists()
     assert (port / "kernels" / "ssd" / "csrc" / "ssd.cu").exists()
     assert (port / "launch" / "serve.py").exists()
+    assert (port / "launch" / "dryrun.py").exists()
+    assert (port / "roofline" / "render.py").exists()
+    assert (port / "roofline" / "counter.py").exists()
+    assert {"quickstart.py", "pipeline_parallel_gnn.py", "scaling_larger_graphs.py",
+            "serve_batched.py", "lm_pretrain.py"} <= names
 
 
 def test_every_port_module_imports():
