@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Chip smoke for the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+"""Chip smoke for the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA GPUs.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # phases 1-20 on one card (21 on 2+)
+    python3 chip_smoke.py --phases 21    # phase 1, then phase 21 on up to 4 cards
 
 Phases (each prints its seconds); any failure stops the run with a non-zero
 exit:
@@ -262,16 +263,61 @@ exit:
    deepseek-v3-671b at train_4k): each one-card verdict (peak against the
    card's 80 GiB, the dominant term) prints after the examples.
 
-Every bound divides by the card's data-sheet rates from
-``repro_torch.roofline.analysis.HW``, which knows the card by its name.
-The last three lines are the card's name and power limit, the ``kernels``
-JSON line, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-without the repo's ``src/`` beside it, the script exits non-zero and prints
-no result.
+21. Across cards (``[ranks]``), on every visible card up to 4; on a machine
+   with one card it prints that it did not run (it needs 2+ cards, as on a
+   host with 4 H100s) and ``[done]`` names it; with 2-3 cards it runs 21a
+   and 21b on 2 ranks, and ``[done]`` names the legs that did not run. 21a:
+   the host engine with
+   one card per stage (``GPipeConfig.devices``, one process), the paper GAT
+   on cora (8 heads x 8 hidden), 4 stages x 8 halo chunks, ``--backend
+   pallas``: fill_drain, and zb-h1 under ``Placement.ring(4, rotation=2,
+   device_order=(2, 0, 3, 1))``, each bit-identical after 3 steps (dropout
+   on, deterministic algorithms) to one-card host fill_drain, every
+   bucket-GAT launch held against the plain version on its stage's card,
+   each median step beside the one-card step. Then the four GNN kernels
+   timed on one card at the ring paths' shapes, and ``chip_smoke.py
+   --rank-worker`` under ``torchrun``, one rank per card (NCCL), which
+   writes each rank's lines and checks to ``build/phase21/``: 21b the same
+   model through ``run_gnn`` and the compiled engine on the ring
+   (fill_drain, 1f1b, zb-h1 and 1f1b ``--overlap double-buffer`` on 4 ranks;
+   interleaved and zb-v with ``--pipe-devices 2`` on 2): losses, params and
+   eval bit-identical to one-card host fill_drain on every rank, each rank's
+   bucket-GAT launches held against the plain version at its own inputs,
+   per rank the median step, beside the one-card compiled step timed with
+   the smoke's CPU threads and with one, as torchrun starts each rank; rank
+   0 prints every rank's traced step: its busy share, NCCL time and hidden
+   share. 21c fig3's scale
+   configuration (powerlaw-64k GCN, hidden 32, depth 2, 8 chunks, 1f1b) at
+   ``data_parallel`` 2 x 2 stages on 4 ranks, bit-identical to
+   ``data_parallel`` 1 on one card, its eval over the bucketed layout and
+   over the padded stacked batch (the padded SpMM kernel); both SpMM
+   kernels held per rank. 21d ``serve_gnn.run`` on the 4-rank ring (cora,
+   ``--verify`` at 1e-5): every query answered, the padded GAT kernel held
+   on each rank, q/s, p50 and p99 beside phase 3b's one-card compiled
+   serve in the same call (``--phases 21`` runs phase 3 too) and the
+   one-card serve at both thread counts. 21e powerlaw-1m (2^20 nodes), the paper GAT, 4 stages x 8
+   chunks on 4 ranks: each rank builds the plan, one deterministic step,
+   two timed; then rank 0 leaves the group and holds the step bit for bit
+   against the one-card compiled step (phase 14a's) and times that. Last,
+   ``torchrun -m repro_torch.launch.train`` and ``-m
+   repro_torch.launch.serve_gnn`` as a user starts them on 4 cards: one
+   result dict (rank 0), losses within 1e-5 of one card's, every query
+   verified.
+
+``--phases`` (e.g. ``--phases 21``) runs phase 1, then the phases named (and
+those whose results they take), then the closing lines; the kernels line
+lists the kernels those phases launched. Every bound divides by the card's
+data-sheet rates from ``repro_torch.roofline.analysis.HW``, which knows the
+card by its name. The last three lines are the card's name and power limit,
+the ``kernels`` JSON line, and ``{"ok": true, "device": {...}}``. Without a
+CUDA device, or without the repo's ``src/`` beside it, the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
+import ast
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -280,6 +326,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -887,13 +934,15 @@ def phase_bucketed(H, torch):
     return model_k, params, skew, layout
 
 
-def phase_timing(H, torch, bucketed):
+def served_cora_calls(H, torch):
+    """The padded GAT kernel's inputs of one served cora batch (4
+    ego-subgraphs in the 64-node bucket), its label, and the model, params
+    and graph they came from."""
+    from repro_torch.core.pipeline import GPipeConfig, make_engine
     from repro_torch.graphs import load_dataset, stack_graphs
     from repro_torch.launch.serve_gnn import GNNServer, Query, ShapeBuckets
-    from repro_torch.core.pipeline import GPipeConfig, make_engine
     from repro_torch.models.gnn.net import build_paper_gat
 
-    # one served cora batch: 4 ego-subgraphs in the 64-node bucket
     cora = load_dataset("cora")
     model = build_paper_gat(cora.num_features, cora.num_classes, backend="kernel")
     params = model.init_params(0, device=H.dev)
@@ -906,9 +955,14 @@ def phase_timing(H, torch, bucketed):
     for c in range(batch.features.shape[0]):
         g = batch.chunk(c)
         calls += gat_calls(torch, model, params, g, [g.neighbors], [g.mask], [None])
-    H.timing["gat_aggregate_kernel"] = H.record_timing(
-        "gat_aggregate_kernel", f"one served cora batch (4 chunks x n_pad "
-        f"{batch.features.shape[1]} x W {batch.neighbors.shape[2]})", calls)
+    label = (f"one served cora batch (4 chunks x n_pad {batch.features.shape[1]} x W "
+             f"{batch.neighbors.shape[2]})")
+    return calls, label, model, params, cora
+
+
+def phase_timing(H, torch, bucketed):
+    calls, label, model, params, cora = served_cora_calls(H, torch)
+    H.timing["gat_aggregate_kernel"] = H.record_timing("gat_aggregate_kernel", label, calls)
 
     full = cora.to(H.dev)
     full_calls = gat_calls(torch, model, params, full, [full.neighbors], [full.mask], [None])
@@ -1229,6 +1283,7 @@ def phase_serve_compiled(H, torch, host):
         f"(host {host['eval_call_s'] * 1e3}); padded-kernel launches recorded (warm-up + "
         f"capture) {launched}; a profiled served call: {in_replay} GAT launches inside the "
         f"replay, device busy {device_ms:.6f} ms [{H.card}]")
+    return summary
 
 
 def engine_numbers(H, torch, pipe, params, opt, plan, kernel_part, steps=4):
@@ -2682,16 +2737,21 @@ def profile_steps(H, torch, label, served, keys):
 
 
 class KernelCapture:
-    """Route the flash and SSD ops' kernel wrappers through recorders while
-    a main path runs: each wrapper's count starts at 0, the first
-    ``limits[name]`` calls' (args, kwargs, output) are kept in
-    ``captured[name]``, and ``launches[name]`` holds the count on exit."""
+    """Route the ops' kernel wrappers (flash, SSD, and the GAT and SpMM
+    kernels) through recorders while a main path runs: each wrapper's count
+    starts at 0, the first ``limits[name]`` calls' (args, kwargs, output)
+    are kept in ``captured[name]``, and ``launches[name]`` holds the count
+    on exit."""
 
     def __init__(self, limits: dict):
         from repro_torch.kernels.flash import ops as flash_ops
+        from repro_torch.kernels.gat_edge import ops as gat_ops
+        from repro_torch.kernels.spmm import ops as spmm_ops
         from repro_torch.kernels.ssd import ops as ssd_ops
 
-        self.ops = {"flash_attention_kernel": flash_ops, "ssd_kernel": ssd_ops}
+        self.ops = {"flash_attention_kernel": flash_ops, "ssd_kernel": ssd_ops,
+                    "gat_aggregate_kernel": gat_ops, "bucket_gat_kernel": gat_ops,
+                    "padded_spmm_kernel": spmm_ops, "bucket_spmm_kernel": spmm_ops}
         self.limits = limits
         self.captured = {name: [] for name in limits}
         self.launches = {}
@@ -2726,11 +2786,21 @@ class KernelCapture:
         ``scaled_dot_product_attention`` (on the global, uncapped calls) and
         the float32 plain version use against the float64 one."""
         from repro_torch.kernels.flash.ref import flash_attention_ref
+        from repro_torch.kernels.gat_edge.ref import gat_edge_ref
+        from repro_torch.kernels.spmm.ref import padded_spmm_ref
 
         sdpa_used = plain32_used = 0.0
         for name, calls in self.captured.items():
             for i, (a, kw, out) in enumerate(calls):
-                if name == "flash_attention_kernel":
+                if name in ("gat_aggregate_kernel", "bucket_gat_kernel"):
+                    H._held(name, f"{label} call {i:3d}", out, gat_edge_ref(*a, **kw), None,
+                            f"R={a[3].shape[0]:6d} W={a[3].shape[1]:4d} H={a[0].shape[1]} "
+                            f"F={a[0].shape[2]:3d} {a[0].device}")
+                elif name in ("padded_spmm_kernel", "bucket_spmm_kernel"):
+                    H._held(name, f"{label} call {i:3d}", out, padded_spmm_ref(*a), None,
+                            f"R={a[1].shape[0]:6d} W={a[1].shape[1]:4d} F={a[0].shape[1]:3d} "
+                            f"{a[0].device}")
+                elif name == "flash_attention_kernel":
                     pos = {"q_pos": kw.get("q_pos"), "kv_pos": kw.get("kv_pos")}
                     args = {"window": kw["window"], "softcap": kw["softcap"], **pos}
                     compare_flash(H, f"{label} call {i:3d}", *a, out=out, **args)
@@ -3452,7 +3522,656 @@ def phase_examples(H, torch):
         raise AssertionError(f"examples failed on the card: {failed}")
 
 
+# ------------------------------------------------------ phase 21: across cards --
+
+RANK_CARDS = 4  # phase 21 runs on up to this many cards
+RANK_LAUNCH_TIMEOUT_S = 900  # one torchrun launch of phase 21, start-up and plan builds included
+RANKS_DIR = ROOT / "build" / "phase21"
+PHASE21_SKIP = "phase 21 needs 2+ cards (run it on a host with 4 cards)"
+RING_ARGS = [  # 21a-b: the paper GAT on cora (8 heads x 8 hidden), 4 stages x 8 chunks
+    "--mode", "gnn", "--dataset", "cora", "--stages", "4", "--chunks", "8", "--strategy", "halo",
+    "--backend", "pallas", "--log-every", "0",
+]
+RING_STEPS = 3  # steps held bit for bit against one card
+RING_TIMED = 6  # timed steps per configuration (the first dropped)
+RING_CASES = {  # ranks -> (schedule, overlap) run through run_gnn and the engine
+    4: (("fill_drain", "off"), ("1f1b", "off"), ("zb-h1", "off"), ("1f1b", "double-buffer")),
+    2: (("interleaved", "off"), ("zb-v", "off")),
+}
+HOST_RING = dict(rotation=2, device_order=(2, 0, 3, 1))  # 21a: the reference's placed host test
+GRID_STEPS = 3
+CAPTURE_LIMIT = 32  # kernel calls a rank keeps, per kernel, to hold against the plain version
+
+
+def sync_engine(pipe):
+    """Wait for every device ``pipe`` runs on (a host engine with
+    ``devices`` spans several)."""
+    from repro_torch.train.loop import synchronize
+
+    for device in sorted(set(getattr(pipe, "_stage_devices", [])) | {pipe.device}, key=str):
+        synchronize(device)
+
+
+def train_steps(torch, pipe, plan, steps, seed=0, params=None):
+    """``run_gnn``'s training from ``params`` (the engine's seed init by
+    default): Adam 5e-3 with weight decay 5e-4, the step key
+    ``fold_in(seed, epoch)``. Returns (params cloned, optimizer state,
+    optimizer, losses), each step synchronized."""
+    from repro_torch.models.gnn.net import fold_in
+    from repro_torch.train import optimizer as opt_lib
+
+    params = pipe.init_params(seed) if params is None else params
+    opt = opt_lib.adam(5e-3, weight_decay=5e-4)
+    state, losses = opt.init(params), []
+    for epoch in range(steps):
+        params, state, loss = pipe.train_step(params, state, plan, fold_in(seed, epoch), opt)
+        sync_engine(pipe)
+        losses.append(float(loss))
+    return [{k: v.clone() for k, v in p.items()} for p in params], state, opt, losses
+
+
+def timed_steps(torch, pipe, plan, params, state, opt, steps, first_key=100):
+    """Wall ms of ``steps`` more steps, each to a synchronize of every
+    device the engine runs on."""
+    times = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, state, _ = pipe.train_step(params, state, plan, first_key + i, opt)
+        sync_engine(pipe)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, params, state
+
+
+def cpu_tree(tree):
+    return [{k: v.detach().cpu() for k, v in p.items()} for p in tree]
+
+
+def ring_model(cli_args):
+    """``run_gnn``'s model, plan and flags for ``cli_args``."""
+    from repro_torch.core.cli import PipelineCLIConfig
+    from repro_torch.core.microbatch import make_plan
+    from repro_torch.graphs import load_dataset
+    from repro_torch.launch.train import build_parser
+    from repro_torch.models.gnn.net import build_paper_gat
+
+    args = build_parser().parse_args(cli_args)
+    g = load_dataset(args.dataset, seed=args.seed)
+    model = build_paper_gat(g.num_features, g.num_classes, backend=args.backend, attn_dropout=0.0)
+    plan = make_plan(g, args.chunks, strategy=args.strategy, halo_hops=2, seed=args.seed)
+    return args, PipelineCLIConfig.from_args(args), model, plan
+
+
+def grid_model(dev):
+    """21c: fig3's scale configuration, the GCN at hidden 32, depth 2, on
+    powerlaw-64k at its registry size, 8 chunks, ``max_degree=32``."""
+    import repro_torch.graphs as G
+    from repro_torch.models.gnn.net import build_gnn
+
+    plan = G.streamed_plan(G.open_streamed("powerlaw-64k"), 8, max_degree=32)
+    g0 = plan.batches[0].graph
+    return build_gnn("gcn", g0.num_features, g0.num_classes, hidden=32, depth=2,
+                     backend="kernel"), plan
+
+
+def grid_config(dev, **kw):
+    from repro_torch.core.pipeline import GPipeConfig
+
+    return GPipeConfig(balance=(2, 2), chunks=8, schedule="1f1b", engine="compiled",
+                       backend="kernel", device=str(dev), **kw)
+
+
+def deterministic(torch):
+    @contextlib.contextmanager
+    def ctx():
+        torch.use_deterministic_algorithms(True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    return ctx()
+
+
+def ranks_references(H, torch):
+    """One card (``H.dev``), deterministic: the host fill_drain of the cora
+    ring configuration (params, losses, eval) and the ``data_parallel`` 1
+    compiled GCN of 21c, saved for the rank workers; for the lines, the
+    one-card compiled cora step's median and a one-card compiled serve run,
+    each with this process's CPU threads and with one thread, as torchrun
+    starts every rank (``OMP_NUM_THREADS=1``)."""
+    import dataclasses as dc
+
+    from repro_torch.core.pipeline import make_engine
+    from repro_torch.launch.serve_gnn import build_parser, run
+
+    args, cli, model, plan = ring_model([*RING_ARGS, "--device", H.dev.type])
+    base = cli.gpipe_config(cli.uniform_balance(), device=H.dev)
+    host = make_engine(model, base)
+    with deterministic(torch):
+        params, _, _, losses = train_steps(torch, host, plan, RING_STEPS)
+        metrics = {k: float(v) for k, v in host.evaluate(params, plan).items()}
+    refs = {"cora": {"params": cpu_tree(params), "losses": losses, "eval": metrics},
+            "cora_compiled_ms": {}, "serve": {}}
+    gmodel, gplan = grid_model(H.dev)
+    with deterministic(torch):
+        gpipe = make_engine(gmodel, grid_config(H.dev))
+        gp, _, _, glosses = train_steps(torch, gpipe, gplan, GRID_STEPS)
+        gmetrics = {k: float(v) for k, v in gpipe.evaluate(gp, gplan).items()}
+    refs["grid"] = {"params": cpu_tree(gp), "losses": glosses, "eval": gmetrics}
+    del host, gpipe
+    threads = torch.get_num_threads()
+    serve_args = build_parser().parse_args([*SERVE_ARGS, "--engine", "compiled"])
+    try:
+        for n in sorted({threads, 1}, reverse=True):
+            torch.set_num_threads(n)
+            gc.collect()
+            comp = make_engine(model, dc.replace(base, engine="compiled"))
+            p, s, opt, _ = train_steps(torch, comp, plan, 1)
+            times, _, _ = timed_steps(torch, comp, plan, p, s, opt, RING_TIMED)
+            refs["cora_compiled_ms"][n] = statistics.median(times[1:])
+            del comp, p, s
+            summary = run(serve_args)
+            refs["serve"][n] = {k: summary[k] for k in ("achieved_qps", "p50_s", "p99_s")}
+    finally:
+        torch.set_num_threads(threads)
+    torch.save(refs, RANKS_DIR / "refs.pt")
+    log(f"[ranks] one card ({H.dev}), deterministic: cora ring configuration host fill_drain "
+        f"{RING_STEPS} steps losses {losses}, eval {metrics}; powerlaw-64k GCN data_parallel 1 "
+        f"(compiled 1f1b) losses {glosses}; the compiled cora step median {one_card_ms(refs)}; "
+        f"serve cora compiled {one_card_serve(refs)} [{H.card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def one_card_ms(refs):
+    """The one-card compiled cora step of ``ranks_references``, per CPU
+    thread count."""
+    return ", ".join(f"{ms:.6f} ms at {n} CPU threads"
+                     for n, ms in sorted(refs["cora_compiled_ms"].items(), reverse=True))
+
+
+def one_card_serve(refs):
+    """The one-card compiled serve of ``ranks_references``, per CPU thread
+    count."""
+    return "; ".join(f"{n} CPU threads: {r['achieved_qps']} q/s, p50 {r['p50_s'] * 1e3} ms, "
+                     f"p99 {r['p99_s'] * 1e3} ms"
+                     for n, r in sorted(refs["serve"].items(), reverse=True))
+
+
+def leg_host_devices(H, torch, cards, refs):
+    """21a: the host engine with one card per stage (``devices``, one
+    process): fill_drain, and zb-h1 under ``Placement.ring(4, rotation=2,
+    device_order=(2, 0, 3, 1))``, each bit-identical to one-card host
+    fill_drain after ``RING_STEPS`` steps; every bucket-GAT launch on its
+    stage's card held against the plain version."""
+    import dataclasses as dc
+
+    from repro_torch.core.pipeline import make_engine
+    from repro_torch.core.schedule import Placement
+
+    args, cli, model, plan = ring_model([*RING_ARGS, "--device", H.dev.type])
+    devices = tuple(torch.device(H.dev.type, i) if H.dev.type == "cuda" else H.dev
+                    for i in range(cards))
+    base = cli.gpipe_config(cli.uniform_balance(), device=H.dev)
+    one_ms = None
+    for schedule, placement in (("fill_drain", None),
+                                ("zb-h1", Placement.ring(4, **HOST_RING))):
+        pipe = make_engine(model, dc.replace(base, schedule=schedule, placement=placement,
+                                             devices=devices))
+        with deterministic(torch), KernelCapture({"bucket_gat_kernel": CAPTURE_LIMIT}) as cap:
+            params, state, opt, losses = train_steps(torch, pipe, plan, RING_STEPS)
+        same = same_trees(torch, cpu_tree(params), refs["cora"]["params"])
+        if not same or losses != refs["cora"]["losses"]:
+            raise AssertionError(f"21a {schedule} on {devices}: not bit-identical to one-card "
+                                 f"host fill_drain ({losses} vs {refs['cora']['losses']})")
+        H.launches["bucket_gat_kernel"] = H.launches.get("bucket_gat_kernel", 0) + \
+            cap.launches["bucket_gat_kernel"]
+        cap.compare(H, torch, f"21a host {schedule}")
+        times, _, _ = timed_steps(torch, pipe, plan, params, state, opt, RING_TIMED)
+        if one_ms is None:
+            one = make_engine(model, base)
+            p, s, o, _ = train_steps(torch, one, plan, 1)
+            one_ms = statistics.median(timed_steps(torch, one, plan, p, s, o, RING_TIMED)[0][1:])
+            del one
+        log(f"[ranks] 21a host engine, {schedule}, stages on "
+            f"{[str(d) for d in pipe._stage_devices]}: losses and params after {RING_STEPS} "
+            f"steps bit-identical to one-card host fill_drain (deterministic); bucket-GAT "
+            f"launches {cap.launches['bucket_gat_kernel']}; median step "
+            f"{statistics.median(times[1:]):.6f} ms against {one_ms:.6f} ms on one card "
+            f"({len(devices)} cards) [{H.card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ranks_timing(H, torch):
+    """The four GNN kernels timed on one card at the ring paths' shapes:
+    the bucket GAT over one forward of the cora ring plan (21a-b), the
+    padded GAT over one served cora batch (21d), the bucket SpMM over one
+    forward of the powerlaw-64k plan and the padded SpMM over its padded
+    chunks (21c)."""
+    from repro_torch.graphs import bucketize_stacked
+
+    args, cli, model, plan = ring_model([*RING_ARGS, "--device", H.dev.type])
+    params = model.init_params(0, device=H.dev)
+    layout = bucketize_stacked(plan.stacked().graph).to(H.dev)
+    timing = {}  # phase 5's times, where it ran, stay the kernels line's
+    timing["bucket_gat_kernel"] = H.record_timing(
+        "bucket_gat_kernel", f"one forward of the cora ring plan ({plan.chunks} chunks)",
+        bucket_gat_plan_calls(torch, model, params, layout, plan.chunks))
+    calls, label, *_ = served_cora_calls(H, torch)
+    timing["gat_aggregate_kernel"] = H.record_timing("gat_aggregate_kernel", label, calls)
+    gmodel, gplan = grid_model(H.dev)
+    gparams = gmodel.init_params(0, device=H.dev)
+    stacked = gplan.stacked().graph
+    glayout = bucketize_stacked(stacked).to(H.dev)
+    padded = stacked.to(H.dev)
+    b_calls, p_calls = [], []
+    for c in range(gplan.chunks):
+        chunk = glayout.chunk(c)
+        b_calls += gcn_calls(torch, gmodel, gparams, chunk,
+                             [(b.neighbors, b.norm) for b in chunk.buckets if b.rows])
+        g = padded.chunk(c)
+        p_calls += gcn_calls(torch, gmodel, gparams, g, [(g.neighbors, g.norm)])
+    timing["bucket_spmm_kernel"] = H.record_spmm_timing(
+        "bucket_spmm_kernel", "one forward of the powerlaw-64k plan (8 chunks)", b_calls)
+    timing["padded_spmm_kernel"] = H.record_spmm_timing(
+        "padded_spmm_kernel", "the powerlaw-64k plan's padded chunks (8)", p_calls)
+    for name, record in timing.items():
+        H.timing.setdefault(name, record)
+
+
+def torchrun(n, argv, timeout=RANK_LAUNCH_TIMEOUT_S):
+    """``python -m torch.distributed.run --standalone`` with ``n`` ranks on
+    ``argv``; the completed process (raises on a non-zero exit, with the
+    output's tail). Every rank it started has ended when it returns."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={n}", *argv],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {n} x {' '.join(argv[:4])}: exit {proc.returncode}\n"
+                             f"{(proc.stdout + proc.stderr)[-6000:]}")
+    return proc
+
+
+def run_rank_worker(H, torch, n, leg):
+    """Run ``chip_smoke.py --rank-worker leg`` on ``n`` ranks under
+    torchrun; print each rank's lines in rank order and fold its launches
+    and kernel errors into ``H``. Returns the per-rank reports."""
+    t0 = time.perf_counter()
+    os.environ["CHIP_SMOKE_CARD"] = H.card
+    torchrun(n, [str(ROOT / "chip_smoke.py"), "--rank-worker", leg])
+    reports = []
+    for r in range(n):
+        with open(RANKS_DIR / f"{leg}-rank{r}.json") as f:
+            rep = json.load(f)
+        reports.append(rep)
+        for line in rep["lines"]:
+            log(f"[ranks {r}/{n}] {line}")
+        for name, count in rep["launches"].items():
+            H.launches[name] = H.launches.get(name, 0) + count
+        for name, err in rep["err"].items():
+            H.err[name] = max(H.err.get(name, 0.0), err)
+        for name, used in rep["used"].items():
+            H.used[name] = max(H.used.get(name, 0.0), used)
+    log(f"[ranks] {leg} on {n} ranks: {time.perf_counter() - t0:.1f} s with start-up [{H.card}]")
+    return reports
+
+
+def ranks_cli(H, torch, refs):
+    """The two launchers as a user starts them on 4 cards: training (1f1b,
+    3 epochs) and serving (``--verify`` at 1e-5); rank 0 alone prints."""
+    t0 = time.perf_counter()
+    proc = torchrun(4, ["-m", "repro_torch.launch.train", *RING_ARGS, "--device", "cuda",
+                        "--engine", "compiled", "--schedule", "1f1b", "--epochs", str(RING_STEPS)])
+    dicts = [line for line in proc.stdout.splitlines() if line.startswith("{'mode'")]
+    if len(dicts) != 1:
+        raise AssertionError(f"torchrun train: {len(dicts)} result dicts printed")
+    out = ast.literal_eval(dicts[0])
+    want = refs["cora"]["losses"]
+    if out["ranks"] != 4 or not all(math.isclose(a, b, rel_tol=RTOL)
+                                    for a, b in zip(out["epoch_losses"], want)):
+        raise AssertionError(f"torchrun train: {out}")
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = torchrun(4, ["-m", "repro_torch.launch.serve_gnn", *SERVE_ARGS, "--engine", "compiled"])
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("[serve]")]
+    verify = [line for line in lines if line.startswith("[serve] verify")]
+    if len(verify) != 1 or ", 0 beyond" not in verify[0]:
+        raise AssertionError("torchrun serve_gnn:\n" + "\n".join(lines))
+    log(f"[ranks] torchrun -m repro_torch.launch.train on 4 ranks: one result dict (rank 0), "
+        f"losses {out['epoch_losses']} (one-card deterministic {want}, within {RTOL}), median "
+        f"epoch {out['median_epoch_s'] * 1e3:.6f} ms, {train_s:.1f} s with start-up; "
+        f"torchrun -m repro_torch.launch.serve_gnn on 4 ranks, {time.perf_counter() - t0:.1f} "
+        f"s: {' | '.join(lines[1:3])} | {verify[0]} [{H.card}]")
+
+
+def phase_ranks(H, torch, served_compiled):
+    """Phase 21: the paper's pipeline with one stage per card (21a host
+    engine with ``devices``; 21b the compiled ring over NCCL; 21c the
+    ``(data, stage)`` grid; 21d serving on the ring, beside phase 3b's
+    one-card ``served_compiled`` summary; 21e powerlaw-1m). Returns what of
+    it did not run and why, having printed it: "" when every leg ran."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[ranks] not run: {PHASE21_SKIP} (this machine has {n} card)")
+        return f"phase 21 not run ({PHASE21_SKIP})"
+    cards = min(n, RANK_CARDS)
+    shutil.rmtree(RANKS_DIR, ignore_errors=True)
+    RANKS_DIR.mkdir(parents=True)
+    refs = ranks_references(H, torch)
+    leg_host_devices(H, torch, cards, refs)
+    ranks_timing(H, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_rank_worker(H, torch, 2, "ring2")
+    if cards < 4:
+        not_run = (f"phase 21's 21b on 4 ranks, 21c, 21d and 21e not run: they take 4 cards, "
+                   f"this machine has {n} (21a and 21b on 2 ranks passed)")
+        log(f"[ranks] {not_run}")
+        return not_run
+    reports = run_rank_worker(H, torch, 4, "ring4")
+    serve, one = reports[0]["serve"], served_compiled
+    log(f"[ranks] 21d served on 4 ranks ({reports[0]['threads']} CPU threads each): "
+        f"{serve['achieved_qps']} q/s, p50 {serve['p50_s'] * 1e3} ms, p99 "
+        f"{serve['p99_s'] * 1e3} ms; one card, phase 3b of this call: {one['achieved_qps']} "
+        f"q/s, p50 {one['p50_s'] * 1e3} ms, p99 {one['p99_s'] * 1e3} ms; one card after the "
+        f"references, {one_card_serve(refs)} [{H.card}] x 4")
+    ranks_cli(H, torch, refs)
+    return ""
+
+
+# ---------------------------------------------- phase 21: the rank worker --
+
+
+class RankLog:
+    """A rank's record for the parent: its lines, the launches of the
+    kernels on its main paths, its kernel checks and its CPU threads."""
+
+    def __init__(self, rank, leg, threads):
+        self.rank, self.leg = rank, leg
+        self.data = {"lines": [], "launches": {}, "err": {}, "used": {}, "threads": threads}
+
+    def line(self, text):
+        self.data["lines"].append(text)
+
+    def launched(self, launches):
+        for name, count in launches.items():
+            self.data["launches"][name] = self.data["launches"].get(name, 0) + count
+
+    def write(self, H):
+        self.data["err"] = {k: v for k, v in H.err.items() if v}
+        self.data["used"] = dict(H.used)
+        with open(RANKS_DIR / f"{self.leg}-rank{self.rank}.json", "w") as f:
+            json.dump(self.data, f)
+
+
+def worker_ring(H, torch, rl, world, refs):
+    """21b on this rank: each (schedule, overlap) of ``RING_CASES[world]``
+    through ``run_gnn`` (the epoch losses equal one card's, every
+    bucket-GAT launch this rank made in the first calls held against the
+    plain version), then through the engine (params and eval after
+    ``RING_STEPS`` steps bit-identical to one card's), its median step, and
+    one traced step on every rank: rank 0 prints each rank's busy share,
+    NCCL time and overlap."""
+    from repro_torch.core.overlap_report import capture_rank_reports
+    from repro_torch.core.pipeline import make_engine
+    from repro_torch.launch.train import build_parser, run_gnn
+
+    for schedule, overlap in RING_CASES[world]:
+        extra = ["--schedule", schedule, "--overlap", overlap, "--engine", "compiled",
+                 "--device", H.dev.type, "--epochs", str(RING_STEPS)]
+        if world == 2:
+            extra += ["--pipe-devices", "2"]
+        with deterministic(torch), KernelCapture({"bucket_gat_kernel": CAPTURE_LIMIT}) as cap:
+            out = run_gnn(build_parser().parse_args([*RING_ARGS, *extra]))
+        if out["epoch_losses"] != refs["cora"]["losses"]:
+            raise AssertionError(f"21b {schedule} {overlap}: run_gnn losses {out['epoch_losses']}"
+                                 f" != one card's {refs['cora']['losses']}")
+        rl.launched(cap.launches)
+        cap.compare(H, torch, f"21b {schedule}/{overlap} rank {rl.rank}")
+        args, cli, model, plan = ring_model([*RING_ARGS, *extra])
+        pipe = make_engine(model, cli.gpipe_config(cli.uniform_balance(), device=H.dev))
+        with deterministic(torch):
+            params, state, opt, losses = train_steps(torch, pipe, plan, RING_STEPS)
+            metrics = {k: float(v) for k, v in pipe.evaluate(params, plan).items()}
+        if not same_trees(torch, cpu_tree(params), refs["cora"]["params"]) \
+                or losses != refs["cora"]["losses"] or metrics != refs["cora"]["eval"]:
+            raise AssertionError(f"21b {schedule} {overlap} rank {rl.rank}: not bit-identical "
+                                 f"to one-card host fill_drain ({losses}, {metrics})")
+        times, params, state = timed_steps(torch, pipe, plan, params, state, opt, RING_TIMED)
+        reports = capture_rank_reports(
+            lambda: pipe.train_step(params, state, plan, 999, opt))
+        desc = pipe.describe()["ranks"]
+        rl.line(f"21b {schedule:11s} {overlap:13s} ring position {desc['position']} of "
+                f"{desc['rows']}: run_gnn losses, params and eval after {RING_STEPS} steps "
+                f"bit-identical to one-card host fill_drain; bucket-GAT launches "
+                f"{cap.launches['bucket_gat_kernel']}; median step "
+                f"{statistics.median(times[1:]):.6f} ms ({torch.get_num_threads()} CPU "
+                f"threads); one-card compiled step {one_card_ms(refs)} [{H.card}]")
+        for rep in reports or ():  # rank 0 prints every rank's traced step
+            busy = (rep["compute_time_us"] + rep["collective_time_us"]
+                    - rep["overlapped_time_us"]) / rep["step_us"]
+            rl.line(f"21b {schedule:11s} {overlap:13s} traced step of rank {rep['rank']}: "
+                    f"{rep['step_us'] / 1e3:.6f} ms, busy {busy:.6f}, NCCL "
+                    f"{rep['collective_time_us'] / 1e3:.6f} ms "
+                    f"({rep['num_collective_events']} kernels, "
+                    f"{rep['collective_time_us'] / rep['step_us']:.6f} of the step), hidden "
+                    f"{rep['overlap_fraction']:.6f} of it [{H.card}]")
+        del pipe
+
+
+def worker_grid(H, torch, rl, refs):
+    """21c on this rank: 2 replicas x a 2-stage ring, bit-identical to
+    ``data_parallel`` 1 on one card; the eval over the plan's bucketed
+    layout and over its padded stacked batch (serving's layout)."""
+    from repro_torch.core.pipeline import make_engine
+
+    model, plan = grid_model(H.dev)
+    pipe = make_engine(model, grid_config(H.dev, data_parallel=2))
+    limits = {"bucket_spmm_kernel": CAPTURE_LIMIT, "padded_spmm_kernel": CAPTURE_LIMIT}
+    with deterministic(torch), KernelCapture(limits) as cap:
+        params, state, opt, losses = train_steps(torch, pipe, plan, GRID_STEPS)
+        metrics = {k: float(v) for k, v in pipe.evaluate(params, plan).items()}
+        stacked = plan.stacked().graph
+        padded = stacked.to(H.dev)
+        with torch.inference_mode():
+            padded_logp = pipe.compile_eval(params, padded)(padded)
+            layout = pipe.layout(stacked)
+            bucket_logp = pipe.compile_eval(params, layout)(layout)
+    if not pipe._data_parallel_active:
+        raise AssertionError("21c: the data axis did not split the chunks")
+    if not same_trees(torch, cpu_tree(params), refs["grid"]["params"]) \
+            or losses != refs["grid"]["losses"] or metrics != refs["grid"]["eval"]:
+        raise AssertionError(f"21c rank {rl.rank}: not bit-identical to data_parallel 1 "
+                             f"({losses}, {metrics})")
+    gap = float((padded_logp - bucket_logp).abs().max())
+    if not bool(padded_logp.isfinite().all()) or gap > GCN_MATCH_ATOL:
+        raise AssertionError(f"21c rank {rl.rank}: padded eval {gap} from the bucketed one")
+    rl.launched(cap.launches)
+    cap.compare(H, torch, f"21c grid rank {rl.rank}")
+    times, _, _ = timed_steps(torch, pipe, plan, params, state, opt, RING_TIMED)
+    desc = pipe.describe()["ranks"]
+    rl.line(f"21c powerlaw-64k GCN, replica {desc['replica']} position {desc['position']} of "
+            f"{desc['rows']}: losses, params and eval after {GRID_STEPS} steps bit-identical "
+            f"to data_parallel 1 on one card; padded eval within {gap:.3g} of the bucketed; "
+            f"launches {cap.launches}; median step {statistics.median(times[1:]):.6f} ms "
+            f"[{H.card}]")
+
+
+def worker_serve(H, torch, rl):
+    """21d on this rank: ``serve_gnn.run`` on the ring, every padded-GAT
+    launch this rank made in the first calls held against the plain
+    version; rank 0's summary."""
+    from repro_torch.launch.serve_gnn import build_parser, run
+
+    args = build_parser().parse_args([*SERVE_ARGS, "--engine", "compiled",
+                                      "--device", H.dev.type])
+    with KernelCapture({"gat_aggregate_kernel": 8}) as cap:
+        summary = run(args)
+    rl.launched(cap.launches)
+    cap.compare(H, torch, f"21d serve rank {rl.rank}")
+    if rl.rank == 0:
+        served = sum(v["queries"] for v in summary["buckets"].values())
+        if served != summary["queries"] or summary["verify_mismatches"] != 0:
+            raise AssertionError(f"21d: {served}/{summary['queries']} served, "
+                                 f"{summary['verify_mismatches']} mismatches")
+        rl.data["serve"] = {k: summary[k] for k in ("achieved_qps", "p50_s", "p99_s")}
+        rl.line(f"21d serve cora on 4 ranks: {served}/{summary['queries']} queries answered, "
+                f"verify exact {summary['verify_exact']}, max diff "
+                f"{summary['verify_max_diff']}; padded-GAT launches {cap.launches} [{H.card}]")
+    else:
+        rl.line(f"21d followed {summary['followed_batches']} batches; padded-GAT launches "
+                f"{cap.launches} [{H.card}]")
+
+
+def worker_stream(H, torch, rl):
+    """21e on this rank: powerlaw-1m, the paper GAT, 4 stages x 8 chunks:
+    one deterministic ring step, then 2 timed; then the group is left and
+    rank 0 holds the step bit for bit against the one-card compiled step
+    (phase 14a's) and times that."""
+    import torch.distributed as dist
+
+    import repro_torch.graphs as G
+    from repro_torch.core.cli import PipelineCLIConfig
+    from repro_torch.core.pipeline import make_engine
+    from repro_torch.launch.train import build_parser
+    from repro_torch.models.gnn.net import build_paper_gat
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.loop import synchronize
+
+    args = build_parser().parse_args([*STREAM_ARGS, "--engine", "compiled", "--device",
+                                      H.dev.type])
+    t0 = time.perf_counter()
+    plan = G.streamed_plan(G.open_streamed(args.dataset, seed=args.seed), args.chunks,
+                           max_degree=args.max_degree)
+    plan_s = time.perf_counter() - t0
+    g0 = plan.batches[0].graph
+    model = build_paper_gat(g0.num_features, g0.num_classes, backend="pallas", attn_dropout=0.0)
+    params0 = model.init_params(0, device=H.dev)
+    cli = PipelineCLIConfig.from_args(args)
+    config = cli.gpipe_config(cli.uniform_balance(), device=H.dev)
+    opt = opt_lib.adam(5e-3, weight_decay=5e-4)
+
+    def step_s(pipe, params, state, key):
+        t0 = time.perf_counter()
+        out = pipe.train_step(params, state, plan, key, opt)
+        synchronize(H.dev)
+        return out, time.perf_counter() - t0
+
+    pipe = make_engine(model, config)
+    with deterministic(torch), KernelCapture({"bucket_gat_kernel": 8}) as cap:
+        (p1, s1, l1), first_s = step_s(pipe, params0, opt.init(params0), 1)
+    ring_p1, ring_l1 = cpu_tree(p1), float(l1)
+    rl.launched(cap.launches)
+    cap.compare(H, torch, f"21e powerlaw-1m rank {rl.rank}")
+    ring = []
+    state = (p1, s1)
+    for key in (2, 3):
+        (p, s, _), sec = step_s(pipe, *state, key)
+        state = (p, s)
+        ring.append(sec)
+    rl.line(f"21e powerlaw-1m, 4 stages x 8 chunks, position "
+            f"{pipe.describe()['ranks']['position']}: plan build {plan_s:.3f} s; first step "
+            f"(deterministic) {first_s:.6f} s, then {ring[0]:.6f} and {ring[1]:.6f} s; "
+            f"bucket-GAT launches {cap.launches} [{H.card}]")
+    del pipe, p1, s1, state
+    dist.barrier()
+    dist.destroy_process_group()  # the one-card reference runs outside the group
+    if rl.rank != 0:
+        return
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = make_engine(model, config)
+    with deterministic(torch):
+        (q1, _, m1), _ = step_s(one, params0, opt.init(params0), 1)
+    if not same_trees(torch, cpu_tree(q1), ring_p1) or float(m1) != ring_l1:
+        raise AssertionError(f"21e: the ring's step is not bit-identical to the one-card "
+                             f"compiled step ({ring_l1} vs {float(m1)})")
+    del one, q1
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = make_engine(model, config)
+    state, card = (params0, opt.init(params0)), []
+    for key in (1, 2, 3):  # the first captures the graph
+        (p, s, _), sec = step_s(one, *state, key)
+        state = (p, s)
+        card.append(sec)
+    rl.data["stream"] = {"ring_s": ring, "card_s": card[1:]}
+    rl.line(f"21e the ring's deterministic step bit-identical to the one-card compiled step "
+            f"(loss {ring_l1}); timed steps on 4 ranks {ring[0]:.6f}, {ring[1]:.6f} s against "
+            f"one card {card[1]:.6f}, {card[2]:.6f} s (this call; phase 14a: 7.25-7.32 s): "
+            f"{card[1] / ring[0]:.3f}x, {card[2] / ring[1]:.3f}x [{H.card}]")
+
+
+def rank_worker(leg: str) -> int:
+    """``chip_smoke.py --rank-worker ring4|ring2`` under torchrun: this
+    rank's legs of phase 21, its record in ``RANKS_DIR``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import ranks
+    from repro_torch.kernels.gat_edge import kernel as K
+    from repro_torch.kernels.spmm import kernel as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    if device == "cuda":
+        from repro_torch.roofline.analysis import HW
+
+        global CARD
+        CARD = HW.of(torch.cuda.get_device_name(0))
+    joined = ranks.join(device)
+    H = Harness(torch, K, S, joined.device, os.environ.get("CHIP_SMOKE_CARD", device))
+    rl = RankLog(joined.rank, leg, torch.get_num_threads())
+    refs = torch.load(RANKS_DIR / "refs.pt", weights_only=False)
+    try:
+        if leg == "ring2":
+            worker_ring(H, torch, rl, 2, refs)
+        else:
+            worker_ring(H, torch, rl, 4, refs)
+            worker_grid(H, torch, rl, refs)
+            worker_serve(H, torch, rl)
+            worker_stream(H, torch, rl)  # leaves the group
+        rl.write(H)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+# a phase and the phases whose results it takes
+PHASE_NEEDS = {"5": ("4",), "12": ("6",), "21": ("3",)}
+
+
+def parse_phases(text):
+    """``--phases 3,21`` -> the phase numbers to run, with what they need;
+    None (every phase) without the flag."""
+    if text is None:
+        return None
+    phases = {p.strip() for p in text.split(",") if p.strip()}
+    unknown = phases - {str(n) for n in range(2, 22)}
+    if unknown:
+        raise SystemExit(f"--phases: no phase {sorted(unknown)}; phases are 2-21")
+    for p in list(phases):
+        phases.update(PHASE_NEEDS.get(p, ()))
+    return phases
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Chip smoke of the PyTorch/CUDA port.")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run after phase 1 (the card and the "
+                         "build), e.g. 21; default: every phase")
+    ap.add_argument("--rank-worker", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.rank_worker is not None:  # one rank of phase 21, started by torchrun
+        return rank_worker(args.rank_worker)
+    phases = parse_phases(args.phases)
     import torch
 
     if not torch.cuda.is_available():
@@ -3491,13 +4210,17 @@ def main() -> int:
                 log(f"[build] {line.strip()}")
 
     H = Harness(torch, K, S, torch.device("cuda"), card_line, FK=FK, DK=DK)
-    run_phases(H, torch)
+    ranks_not_run = run_phases(H, torch, phases)
 
     kernels = []
     for name, replaces in REPLACES.items():
-        tm = H.timing[name]
+        if phases is not None and not H.launches.get(name):
+            continue  # --phases: the kernels those phases launched
         if not H.launches.get(name):
             raise AssertionError(f"{name} was not launched on its main path")
+        if name not in H.timing:
+            raise AssertionError(f"{name} was launched but not timed: its timing is phase 5's")
+        tm = H.timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": replaces,
             "launches": H.launches[name], "max_abs_err": H.err[name],
@@ -3506,7 +4229,14 @@ def main() -> int:
         })
     log("[compare] largest share of the tolerance used, per kernel: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
-    log(f"[done] all 20 phases passed in {time.perf_counter() - t_start:.1f} s")
+    ranks_ran = ranks_not_run == ""
+    if phases is None:
+        names = "all 21 phases" if ranks_ran else "all 20 phases"
+    else:
+        names = "phases " + ", ".join(
+            ["1", *sorted(phases - {"21"}, key=int), *(["21"] if ranks_ran else [])])
+    log(f"[done] {names} passed in {time.perf_counter() - t_start:.1f} s"
+        + (f"; {ranks_not_run}" if ranks_not_run else ""))
     log(f"[card] {card_line}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -3515,10 +4245,14 @@ def main() -> int:
     return 0
 
 
-def run_phases(H, torch):
-    """Phases 2-20, each timed."""
+def run_phases(H, torch, phases=None):
+    """Phases 2-21 (or those of ``phases``), each timed. Returns what of
+    phase 21 did not run ("" when all of it ran; None when it was not
+    asked for)."""
 
     def phase(label, fn, *args):
+        if phases is not None and label.rstrip("abc") not in phases:
+            return None
         t0 = time.perf_counter()
         out = fn(H, torch, *args)
         log(f"[phase] {label} {fn.__name__}: {time.perf_counter() - t0:.1f} s")
@@ -3533,7 +4267,7 @@ def run_phases(H, torch):
     phase("5", phase_timing_lm)  # flash attention and SSD
     # after phase 5: a profiler pass before phase 5's graph captures made
     # phase 5's own profiler passes lose device records on the card
-    phase("3b", phase_serve_compiled, served)
+    served_compiled = phase("3b", phase_serve_compiled, served)
     host_runs = phase("6", phase_train_gat)
     trained = phase("6b", phase_train_gat_compiled, host_runs)
     gcn_ref = phase("7", phase_train_gcn)
@@ -3548,7 +4282,7 @@ def run_phases(H, torch):
     phase("13", phase_auto)
     streamed = phase("14a", phase_streamed)
     phase("14b", phase_data_parallel)
-    phase("14c", phase_loader, *streamed)
+    phase("14c", phase_loader, *(streamed or ()))
     phase("15a", phase_overlap)
     phase("15b", phase_roofline)
     phase("16", phase_lm_training)
@@ -3558,12 +4292,15 @@ def run_phases(H, torch):
     phase("19", phase_dryrun)
     # phase 19's full-width predictions count on the host's other cores
     # while the examples run: no timed phase runs beside them
-    predictions = start_predictions()
-    try:
-        phase("20", phase_examples)
-        phase("19", report_predictions, predictions)
-    finally:
-        stop_predictions(predictions)
+    if phases is None or {"19", "20"} & phases:
+        predictions = start_predictions()
+        try:
+            phase("20", phase_examples)
+            phase("19", report_predictions, predictions)
+        finally:
+            stop_predictions(predictions)
+    torch.cuda.empty_cache()
+    return phase("21", phase_ranks, served_compiled)
 
 
 if __name__ == "__main__":

@@ -12,9 +12,11 @@ counterpart of.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
+from repro_torch.core import ranks
 from repro_torch.core.pipeline import GPipeConfig
 from repro_torch.core.schedule import Placement
 
@@ -40,6 +42,28 @@ def resolve_device(name: str) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"--device must be cuda or cpu, got {name!r}")
     return device
+
+
+def join_ranks(cli: "PipelineCLIConfig") -> "ranks.Ranks | None":
+    """Join torchrun's process group when ``WORLD_SIZE`` > 1 (None
+    otherwise): the compiled engine then runs one ring position per rank.
+    The host engine's several-card form is ``GPipeConfig.devices`` in one
+    process, so ``--engine host`` raises here; so do ``--auto`` and
+    ``--partition profiled``, whose per-rank profiles could pick different
+    pipelines and hang the ring."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 and not ranks.active():
+        return None
+    if cli.engine == "host":
+        raise ValueError(
+            "--engine host under torchrun: the host engine runs in one process "
+            "(GPipeConfig.devices places its stages on several cards); pass --engine compiled"
+        )
+    if cli.auto or cli.partition == "profiled":
+        raise ValueError(
+            "--auto and --partition profiled profile on each rank, which could pick "
+            "different pipelines: pass --schedule/--chunks with --partition uniform"
+        )
+    return ranks.join(cli.device)
 
 
 def log_overlap(cli: "PipelineCLIConfig") -> None:
@@ -159,8 +183,9 @@ class PipelineCLIConfig:
                 f"paper model; supported: {sorted(UNIFORM_BALANCES)}"
             ) from None
 
-    def gpipe_config(self, balance=None) -> GPipeConfig:
-        """The assembled engine config (``balance`` defaults to uniform)."""
+    def gpipe_config(self, balance=None, device=None) -> GPipeConfig:
+        """The assembled engine config (``balance`` defaults to uniform,
+        ``device`` to ``--device``; a rank passes its own card)."""
         return GPipeConfig(
             balance=tuple(balance if balance is not None else self.uniform_balance()),
             chunks=self.chunks,
@@ -171,5 +196,5 @@ class PipelineCLIConfig:
             backend=self.backend,
             data_parallel=self.data_parallel,
             overlap=self.overlap,
-            device=str(resolve_device(self.device)),
+            device=str(device if device is not None else resolve_device(self.device)),
         )

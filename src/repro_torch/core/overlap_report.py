@@ -28,6 +28,12 @@ Events are grouped per device (the trace's ``pid``), not per stream as the
 reference groups its per-executor lanes: hiding a copy means another
 stream of the same device computing meanwhile.
 
+On ranks (``core.ranks``) the hop is NCCL's point-to-point kernel
+(``SendRecv``) and the step runs eagerly: ``capture_rank_reports`` traces
+one step on every rank, counts only the NCCL kernels as communication
+(the banks and stash copies are the rank's own work), and gathers the
+reports on rank 0, which prints them.
+
 ``capture_overlap_report(step_fn)`` traces one call of a step. It raises
 when the profiler fails, when, with CUDA activity on, it records no device
 event, or when the wire probe's stream cannot be found: it never returns
@@ -193,6 +199,45 @@ def capture_overlap_report(
     in the report's ``trace_dir``. The device is synchronized before and
     after the step when CUDA is available; the CUDA activity is then traced
     too, and a trace without a device event raises."""
+    events, wire, out_dir = _trace(step_fn, wire_stream, trace_dir)
+    report = overlap_from_events(events, wire_streams=wire)
+    report["wire_streams"] = sorted(wire) if wire is not None else None
+    report["trace_dir"] = out_dir
+    return report
+
+
+def capture_rank_reports(step_fn: Callable[[], None], *, trace_dir: str | None = None):
+    """On ranks: every rank traces ONE call of its ``step_fn`` (each rank
+    calls this at once, as its step's collectives need) and reports the
+    overlap of its NCCL kernels with its compute (only NCCL kernels
+    communicate), with its ``rank`` and the traced step's wall time
+    ``step_us`` (device synchronized). Rank 0 gathers every rank's report
+    and returns them in rank order, for it to print; the other ranks return
+    None. Each rank's trace stays under ``trace_dir/rank<r>``."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    sub = None if trace_dir is None else os.path.join(trace_dir, f"rank{rank}")
+    walls = []
+
+    def timed():
+        t0 = time.perf_counter()
+        step_fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+
+    events, _, out_dir = _trace(timed, None, sub)
+    report = overlap_from_events(events, wire_streams=set())
+    report.update(rank=rank, step_us=walls[0], trace_dir=out_dir)
+    reports = [None] * dist.get_world_size() if rank == 0 else None
+    dist.gather_object(report, reports, dst=0)
+    return reports
+
+
+def _trace(step_fn, wire_stream, trace_dir):
+    """One traced call of ``step_fn``: ``(events, wire streams or None,
+    trace directory)``, the wire probe's own events dropped."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     out_dir = trace_dir or tempfile.mkdtemp(prefix="overlap_trace_")
@@ -235,7 +280,4 @@ def capture_overlap_report(
                 f"(category, start us, us) {ranges}, {len(device)} device events from "
                 f"{device[0] if device else None} to {device[-1] if device else None} us")
         events = [ev for ev in events if ev.get("args", {}).get("correlation") not in corr]
-    report = overlap_from_events(events, wire_streams=wire)
-    report["wire_streams"] = sorted(wire) if wire is not None else None
-    report["trace_dir"] = out_dir
-    return report
+    return events, wire, out_dir

@@ -28,8 +28,13 @@ engine's fill-drain update.
 
 ``compile_eval(params, graph) -> EvalProgram`` is the forward-only path the
 serving frontend (``repro_torch.launch.serve_gnn``) and ``evaluate`` share.
-Every stage runs on ``config.device`` (one card); the schedule's device
-numbers only label the timeline (the compiled engine's lanes).
+
+Across cards: the host engine places stage s on ``config.devices`` (one
+process, several cards; torchgpipe's layout), and the compiled engine,
+run by one process per card (``repro_torch.core.ranks``), runs the ring
+executors, one ring position per rank. Otherwise every stage runs on
+``config.device`` and the schedule's device numbers only label the
+timeline (the compiled engine's lanes).
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.core import cuda_graph
+from repro_torch.core import cuda_graph, ranks
 from repro_torch.core.microbatch import MicroBatchPlan
 from repro_torch.core.schedule import (
     PHASE_BWD,
@@ -53,6 +58,8 @@ from repro_torch.core.schedule import (
     retime_timeline,
 )
 from repro_torch.core.spmd_pipe import (
+    spmd_pipeline_scheduled,
+    spmd_pipeline_scheduled_eval,
     spmd_pipeline_scheduled_eval_lanes,
     spmd_pipeline_scheduled_lanes,
 )
@@ -84,6 +91,11 @@ class GPipeConfig:
 
     balance: tuple[int, ...]  # layers per stage; sums to len(model.layers)
     chunks: int
+    # host engine: per-stage devices in one process (e.g. ("cuda:0", ...,
+    # "cuda:3")); stage s runs on devices[p % len(devices)], p its ring
+    # position mapped through the placement's device_order. None: every
+    # stage on ``device``. The compiled engine reads its ranks instead.
+    devices: tuple | None = None
     schedule: str = "fill_drain"  # any repro_torch.core.schedule.SCHEDULES name
     num_devices: int | None = None  # interleaved/zb-v: devices the timeline places stages on
     # stage -> device assignment overriding the schedule's default (ring
@@ -98,8 +110,9 @@ class GPipeConfig:
     # graph data parallelism (compiled engine): replicas that each pipeline a
     # contiguous shard of the chunks, gradients reduced in the canonical
     # global chunk order, so the update is bit-identical to one replica.
-    # Requires chunks % data_parallel == 0. One card holds one replica, so
-    # the step runs the single-replica program over all chunks, as the
+    # Requires chunks % data_parallel == 0. The replicas split the chunks
+    # on a world of data_parallel x ring ranks; one card, or a world of one
+    # ring, runs the single-replica program over all chunks, as the
     # reference does with fewer devices than data_parallel x ring.
     data_parallel: int = 1
     # communication/compute overlap (compiled engine): "off" banks each
@@ -206,7 +219,7 @@ class PipelineEngine:
         self.model = model
         self.config = config
         # set when the compiled engine lowers a step: True only when
-        # replicas really split the chunks, which one card never does
+        # replicas really split the chunks (a data_parallel x ring world)
         self._data_parallel_active = False
         self.device = torch.device(config.device)
         self.backend = canonical_backend(config.backend)
@@ -267,26 +280,31 @@ class PipelineEngine:
             return graph.to(self.device)
         return self._cached(graph, lambda: bucketize_stacked(graph).to(self.device))
 
-    def _chunk_graphs(self, plan: MicroBatchPlan) -> tuple[list, list]:
-        """Per-chunk graphs the stages consume, on the device, and each
-        chunk's loss mask (``train_mask & core_mask``): the plan's padded
-        batches as they are, or under the kernel backend one shared
-        bucketed layout of the stacked plan (``bucketize_stacked``, one set
-        of bucket capacities) sliced back per chunk. Built once per plan."""
+    def _chunk_graphs(self, plan: MicroBatchPlan, device=None) -> tuple[list, list]:
+        """Per-chunk graphs the stages consume, on ``device`` (the engine's
+        by default), and each chunk's loss mask (``train_mask &
+        core_mask``): the plan's padded batches as they are, or under the
+        kernel backend one shared bucketed layout of the stacked plan
+        (``bucketize_stacked``, one set of bucket capacities) sliced back
+        per chunk. Built once per plan and device."""
+        device = self.device if device is None else torch.device(device)
 
         def build():
             if self.backend == "kernel":
                 stacked = plan.stacked()
-                layout = self.layout(stacked.graph)
+                layout = self.layout(stacked.graph).to(device)
                 graphs = [layout.chunk(c) for c in range(plan.chunks)]
                 cores = [stacked.core_mask[c] for c in range(plan.chunks)]
             else:
-                graphs = [mb.graph.to(self.device) for mb in plan.batches]
+                graphs = [mb.graph.to(device) for mb in plan.batches]
                 cores = [mb.core_mask for mb in plan.batches]
-            masks = [g.train_mask & core.to(self.device) for g, core in zip(graphs, cores)]
+            masks = [g.train_mask & core.to(device) for g, core in zip(graphs, cores)]
             return graphs, masks
 
-        return self._cached(plan, build)
+        per_device = self._cached(plan, dict)
+        if device not in per_device:
+            per_device[device] = build()
+        return per_device[device]
 
     def evaluate(self, params: list, plan: MicroBatchPlan) -> dict:
         """Forward-only inference over the plan's chunks: the same metric
@@ -309,6 +327,8 @@ class PipelineEngine:
         )
         if self.placement is not None:
             d["placement"] = list(self.placement.stage_to_device)
+        if self.config.devices:
+            d["devices"] = [str(x) for x in self.config.devices]
         if self.config.data_parallel > 1:
             d["data_parallel"] = self.config.data_parallel
         return d
@@ -324,12 +344,21 @@ def _chunk_loss_sum(log_probs, labels, mask):
 
 class GPipe(PipelineEngine):
     """Host-driven pipeline-parallel wrapper around a sequential ``GNNModel``
-    (the paper's §6 torchgpipe analogue; schedules are pluggable)."""
+    (the paper's §6 torchgpipe analogue; schedules are pluggable).
+
+    With ``config.devices`` each stage lives on a card of its own, in one
+    process: ``init_params`` places each layer on its stage's card, each
+    stage's chunk graphs are copied there once per plan, an activation or
+    cotangent moves to the consuming stage's card as it is produced
+    (``.to(device)``, a peer copy), and the loss scale and the optimizer
+    update follow each layer's card. The update is bit-identical to the
+    one-card fill-drain's (under deterministic algorithms)."""
 
     name = "host"
 
     def __init__(self, model: GNNModel, config: GPipeConfig):
         super().__init__(model, config)
+        self._stage_devices = [self._device_of_stage(s) for s in range(config.num_stages)]
         if config.data_parallel > 1:
             raise ValueError(
                 "data_parallel > 1 needs the compiled engine's data axis; the host "
@@ -342,6 +371,32 @@ class GPipe(PipelineEngine):
             )
         self._evals: dict = {}  # (chunks, n_pad, max_deg) -> EvalProgram
         self._timelines: dict = {}  # chunks -> the (placed) timeline
+
+    def _device_of_stage(self, s: int) -> torch.device:
+        """Stage ``s``'s device: ``devices[p % len(devices)]`` for its ring
+        position p mapped through the placement's ``device_order`` (the
+        reference's ``GPipe._place``), or the engine's device."""
+        devs = self.config.devices
+        if not devs:
+            return self.device
+        if self.placement is not None:
+            pos = self.placement.stage_to_device[s]
+            order = self.placement.device_order
+            phys = order[pos] if order is not None else pos
+        else:
+            phys = self.schedule.device_of(s, self.config.num_stages)
+        return torch.device(devs[phys % len(devs)])
+
+    def _layer_device(self, i: int) -> torch.device:
+        s = next(s for s, (lo, hi) in enumerate(self._bounds) if lo <= i < hi)
+        return self._stage_devices[s]
+
+    def init_params(self, seed: int = 0) -> list:
+        """Fresh per-layer params from the wrapped model, each layer on its
+        stage's device."""
+        params = super().init_params(seed)
+        return [{k: v.to(self._layer_device(i)) for k, v in p.items()}
+                for i, p in enumerate(params)]
 
     def compile_eval(self, params: list, graph) -> EvalProgram:
         """A loop over the stacked chunks applying the full layer stack to
@@ -417,9 +472,13 @@ class GPipe(PipelineEngine):
         closes the step. ``rng`` is the step's dropout key. ``record`` (if
         given) receives ``(phase, tick, stage, chunk, seconds)`` per item,
         each timed to a device synchronize; ``stats`` receives the
-        schedule's accounting and the measured peak live activations."""
+        schedule's accounting and the measured peak live activations.
+        With ``config.devices``, ``params`` and ``opt_state`` live on the
+        stages' devices (``init_params``)."""
         S, C = self.config.num_stages, plan.chunks
-        graphs, loss_masks = self._chunk_graphs(plan)
+        devs = self._stage_devices
+        stage_graphs = [self._chunk_graphs(plan, dev)[0] for dev in devs]
+        loss_masks = self._chunk_graphs(plan, devs[-1])[1]
 
         saved: dict[tuple[int, int], Any] = {}
         outs: dict[int, Any] = {}
@@ -432,7 +491,7 @@ class GPipe(PipelineEngine):
 
         for it in self._timeline(C):
             s, c = it.stage, it.chunk
-            g = graphs[c]
+            g = stage_graphs[s][c]
             lo, hi = self._bounds[s]
             keys = self._layer_rngs(rng, c)[lo:hi]
             t0 = time.perf_counter()
@@ -443,7 +502,7 @@ class GPipe(PipelineEngine):
                 if s == 0:
                     saved[(0, c)] = g.features
                 if s + 1 < S:
-                    saved[(s + 1, c)] = h_out
+                    saved[(s + 1, c)] = h_out.to(devs[s + 1])  # the hop to the next card
                 else:
                     outs[c] = h_out
                 peak_live = max(peak_live, len(saved))
@@ -456,7 +515,7 @@ class GPipe(PipelineEngine):
                         s, params, g, saved.pop((s, c)), keys, cts[c],
                         want_params=True, want_input=s > 0,
                     )
-                    cts[c] = d_h
+                    cts[c] = None if d_h is None else d_h.to(devs[s - 1])
                     chunk_grads[s][c] = d_params
                 elif it.phase == "bwd_b":
                     # B: emit the upstream cotangent now, defer the weight
@@ -471,6 +530,7 @@ class GPipe(PipelineEngine):
                             s, params, g, h_in, keys, cts[c],
                             want_params=False, want_input=True,
                         )
+                        d_h = d_h.to(devs[s - 1])
                     cts[c] = d_h
                 else:  # "bwd_w": consume the residual, produce the weight grad
                     h_in, ct = residuals.pop((s, c))
@@ -478,7 +538,7 @@ class GPipe(PipelineEngine):
                         s, params, g, h_in, keys, ct, want_params=True, want_input=False
                     )
             if record is not None:
-                synchronize(self.device)
+                synchronize(devs[s])
                 record.append((it.phase, it.tick, s, c, time.perf_counter() - t0))
 
         # canonical reduction — per stage, chunks in descending order (the
@@ -490,8 +550,9 @@ class GPipe(PipelineEngine):
             for c in reversed(range(C)):
                 for i, g in enumerate(chunk_grads[s][c]):
                     grads[lo + i] = {k: grads[lo + i][k] + v for k, v in g.items()}
-        total_loss = torch.zeros((), dtype=torch.float32, device=self.device)
-        total_count = torch.zeros((), dtype=torch.float32, device=self.device)
+        # the losses live on the last stage's device
+        total_loss = torch.zeros((), dtype=torch.float32, device=devs[-1])
+        total_count = torch.zeros((), dtype=torch.float32, device=devs[-1])
         for loss_sum, count in chunk_losses:
             total_loss = total_loss + loss_sum
             total_count = total_count + count
@@ -502,7 +563,7 @@ class GPipe(PipelineEngine):
             stats["measured_peak_w_residuals"] = peak_residuals
 
         scale = 1.0 / torch.clamp(total_count, min=1.0)
-        grads = opt_lib.tree_map(lambda g: g * scale, grads)
+        grads = opt_lib.tree_map(lambda g: g * scale.to(g.device), grads)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = opt_lib.apply_updates(params, updates)
         loss = total_loss / torch.clamp(total_count, min=1.0)
@@ -524,10 +585,11 @@ class _StepProgram:
     (the CPU path); ``captures`` holds its CUDA graphs, one per plan and
     keyed-or-not step."""
 
-    def __init__(self, step, optimizer: opt_lib.Optimizer, lowered):
+    def __init__(self, step, optimizer: opt_lib.Optimizer, lowered, on_ranks: bool = False):
         self.step = step
         self.optimizer = optimizer  # retained: the cache is keyed by its id()
         self.lowered = lowered
+        self.on_ranks = on_ranks  # runs the ring executors: eager, never captured
         self.captures: dict = {}  # (id(plan), keyed) -> (plan, CapturedStep)
 
     def __call__(self, params, opt_state, graphs, loss_masks, keys):
@@ -535,44 +597,62 @@ class _StepProgram:
 
 
 class CompiledGNNPipeline(PipelineEngine):
-    """Compiled single-program engine on one device.
+    """Compiled single-program engine: one device, or one ring position per
+    rank.
 
     Every schedule, fill-drain included, is lowered to per-tick slot arrays
-    (``lower_timeline``, with the placement's relabelling) and run by
-    ``spmd_pipeline_scheduled_lanes``: the schedule's devices are lanes of
-    one program, activations and cotangents hop between lanes through
-    preallocated stashes, each work item is an explicit stage forward or
-    vjp over the params-explicit stage slices (``make_gnn_stage_slices``,
-    ``make_gnn_stage_slices_bw``), and one optimizer update closes the
-    step. Per-chunk gradients are reduced in descending chunk order and
-    dropout keys are derived per (step key, chunk, layer) as the host engine
-    derives them, so every schedule and placement gives an update
-    bit-identical to the host engine's fill-drain.
+    (``lower_timeline``, with the placement's relabelling) and run by the
+    tick executors of ``core.spmd_pipe``: each work item is an explicit
+    stage forward or vjp over the params-explicit stage slices
+    (``make_gnn_stage_slices``, ``make_gnn_stage_slices_bw``), and one
+    optimizer update closes the step. Per-chunk gradients are reduced in
+    descending chunk order and dropout keys are derived per (step key,
+    global chunk, layer) as the host engine derives them, so every schedule,
+    placement and data-parallel width gives an update bit-identical to the
+    host engine's fill-drain.
 
-    On a CUDA card the step is captured once per (plan, optimizer, shape)
-    as a CUDA graph (``cuda_graph.CapturedStep``) and each ``train_step``
-    is one replay; ``train_step`` then returns the graph's static param and
-    optimizer-state buffers, which the next replay overwrites. Each eval
-    program (``compile_eval``, one per stacked shape) is likewise one graph
-    (``cuda_graph.GraphedForward``). On the CPU the same programs run
-    eagerly. ``graphs_captured`` counts the graphs this engine holds.
+    Like the reference, the engine reads how many devices it has. With no
+    process group (one card or the CPU), the schedule's devices are lanes
+    of one program (``spmd_pipeline_scheduled_lanes``); on a CUDA card the
+    step is captured once per (plan, optimizer, shape) as a CUDA graph
+    (``cuda_graph.CapturedStep``) and each ``train_step`` is one replay,
+    which returns the graph's static param and optimizer-state buffers (the
+    next replay overwrites them). Each eval program (``compile_eval``, one
+    per stacked shape) is likewise one graph (``cuda_graph.GraphedForward``).
+    On the CPU the same programs run eagerly. ``graphs_captured`` counts
+    the graphs this engine holds.
+
+    With a process group of ``D`` ranks (the schedule's ring) or ``dp·D``
+    (``data_parallel`` replicas of it; ``core.ranks.RankGrid``), each rank
+    runs its own ring position through ``spmd_pipeline_scheduled`` and the
+    eval through ``spmd_pipeline_scheduled_eval``; the placement's
+    ``device_order`` picks which rank holds which position. On a grid each
+    replica takes its contiguous chunk shard, its dropout keys folding the
+    global chunk id. Every rank holds the full params and applies the same
+    update. On ranks the step and the eval run eagerly: capturing NCCL's
+    point-to-point ops in a CUDA graph is not done yet (``graphs_captured``
+    is 0 there).
 
     ``overlap`` other than "off" lowers the train timeline retimed to wire
-    latency 2 (the double-buffered wires, their posts on ``wire_stream`` on
-    a card); eval programs stay at latency 1, as the reference's do.
+    latency 2 (the double-buffered wires: their posts on ``wire_stream``
+    on a card, on NCCL's stream on ranks); eval programs stay at latency 1,
+    as the reference's do.
 
     Not ported: the reference's single-device fused chunk scan
     (``_build_step``/``_make_scan_loss``, which exists because a
     ``vmap``-emulated ring computes every ``lax.switch`` branch; a
-    host-unrolled tick program dispatches only real items) and the ring
-    executors across ranks. ``data_parallel`` > 1
-    runs the single-replica program over all chunks, the reference's
-    update on too few devices for its (data, stage) mesh."""
+    host-unrolled tick program dispatches only real items)."""
 
     name = "compiled"
 
     def __init__(self, model: GNNModel, config: GPipeConfig):
         super().__init__(model, config)
+        if config.devices:
+            raise ValueError(
+                "devices places the host engine's stages in one process; the compiled "
+                "engine takes one rank per device (core.ranks)"
+            )
+        self._grid = None  # the RankGrid, made with the first program on ranks
         # the stream the double-buffered wires post on (a card, overlap on),
         # made with the first step program: one per engine
         self.wire_stream: torch.cuda.Stream | None = None
@@ -622,6 +702,19 @@ class CompiledGNNPipeline(PipelineEngine):
         self._plans[id(plan)] = (plan, value)
         return value
 
+    def _rank_grid(self):
+        """The ``RankGrid`` of the joined process group, made once (on
+        every rank, in the same order); None without a group."""
+        if not ranks.active():
+            return None
+        if self._grid is None:
+            p = self.placement
+            self._grid = ranks.RankGrid(
+                self.config.data_parallel, self.schedule.num_devices(self.config.num_stages),
+                p.device_order if p is not None else None,
+            )
+        return self._grid
+
     def _lower_for(self, chunks: int, skip_chunks: tuple = ()):
         """The configured schedule's timeline for ``chunks`` chunks, placed
         and lowered (the lowering's ring check rejects what the executor
@@ -639,7 +732,7 @@ class CompiledGNNPipeline(PipelineEngine):
                               skip_chunks=skip_chunks)
 
     def _make_work_fn(self, widths, params, graphs, loss_masks, keys):
-        """The per-tick work dispatcher for ``spmd_pipeline_scheduled_lanes``:
+        """The per-tick work dispatcher of the tick executors:
         fwd, fused bwd, split B and split W items of every stage. The last
         stage derives its cotangent from the same summed masked NLL the host
         engine differentiates (``_chunk_loss_sum``), in its fused bwd or B
@@ -694,39 +787,57 @@ class CompiledGNNPipeline(PipelineEngine):
         the gradient scaling and one optimizer update, as one function of
         ``(params, opt_state, graphs, loss_masks, keys)``. With
         ``data_parallel`` > 1 the chunks must split evenly across the
-        replicas; one card lowers the timeline over all of them."""
+        replicas. On a grid of ranks replica r lowers the timeline over its
+        contiguous shard ``[r·C/dp, (r+1)·C/dp)`` and folds the global chunk
+        id into its dropout keys (the reference's ``chunk_offset``); one
+        card, or one ring, lowers it over all of them."""
         dp = self.config.data_parallel
         if dp > 1 and chunks % dp:
             raise ValueError(
                 f"chunks {chunks} must split evenly across data_parallel={dp} replicas"
             )
-        lowered = self._lower_for(chunks, skip_chunks)
-        if lowered.wire_latency == 2 and self.device.type == "cuda" and self.wire_stream is None:
+        grid = self._rank_grid()
+        dp_active = grid is not None and grid.dp > 1
+        local = chunks // dp if dp_active else chunks
+        offset = grid.replica * local if dp_active else 0
+        lowered = self._lower_for(local, skip_chunks)
+        if (grid is None and lowered.wire_latency == 2 and self.device.type == "cuda"
+                and self.wire_stream is None):
             self.wire_stream = torch.cuda.Stream(device=self.device)
-        self._data_parallel_active = False  # one card: the replicas never split the chunks
+        self._data_parallel_active = dp_active
         d_travel = travel_width(self._bounds, widths)
 
         def step(params, opt_state, graphs, loss_masks, keys):
+            if dp_active:  # this replica's shard, indexed by local chunk id
+                graphs = graphs[offset:offset + local]
+                loss_masks = loss_masks[offset:offset + local]
+                keys = _shifted_keys(keys, offset)
             work_fn = self._make_work_fn(widths, params, graphs, loss_masks, keys)
             f = graphs[0].features
             wire_like = torch.zeros((f.shape[0], d_travel), dtype=f.dtype, device=f.device)
-            grads, loss_sum, count = spmd_pipeline_scheduled_lanes(
-                work_fn, lowered, wire_like=wire_like, grads_like=params,
-                wire_stream=self.wire_stream,
-            )
+            if grid is None:
+                grads, loss_sum, count = spmd_pipeline_scheduled_lanes(
+                    work_fn, lowered, wire_like=wire_like, grads_like=params,
+                    wire_stream=self.wire_stream,
+                )
+            else:
+                grads, loss_sum, count = spmd_pipeline_scheduled(
+                    work_fn, lowered, wire_like=wire_like, grads_like=params, grid=grid,
+                )
             scale = 1.0 / torch.clamp(count, min=1.0)
             grads = opt_lib.tree_map(lambda g: g * scale, grads)
             updates, opt_state = optimizer.update(grads, opt_state, params)
             params = opt_lib.apply_updates(params, updates)
             return params, opt_state, loss_sum / torch.clamp(count, min=1.0)
 
-        return _StepProgram(step, optimizer, lowered)
+        return _StepProgram(step, optimizer, lowered, on_ranks=grid is not None)
 
     def step_program(self, params, plan: MicroBatchPlan, optimizer) -> tuple:
         """``(program, graphs, loss_masks)`` for a plan: the compiled step
         as a plain function (``program(params, opt_state, graphs,
         loss_masks, keys)``, keys from ``net.chunk_keys``), the one that
-        ``train_step`` runs eagerly on the CPU and captures on a card."""
+        ``train_step`` runs eagerly on the CPU and on ranks, and captures
+        on a card."""
         graphs, masks, skip, shape = self._plan_inputs(plan)
         if self._widths is None:
             self._widths = activation_widths(self.model, params, graphs[0])
@@ -740,14 +851,25 @@ class CompiledGNNPipeline(PipelineEngine):
     def _build_eval_forward(self, widths, chunks: int):
         """``forward(params, graph) -> logp`` over a stacked batch: the
         fill-drain forward wave (``forward_timeline``) lowered forward-only
-        and run by ``spmd_pipeline_scheduled_eval_lanes``."""
+        and run by ``spmd_pipeline_scheduled_eval_lanes``, or on ranks by
+        ``spmd_pipeline_scheduled_eval`` (each replica of a grid runs it
+        over every chunk)."""
         S = self.config.num_stages
-        items = forward_timeline(S, chunks)
-        if self.placement is not None and self.placement.num_devices == S:
-            # a one-stage-per-device ring re-devices the eval wave too; an
-            # interleaved placement (D < S) would double-book devices on the
-            # fill-drain wave, so eval keeps its S-lane identity ring there
-            items = self.placement.apply(items)
+        grid = self._rank_grid()
+        if grid is not None and grid.D < S:
+            # an interleaved ring of D < S ranks: the fill-drain wave would
+            # double-book them, so eval runs the schedule's own forwards
+            timeline = self.schedule.timeline(S, chunks)
+            if self.placement is not None:
+                timeline = self.placement.apply(timeline)
+            items = [it for it in timeline if it.phase == "fwd"]
+        else:
+            items = forward_timeline(S, chunks)
+            if self.placement is not None and self.placement.num_devices == S:
+                # a one-stage-per-device ring re-devices the eval wave too; an
+                # interleaved placement (D < S) would double-book devices on
+                # the fill-drain wave, so one card keeps an S-lane identity ring
+                items = self.placement.apply(items)
         lowered = lower_timeline(items, S, chunks, forward_only=True)
         model, bounds = self.model, self._bounds
         d_travel = travel_width(bounds, widths)
@@ -758,10 +880,14 @@ class CompiledGNNPipeline(PipelineEngine):
             slices = make_gnn_stage_slices(model, bounds, widths, graphs, no_keys, train=False)
             f = g.features
             wire_like = torch.zeros((f.shape[1], d_travel), dtype=f.dtype, device=f.device)
-            out = spmd_pipeline_scheduled_eval_lanes(
-                lambda phase, s, c, h_in: slices[s](params, c, h_in), lowered,
-                wire_like=wire_like,
-            )
+
+            def work(phase, s, c, h_in):
+                return slices[s](params, c, h_in)
+
+            if grid is None:
+                out = spmd_pipeline_scheduled_eval_lanes(work, lowered, wire_like=wire_like)
+            else:
+                out = spmd_pipeline_scheduled_eval(work, lowered, wire_like=wire_like, grid=grid)
             return out[..., : model.out_dim].contiguous()
 
         return forward
@@ -769,18 +895,25 @@ class CompiledGNNPipeline(PipelineEngine):
     def compile_eval(self, params: list, graph) -> EvalProgram:
         """The forward-only program for ``graph``'s stacked shape, with
         ``params`` bound: one CUDA graph per ``(chunks, n_pad, max_deg)``
-        on a card, captured at its first call."""
+        on a card, captured at its first call; eager on ranks."""
         if self._widths is None:
             self._widths = activation_widths(self.model, params, graph)
         key = tuple(graph.neighbors.shape)
         prog = self._evals.get(key)
         if prog is None:
             forward = self._build_eval_forward(self._widths, key[0])
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and self._rank_grid() is None:
                 forward = cuda_graph.GraphedForward(forward)
             prog = EvalProgram(forward, self.device, key)
             self._evals[key] = prog
         return prog.bind(params)
+
+    def describe(self) -> dict:
+        """The base description, and on ranks the grid (``ranks``)."""
+        d = super().describe()
+        if self._grid is not None:
+            d["ranks"] = self._grid.describe()
+        return d
 
     # -------------------------------------------------------------- step --
 
@@ -796,10 +929,10 @@ class CompiledGNNPipeline(PipelineEngine):
         stats: dict | None = None,
     ):
         """One step over the plan as one program; returns ``(params,
-        opt_state, mean_loss)``. On a card it is one CUDA-graph replay and
-        the returned params and state are the graph's static buffers: the
-        next step overwrites them. ``stats`` receives the schedule's
-        accounting and the lowered stash's."""
+        opt_state, mean_loss)``. On a card without ranks it is one
+        CUDA-graph replay and the returned params and state are the graph's
+        static buffers: the next step overwrites them. ``stats`` receives
+        the schedule's accounting and the lowered stash's."""
         program, graphs, masks = self.step_program(params, plan, optimizer)
         if stats is not None:
             lowered = program.lowered
@@ -811,7 +944,7 @@ class CompiledGNNPipeline(PipelineEngine):
             stats["num_ticks"] = lowered.num_ticks
             stats["wire_latency"] = lowered.wire_latency
         n_layers = len(self.model.layers)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or program.on_ranks:
             return program(params, opt_state, graphs, masks, chunk_keys(rng, n_layers))
         ckey = (id(plan), rng is not None)
         entry = program.captures.get(ckey)
@@ -823,6 +956,17 @@ class CompiledGNNPipeline(PipelineEngine):
             entry = (plan, captured)
             program.captures[ckey] = entry
         return entry[1](params, opt_state, rng)
+
+
+def _shifted_keys(keys, offset: int):
+    """``keys`` (``net.chunk_keys``) at global chunk ``c + offset`` for a
+    replica's local chunk c."""
+
+    def shifted(chunk: int, site: str) -> list:
+        return keys(chunk + offset, site)
+
+    return shifted
+
 
 ENGINES = {"host": GPipe, "compiled": CompiledGNNPipeline}
 

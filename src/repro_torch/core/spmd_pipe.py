@@ -1,39 +1,58 @@
-"""Tick executors of the compiled engine on one device.
+"""Tick executors of the compiled engine: the lanes of one device, and the
+ring across ranks.
 
-Counterpart of the one-device ("lanes") executors of ``repro.core.spmd_pipe``:
-``spmd_pipeline_scheduled_lanes`` runs a train timeline and
-``spmd_pipeline_scheduled_eval_lanes`` a forward-only one, both lowered to
-the per-tick slot arrays of ``repro_torch.core.schedule.LoweredTimeline``.
-The schedule's devices become *lanes*: every lane keeps its own preallocated
-stashes, and the ring hop is a rotation of the lanes' outputs.
+Counterpart of ``repro.core.spmd_pipe``'s scheduled executors. Every
+executor runs a timeline lowered to the per-tick slot arrays of
+``repro_torch.core.schedule.LoweredTimeline``; device (ring position) d
+runs column d of those arrays.
 
-The slot arrays are numpy, so ticks, lanes, phases and slots are Python
+  * ``spmd_pipeline_scheduled_lanes`` / ``spmd_pipeline_scheduled_eval_lanes``
+    run every column in one program on one device: the schedule's devices
+    become *lanes*, each with its own preallocated stashes, and the ring
+    hop is a rotation of the lanes' outputs.
+  * ``spmd_pipeline_scheduled`` / ``spmd_pipeline_scheduled_eval`` run on
+    a ring of ranks (``repro_torch.core.ranks.RankGrid``): each rank runs
+    its own column of the same global arrays, and the hop is a
+    ``torch.distributed.batch_isend_irecv`` with both directions of a tick
+    in one group.
+
+Both share the per-tick logic (``_Column``: the banks and the inputs of a
+column's work; ``_run_ticks``: bank, post, work); only the wires differ.
+
+The slot arrays are numpy, so ticks, columns, phases and slots are Python
 ints while the program runs. Each tick therefore dispatches only its real
-work items: an idle lane does nothing, and a value the lowering routes to a
-sacrificial slot (fill/drain garbage) is never written. Run under a CUDA
-graph capture (``repro_torch.core.cuda_graph``), the whole timeline becomes
-one graph.
+work items: an idle column does nothing, and a value the lowering routes to
+a sacrificial slot (fill/drain garbage) is never written, nor sent. Run
+under a CUDA graph capture (``repro_torch.core.cuda_graph``), the whole
+lanes timeline becomes one graph.
 
 Wire latency (``lowered.wire_latency``, the reference's wire-parity rule):
-at latency 1 a tick's outputs are banked by the neighbour lane at the next
-tick, straight from the tensors the work produced. At latency 2 (a
-timeline retimed by ``schedule.retime_timeline``) the train executor runs
-the double-buffered dataflow: each direction of each lane holds two
-preallocated wire buffers used by tick parity, and a tick
+at latency 1 a tick's outputs are banked by the neighbour at the next
+tick. At latency 2 (a timeline retimed by ``schedule.retime_timeline``)
+the train executors run the double-buffered dataflow: a tick
 
-  1. banks the buffer that arrived (the outputs of tick t-2),
-  2. posts the pending outputs of tick t-1 into the other parity's buffer
-     of the neighbour lane,
+  1. banks what arrived (the outputs of tick t-2),
+  2. posts the pending outputs of tick t-1 to the neighbours,
   3. runs its work, and
   4. parks its own outputs as the next pending.
 
-The post is the one-card image of the ring hop: a device copy on a wire
-stream of its own, forked from the current stream after the tick's banks
-and joined by an event before the next tick's banks, so the copy runs
-beside the tick's work. On the CPU the same code runs on the one stream.
-Banked values, stash traffic and the gradient order are the latency-1
-ones, so the update is bit-identical. The eval executor takes latency 1
-only, as the reference's eval lanes do.
+On one card the post is a device copy into the neighbour lane's buffer of
+tick parity ``t % 2``, on a wire stream of its own, forked from the current
+stream after the tick's banks and joined by an event before the next
+tick's banks, so the copy runs beside the tick's work. On ranks the post
+is the tick's ``batch_isend_irecv``, waited on before the next tick's banks:
+NCCL's own stream is the wire. On the CPU the same code runs on the one
+stream. Banked values, stash traffic and the gradient order are the
+latency-1 ones, so the update is bit-identical. The eval executors take
+latency 1 only, as the reference's do.
+
+**Pairing on ranks.** A rank sends a value only where the lowering banks it
+into a real slot of the neighbour at the next tick, and posts a receive
+only where it banks one itself; both sides read that from the same arrays,
+so every send has its receive. An unpaired point-to-point op hangs NCCL
+rather than raising. With two ranks both neighbours are one peer: the
+forward direction's ops precede the backward's in every group, so NCCL
+pairs them in that order (gloo by their tags).
 """
 
 from __future__ import annotations
@@ -45,14 +64,235 @@ import torch
 
 from repro_torch.core.schedule import PHASE_FWD, PHASE_IDLE, LoweredTimeline
 
+_TAG_F, _TAG_B = 0, 1  # the forward and backward wires' P2P tags (gloo matches by tag)
+
+
+def _stash(n_slots: int, wire_like: torch.Tensor) -> torch.Tensor:
+    # slot n_slots is the lowering's sacrificial slot; it is allocated as in
+    # the reference but nothing writes or reads it here
+    return wire_like.new_zeros((n_slots + 1,) + tuple(wire_like.shape))
+
+
+class _Column:
+    """One device column of a lowered timeline: its stashes, the banks of
+    what arrives on its wires, and the inputs its work items read. The
+    lanes executors keep one per lane; a rank of the ring keeps its own."""
+
+    def __init__(self, lowered: LoweredTimeline, d: int, wire_like: torch.Tensor):
+        self.lw, self.d = lowered, d
+        self.n_f, self.n_b, self.n_w = lowered.n_fslots, lowered.n_bslots, lowered.n_wslots
+        self.fstash = _stash(self.n_f, wire_like)
+        self.bstash = _stash(self.n_b, wire_like) if self.n_b else None
+        self.wstash = (_stash(self.n_w, wire_like), _stash(self.n_w, wire_like)) \
+            if self.n_w else None
+
+    def bank(self, t: int, wire_f, wire_b) -> None:
+        """Bank tick ``t``'s arrivals into the slots the lowering gave them."""
+        for stash, slot, sacrificial, value in (
+            (self.fstash, int(self.lw.in_fslot[t, self.d]), self.n_f, wire_f),
+            (self.bstash, int(self.lw.in_bslot[t, self.d]), self.n_b, wire_b),
+        ):
+            if slot != sacrificial:
+                if value is None:
+                    raise RuntimeError(f"tick {t} banks a wire that carries no value")
+                stash[slot].copy_(value)
+
+    def item(self, t: int):
+        """``(phase, stage, chunk, h_in, ct_in, w_res)`` of the column's work
+        at tick ``t``, or None when it idles. ``h_in``/``ct_in``/``w_res``
+        are None where the lowering gives the item none."""
+        lw, d = self.lw, self.d
+        phase = int(lw.phase[t, d])
+        if phase == PHASE_IDLE:
+            return None
+        f_slot, b_slot = int(lw.work_fslot[t, d]), int(lw.work_bslot[t, d])
+        w_slot = int(lw.work_wslot[t, d])
+        h_in = self.fstash[f_slot] if f_slot != self.n_f else None
+        ct_in = self.bstash[b_slot] if b_slot != self.n_b else None
+        w_res = None
+        if self.n_w and w_slot != self.n_w:
+            w_res = (self.wstash[0][w_slot], self.wstash[1][w_slot])
+        return phase, int(lw.stage[t, d]), int(lw.chunk[t, d]), h_in, ct_in, w_res
+
+    def keep_residual(self, t: int, w_out) -> None:
+        """Bank a B item's (input, cotangent) residual for its W half."""
+        store = int(self.lw.store_wslot[t, self.d])
+        for buf, value in zip(self.wstash, w_out):
+            if value is not None:  # stage 0 banks no input
+                buf[store].copy_(value)
+
+
+class _GradSink:
+    """Per-chunk slots of one step's gradients (flat, one row a chunk) and
+    of its loss sums and counts. Each (layer, chunk) gradient has exactly
+    one producer, which writes its row; the reductions then sum the chunks
+    in descending order (the fill-drain drain order) and the losses in
+    ascending chunk order, the host engine's orders, so every schedule's
+    floats are identical. Row C is the lowering's sacrificial chunk."""
+
+    def __init__(self, grads_like: list, num_chunks: int, wire_like: torch.Tensor):
+        self.C = num_chunks
+        self.layout = [(i, k, tuple(v.shape), v.numel())
+                       for i, p in enumerate(grads_like) for k, v in p.items()]
+        self.num_layers = len(grads_like)
+        leaves = [v for p in grads_like for v in p.values()]
+        like = leaves[0] if leaves else wire_like
+        width = sum(n for *_, n in self.layout)
+        self.g = like.new_zeros((num_chunks + 1, width))
+        self.loss = wire_like.new_zeros((num_chunks + 1, 2), dtype=torch.float32)
+        self.written: set[int] = set()
+        self.scored: set[int] = set()
+
+    def put(self, chunk: int, grads, loss_sum, count) -> None:
+        """Record one work item's gradients (a list over the model's layers,
+        None outside its stage) and, from the last stage, its loss."""
+        if grads is not None:
+            off = 0
+            for i, k, _, n in self.layout:
+                layer = grads[i]
+                if layer is not None and k in layer:
+                    self.g[chunk, off:off + n].copy_(layer[k].reshape(-1))
+                off += n
+            self.written.add(chunk)
+        if loss_sum is not None:
+            self.loss[chunk, 0].copy_(loss_sum)
+            self.loss[chunk, 1].copy_(count)
+            self.scored.add(chunk)
+
+    @staticmethod
+    def _sums(g_rows, loss_rows):
+        """(flat grads, loss, count): ``g_rows`` summed in the order given,
+        from zeros, and ``loss_rows`` likewise."""
+        flat = None
+        for row in g_rows:
+            flat = row if flat is None else flat + row
+        loss = count = None
+        for row in loss_rows:
+            loss = row[0] if loss is None else loss + row[0]
+            count = row[1] if count is None else count + row[1]
+        return flat, loss, count
+
+    def local(self):
+        """(flat grads, loss, count) over this sink's own chunks."""
+        zero_g, zero_l = self.g.new_zeros(self.g.shape[1]), self.loss.new_zeros(2)
+        return self._sums(
+            [zero_g] + [self.g[c] for c in reversed(range(self.C)) if c in self.written],
+            [zero_l] + [self.loss[c] for c in sorted(self.scored)],
+        )
+
+    def gathered(self, group, dp: int):
+        """(flat grads, loss, count) over every replica's chunks: the rows
+        of the ``dp`` replicas of ``group`` (replica r owns global chunks
+        ``[r*C, (r+1)*C)``) gathered and summed in descending global chunk
+        order, the losses in ascending order. Each (layer, chunk) gradient
+        is nonzero on one replica only, so the sum adds zeros to it."""
+        import torch.distributed as dist
+
+        gs = [torch.empty_like(self.g) for _ in range(dp)]
+        ls = [torch.empty_like(self.loss) for _ in range(dp)]
+        dist.all_gather(gs, self.g, group=group)
+        dist.all_gather(ls, self.loss, group=group)
+        zero_g, zero_l = self.g.new_zeros(self.g.shape[1]), self.loss.new_zeros(2)
+        return self._sums(
+            [zero_g] + [gs[r][c] for r in reversed(range(dp)) for c in reversed(range(self.C))],
+            [zero_l] + [ls[r][c] for r in range(dp) for c in range(self.C)],
+        )
+
+    def unflatten(self, flat) -> list:
+        """The flat gradient as a list of per-layer dicts of views."""
+        grads: list = [{} for _ in range(self.num_layers)]
+        off = 0
+        for i, k, shape, n in self.layout:
+            grads[i][k] = flat[off:off + n].view(shape)
+            off += n
+        return grads
+
+
+def _run_ticks(lowered: LoweredTimeline, columns: list, wires, tick_fn) -> None:
+    """The tick loop every executor shares: bank what arrived, post (at
+    latency 2, the last tick's outputs, before the work), run each column's
+    work (``tick_fn(column, t) -> (y, d_h)``), post (at latency 1, this
+    tick's outputs)."""
+    outs: list = [(None, None)] * len(columns)
+    for t in range(lowered.num_ticks):
+        for column, (wire_f, wire_b) in zip(columns, wires.arrived(t, outs)):
+            column.bank(t, wire_f, wire_b)
+        if lowered.wire_latency == 2:
+            wires.post(t, outs)
+        outs = [tick_fn(column, t) for column in columns]
+        if lowered.wire_latency == 1:
+            wires.post(t, outs)
+
+
+def _train_tick(work_fn, sink: _GradSink):
+    """``tick_fn`` of the train executors: one work item, its residual and
+    its gradients and loss into ``sink``; returns its wire outputs."""
+
+    def tick(column: _Column, t: int):
+        item = column.item(t)
+        if item is None:
+            return None, None
+        y, d_h, w_out, grads, loss_sum, count = work_fn(*item)
+        if w_out is not None:
+            column.keep_residual(t, w_out)
+        sink.put(item[2], grads, loss_sum, count)
+        return y, d_h
+
+    return tick
+
+
+def _eval_tick(work_fn, lowered: LoweredTimeline, out: torch.Tensor):
+    """``tick_fn`` of the eval executors: one forward item; a last-stage
+    item writes its chunk's row of ``out``."""
+    out_slot = _eval_out_slot(lowered)
+    C = lowered.num_chunks
+
+    def tick(column: _Column, t: int):
+        item = column.item(t)
+        if item is None:
+            return None, None
+        phase, stage, chunk, h_in, _, _ = item
+        y = work_fn(phase, stage, chunk, h_in)
+        if int(out_slot[t, column.d]) != C:
+            out[int(out_slot[t, column.d])].copy_(y)
+        return y, None
+
+    return tick
+
+
+def _eval_out_slot(lowered: LoweredTimeline) -> np.ndarray:
+    """Per-tick output slot: last-stage forward ticks write their chunk's
+    result, everything else routes to the sacrificial slot C."""
+    last = (lowered.phase == PHASE_FWD) & (lowered.stage == lowered.num_stages - 1)
+    return np.where(last, lowered.chunk, lowered.num_chunks).astype(np.int32)
+
+
+# ------------------------------------------------------------ the lanes --
+
+
+class _LaneRing:
+    """The latency-1 wires of the lanes: lane d banks what lane d-1 sent
+    forward and lane d+1 sent back at the last tick, straight from the
+    tensors the work produced."""
+
+    def __init__(self, num_lanes: int):
+        self.D = num_lanes
+
+    def arrived(self, t: int, outs: list) -> list:
+        D = self.D
+        return [(outs[(d - 1) % D][0], outs[(d + 1) % D][1]) for d in range(D)]
+
+    def post(self, t: int, outs: list) -> None:
+        pass
+
 
 class _DoubleBufferedWires:
-    """The latency-2 wires of ``spmd_pipeline_scheduled_lanes``: per
-    direction and lane two preallocated buffers, used by tick parity. The
-    post of tick t writes parity ``t % 2`` and the bank of tick t reads
-    parity ``(t - 1) % 2``. With ``stream`` (a CUDA stream) the posts run
-    there and the current stream waits on an event after each before the
-    next banks; with None they run in line."""
+    """The latency-2 wires of the lanes: per direction and lane two
+    preallocated buffers, used by tick parity. The post of tick t writes
+    parity ``t % 2`` and the bank of tick t reads parity ``(t - 1) % 2``.
+    With ``stream`` (a CUDA stream) the posts run there and the current
+    stream waits on an event after each before the next banks; with None
+    they run in line."""
 
     def __init__(self, lowered: LoweredTimeline, wire_like: torch.Tensor,
                  stream: "torch.cuda.Stream | None"):
@@ -67,28 +307,30 @@ class _DoubleBufferedWires:
         # blocks to later work while the wire stream still reads them
         self._posted: tuple | None = None
 
-    def arrived(self, t: int) -> list:
-        """Per direction, per lane: the buffer tick ``t`` banks (the outputs
-        of tick t-2), once the current stream has waited for its post."""
+    def arrived(self, t: int, outs: list) -> list:
+        """Per lane, the (forward, backward) buffers tick ``t`` banks (the
+        outputs of tick t-2), once the current stream has waited for their
+        post."""
         if self._posted is not None:
             event, _held = self._posted
             torch.cuda.current_stream(self.stream.device).wait_event(event)
             self._posted = None
         parity = (t - 1) % 2
-        return [[lane[parity] for lane in direction] for direction in self.buf]
+        return [(self.buf[0][d][parity], self.buf[1][d][parity])
+                for d in range(self.lowered.num_devices)]
 
-    def post(self, t: int, ys: list, dhs: list) -> None:
-        """Copy tick t-1's outputs ``ys`` (to lane d+1) and ``dhs`` (to lane
-        d-1) into parity ``t % 2`` of the neighbours' buffers: only those
-        that tick t+1 banks into a real stash slot."""
+    def post(self, t: int, outs: list) -> None:
+        """Copy tick t-1's outputs ``outs`` (per lane, ``y`` to lane d+1 and
+        ``d_h`` to lane d-1) into parity ``t % 2`` of the neighbours'
+        buffers: only those that tick t+1 banks into a real stash slot."""
         lw, D, parity = self.lowered, self.lowered.num_devices, t % 2
         if t + 1 >= lw.num_ticks:
             return
         copies = []
         for e in range(D):
             for direction, slots, sacrificial, src in (
-                (0, lw.in_fslot, lw.n_fslots, ys[(e - 1) % D]),
-                (1, lw.in_bslot, lw.n_bslots, dhs[(e + 1) % D]),
+                (0, lw.in_fslot, lw.n_fslots, outs[(e - 1) % D][0]),
+                (1, lw.in_bslot, lw.n_bslots, outs[(e + 1) % D][1]),
             ):
                 if int(slots[t + 1, e]) == sacrificial:
                     continue
@@ -110,12 +352,6 @@ class _DoubleBufferedWires:
         event = torch.cuda.Event()
         event.record(self.stream)
         self._posted = (event, [src for _, src in copies])
-
-
-def _stash(n_slots: int, wire_like: torch.Tensor) -> torch.Tensor:
-    # slot n_slots is the lowering's sacrificial slot; it is allocated as in
-    # the reference but nothing writes or reads it here
-    return wire_like.new_zeros((n_slots + 1,) + tuple(wire_like.shape))
 
 
 def spmd_pipeline_scheduled_lanes(
@@ -143,93 +379,19 @@ def spmd_pipeline_scheduled_lanes(
     docstring), their posts on ``wire_stream`` (a CUDA stream), or in line
     on the current stream when it is None.
 
-    Returns ``(grads, loss, count)``. Each (layer, chunk) gradient has
-    exactly one producer, which writes it into the per-chunk buffer
-    ``gbuf``; the chunks are then summed in descending order (the
-    fill-drain drain order) and the losses in ascending chunk order, the
-    host engine's order, so every schedule's floats are identical. Chunks
-    the lowering skipped (``skip_chunks``) contribute nothing, as their
-    exactly-zero gradients would."""
+    Returns ``(grads, loss, count)``: the per-chunk gradients summed in
+    descending chunk order and the losses in ascending order
+    (``_GradSink``). Chunks the lowering skipped (``skip_chunks``)
+    contribute nothing, as their exactly-zero gradients would."""
     if lowered.wire_latency not in (1, 2):
         raise ValueError(f"unsupported wire_latency {lowered.wire_latency}")
-    C, T, D = lowered.num_chunks, lowered.num_ticks, lowered.num_devices
-    n_f, n_b, n_w = lowered.n_fslots, lowered.n_bslots, lowered.n_wslots
-    fstash = [_stash(n_f, wire_like) for _ in range(D)]
-    bstash = [_stash(n_b, wire_like) for _ in range(D)]
-    wstash = [(_stash(n_w, wire_like), _stash(n_w, wire_like)) if n_w else None for _ in range(D)]
-    gbuf = [{k: v.new_zeros((C + 1,) + tuple(v.shape)) for k, v in p.items()} for p in grads_like]
-    written: set[int] = set()
-    losses: dict[int, tuple] = {}
-    wires = None
-    if lowered.wire_latency == 2:
-        wires = _DoubleBufferedWires(lowered, wire_like, wire_stream)
-    ys: list = [None] * D  # the last tick's outputs: at latency 2, the pending ones
-    dhs: list = [None] * D
-
-    def bank(stash, slot, sacrificial, value):
-        if slot != sacrificial:
-            if value is None:
-                raise RuntimeError(f"slot {slot} banks a wire that carries no value")
-            stash[slot].copy_(value)
-
-    for t in range(T):
-        if wires is None:
-            # the ring hops: lane d's activation to lane d+1, its cotangent to d-1
-            wire_f = [ys[(d - 1) % D] for d in range(D)]
-            wire_b = [dhs[(d + 1) % D] for d in range(D)]
-        else:
-            wire_f, wire_b = wires.arrived(t)
-        for d in range(D):
-            bank(fstash[d], int(lowered.in_fslot[t, d]), n_f, wire_f[d])
-            bank(bstash[d], int(lowered.in_bslot[t, d]), n_b, wire_b[d])
-        if wires is not None:
-            wires.post(t, ys, dhs)
-        ys, dhs = [None] * D, [None] * D
-        for d in range(D):
-            phase = int(lowered.phase[t, d])
-            if phase == PHASE_IDLE:
-                continue
-            stage, chunk = int(lowered.stage[t, d]), int(lowered.chunk[t, d])
-            f_slot, b_slot = int(lowered.work_fslot[t, d]), int(lowered.work_bslot[t, d])
-            w_slot = int(lowered.work_wslot[t, d])
-            h_in = fstash[d][f_slot] if f_slot != n_f else None
-            ct_in = bstash[d][b_slot] if b_slot != n_b else None
-            w_res = None
-            if n_w and w_slot != n_w:
-                w_res = (wstash[d][0][w_slot], wstash[d][1][w_slot])
-            y, d_h, w_out, grads, loss_sum, count = work_fn(
-                phase, stage, chunk, h_in, ct_in, w_res
-            )
-            if w_out is not None:
-                store = int(lowered.store_wslot[t, d])
-                for buf, value in zip(wstash[d], w_out):
-                    if value is not None:  # stage 0 banks no input
-                        buf[store].copy_(value)
-            if grads is not None:
-                for layer, g in enumerate(grads):
-                    for k, v in (g or {}).items():
-                        gbuf[layer][k][chunk].copy_(v)
-                written.add(chunk)
-            if loss_sum is not None:
-                losses[chunk] = (loss_sum, count)
-            ys[d], dhs[d] = y, d_h
-
-    grads = [{k: torch.zeros_like(v) for k, v in p.items()} for p in grads_like]
-    for c in reversed(range(C)):  # canonical: the fill-drain drain order
-        if c in written:
-            grads = [{k: g[k] + gbuf[i][k][c] for k in g} for i, g in enumerate(grads)]
-    loss = wire_like.new_zeros((), dtype=torch.float32)
-    count = wire_like.new_zeros((), dtype=torch.float32)
-    for c in sorted(losses):
-        loss, count = loss + losses[c][0], count + losses[c][1]
-    return grads, loss, count
-
-
-def _eval_out_slot(lowered: LoweredTimeline) -> np.ndarray:
-    """Per-tick output slot: last-stage forward ticks write their chunk's
-    result, everything else routes to the sacrificial slot C."""
-    last = (lowered.phase == PHASE_FWD) & (lowered.stage == lowered.num_stages - 1)
-    return np.where(last, lowered.chunk, lowered.num_chunks).astype(np.int32)
+    wires = _LaneRing(lowered.num_devices) if lowered.wire_latency == 1 \
+        else _DoubleBufferedWires(lowered, wire_like, wire_stream)
+    columns = [_Column(lowered, d, wire_like) for d in range(lowered.num_devices)]
+    sink = _GradSink(grads_like, lowered.num_chunks, wire_like)
+    _run_ticks(lowered, columns, wires, _train_tick(work_fn, sink))
+    flat, loss, count = sink.local()
+    return sink.unflatten(flat), loss, count
 
 
 def spmd_pipeline_scheduled_eval_lanes(
@@ -243,30 +405,136 @@ def spmd_pipeline_scheduled_eval_lanes(
     and its stash, no cotangents, no gradients. ``work_fn(phase, stage,
     chunk, h_in) -> y`` runs one forward item. Returns the last stage's
     outputs ``(chunks, *wire)``."""
+    _check_eval_latency(lowered)
+    out = _stash(lowered.num_chunks, wire_like)
+    columns = [_Column(lowered, d, wire_like) for d in range(lowered.num_devices)]
+    _run_ticks(lowered, columns, _LaneRing(lowered.num_devices),
+               _eval_tick(work_fn, lowered, out))
+    return out[: lowered.num_chunks]
+
+
+def _check_eval_latency(lowered: LoweredTimeline) -> None:
     if lowered.wire_latency != 1:
         raise ValueError(
             f"wire_latency {lowered.wire_latency}: the eval executor runs at wire latency 1"
         )
-    C, T, D = lowered.num_chunks, lowered.num_ticks, lowered.num_devices
-    n_f = lowered.n_fslots
-    out_slot = _eval_out_slot(lowered)
-    fstash = [_stash(n_f, wire_like) for _ in range(D)]
-    out = _stash(C, wire_like)
-    wire_f: list = [None] * D
-    for t in range(T):
-        ys: list = [None] * D
-        for d in range(D):
-            slot = int(lowered.in_fslot[t, d])
-            if slot != n_f:
-                fstash[d][slot].copy_(wire_f[d])
-            phase = int(lowered.phase[t, d])
-            if phase == PHASE_IDLE:
-                continue
-            f_slot = int(lowered.work_fslot[t, d])
-            h_in = fstash[d][f_slot] if f_slot != n_f else None
-            y = work_fn(phase, int(lowered.stage[t, d]), int(lowered.chunk[t, d]), h_in)
-            if int(out_slot[t, d]) != C:
-                out[int(out_slot[t, d])].copy_(y)
-            ys[d] = y
-        wire_f = [ys[(d - 1) % D] for d in range(D)]
-    return out[:C]
+
+
+# ------------------------------------------------------------- the ring --
+
+
+class _RingWires:
+    """The wires of a rank on the ring: per tick one ``batch_isend_irecv``
+    with the forward direction's ops first (``y`` to the next position,
+    ``d_h`` to the previous), posted only where the lowering banks the value
+    into a real slot at tick t+1, and waited on before that tick's banks.
+    Receives land in preallocated buffers, two per direction, used by tick
+    parity."""
+
+    def __init__(self, lowered: LoweredTimeline, grid, wire_like: torch.Tensor):
+        if lowered.num_devices != grid.D:
+            raise ValueError(
+                f"the lowered timeline rings {lowered.num_devices} positions, the rank "
+                f"grid {grid.D}"
+            )
+        if lowered.wire_latency not in (1, 2):
+            raise ValueError(f"unsupported wire_latency {lowered.wire_latency}")
+        self.lw, self.grid = lowered, grid
+        self.buf = [[torch.empty_like(wire_like) for _ in range(2)] for _ in range(2)]
+        self._pending: tuple = ([], None, None)  # (works, forward buffer, backward buffer)
+
+    def arrived(self, t: int, outs: list) -> list:
+        works, wire_f, wire_b = self._pending
+        for work in works:
+            work.wait()
+        self._pending = ([], None, None)
+        return [(wire_f, wire_b)]
+
+    def post(self, t: int, outs: list) -> None:
+        import torch.distributed as dist
+
+        lw, grid = self.lw, self.grid
+        if t + 1 >= lw.num_ticks:
+            return
+        (y, d_h), = outs
+        d, D, parity = grid.position, grid.D, t % 2
+        ops, wire_f, wire_b = [], None, None
+        for send, slots, sacrificial, tag, to, frm, buf in (
+            (y, lw.in_fslot, lw.n_fslots, _TAG_F, (d + 1) % D, (d - 1) % D, self.buf[0][parity]),
+            (d_h, lw.in_bslot, lw.n_bslots, _TAG_B, (d - 1) % D, (d + 1) % D, self.buf[1][parity]),
+        ):
+            if int(slots[t + 1, to]) != sacrificial:
+                if send is None:
+                    raise RuntimeError(f"tick {t + 1} banks a wire that carries no value")
+                ops.append(dist.P2POp(dist.isend, send.contiguous(), grid.rank_at(to), tag=tag))
+            if int(slots[t + 1, d]) != sacrificial:
+                ops.append(dist.P2POp(dist.irecv, buf, grid.rank_at(frm), tag=tag))
+                if tag == _TAG_F:
+                    wire_f = buf
+                else:
+                    wire_b = buf
+        works = dist.batch_isend_irecv(ops) if ops else []
+        self._pending = (works, wire_f, wire_b)
+
+
+def spmd_pipeline_scheduled(
+    work_fn: Callable[..., tuple],
+    lowered: LoweredTimeline,
+    *,
+    wire_like: torch.Tensor,
+    grads_like: list,
+    grid,
+):
+    """Run a lowered train timeline on a ring of ranks: this rank runs
+    column ``grid.position`` of the global arrays, its neighbours the
+    columns beside it (``repro_torch.core.ranks.RankGrid``). ``work_fn`` is
+    the lanes executor's; the hop is point-to-point (module docstring), at
+    wire latency 1 or 2.
+
+    After the ticks, with a data axis (``grid.dp`` > 1: replica r runs the
+    timeline over its contiguous chunk shard), the per-chunk gradient and
+    loss rows are all-gathered over ``grid.data_group`` and summed in
+    descending global chunk order (losses ascending). Then grads, loss and
+    count are all-reduced over ``grid.stage_group``. Each (layer, chunk)
+    gradient lives on one rank, so both only add zeros to it, and the
+    result on every rank is bit-identical to the lanes executor's on one
+    device. Returns ``(grads, loss, count)``."""
+    import torch.distributed as dist
+
+    wires = _RingWires(lowered, grid, wire_like)
+    column = _Column(lowered, grid.position, wire_like)
+    sink = _GradSink(grads_like, lowered.num_chunks, wire_like)
+    _run_ticks(lowered, [column], wires, _train_tick(work_fn, sink))
+    if grid.dp > 1:
+        flat, loss, count = sink.gathered(grid.data_group, grid.dp)
+    else:
+        flat, loss, count = sink.local()
+    totals = torch.stack([loss, count])
+    dist.all_reduce(flat, group=grid.stage_group)
+    dist.all_reduce(totals, group=grid.stage_group)
+    return sink.unflatten(flat), totals[0], totals[1]
+
+
+def spmd_pipeline_scheduled_eval(
+    work_fn: Callable[..., torch.Tensor],
+    lowered: LoweredTimeline,
+    *,
+    wire_like: torch.Tensor,
+    grid,
+) -> torch.Tensor:
+    """Forward-only twin of ``spmd_pipeline_scheduled``: each rank runs its
+    column of a ``forward_only`` lowering at wire latency 1, and the last
+    stage's per-chunk outputs ``(chunks, *wire)`` are broadcast from the
+    rank hosting it over ``grid.stage_group``, so every rank returns them
+    (the reference psums them: one device writes each chunk)."""
+    import torch.distributed as dist
+
+    _check_eval_latency(lowered)
+    wires = _RingWires(lowered, grid, wire_like)
+    out = _stash(lowered.num_chunks, wire_like)
+    column = _Column(lowered, grid.position, wire_like)
+    _run_ticks(lowered, [column], wires, _eval_tick(work_fn, lowered, out))
+    last = (lowered.phase == PHASE_FWD) & (lowered.stage == lowered.num_stages - 1)
+    position = int(np.nonzero(last)[1][0])  # the ring position hosting the last stage
+    dist.broadcast(out, src=grid.rank_at(position), group=grid.stage_group)
+    return out[: lowered.num_chunks]

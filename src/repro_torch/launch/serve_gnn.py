@@ -26,6 +26,18 @@ planner ranks first (``--dry-run`` prints the ranking and stops) and
 ``--overlap`` is accepted as in training; the eval programs run the
 forward wave at wire latency 1 whatever it says, as the reference's do.
 
+Under torchrun (``WORLD_SIZE`` > 1) the compiled engine's eval programs
+run on the ring of ranks (``core.ranks``), and every rank must call each
+of them in lockstep, while open-loop batching reads the wall clock, which
+the ranks do not share. So rank 0 forms each batch and broadcasts a small
+int tensor (``RankLockstep``: the batch's query ids and its bucket, or a
+stop mark); every rank builds the same ego-subgraph batch from its own
+copy of the graph and runs the eval ring, and rank 0 answers, verifies and
+prints:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve_gnn \
+        --dataset cora --backend kernel --stages 4 --chunks 4 --verify
+
 The driver reports achieved queries/s, p50/p99 latency (completion minus
 scheduled arrival, queueing included) and per-bucket batch occupancy; with
 ``--json-out`` it writes ``BENCH_serve.json`` and ``latency_hist.json`` with
@@ -45,6 +57,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.core import ranks
 from repro_torch.graphs.data import GraphBatch, pad_graph, stack_graphs, to_numpy
 from repro_torch.graphs.partition import ego_subgraph
 
@@ -127,15 +140,49 @@ class ShapeBuckets:
         return self.sizes[bucket]
 
 
+class RankLockstep:
+    """Rank 0's batches, announced to every rank: one broadcast of
+    ``(2 + chunks,)`` int64 per batch, ``[1, bucket, qid_0, ...]`` padded
+    with -1, or ``[0, ...]`` to stop. Lives on the rank's device (NCCL
+    broadcasts device tensors)."""
+
+    def __init__(self, chunks: int, device):
+        self.buf = torch.full((2 + chunks,), -1, dtype=torch.int64, device=device)
+
+    def announce(self, bucket: int, qids: list) -> None:
+        """Rank 0: the next batch."""
+        msg = [1, bucket] + list(qids) + [-1] * (self.buf.numel() - 2 - len(qids))
+        self.buf.copy_(torch.tensor(msg, dtype=torch.int64))
+        torch.distributed.broadcast(self.buf, src=0)
+
+    def stop(self) -> None:
+        """Rank 0: no more batches."""
+        self.buf.fill_(0)
+        torch.distributed.broadcast(self.buf, src=0)
+
+    def receive(self):
+        """Another rank: ``(bucket, qids)`` of rank 0's next batch, or None
+        at the stop mark."""
+        torch.distributed.broadcast(self.buf, src=0)
+        msg = self.buf.tolist()
+        if msg[0] == 0:
+            return None
+        return msg[1], [q for q in msg[2:] if q >= 0]
+
+
 class GNNServer:
     """Bucketed batching frontend over a pipeline engine's eval programs:
     ``prepare`` extracts/pads one query's ego-subgraph on the host,
     ``execute`` runs up to ``chunks`` same-bucket prepared queries as one
     stacked batch on the engine's device. Params are bound to each bucket's
-    ``EvalProgram`` once and stay resident on the device."""
+    ``EvalProgram`` once and stay resident on the device. With a
+    ``lockstep`` (on ranks), rank 0's ``execute`` first announces the
+    batch to the other ranks (``follow``)."""
 
-    def __init__(self, engine, params, g: GraphBatch, *, hops: int = 2, buckets=None):
+    def __init__(self, engine, params, g: GraphBatch, *, hops: int = 2, buckets=None,
+                 lockstep: RankLockstep | None = None):
         self.engine = engine
+        self.lockstep = lockstep
         self.params = params
         self.g = g
         self.hops = hops
@@ -177,6 +224,8 @@ class GNNServer:
         bucket = prepared[0].bucket
         if any(p.bucket != bucket for p in prepared):
             raise ValueError("execute takes requests of one bucket")
+        if self.lockstep is not None and ranks.is_leader():
+            self.lockstep.announce(bucket, [p.query.qid for p in prepared])
         graphs = [p.graph for p in prepared]
         graphs += [prepared[0].graph] * (self.chunks - len(prepared))
         logp = self._run(graphs)
@@ -284,6 +333,33 @@ def serve(server: GNNServer, queries: list[Query], *, max_wait_s: float) -> list
     return results
 
 
+def follow(server: GNNServer, queries: list[Query]) -> int:
+    """A rank other than 0: run each batch rank 0 announces, from the same
+    query stream (``queries[qid]``), until the stop mark. Returns the
+    batches run."""
+    batches = 0
+    while (msg := server.lockstep.receive()) is not None:
+        bucket, qids = msg
+        prepared = [server.prepare(queries[q]) for q in qids]
+        if any(p.bucket != bucket for p in prepared):
+            raise RuntimeError(f"rank 0 announced bucket {bucket}, this rank prepared another")
+        server.execute(prepared)
+        batches += 1
+    return batches
+
+
+def serve_on_ranks(server: GNNServer, queries: list[Query], *, max_wait_s: float):
+    """``serve`` on rank 0 (then the stop mark), ``follow`` elsewhere.
+    Returns rank 0's results, and an empty list on the other ranks."""
+    if not ranks.is_leader():
+        follow(server, queries)
+        return []
+    try:
+        return serve(server, queries, max_wait_s=max_wait_s)
+    finally:
+        server.lockstep.stop()
+
+
 def verify_results(
     model, params, g: GraphBatch, results: list[ServedResult], *, atol: float = 0.0,
     device="cpu",
@@ -312,16 +388,30 @@ def verify_results(
 
 def run(args) -> dict:
     """Serve ``args.qps`` × ``args.duration`` synthetic queries; returns the
-    summary dict."""
-    from repro_torch.core.cli import PipelineCLIConfig, log_overlap, resolve_device
+    summary dict (under torchrun: rank 0's; the other ranks return the
+    batches they followed)."""
+    from repro_torch.core.cli import PipelineCLIConfig, join_ranks
+
+    cli = PipelineCLIConfig.from_args(args)
+    joined = join_ranks(cli)
+    try:
+        return _run(args, cli, joined)
+    finally:
+        ranks.leave(joined)
+
+
+def _run(args, cli, joined) -> dict:
+    from repro_torch.core.cli import log_overlap, resolve_device
     from repro_torch.core.pipeline import make_engine
     from repro_torch.graphs import load_dataset
     from repro_torch.models.gnn.layers import canonical_backend
     from repro_torch.models.gnn.net import build_paper_gat
 
-    cli = PipelineCLIConfig.from_args(args)
-    device = resolve_device(cli.device)  # raises with no card
-    log_overlap(cli)
+    # raises with no card
+    device = joined.device if joined is not None else resolve_device(cli.device)
+    leader = ranks.is_leader()
+    if leader:
+        log_overlap(cli)
     g = load_dataset(args.dataset, seed=args.seed)
     # serving is forward-only (train=False) and never applies attention
     # dropout; under the kernel backend the rate is set to 0 all the same,
@@ -353,9 +443,10 @@ def run(args) -> dict:
             balance = profiled_balance(model, chunk, cli, seed=args.seed)
         else:
             balance = cli.uniform_balance()
-        engine = make_engine(model, cli.gpipe_config(balance))
+        engine = make_engine(model, cli.gpipe_config(balance, device=device))
     buckets = ShapeBuckets.geometric(g, base=args.bucket_base)
-    server = GNNServer(engine, params, g, hops=args.hops, buckets=buckets)
+    lockstep = RankLockstep(cli.chunks, device) if joined is not None else None
+    server = GNNServer(engine, params, g, hops=args.hops, buckets=buckets, lockstep=lockstep)
 
     n = max(1, int(round(args.qps * args.duration)))
     queries = synth_queries(g, n, qps=args.qps, link_frac=args.link_frac, seed=args.seed)
@@ -370,12 +461,20 @@ def run(args) -> dict:
             order.append(p.bucket)
     eval_call_s = {b: server.warm(b, probes[b]) for b in order}
     server.stats.clear()
-    print(f"[serve] dataset={args.dataset} engine={cli.engine} backend={args.backend} "
-          f"device={engine.device} stages={cli.stages} chunks={cli.chunks} hops={args.hops} "
-          f"buckets={[buckets.size_of(b) for b in sorted(probes)]} "
-          f"warm_call_ms={ {buckets.size_of(b): round(t * 1e3, 3) for b, t in sorted(eval_call_s.items())} }")
+    if leader:
+        print(f"[serve] dataset={args.dataset} engine={cli.engine} backend={args.backend} "
+              f"device={engine.device} ranks={ranks.world_size()} stages={cli.stages} "
+              f"chunks={cli.chunks} hops={args.hops} "
+              f"buckets={[buckets.size_of(b) for b in sorted(probes)]} "
+              f"warm_call_ms={ {buckets.size_of(b): round(t * 1e3, 3) for b, t in sorted(eval_call_s.items())} }")
 
-    results = serve(server, queries, max_wait_s=args.max_wait_ms / 1e3)
+    if lockstep is None:
+        results = serve(server, queries, max_wait_s=args.max_wait_ms / 1e3)
+    else:
+        results = serve_on_ranks(server, queries, max_wait_s=args.max_wait_ms / 1e3)
+        if not leader:
+            return {"rank": joined.rank, "followed_batches": sum(
+                st["batches"] for st in server.stats.values())}
     if len(results) != n:
         raise RuntimeError(f"served {len(results)} of {n} queries")
 
@@ -405,6 +504,7 @@ def run(args) -> dict:
         "buckets": occupancy,
         "backend": args.backend,
         "device": str(engine.device),
+        "ranks": ranks.world_size(),
         "device_name": torch.cuda.get_device_name(engine.device)
         if engine.device.type == "cuda" else "cpu",
         "warm_buckets": len(eval_call_s),

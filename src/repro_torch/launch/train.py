@@ -31,6 +31,14 @@ evaluate over the plan, since no full graph exists:
         --dataset powerlaw-1m --stages 4 --chunks 8 --backend pallas \
         --engine compiled
 
+Across cards, ``torchrun`` starts one process per card and the compiled
+engine runs one ring position per rank (``core.ranks``; NCCL, or gloo with
+``--device cpu``), bit-identical to one card; rank 0 prints the result:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --mode gnn --dataset cora --stages 4 --chunks 8 --backend pallas \
+        --engine compiled --schedule 1f1b
+
 ``--mode lm`` trains the LM pool (``run_lm``, the JAX launcher's other
 mode; default arch mamba2-130m) on synthetic token batches: the dense GQA
 archs, musicgen-large and qwen2-vl-2b (precomputed frontend embeddings
@@ -54,28 +62,41 @@ import time
 
 import numpy as np
 
+from repro_torch.core import ranks
 from repro_torch.core.cli import (
     PipelineCLIConfig,
     add_pipeline_args,
+    join_ranks,
     log_overlap,
     resolve_device,
 )
 
 
 def run_gnn(args) -> dict:
-    """Train the paper GAT as the flags say; returns (and prints) the
-    result dict."""
+    """Train the paper GAT as the flags say; returns (and, on rank 0 or
+    alone, prints) the result dict. Under torchrun (``WORLD_SIZE`` > 1)
+    every rank joins the process group and the compiled engine runs one
+    ring position per rank (``core.ranks``)."""
+    # the flag bundle first: unported flags and a missing card raise before
+    # any work
+    cli = PipelineCLIConfig.from_args(args)
+    joined = join_ranks(cli)
+    try:
+        return _run_gnn(args, cli, joined)
+    finally:
+        ranks.leave(joined)
+
+
+def _run_gnn(args, cli, joined) -> dict:
     from repro_torch.core.microbatch import make_plan
     from repro_torch.core.pipeline import make_engine
     from repro_torch.graphs import STREAMED_DATASETS, load_dataset, open_streamed, streamed_plan
     from repro_torch.models.gnn.net import build_paper_gat
     from repro_torch.train.loop import train
 
-    # the flag bundle first: unported flags and a missing card raise before
-    # any work
-    cli = PipelineCLIConfig.from_args(args)
-    device = resolve_device(cli.device)
-    log_overlap(cli)
+    device = joined.device if joined is not None else resolve_device(cli.device)
+    if ranks.is_leader():
+        log_overlap(cli)
     streamed = args.dataset in STREAMED_DATASETS
     if streamed:
         # a streamed graph never exists whole: the pipeline path is its only
@@ -104,12 +125,15 @@ def run_gnn(args) -> dict:
         # the fused GAT kernel is deterministic; training it with the
         # paper's attention dropout would raise in gat_layer — opt out
         # explicitly and say so, instead of silently zeroing the rate
-        print(f"[gnn] {args.backend} backend: attention dropout disabled "
-              "(fused kernel is deterministic)")
+        if ranks.is_leader():
+            print(f"[gnn] {args.backend} backend: attention dropout disabled "
+                  "(fused kernel is deterministic)")
         gat_kwargs["attn_dropout"] = 0.0
     model = build_paper_gat(g.num_features, g.num_classes, backend=args.backend, **gat_kwargs)
 
     if args.stages <= 1:
+        if joined is not None:
+            raise ValueError("--stages 1 trains on one device; under torchrun pass --stages > 1")
         res = train(model, g, epochs=args.epochs, seed=args.seed, log_every=args.log_every)
         out = {
             "mode": "single",
@@ -174,7 +198,7 @@ def run_gnn(args) -> dict:
         )
     else:
         balance = cli.uniform_balance()
-    pipe = make_engine(model, cli.gpipe_config(balance))
+    pipe = make_engine(model, cli.gpipe_config(balance, device=device))
     _log_engine(cli, device, plan, pipe, balance)
     return _train_pipeline(args, g, model, plan, pipe, cli=cli, balance=balance)
 
@@ -212,6 +236,10 @@ def _print_costs(costs, label=""):
 
 
 def _log_engine(cli, device, plan, pipe, balance, extra=""):
+    if not ranks.is_leader():
+        return
+    if ranks.active():
+        extra += f" ranks={ranks.world_size()}"
     print(f"[gnn] engine={cli.engine} device={device} stages={len(balance)} chunks={plan.chunks} "
           f"strategy={plan.strategy} schedule={cli.schedule} balance={balance} "
           f"edge_cut={plan.edge_cut:.3f} rebuild_s={plan.rebuild_seconds:.3f} "
@@ -248,7 +276,8 @@ def _train_pipeline(args, g, model, plan, pipe, *, cli, balance, predicted_step_
         losses.append(float(loss))
         if args.log_every and epoch % args.log_every == 0:
             m = evaluate(params, g)
-            print(f"epoch {epoch:4d} loss {float(loss):.4f} val {float(m['val_acc']):.3f}")
+            if ranks.is_leader():
+                print(f"epoch {epoch:4d} loss {float(loss):.4f} val {float(m['val_acc']):.3f}")
     m = evaluate(params, g)
     out = {
         "mode": f"gpipe-{plan.strategy}",
@@ -277,7 +306,10 @@ def _train_pipeline(args, g, model, plan, pipe, *, cli, balance, predicted_step_
     }
     if predicted_step_s is not None:
         out["predicted_step_s"] = predicted_step_s
-    print(out)
+    if ranks.active():
+        out["ranks"] = ranks.world_size()
+    if ranks.is_leader():
+        print(out)
     return out
 
 

@@ -12,8 +12,10 @@ orders the arithmetic differently; neither is used. ``update`` makes new
 tensors and changes nothing in place; Adam's ``apply_`` is the same
 arithmetic applied in place, leaf by leaf, for models whose params,
 gradients and moments fill the card. The step count (and a scheduled
-learning rate) live on the params' device, so an update captured in a CUDA
-graph reads the step it replays, not the one it was captured at.
+learning rate) live on the first leaf's device, so an update captured in a
+CUDA graph reads the step it replays, not the one it was captured at; a
+tree spread over several devices (the host engine's stages) moves them to
+each leaf's.
 """
 
 from __future__ import annotations
@@ -152,13 +154,16 @@ def adam(
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, g32)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, g32)
         stepf = step.float()
-        mu_hat = tree_map(lambda m: m / (1 - b1 ** stepf), mu)
-        nu_hat = tree_map(lambda v: v / (1 - b2 ** stepf), nu)
+        # the scalars follow each leaf's device (a host engine's stages may
+        # each hold a card; on one device every .to is the tensor itself)
+        mu_hat = tree_map(lambda m: m / (1 - b1 ** stepf.to(m.device)), mu)
+        nu_hat = tree_map(lambda v: v / (1 - b2 ** stepf.to(v.device)), nu)
 
         def upd(m, v, p):
-            u = -lr_t * m / (torch.sqrt(v) + eps)
+            lr_p = lr_t.to(p.device)
+            u = -lr_p * m / (torch.sqrt(v) + eps)
             if weight_decay > 0.0:
-                u = u - lr_t * weight_decay * p.float()
+                u = u - lr_p * weight_decay * p.float()
             return u.to(p.dtype)
 
         updates = tree_map(upd, mu_hat, nu_hat, params)
@@ -215,9 +220,9 @@ def sgd(lr: float | Callable, *, momentum: float = 0.0) -> Optimizer:
         step = state["step"] + 1
         lr_t = _lr_at(lr, step)
         if momentum == 0.0:
-            return tree_map(lambda g: -lr_t * g, grads), {"step": step}
+            return tree_map(lambda g: -lr_t.to(g.device) * g, grads), {"step": step}
         vel = tree_map(lambda v, g: momentum * v + g.float(), state["vel"], grads)
-        return tree_map(lambda v: -lr_t * v, vel), {"step": step, "vel": vel}
+        return tree_map(lambda v: -lr_t.to(v.device) * v, vel), {"step": step, "vel": vel}
 
     return Optimizer(init=init, update=update)
 
