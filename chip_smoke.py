@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA GPUs.
 
-    python3 chip_smoke.py                # phases 1-20 on one card (21 on 2+)
+    python3 chip_smoke.py                # phases 1-20 on one card (21 on 2+, 22 on 4)
     python3 chip_smoke.py --phases 21    # phase 1, then phase 21 on up to 4 cards
+    python3 chip_smoke.py --phases 22    # phase 1, then phase 22 on 4 cards
 
 Phases (each prints its seconds); any failure stops the run with a non-zero
 exit:
@@ -303,6 +304,36 @@ exit:
    repro_torch.launch.serve_gnn`` as a user starts them on 4 cards: one
    result dict (rank 0), losses within 1e-5 of one card's, every query
    verified.
+
+22. The LM stage ring on four cards (``Topology.ring``: one pipeline
+   position per rank, NCCL point-to-point hops, fp32, deterministic
+   algorithms in 22a), through ``chip_smoke.py --rank-worker lm4`` under
+   ``torchrun``, each rank's lines in ``build/phase22/``. First each
+   full-width leg's per-rank state is printed against the card's 80 GB.
+   22a, cut depth, held bit for bit on every rank against the same
+   ``Topology`` in one process on one card of the host (losses, tokens,
+   logits, and digests of every params and Adam-moment row the rank holds
+   and of its replicated leaves): codeqwen1.5-7b at 8 layers trained 2
+   steps under fill_drain on 4 stages and interleaved (``--stages 8
+   --pipe-devices 4``), qwen2.5-32b at 8 layers prefilled (512) and
+   decoded 16 steps, zamba2-7b at 24 slots (6 a rank, one shared-attention
+   application each) trained, then served. 22b codeqwen1.5-7b at its 32
+   layers, 8 a rank, ``--seq 256 --batch 8 --chunks 4``, 4 steps: losses
+   finite and alike on every rank, per rank the median step, peak memory
+   and a traced step's busy share, NCCL ``SendRecv`` time and hidden share,
+   tokens/s. 22c qwen2.5-32b at its 64 layers, 16 a rank (no one card holds
+   its fp32 weights), phase 8's serving flags: the decode's logits at
+   position 512 within 1e-3 of a fresh 513-row prefill's on the ring,
+   ``prefill_s``, ``decode_s_per_tok``, ``tokens_per_s``, per rank the
+   peak and the traced prefill's and 4 decode steps' busy share. Every
+   rank's first flash and SSD calls of each leg are held against the plain
+   version at its own inputs (flash 1e-5 against float64, SSD 1e-4), and
+   the launches a rank makes on each main path are counted. The two kernels
+   are timed on one card at the ring's launch shapes. 22d ``torchrun -m
+   repro_torch.launch.serve`` (codeqwen1.5-7b) and ``-m
+   repro_torch.launch.train --mode lm`` (mamba2-130m), both ``--stages 4``
+   on 4 cards, started together: one result dict each, from rank 0. On a
+   machine with fewer cards phase 22 prints why it did not run.
 
 ``--phases`` (e.g. ``--phases 21``) runs phase 1, then the phases named (and
 those whose results they take), then the closing lines; the kernels line
@@ -2555,47 +2586,68 @@ def phase_compare_lm(H, torch):
     compare_ssd(H, "b h chunks 45", *ssd_inputs(H, 3, 300, 5, 64, 128), 128)
 
 
+def time_flash(H, torch, label, q, k, v, pos=None, position_path_too=False):
+    """Time one flash launch shape: the kernel, its plain version,
+    ``scaled_dot_product_attention`` on the same fp32 tensors (``pos``: the
+    kernel's positions, which the library call takes as a boolean mask,
+    else ``is_causal``) and the bound; ``position_path_too``: also time the
+    position path on the same inputs at positions arange(S), which no rope
+    arch runs (its cost beside the index path's). Returns the kernels line's
+    record."""
+    from repro_torch.kernels.flash.ref import flash_attention_ref
+
+    kw = {"q_pos": pos, "kv_pos": pos}
+    library = sdpa_call(torch, q, k, v, pos, pos)
+    if not torch.allclose(library(), flash_attention_ref(q, k, v, **kw), atol=FLASH_ATOL,
+                          rtol=FLASH_RTOL):
+        raise AssertionError("scaled_dot_product_attention disagrees with the plain version")
+    ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v, **kw, ordered=True))
+    by_pos = ""
+    if position_path_too:
+        ar = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+        pos_ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v, q_pos=ar, kv_pos=ar,
+                                                               ordered=True))
+        by_pos = f" (the position path at positions arange: {pos_ms:.6f} ms)"
+    plain_ms = H.time_ms(lambda: flash_attention_ref(q, k, v, **kw))
+    library_ms = H.time_ms(library)
+    bound_ms, bound_by, nbytes, nops, cuda_core_ms = flash_bound(q, k, v, 0, pos, pos)
+    sdpa = "kernels: " + ", ".join(k for k, _, _ in device_kernel_times(
+        torch, library, calls=1))
+    mask = "is_causal" if pos is None else "boolean attn_mask"
+    log(f"[timing] flash_attention_kernel {label}: kernel {ms:.6f} ms{by_pos}, plain "
+        f"{plain_ms:.6f} ms, scaled_dot_product_attention ({mask}) {library_ms:.6f} ms "
+        f"({sdpa}), "
+        f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops as 3xTF32 tensor-core "
+        f"products at {CARD.tf32_flops:.3g}/s; on the fp32 CUDA cores {cuda_core_ms:.6f} ms), "
+        f"share of bound {bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s "
+        f"[{H.card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def time_ssd(H, torch, label, x, dt, loga, B, C, chunk=128):
+    """Time one SSD call shape: the kernel, its plain version and the bound
+    (no single PyTorch call computes it). Returns the kernels line's record."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_scan
+
+    ms = H.time_ms(lambda: H.DK.ssd_kernel(x, dt, loga, B, C, chunk=chunk))
+    plain_ms = H.time_ms(lambda: ssd_chunk_scan(x, dt, loga, B, C, chunk=chunk))
+    bound_ms, bound_by, nbytes, nops, _ = ssd_bound(x, B, chunk)
+    log(f"[timing] ssd_kernel {label}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, library "
+        f"none, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops as 3xTF32), share "
+        f"of bound {bound_ms / ms:.3f} [{H.card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
 def phase_timing_lm(H, torch):
     """Phase 5 for the LM kernels at their main-path launch shapes: kernel,
     plain version, bound and (flash) ``scaled_dot_product_attention`` on the
     same fp32 tensors with TF32 off."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash.ref import flash_attention_ref
     from repro_torch.kernels.ssd.ref import ssd_chunk_scan
 
     def flash_timing(label, q, k, v, pos=None, position_path_too=False):
-        """``pos``: the kernel's positions, which the library call takes as a
-        boolean mask (else ``is_causal``); ``position_path_too``: also time
-        the position path on the same inputs at positions arange(S), which
-        no rope arch runs (its cost beside the index path's)."""
-        kw = {"q_pos": pos, "kv_pos": pos}
-        library = sdpa_call(torch, q, k, v, pos, pos)
-        if not torch.allclose(library(), flash_attention_ref(q, k, v, **kw), atol=FLASH_ATOL,
-                              rtol=FLASH_RTOL):
-            raise AssertionError("scaled_dot_product_attention disagrees with the plain version")
-        ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v, **kw, ordered=True))
-        by_pos = ""
-        if position_path_too:
-            ar = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
-            pos_ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v, q_pos=ar, kv_pos=ar,
-                                                                   ordered=True))
-            by_pos = f" (the position path at positions arange: {pos_ms:.6f} ms)"
-        plain_ms = H.time_ms(lambda: flash_attention_ref(q, k, v, **kw))
-        library_ms = H.time_ms(library)
-        bound_ms, bound_by, nbytes, nops, cuda_core_ms = flash_bound(q, k, v, 0, pos, pos)
-        sdpa = "kernels: " + ", ".join(k for k, _, _ in device_kernel_times(
-            torch, library, calls=1))
-        mask = "is_causal" if pos is None else "boolean attn_mask"
-        log(f"[timing] flash_attention_kernel {label}: kernel {ms:.6f} ms{by_pos}, plain "
-            f"{plain_ms:.6f} ms, scaled_dot_product_attention ({mask}) {library_ms:.6f} ms "
-            f"({sdpa}), "
-            f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {nops} ops as 3xTF32 tensor-core "
-            f"products at {CARD.tf32_flops:.3g}/s; on the fp32 CUDA cores {cuda_core_ms:.6f} ms), "
-            f"share of bound {bound_ms / ms:.3f}, achieved {nops / ms / 1e9:.3f} TFLOP/s "
-            f"[{H.card}]")
-        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms}
+        return time_flash(H, torch, label, q, k, v, pos, position_path_too)
 
     H.timing["flash_attention_kernel"] = flash_timing(
         "one codeqwen prefill launch (4 x 512 tokens, 32 heads, hd 128, causal, fp32)",
@@ -2620,14 +2672,8 @@ def phase_timing_lm(H, torch):
                  "128, causal, fp32)", *flash_inputs(H, 4, 512, 128, 128, 192, hd_v=128))
 
     for s in (512, 256):
-        x, dt, loga, B, C = ssd_inputs(H, 4, s, 112, 64, 64)
-        ms = H.time_ms(lambda: H.DK.ssd_kernel(x, dt, loga, B, C, chunk=128))
-        plain_ms = H.time_ms(lambda: ssd_chunk_scan(x, dt, loga, B, C, chunk=128))
-        bound_ms, bound_by, nbytes, nops, _ = ssd_bound(x, B, 128)
-        log(f"[timing] ssd_kernel one zamba2 {'prefill' if s == 512 else 'training'} launch (4 x "
-            f"{s} tokens, 112 heads, P 64, N 64, chunk 128): kernel {ms:.6f} ms, plain "
-            f"{plain_ms:.6f} ms, library none, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, "
-            f"{nops} ops as 3xTF32), share of bound {bound_ms / ms:.3f} [{H.card}]")
+        time_ssd(H, torch, f"one zamba2 {'prefill' if s == 512 else 'training'} launch (4 x "
+                 f"{s} tokens, 112 heads, P 64, N 64, chunk 128)", *ssd_inputs(H, 4, s, 112, 64, 64))
 
     x, dt, loga, B, C = ssd_inputs(H, 4, 512, 24, 64, 128)
     ms = H.time_ms(lambda: H.DK.ssd_kernel(x, dt, loga, B, C, chunk=128))
@@ -2832,16 +2878,18 @@ def no_expert_drops():
         moe.expert_capacity = inner
 
 
-def active_slots(cfg, num_stages=1) -> dict:
-    """{kernel: active layer slots whose forward calls it}."""
+def active_slots(cfg, num_stages=1, stages=None) -> dict:
+    """{kernel: active layer slots whose forward calls it}, over every
+    stage or those of ``stages`` (a ring position's)."""
     from repro_torch.models.transformer.model import make_extras
 
     ex = make_extras(cfg, num_stages)
+    rows = slice(None) if stages is None else list(stages)
     if cfg.arch_type == "hybrid":
-        return {"flash_attention_kernel": int(ex["attn"]["active"].sum()),
-                "ssd_kernel": int(ex["mamba"]["active"].sum())}
+        return {"flash_attention_kernel": int(ex["attn"]["active"][rows].sum()),
+                "ssd_kernel": int(ex["mamba"]["active"][rows].sum())}
     name = "ssd_kernel" if cfg.arch_type == "ssm" else "flash_attention_kernel"
-    return {name: int(ex["active"].sum())}
+    return {name: int(ex["active"][rows].sum())}
 
 
 def cut_config(cfg, cut):
@@ -3805,7 +3853,7 @@ def run_rank_worker(H, torch, n, leg):
     torchrun(n, [str(ROOT / "chip_smoke.py"), "--rank-worker", leg])
     reports = []
     for r in range(n):
-        with open(RANKS_DIR / f"{leg}-rank{r}.json") as f:
+        with open(rank_dir(leg) / f"{leg}-rank{r}.json") as f:
             rep = json.load(f)
         reports.append(rep)
         for line in rep["lines"]:
@@ -3904,7 +3952,7 @@ class RankLog:
     def write(self, H):
         self.data["err"] = {k: v for k, v in H.err.items() if v}
         self.data["used"] = dict(H.used)
-        with open(RANKS_DIR / f"{self.leg}-rank{self.rank}.json", "w") as f:
+        with open(rank_dir(self.leg) / f"{self.leg}-rank{self.rank}.json", "w") as f:
             json.dump(self.data, f)
 
 
@@ -4107,15 +4155,18 @@ def worker_stream(H, torch, rl):
 
 
 def rank_worker(leg: str) -> int:
-    """``chip_smoke.py --rank-worker ring4|ring2`` under torchrun: this
-    rank's legs of phase 21, its record in ``RANKS_DIR``."""
+    """``chip_smoke.py --rank-worker ring4|ring2|lm4`` under torchrun: this
+    rank's legs of phase 21 (``ring...``) or 22 (``lm4``), its record in
+    ``rank_dir(leg)``."""
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import ranks
+    from repro_torch.kernels.flash import kernel as FK
     from repro_torch.kernels.gat_edge import kernel as K
     from repro_torch.kernels.spmm import kernel as S
+    from repro_torch.kernels.ssd import kernel as DK
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4126,11 +4177,16 @@ def rank_worker(leg: str) -> int:
         global CARD
         CARD = HW.of(torch.cuda.get_device_name(0))
     joined = ranks.join(device)
-    H = Harness(torch, K, S, joined.device, os.environ.get("CHIP_SMOKE_CARD", device))
+    H = Harness(torch, K, S, joined.device, os.environ.get("CHIP_SMOKE_CARD", device), FK=FK,
+                DK=DK)
     rl = RankLog(joined.rank, leg, torch.get_num_threads())
-    refs = torch.load(RANKS_DIR / "refs.pt", weights_only=False)
+    refs = torch.load(rank_dir(leg) / "refs.pt", weights_only=False)
     try:
-        if leg == "ring2":
+        if leg == "lm4":
+            worker_lm_cut(H, torch, rl, refs)
+            worker_lm_train_full(H, torch, rl)
+            worker_lm_serve_full(H, torch, rl)
+        elif leg == "ring2":
             worker_ring(H, torch, rl, 2, refs)
         else:
             worker_ring(H, torch, rl, 4, refs)
@@ -4144,6 +4200,410 @@ def rank_worker(leg: str) -> int:
     return 0
 
 
+# ------------------------------------------------- phase 22: the LM stage ring --
+
+LM_RING_CARDS = 4  # phase 22 runs on exactly this many cards, one stage ring position each
+LM_RING_DIR = ROOT / "build" / "phase22"
+PHASE22_SKIP = "phase 22 needs 4 cards (run it on a host with 4 cards)"
+LM_RING_TRAIN = [  # 22a-b: run_lm's defaults at full width, 4 micro-batches (C >= D interleaved)
+    "--mode", "lm", "--full-arch", "--seq", "256", "--batch", "8", "--chunks", "4", "--lr", "3e-4",
+    "--log-every", "0", "--device", "cuda",
+]
+LM_RING_SERVE = LM_SERVE_ARGS  # 22a, 22c: phase 8's serving flags
+LM_RING_CUTS = (  # 22a: (tag, kind, arch, cut, flags), each bit for bit against one card
+    ("codeqwen fill_drain", "train", "codeqwen1.5-7b", {"num_layers": 8},
+     ["--stages", "4", "--steps", "2"]),
+    ("codeqwen interleaved", "train", "codeqwen1.5-7b", {"num_layers": 8},
+     ["--stages", "8", "--pipe-devices", "4", "--schedule", "interleaved", "--steps", "2"]),
+    ("qwen2.5 serve", "serve", "qwen2.5-32b", {"num_layers": 8}, ["--stages", "4"]),
+    ("zamba2 train", "train", "zamba2-7b", {"num_layers": 24}, ["--stages", "4", "--steps", "2"]),
+    ("zamba2 serve", "serve", "zamba2-7b", {"num_layers": 24}, ["--stages", "4"]),
+)
+LM_RING_FULL_TRAIN = ("codeqwen1.5-7b", ["--stages", "4", "--steps", "4"])  # 22b
+LM_RING_FULL_SERVE = ("qwen2.5-32b", ["--stages", "4"])  # 22c
+LM_RING_CLI = (  # 22d: the launchers as a user starts them on 4 cards
+    ["-m", "repro_torch.launch.serve", "--arch", "codeqwen1.5-7b", "--stages", "4",
+     *LM_SERVE_ARGS],
+    ["-m", "repro_torch.launch.train", *LM_RING_TRAIN, "--arch", "mamba2-130m", "--stages", "4",
+     "--steps", "3"],
+)
+LM_RING_CAPTURE = 4  # kernel calls a rank keeps per kernel and leg, held against the plain version
+LM_RING_DECODE_TRACED = 4  # decode steps in 22c's traced window
+CARD_BYTES = 80e9  # one H100's memory
+
+
+def rank_dir(leg: str) -> Path:
+    """Where a worker leg's records go: phase 22's (``lm...``) or 21's."""
+    return LM_RING_DIR if leg.startswith("lm") else RANKS_DIR
+
+
+def tree_digests(torch, tree, stages=None, prefix=""):
+    """{path: (sum, weighted sum)} of a params-shaped tree's bits: each
+    leaf's words as int64, summed plain and weighted by position mod 65521
+    (a changed bit changes them), in 2^24-element pieces on the leaf's
+    device. ``blocks`` leaves are digested per row under ``path@stage``,
+    row i being stage ``stages[i]`` (every row's own index when None)."""
+    out = {}
+    for k, v in tree.items():
+        path = prefix + k
+        if isinstance(v, dict):
+            out.update(tree_digests(torch, v, stages, path + "/"))
+        elif path.startswith("blocks/"):
+            for i in range(v.shape[0]):
+                out[f"{path}@{i if stages is None else stages[i]}"] = bits_digest(torch, v[i])
+        else:
+            out[path] = bits_digest(torch, v)
+    return out
+
+
+def bits_digest(torch, t):
+    words = t.detach().contiguous().view(-1).view(torch.int32)
+    total = weighted = 0
+    for start in range(0, words.numel(), 1 << 24):
+        w = words[start:start + (1 << 24)].to(torch.int64)
+        idx = torch.arange(start, start + w.numel(), device=w.device, dtype=torch.int64) % 65521
+        total += int(w.sum())
+        weighted += int((w * (idx + 1)).sum())
+    return total, weighted
+
+
+def lm_ring_case(H, torch, kind, arch, cut, flags, capture=None):
+    """One 22a case through the launchers' functions, in this process (one
+    card, no group) or on this rank (``serve``/``train_lm`` find the
+    group): what is held bit for bit, with the params' and moments' digests
+    per stage row (this rank's rows on a ring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.transformer.model import held_stages
+
+    full = "--full-arch" in (LM_RING_TRAIN if kind == "train" else LM_RING_SERVE)
+    cfg, note = cut_config(get_arch(arch, smoke=not full), cut)
+    limits = {name: LM_RING_CAPTURE for name in active_slots(cfg)} if capture is None else capture
+    with deterministic(torch), KernelCapture(limits) as cap:
+        if kind == "train":
+            args = train_launch.build_parser().parse_args([*LM_RING_TRAIN, "--arch", arch, *flags])
+            run = train_launch.train_lm(cfg, args)
+            topo = run.topo
+            stages = None if topo.ring is None else held_stages(topo, topo.ring.position)
+            got = {"losses": run.losses, "step_s": run.step_s,
+                   "params": tree_digests(torch, run.params, stages),
+                   "mu": tree_digests(torch, run.opt_state.mu, stages),
+                   "nu": tree_digests(torch, run.opt_state.nu, stages)}
+        else:
+            args = serve_lm.build_parser().parse_args(["--arch", arch, *LM_RING_SERVE, *flags])
+            run = serve_lm.serve(args, cfg)
+            gen = run.generation
+            got = {"tokens": gen.tokens.tolist(), "prefill_s": gen.prefill_s,
+                   "decode_s": gen.decode_s,
+                   "logits": [bits_digest(torch, gen.prefill_logits),
+                              bits_digest(torch, gen.first_decode_logits)]}
+    got.update(summary=run.summary, note=note, topo=repr(run.topo))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, cap
+
+
+def lm_ring_references(H, torch):
+    """22a on one card (``H.dev``), deterministic: every cut case at the
+    ring's Topology in one process, saved for the rank workers."""
+    refs = {}
+    for tag, kind, arch, cut, flags in LM_RING_CUTS:
+        t0 = time.perf_counter()
+        got, cap = lm_ring_case(H, torch, kind, arch, cut, flags, capture={})
+        refs[tag] = got
+        what = (f"losses {got['losses']}, median step {statistics.median(got['step_s'][1:]):.6f} "
+                f"s" if kind == "train" else
+                f"tokens[0] {got['tokens'][0]}, prefill {got['prefill_s']:.6f} s, decode "
+                f"{got['decode_s'] / 16:.6f} s a token")
+        log(f"[lm-ring] 22a one card, {tag}{got['note']}, topology {got['topo']}: {what}; peak "
+            f"{got['summary']['peak_mem_gb']} GB; {time.perf_counter() - t0:.1f} s [{H.card}]")
+    torch.save(refs, LM_RING_DIR / "refs.pt")
+    return refs
+
+
+def lm_ring_timing(H, torch):
+    """The LM kernels timed on one card at phase 22's launch shapes: flash
+    at 22b's training micro-batch and 22c's prefill micro-batch, SSD at
+    22a's zamba2 training and prefill micro-batches."""
+    timing = {
+        "flash_attention_kernel": time_flash(
+            H, torch, "one qwen2.5-32b ring prefill launch (4 x 512 tokens, GQA 40/8, hd 128, "
+            "causal, fp32)", *flash_inputs(H, 4, 512, 40, 8, 128)),
+        "ssd_kernel": time_ssd(
+            H, torch, "one zamba2 ring prefill call (4 x 512 tokens, 112 heads, P 64, N 64, "
+            "chunk 128)", *ssd_inputs(H, 4, 512, 112, 64, 64)),
+    }
+    time_flash(H, torch, "one codeqwen ring training launch (2 x 256 tokens, 32 heads, hd 128, "
+               "causal, fp32)", *flash_inputs(H, 2, 256, 32, 32, 128))
+    time_ssd(H, torch, "one zamba2 ring training call (2 x 256 tokens, 112 heads, P 64, N 64, "
+             "chunk 128)", *ssd_inputs(H, 2, 256, 112, 64, 64))
+    for name, record in timing.items():
+        H.timing.setdefault(name, record)
+
+
+def state_gb(cfg, topo, position, train):
+    """The fp32 GB ring position ``position`` holds before any activation:
+    its stage rows and every replicated leaf, times 4 (params, gradients,
+    Adam's two moments) when training."""
+    from repro_torch.models.transformer.model import abstract_params, held_stages
+    from repro_torch.train.optimizer import tree_leaves
+
+    meta = abstract_params(cfg, topo.num_stages)
+    share = len(held_stages(topo, position)) / topo.num_stages
+    n = sum(p.numel() * (share if path == "blocks" else 1)
+            for path, tree in meta.items() for p in tree_leaves(tree))
+    return n * 4 * (4 if train else 1) / 1e9
+
+
+def lm_ring_predictions(H):
+    """Each full-width leg's per-rank state against the card's memory,
+    printed before the run (a leg that cannot fit stops here)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.transformer.model import Topology
+
+    train_args = train_launch.build_parser().parse_args(
+        [*LM_RING_TRAIN, "--arch", LM_RING_FULL_TRAIN[0], *LM_RING_FULL_TRAIN[1]])
+    serve_args = serve_lm.build_parser().parse_args(
+        ["--arch", LM_RING_FULL_SERVE[0], *LM_RING_SERVE, *LM_RING_FULL_SERVE[1]])
+    for leg, args, train in (("22b", train_args, True), ("22c", serve_args, False)):
+        cfg = get_arch(args.arch, smoke=not args.full_arch)
+        topo = Topology(num_stages=args.stages, num_micro=args.chunks)
+        gbs = [state_gb(cfg, topo, d, train) for d in range(args.stages)]
+        log(f"[lm-ring] {leg} {args.arch} {cfg.num_layers} layers on {args.stages} ranks: fp32 "
+            f"{'params, gradients and Adam moments' if train else 'weights'} per rank "
+            + ", ".join(f"{g:.3f}" for g in gbs) + f" GB of the card's {CARD_BYTES / 1e9:.0f} "
+            f"[{H.card}]")
+        if max(gbs) > 0.9 * CARD_BYTES / 1e9:
+            raise AssertionError(f"{leg}: a rank's state {max(gbs):.1f} GB would not fit")
+
+
+def lm_ring_cli(H, torch):
+    """22d: ``torchrun --nproc-per-node 4`` of both LM launchers, started
+    together as a user starts them: one result dict each, from rank 0."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={LM_RING_CARDS}", *argv], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for argv in LM_RING_CLI]
+    outs = []
+    try:
+        for argv, proc in zip(LM_RING_CLI, procs):
+            out, _ = proc.communicate(timeout=RANK_LAUNCH_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"torchrun {' '.join(argv[:2])}: exit {proc.returncode}\n"
+                                     f"{out[-6000:]}")
+            dicts = [ast.literal_eval(line) for line in out.splitlines()
+                     if line.startswith("{'arch'")]
+            if len(dicts) != 1 or dicts[0].get("ranks") != LM_RING_CARDS:
+                raise AssertionError(f"torchrun {' '.join(argv[:2])}: {len(dicts)} result "
+                                     f"dicts\n{out[-6000:]}")
+            outs.append(dicts[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    served, trained = outs
+    if not all(math.isfinite(x) for x in trained["losses"]):
+        raise AssertionError(f"torchrun train: losses {trained['losses']}")
+    log(f"[lm-ring] 22d torchrun -m repro_torch.launch.serve (codeqwen1.5-7b, 4 ranks) and -m "
+        f"repro_torch.launch.train --mode lm (mamba2-130m, 4 ranks), together "
+        f"{time.perf_counter() - t0:.1f} s: serve prefill_s {served['prefill_s']}, "
+        f"decode_s_per_tok {served['decode_s_per_tok']}, tokens_per_s {served['tokens_per_s']}, "
+        f"sample {served['sample']}, peak per rank {served['peak_mem_gb_per_rank']}; train "
+        f"losses {trained['losses']}, avg step {trained['avg_step_s']}, peak per rank "
+        f"{trained['peak_mem_gb_per_rank']} [{H.card}]")
+
+
+def phase_lm_ring(H, torch):
+    """Phase 22: the LM stage ring on four cards, one stage per rank. 22a
+    cut-depth cases bit for bit on every rank against one card; 22b
+    codeqwen1.5-7b trained at its 32 layers; 22c qwen2.5-32b served at its
+    64 layers; 22d both LM launchers under torchrun. Returns what did not
+    run, having printed it ("" when all of it ran)."""
+    n = torch.cuda.device_count()
+    if n < LM_RING_CARDS:
+        log(f"[lm-ring] not run: {PHASE22_SKIP} (this machine has {n})")
+        return f"phase 22 not run ({PHASE22_SKIP})"
+    shutil.rmtree(LM_RING_DIR, ignore_errors=True)
+    LM_RING_DIR.mkdir(parents=True)
+    lm_ring_predictions(H)
+    lm_ring_references(H, torch)
+    lm_ring_timing(H, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_rank_worker(H, torch, LM_RING_CARDS, "lm4")
+    lm_ring_cli(H, torch)
+    return ""
+
+
+# ---------------------------------------------- phase 22: the rank worker --
+
+
+def worker_lm_cut(H, torch, rl, refs):
+    """22a on this rank: each cut case on the ring, bit for bit against the
+    one-card case of ``refs``: the losses, this rank's rows of the params
+    and of Adam's moments and its replicated leaves (digests), the tokens
+    and logits; this rank's kernel calls held against the plain version."""
+    for tag, kind, arch, cut, flags in LM_RING_CUTS:
+        got, cap = lm_ring_case(H, torch, kind, arch, cut, flags)
+        want = refs[tag]
+        keys = ("losses", "params", "mu", "nu") if kind == "train" else ("tokens", "logits")
+        for key in keys:
+            mine = got[key]
+            ref = {k: want[key][k] for k in mine} if isinstance(mine, dict) else want[key]
+            if mine != ref:
+                bad = [k for k in mine if mine[k] != ref[k]][:4] if isinstance(mine, dict) \
+                    else mine
+                raise AssertionError(f"22a {tag} rank {rl.rank}: {key} not bit-identical to one "
+                                     f"card ({bad})")
+        rl.launched(cap.launches)
+        cap.compare(H, torch, f"22a {tag} rank {rl.rank}")
+        rows = sum(1 for k in got["params"] if "@" in k) if kind == "train" else 0
+        rl.line(f"22a {tag}{got['note']}, {got['topo']}: "
+                + (f"losses {got['losses']}, {rows} block-row leaves and every replicated leaf "
+                   f"of params, mu and nu" if kind == "train" else
+                   f"tokens {len(got['tokens'])} x {len(got['tokens'][0])}, prefill and first "
+                   "decode logits")
+                + f" bit-identical to one card; launches {cap.launches} [{H.card}]")
+
+
+def rank_report_lines(H, rl, leg, reports):
+    """Rank 0's lines for every rank's traced call."""
+    for rep in reports or ():
+        busy = (rep["compute_time_us"] + rep["collective_time_us"]
+                - rep["overlapped_time_us"]) / rep["step_us"]
+        rl.line(f"{leg} traced, rank {rep['rank']}: {rep['step_us'] / 1e3:.6f} ms, compute "
+                f"{rep['compute_time_us'] / rep['step_us']:.6f} of it, busy {busy:.6f}, NCCL "
+                f"{rep['collective_time_us'] / 1e3:.6f} ms ({rep['num_collective_events']} "
+                f"kernels, {rep['collective_time_us'] / rep['step_us']:.6f} of it), hidden "
+                f"{rep['overlap_fraction']:.6f} of it [{H.card}]")
+
+
+def worker_lm_train_full(H, torch, rl):
+    """22b on this rank: codeqwen1.5-7b at its 32 layers, 8 a rank: losses
+    finite and every rank's alike, this rank's flash launches (forward and
+    recompute of its 8 layers x 4 micro-batches a step), the median step,
+    peak and tokens/s, and one traced step per rank."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.overlap_report import capture_rank_reports
+    from repro_torch.launch.train import build_parser, lm_batch, train_lm
+    from repro_torch.models.transformer.model import held_stages
+
+    arch, flags = LM_RING_FULL_TRAIN
+    args = build_parser().parse_args([*LM_RING_TRAIN, "--arch", arch, *flags])
+    cfg = get_arch(arch, smoke=not args.full_arch)
+    with KernelCapture({"flash_attention_kernel": LM_RING_CAPTURE}) as cap:
+        trained = train_lm(cfg, args)
+    topo = trained.topo
+    mine = active_slots(cfg, topo.num_stages, held_stages(topo, topo.ring.position))
+    want = {k: 2 * n * args.chunks * args.steps for k, n in mine.items()}
+    if cap.launches != want:
+        raise AssertionError(f"22b rank {rl.rank}: launches {cap.launches}, want {want}")
+    losses = trained.losses
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, losses)
+    if not all(map(math.isfinite, losses)) or any(x != losses for x in every):
+        raise AssertionError(f"22b rank {rl.rank}: losses {every}")
+    rl.launched(cap.launches)
+    cap.compare(H, torch, f"22b rank {rl.rank}")
+    median = statistics.median(trained.step_s[1:])
+    peak = trained.summary["peak_mem_gb"]
+    batch = lm_batch(cfg, args, args.steps, H.dev)
+    reports = capture_rank_reports(
+        lambda: trained.step(trained.params, trained.opt_state, batch))
+    rl.data["22b"] = {"median_s": median, "peak_gb": peak, "losses": losses,
+                      "per_rank_peak": trained.summary["peak_mem_gb_per_rank"]}
+    rl.line(f"22b {arch} full width, {cfg.num_layers} layers, {trained.topo}: losses {losses} "
+            f"(every rank alike); step s {trained.step_s}; median after the first {median:.6f} "
+            f"s, {args.batch * args.seq / median:.1f} tokens/s; peak {peak} GB; launches "
+            f"{cap.launches} [{H.card}]")
+    rank_report_lines(H, rl, "22b one train step", reports)
+    del trained, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def worker_lm_serve_full(H, torch, rl):
+    """22c on this rank: qwen2.5-32b at its 64 layers, 16 a rank: the
+    prefill's flash launches (16 layers x 2 micro-batches), the first
+    decode's logits within 1e-3 of a fresh 513-row prefill's (itself traced
+    per rank), and 4 more decode steps traced per rank."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core.overlap_report import capture_rank_reports
+    from repro_torch.launch.serve import build_parser, serve
+    from repro_torch.models.transformer.model import (
+        _prefill, held_stages, init_cache, make_extras, make_serve_step)
+
+    arch, flags = LM_RING_FULL_SERVE
+    args = build_parser().parse_args(["--arch", arch, *LM_RING_SERVE, *flags])
+    cfg = get_arch(arch, smoke=not args.full_arch)
+    with KernelCapture({"flash_attention_kernel": LM_RING_CAPTURE}) as cap:
+        served = serve(args, cfg)
+    topo, gen = served.topo, served.generation
+    mine = active_slots(cfg, topo.num_stages, held_stages(topo, topo.ring.position))
+    want = {k: n * args.chunks for k, n in mine.items()}
+    if cap.launches != want:
+        raise AssertionError(f"22c rank {rl.rank}: launches {cap.launches}, want {want}")
+    rl.launched(cap.launches)
+    cap.compare(H, torch, f"22c rank {rl.rank}")
+    b, plen = served.prompt.shape[0], served.prompt_len
+    tok0 = torch.from_numpy(gen.tokens[:, 0]).to(H.dev, torch.int64)
+    longer = {"tokens": torch.cat([served.prompt, tok0[:, None]], dim=1)}
+    shape = ShapeConfig("check", plen + 1, b, "prefill")
+    fresh = []
+
+    def prefill():
+        with torch.inference_mode():
+            fresh.append(_prefill(cfg, topo, make_extras(cfg, topo.num_stages), served.params,
+                                  init_cache(cfg, topo, shape, device=H.dev), longer,
+                                  plen + 1)[0])
+
+    prefill_reports = capture_rank_reports(prefill)
+    err = float((gen.first_decode_logits - fresh[0]).abs().max())
+    agree = int((gen.first_decode_logits.argmax(-1) == fresh[0].argmax(-1)).sum())
+    if not err <= DECODE_VS_PREFILL_ATOL:
+        raise AssertionError(f"22c rank {rl.rank}: decode at position {plen} {err:.3g} from a "
+                             f"fresh {plen + 1}-row prefill (limit {DECODE_VS_PREFILL_ATOL})")
+    del fresh
+    step = make_serve_step(cfg, topo, ShapeConfig("serve_decode", plen + args.decode_steps + 16,
+                                                  b, "decode"))
+    tok = torch.from_numpy(np.ascontiguousarray(gen.tokens[:, -1])).to(H.dev, torch.int32)
+
+    def decode():
+        nonlocal tok
+        with torch.inference_mode():
+            for i in range(LM_RING_DECODE_TRACED):
+                tok, _, _ = step(served.params, gen.cache, {"tokens": tok,
+                                                            "pos": plen + args.decode_steps + i})
+
+    decode_reports = capture_rank_reports(decode)
+    summary = served.summary
+    rl.data["22c"] = {k: summary[k] for k in ("prefill_s", "decode_s_per_tok", "tokens_per_s",
+                                              "peak_mem_gb", "peak_mem_gb_per_rank", "params")}
+    rl.line(f"22c {arch} full width, {cfg.num_layers} layers ({summary['params']} params, fp32), "
+            f"{topo}: prefill_s {summary['prefill_s']}, decode_s_per_tok "
+            f"{summary['decode_s_per_tok']}, tokens_per_s {summary['tokens_per_s']}, peak "
+            f"{summary['peak_mem_gb']} GB, sample {summary['sample']}; decode vs fresh "
+            f"{plen + 1}-row prefill: max |logit diff| {err:.6g} (limit "
+            f"{DECODE_VS_PREFILL_ATOL}), argmax agree {agree}/{b}; launches {cap.launches} "
+            f"[{H.card}]")
+    rank_report_lines(H, rl, f"22c the fresh {plen + 1}-row prefill", prefill_reports)
+    rank_report_lines(H, rl, f"22c {LM_RING_DECODE_TRACED} decode steps", decode_reports)
+    del served, gen, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # a phase and the phases whose results it takes
 PHASE_NEEDS = {"5": ("4",), "12": ("6",), "21": ("3",)}
 
@@ -4154,9 +4614,9 @@ def parse_phases(text):
     if text is None:
         return None
     phases = {p.strip() for p in text.split(",") if p.strip()}
-    unknown = phases - {str(n) for n in range(2, 22)}
+    unknown = phases - {str(n) for n in range(2, 23)}
     if unknown:
-        raise SystemExit(f"--phases: no phase {sorted(unknown)}; phases are 2-21")
+        raise SystemExit(f"--phases: no phase {sorted(unknown)}; phases are 2-22")
     for p in list(phases):
         phases.update(PHASE_NEEDS.get(p, ()))
     return phases
@@ -4210,7 +4670,7 @@ def main() -> int:
                 log(f"[build] {line.strip()}")
 
     H = Harness(torch, K, S, torch.device("cuda"), card_line, FK=FK, DK=DK)
-    ranks_not_run = run_phases(H, torch, phases)
+    not_run = run_phases(H, torch, phases)
 
     kernels = []
     for name, replaces in REPLACES.items():
@@ -4229,14 +4689,16 @@ def main() -> int:
         })
     log("[compare] largest share of the tolerance used, per kernel: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
-    ranks_ran = ranks_not_run == ""
+    # phases 21-22 run only where the cards are: "" when run, else why not
+    ran = [p for p, note in not_run.items() if note == ""]
+    skipped = [note for note in not_run.values() if note]
     if phases is None:
-        names = "all 21 phases" if ranks_ran else "all 20 phases"
+        names = f"all {20 + len(ran)} phases"
     else:
         names = "phases " + ", ".join(
-            ["1", *sorted(phases - {"21"}, key=int), *(["21"] if ranks_ran else [])])
+            ["1", *sorted(phases - {"21", "22"}, key=int), *sorted(ran)])
     log(f"[done] {names} passed in {time.perf_counter() - t_start:.1f} s"
-        + (f"; {ranks_not_run}" if ranks_not_run else ""))
+        + "".join(f"; {note}" for note in skipped))
     log(f"[card] {card_line}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -4246,9 +4708,9 @@ def main() -> int:
 
 
 def run_phases(H, torch, phases=None):
-    """Phases 2-21 (or those of ``phases``), each timed. Returns what of
-    phase 21 did not run ("" when all of it ran; None when it was not
-    asked for)."""
+    """Phases 2-22 (or those of ``phases``), each timed. Returns, for each
+    of phases 21 and 22 that was asked for, what of it did not run ("" when
+    all of it ran)."""
 
     def phase(label, fn, *args):
         if phases is not None and label.rstrip("abc") not in phases:
@@ -4300,7 +4762,10 @@ def run_phases(H, torch, phases=None):
         finally:
             stop_predictions(predictions)
     torch.cuda.empty_cache()
-    return phase("21", phase_ranks, served_compiled)
+    not_run = {"21": phase("21", phase_ranks, served_compiled)}
+    torch.cuda.empty_cache()
+    not_run["22"] = phase("22", phase_lm_ring)
+    return {p: note for p, note in not_run.items() if note is not None}
 
 
 if __name__ == "__main__":

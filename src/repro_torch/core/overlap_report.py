@@ -30,9 +30,10 @@ stream of the same device computing meanwhile.
 
 On ranks (``core.ranks``) the hop is NCCL's point-to-point kernel
 (``SendRecv``) and the step runs eagerly: ``capture_rank_reports`` traces
-one step on every rank, counts only the NCCL kernels as communication
-(the banks and stash copies are the rank's own work), and gathers the
-reports on rank 0, which prints them.
+one call on every rank (a GNN ring step, or an LM stage ring's train
+step, prefill or decode steps), counts only the NCCL kernels as
+communication (the banks and stash copies are the rank's own work), and
+gathers the reports on rank 0, which prints them.
 
 ``capture_overlap_report(step_fn)`` traces one call of a step. It raises
 when the profiler fails, when, with CUDA activity on, it records no device

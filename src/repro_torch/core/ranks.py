@@ -106,9 +106,26 @@ def leave(ranks: Ranks | None) -> None:
         dist.destroy_process_group()
 
 
+def planned_world_size() -> int:
+    """The joined group's size, else the one torchrun announces
+    (``WORLD_SIZE``; 1 without it): what ``join`` would join."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def world_size() -> int:
     """The joined group's size (1 without one)."""
     return dist.get_world_size() if active() else 1
+
+
+def gathered(obj) -> list:
+    """``obj`` of every rank, in rank order (``[obj]`` without a group)."""
+    if not active():
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def is_leader() -> bool:
@@ -155,6 +172,10 @@ class RankGrid:
                 group = dist.new_group(column)
                 if rank in column:
                     self.data_group = group
+
+    def __repr__(self) -> str:
+        return (f"RankGrid(data_parallel={self.dp}, ring={self.D}, replica={self.replica}, "
+                f"position={self.position})")
 
     def rank_at(self, position: int) -> int:
         """The global rank at ring ``position`` of this rank's replica."""

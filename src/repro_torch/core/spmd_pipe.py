@@ -1,5 +1,5 @@
 """Tick executors of the compiled engine: the lanes of one device, and the
-ring across ranks.
+ring across ranks; and the LM stage ring.
 
 Counterpart of ``repro.core.spmd_pipe``'s scheduled executors. Every
 executor runs a timeline lowered to the per-tick slot arrays of
@@ -45,6 +45,15 @@ NCCL's own stream is the wire. On the CPU the same code runs on the one
 stream. Banked values, stash traffic and the gradient order are the
 latency-1 ones, so the update is bit-identical. The eval executors take
 latency 1 only, as the reference's do.
+
+The LM steps (``models/transformer/model.py``) run ``spmd_pipeline`` and
+``spmd_pipeline_interleaved`` (``repro.core.spmd_pipe:88,194``) over a
+``StageRing``: fill-drain or circular placement, one position per rank
+(or every position in one process), an activation hop per tick, and
+``spmd_pipeline_backward``, the same ticks in reverse, which carries each
+stage input's cotangent back (autograd does not cross a point-to-point
+op). Both sides of every hop read the ring's tick arithmetic, so sends
+and receives pair as the scheduled ring's do.
 
 **Pairing on ranks.** A rank sends a value only where the lowering banks it
 into a real slot of the neighbour at the next tick, and posts a receive
@@ -538,3 +547,176 @@ def spmd_pipeline_scheduled_eval(
     position = int(np.nonzero(last)[1][0])  # the ring position hosting the last stage
     dist.broadcast(out, src=grid.rank_at(position), group=grid.stage_group)
     return out[: lowered.num_chunks]
+
+
+# --------------------------------------------------- the LM stage ring --
+
+
+class StageRing:
+    """The static tick arithmetic of ``spmd_pipeline`` and
+    ``spmd_pipeline_interleaved`` (``repro.core.spmd_pipe:88,194``):
+    ``num_devices`` ring positions D, ``num_virtual`` stages V on each
+    (virtual stage k = v·D + d on position d = k mod D; fill-drain is V = 1)
+    and ``num_micro`` micro-batches C. At tick t position d works on
+    micro-batch (t - d) mod C of round v = (t - d) // C, virtual stage
+    v·D + d; the V·C + D - 1 ticks hold every (stage, micro-batch) once.
+
+    With ``grid`` (a ``core.ranks.RankGrid`` of one replica) this process
+    holds only position ``grid.position``, and a stage's output reaches the
+    next position by point-to-point ops; without, it holds every position
+    and a hop hands the tensor over. ``row_of(k)`` is virtual stage k's row
+    of the stacked leaves this process holds: k itself in one process, its
+    round v on a rank (the reference's ``circ`` rows)."""
+
+    def __init__(self, num_devices: int, num_virtual: int, num_micro: int, grid=None):
+        D, V, C = num_devices, num_virtual, num_micro
+        if V > 1 and C < D:
+            raise ValueError(f"interleaved pipeline needs num_micro ({C}) >= devices ({D})")
+        if grid is not None and (grid.D != D or grid.dp != 1):
+            raise ValueError(f"a ring of {D} positions on a rank grid of {grid.dp} x {grid.D}")
+        self.D, self.V, self.C, self.grid = D, V, C, grid
+        self.K = D * V
+        self.num_ticks = V * C + D - 1
+        self.positions = tuple(range(D)) if grid is None else (grid.position,)
+
+    def item(self, t: int, d: int) -> tuple[int, int] | None:
+        """``(virtual stage, micro-batch)`` of position d at tick t, or None
+        on a fill or drain tick."""
+        rel = t - d
+        if not 0 <= rel < self.V * self.C:
+            return None
+        return (rel // self.C) * self.D + d, rel % self.C
+
+    def stages(self, d: int) -> list[int]:
+        """The virtual stages position d holds, in row order."""
+        return [v * self.D + d for v in range(self.V)]
+
+    def row_of(self, k: int) -> int:
+        return k if self.grid is None else k // self.D
+
+    def holds(self, k: int) -> bool:
+        """Whether this process runs virtual stage k."""
+        return k % self.D in self.positions
+
+    @property
+    def last(self) -> int:
+        """The position of the last virtual stage."""
+        return (self.K - 1) % self.D
+
+    def order(self) -> list[tuple[int, int]]:
+        """Every (virtual stage, micro-batch) this process runs, in tick order."""
+        return [it for t in range(self.num_ticks) for d in self.positions
+                if (it := self.item(t, d)) is not None]
+
+
+class _Hops:
+    """A ring's hops: per tick, what each position sent lands in ``inbox``
+    under the key of the (stage, micro-batch) that reads it. In one process
+    the tensor is handed over; on ranks one ``batch_isend_irecv`` per tick
+    carries the sends of this position and the receives its neighbour's
+    work at the same tick implies (both sides read the same arithmetic, so
+    every send has its receive; an unpaired op would hang NCCL), waited on
+    before the next tick."""
+
+    def __init__(self, ring: StageRing, wire_shape: tuple, dtype, device, forward: bool):
+        self.ring, self.forward = ring, forward
+        self.wire = (tuple(wire_shape), dtype, device)
+
+    def _peer(self, k: int) -> int | None:
+        """The stage that reads stage k's hop, or None when nothing does."""
+        nxt = k + 1 if self.forward else k - 1
+        return nxt if 0 <= nxt < self.ring.K else None
+
+    def post(self, t: int, sent: list, inbox: dict) -> None:
+        """``sent``: ``(stage, micro-batch, value)`` of this tick's work."""
+        ring = self.ring
+        if ring.grid is None:
+            for k, m, value in sent:
+                inbox[(self._peer(k), m)] = value
+            return
+        import torch.distributed as dist
+
+        d, D, grid = ring.grid.position, ring.D, ring.grid
+        step = 1 if self.forward else -1
+        tag = _TAG_F if self.forward else _TAG_B
+        ops = [dist.P2POp(dist.isend, value.contiguous(), grid.rank_at(d + step), tag=tag)
+               for k, m, value in sent]
+        it = ring.item(t, (d - step) % D)  # the neighbour that sends to this position
+        if it is not None and self._peer(it[0]) is not None:
+            shape, dtype, device = self.wire
+            buf = torch.empty(shape, dtype=dtype, device=device)
+            ops.append(dist.P2POp(dist.irecv, buf, grid.rank_at(d - step), tag=tag))
+            inbox[(self._peer(it[0]), it[1])] = buf
+        for work in dist.batch_isend_irecv(ops) if ops else ():
+            work.wait()
+
+
+def _ring_walk(ring: StageRing, fn: Callable, first: Callable, hops: _Hops, ticks) -> dict:
+    """Walk ``ticks``: each held position's item (k, m) reads what the
+    stage before it (forward; after it, backward) sent, or ``first(m)``
+    where no stage sends to it, runs ``fn(k, m, value)`` and hops the
+    result on. Returns ``{m: result}`` of the items whose result no stage
+    reads (the last stage forward, stage 0 backward)."""
+    inbox, outs = {}, {}
+    origin = 0 if hops.forward else ring.K - 1  # the stage no hop feeds
+    for t in ticks:
+        sent = []
+        for d in ring.positions:
+            it = ring.item(t, d)
+            if it is None:
+                continue
+            k, m = it
+            value = first(m) if k == origin else inbox.pop((k, m))
+            out = fn(k, m, value)
+            if hops._peer(k) is None:
+                outs[m] = out
+            else:
+                sent.append((k, m, out))
+        hops.post(t, sent, inbox)
+    if inbox:
+        raise RuntimeError(f"the ring left {sorted(inbox)} unread")
+    return outs
+
+
+def spmd_pipeline_interleaved(stage_fn: Callable, inputs, ring: StageRing, *, wire_shape,
+                              dtype, device) -> dict:
+    """The forward of ``repro.core.spmd_pipe.spmd_pipeline_interleaved``
+    over ``ring`` (any V; C >= D when V > 1): at tick t each held position
+    runs ``stage_fn(k, m, h)`` on its item, h being ``inputs[m]`` for
+    stage 0 and otherwise what the previous position sent, and sends the
+    output on; position 0 keeps what position D-1 sends until that
+    micro-batch's next round (the reference's C-slot buffer, here keyed by
+    (stage, micro-batch)). ``wire_shape``/``dtype``/``device`` are one
+    hop's. Returns ``{m: last stage's output}`` on the position holding the
+    last stage, ``{}`` elsewhere."""
+    hops = _Hops(ring, wire_shape, dtype, device, forward=True)
+    return _ring_walk(ring, stage_fn, lambda m: inputs[m], hops, range(ring.num_ticks))
+
+
+def spmd_pipeline(stage_fn: Callable, inputs, ring: StageRing, *, wire_shape, dtype,
+                  device) -> dict:
+    """The fill-drain forward of ``repro.core.spmd_pipe.spmd_pipeline``:
+    ``spmd_pipeline_interleaved`` at V = 1 (tick t runs stage d on
+    micro-batch t - d). ``stage_fn`` writes its micro-batch's cache slice
+    in place where it has one (the reference's stateful stage)."""
+    if ring.V != 1:
+        raise ValueError(f"spmd_pipeline is the fill-drain ring; {ring.V} virtual stages a "
+                         "position run spmd_pipeline_interleaved")
+    return spmd_pipeline_interleaved(stage_fn, inputs, ring, wire_shape=wire_shape,
+                                     dtype=dtype, device=device)
+
+
+def spmd_pipeline_backward(backward_fn: Callable, cotangents, ring: StageRing, *, wire_shape,
+                           dtype, device) -> dict:
+    """The backward pipeline of either forward, which autograd cannot run
+    across point-to-point ops: the ticks in reverse, each held position's
+    item (k, m) running ``backward_fn(k, m, g) -> d_input`` on its output's
+    cotangent g (``cotangents[m]`` for the last stage, else what the next
+    stage's position sent back), and sending the input's cotangent to the
+    previous stage's position. Per stage the micro-batches run C-1 down to
+    0, so each stage's parameter gradients sum in descending micro-batch
+    order on every ring and in one process alike. Returns ``{m: stage 0's
+    d_input}`` where stage 0 is held."""
+    hops = _Hops(ring, wire_shape, dtype, device, forward=False)
+    return _ring_walk(ring, backward_fn, lambda m: cotangents[m], hops,
+                      reversed(range(ring.num_ticks)))

@@ -49,8 +49,11 @@ def ssd_chunk_scan(
         x_c, dt_c, b_c, c_c, la_c = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c], la[:, c]
         xd = x_c * dt_c[..., None]  # (b,q,h,p)
         cb = torch.einsum("bin,bjn->bij", c_c, b_c)
-        decay = torch.exp(la_c[:, :, None, :] - la_c[:, None, :, :])  # (b,i,j,h)
-        g = cb[..., None] * torch.where(causal, decay, 0.0)
+        # the mask goes inside the exp: above the diagonal la_i - la_j > 0 and
+        # can overflow, and there exp's gradient (inf) times the mask's 0 is
+        # NaN; exp(-inf) is 0 with a zero gradient. Same values either way.
+        diff = la_c[:, :, None, :] - la_c[:, None, :, :]  # (b,i,j,h)
+        g = cb[..., None] * torch.exp(torch.where(causal, diff, float("-inf")))
         y_intra = torch.einsum("bijh,bjhp->bihp", g, xd)
         y_inter = torch.einsum("bin,bhpn->bihp", c_c, hs) * torch.exp(la_c)[..., None]
         last = la_c[:, -1:, :]  # (b,1,h)

@@ -7,7 +7,15 @@ through the pipelined serve step. Counterpart of ``repro.launch.serve``.
         --full-arch --prompt-len 512 --decode-steps 16 --batch 8
 
 The flags are the JAX driver's, plus ``--device`` (default ``cuda``, which
-raises without a card; ``cpu`` asks for the CPU). Weights are random, drawn
+raises without a card; ``cpu`` asks for the CPU). Under ``torchrun`` the
+``--stages`` ring runs one stage per rank (``core.cli.join_lm_ring``: the
+world must be ``--stages``; NCCL, or gloo with ``--device cpu``): each rank
+draws and holds only its own stage's weights and caches, every rank returns
+the same tokens, and rank 0 prints the result, with ``ranks`` and each
+rank's peak memory (``peak_mem_gb_per_rank``):
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch qwen2.5-32b --full-arch --stages 4 --prompt-len 512 --batch 8 Weights are random, drawn
 on the device from ``--seed``; ``--full-arch`` takes the published widths
 and depth, else the arch's smoke config. On the card the prefill's
 attention runs the hand-written flash kernel and Mamba's scan the SSD
@@ -33,11 +41,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig, ShapeConfig, get_arch
-from repro_torch.core.cli import resolve_device
+from repro_torch.core import ranks
+from repro_torch.core.cli import join_lm_ring, resolve_device
 from repro_torch.data.tokens import frontend_embeds, token_batch
 from repro_torch.models.transformer.model import (
-    Topology, check_supported, frontend_rows, init_cache, init_params, make_prefill_step,
-    make_serve_step,
+    Topology, check_supported, frontend_rows, held_stages, init_cache, init_params,
+    make_prefill_step, make_serve_step,
 )
 
 
@@ -46,14 +55,16 @@ class Generation:
     """What a greedy generation produced: tokens (B, decode_steps + 1) —
     the prefill's argmax first — the prefill's last-token logits, the first
     decode step's logits (the next position's; None without decode steps),
-    and host wall seconds of the prefill and of all decode steps, each
-    ended by a device synchronize."""
+    host wall seconds of the prefill and of all decode steps, each ended by
+    a device synchronize, and the decode cache the last step left (its next
+    position is the prompt's rows + decode_steps)."""
 
     tokens: np.ndarray
     prefill_logits: torch.Tensor
     first_decode_logits: torch.Tensor | None
     prefill_s: float
     decode_s: float
+    cache: dict | None = None
 
 
 def _sync(device: torch.device) -> None:
@@ -118,13 +129,14 @@ def generate(cfg: ArchConfig, topo: Topology, params: dict, prompt: torch.Tensor
     _sync(dev)
     t_decode = time.perf_counter() - t0
     tokens = torch.stack(generated, dim=1).cpu().numpy()
-    return Generation(tokens, logits, first, t_prefill, t_decode)
+    return Generation(tokens, logits, first, t_prefill, t_decode, dcache)
 
 
 @dataclasses.dataclass
 class Served:
     """One ``serve`` run: the printed summary and what produced it (the
-    prompt's tokens and, on a frontend arch, its frontend embeddings)."""
+    prompt's tokens and, on a frontend arch, its frontend embeddings; on a
+    ring position, its own stage's params and the group ``serve`` joined)."""
 
     summary: dict
     cfg: ArchConfig
@@ -133,6 +145,7 @@ class Served:
     prompt: torch.Tensor
     frontend_embeds: torch.Tensor | None
     generation: Generation
+    joined: ranks.Ranks | None = None
 
     @property
     def prompt_len(self) -> int:
@@ -147,14 +160,19 @@ class Served:
 
 def serve(args, cfg: ArchConfig | None = None) -> Served:
     """Build the model on ``--device``, serve one batch, summarize. ``cfg``:
-    a built config (a caller may cut its depth), else ``--arch``'s."""
+    a built config (a caller may cut its depth), else ``--arch``'s. Under
+    torchrun this rank joins the ``--stages`` ring (``Served.joined``; the
+    caller leaves it) and holds its own stage."""
     cfg = get_arch(args.arch, smoke=not args.full_arch) if cfg is None else cfg
     check_supported(cfg)
-    device = resolve_device(args.device)
+    stages = max(args.stages, 1)
+    joined, grid = join_lm_ring(stages, args.device)
+    device = joined.device if joined is not None else resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    topo = Topology(num_stages=max(args.stages, 1), num_micro=args.chunks)
-    params = init_params(cfg, seed=args.seed, num_stages=topo.num_stages, device=device)
+    topo = Topology(num_stages=stages, num_micro=args.chunks, ring=grid)
+    params = init_params(cfg, seed=args.seed, num_stages=stages, device=device,
+                         stages=None if grid is None else held_stages(topo, grid.position))
     s_front = frontend_rows(cfg, args.prompt_len)
     n_text = args.prompt_len - s_front
     prompt = torch.from_numpy(token_batch(
@@ -166,6 +184,10 @@ def serve(args, cfg: ArchConfig | None = None) -> Served:
 
     gen = generate(cfg, topo, params, prompt, args.decode_steps, frontend)
     n_tokens = int(gen.tokens.size)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None
+    blocks = sum(int(p.numel()) for p in _leaves(params["blocks"]))
+    rest = sum(int(p.numel()) for p in _leaves(params)) - blocks
+    per_rank = ranks.gathered({"peak": peak, "blocks": blocks})
     summary = {
         "arch": cfg.name,
         "batch": args.batch,
@@ -174,13 +196,15 @@ def serve(args, cfg: ArchConfig | None = None) -> Served:
         "tokens_generated": n_tokens,
         "sample": gen.tokens[0][:8].tolist(),
         "tokens_per_s": n_tokens / (gen.prefill_s + gen.decode_s),
-        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9
-        if device.type == "cuda" else None,
-        "params": sum(int(p.numel()) for p in _leaves(params)),
+        "peak_mem_gb": peak,
+        "params": rest + sum(r["blocks"] for r in per_rank),
         "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
-    return Served(summary, cfg, topo, params, prompt, frontend, gen)
+    if grid is not None:
+        summary["ranks"] = len(per_rank)
+        summary["peak_mem_gb_per_rank"] = [r["peak"] for r in per_rank]
+    return Served(summary, cfg, topo, params, prompt, frontend, gen, joined)
 
 
 def _leaves(tree: dict):
@@ -190,10 +214,13 @@ def _leaves(tree: dict):
 
 def run(args) -> dict:
     """Serve one batch and print the summary dict (the JAX driver's
-    ``run``)."""
-    out = serve(args).summary
-    print(out)
-    return out
+    ``run``); under torchrun rank 0 alone prints, and every rank leaves
+    the group it joined."""
+    served = serve(args)
+    if ranks.is_leader():
+        print(served.summary)
+    ranks.leave(served.joined)
+    return served.summary
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -52,6 +52,16 @@ forward and in each recompute:
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
         --arch mamba2-130m --full-arch --stages 2 --chunks 2 --steps 50
+
+Under torchrun the LM step runs one ring position per rank
+(``core.cli.join_lm_ring``): the world must be ``--stages`` under
+fill_drain, or ``--pipe-devices`` (default: the world) under interleaved,
+each rank then holding virtual stages {v·D + d}. Each rank draws and
+trains only its own rows, bit for bit the one-process step's; rank 0
+prints the result:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --mode lm --arch codeqwen1.5-7b --full-arch --stages 4 --chunks 4 --steps 4
 """
 
 from __future__ import annotations
@@ -66,6 +76,7 @@ from repro_torch.core import ranks
 from repro_torch.core.cli import (
     PipelineCLIConfig,
     add_pipeline_args,
+    join_lm_ring,
     join_ranks,
     log_overlap,
     resolve_device,
@@ -325,6 +336,7 @@ class TrainedLM:
     step: object
     params: dict
     opt_state: object
+    joined: object = None
 
 
 def lm_batch(cfg, args, step: int, device):
@@ -350,18 +362,20 @@ def lm_batch(cfg, args, step: int, device):
 def train_lm(cfg, args, on_step=None) -> TrainedLM:
     """Train ``cfg`` (a built config; a caller may cut its depth) as the
     ``--mode lm`` flags say. ``on_step(i, params, opt_state, loss)`` is
-    called after each step."""
+    called after each step. Under torchrun this rank joins the stage ring
+    (``core.cli.join_lm_ring``; ``TrainedLM.joined``, which the caller
+    leaves) and trains its own stage's rows: ``params`` and ``opt_state``
+    are its shard, the losses every rank's alike."""
     import torch
 
     from repro_torch.configs import ShapeConfig
     from repro_torch.models.transformer.model import (
-        Topology, check_supported, init_params, make_train_step,
+        Topology, check_supported, held_stages, init_params, make_train_step,
     )
     from repro_torch.train.loop import synchronize
     from repro_torch.train.optimizer import tree_leaves
 
     check_supported(cfg)
-    device = resolve_device(args.device)
     stages = args.stages if args.stages > 1 else 1
     schedule = "fill_drain" if args.schedule in ("fill_drain", "gpipe") else args.schedule
     if schedule not in ("fill_drain", "interleaved"):
@@ -371,13 +385,16 @@ def train_lm(cfg, args, on_step=None) -> TrainedLM:
         )
     if schedule == "interleaved" and stages > 1:
         # ring positions: --pipe-devices, else the largest divisor of stages
-        # that fits the host's devices — one card here, so V = stages
-        pipe_dev = args.pipe_devices or 1
+        # that fits the devices: the world's ranks under torchrun, one card
+        # alone (V = stages)
+        pipe_dev = args.pipe_devices or ranks.planned_world_size()
         if stages % pipe_dev:
             raise ValueError(f"--pipe-devices {pipe_dev} must divide --stages {stages}")
         num_virtual = stages // pipe_dev
     else:
         schedule, pipe_dev, num_virtual = "fill_drain", stages, 1
+    joined, grid = join_lm_ring(pipe_dev, args.device)
+    device = joined.device if joined is not None else resolve_device(args.device)
     num_micro = args.chunks
     if schedule == "interleaved" and num_micro < pipe_dev:
         num_micro = pipe_dev  # the ring needs C >= devices
@@ -388,17 +405,19 @@ def train_lm(cfg, args, on_step=None) -> TrainedLM:
             f"{args.batch} (--batch {args.batch} over 1 data shards)"
         )
     topo = Topology(num_stages=stages, num_micro=num_micro, loss_chunks=min(4, args.batch),
-                    schedule=schedule, num_virtual=num_virtual)
-    if schedule == "interleaved":
+                    schedule=schedule, num_virtual=num_virtual, ring=grid)
+    if schedule == "interleaved" and ranks.is_leader():
         print(f"[lm] schedule=interleaved stages={stages} devices={pipe_dev} "
               f"virtual/device={num_virtual} micro={num_micro}")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     step = make_train_step(cfg, topo, ShapeConfig("cli", args.seq, args.batch, "train"),
                            lr=args.lr)
-    params = init_params(cfg, seed=args.seed, num_stages=stages, device=device)
+    params = init_params(cfg, seed=args.seed, num_stages=stages, device=device,
+                         stages=None if grid is None else held_stages(topo, grid.position))
     opt_state = step.optimizer.init(params)
-    n_params = sum(int(p.numel()) for p in tree_leaves(params))
+    n_blocks = sum(int(p.numel()) for p in tree_leaves(params["blocks"]))
+    n_params = sum(int(p.numel()) for p in tree_leaves(params)) - n_blocks
 
     losses, times = [], []
     for i in range(args.steps):
@@ -411,10 +430,15 @@ def train_lm(cfg, args, on_step=None) -> TrainedLM:
         losses.append(loss)
         if on_step is not None:
             on_step(i, params, opt_state, loss)
-        if args.log_every and i % args.log_every == 0:
+        if args.log_every and i % args.log_every == 0 and ranks.is_leader():
             print(f"step {i:4d} loss {loss:.4f} ({times[-1]:.2f}s)")
     if not np.isfinite(losses).all():
         raise AssertionError("training diverged")
+    # each loss is taken before its step's update: the last update is read here
+    if not all(bool(p.isfinite().all()) for p in tree_leaves(params)):
+        raise AssertionError("training diverged: the last update left non-finite params")
+    peak = torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None
+    per_rank = ranks.gathered({"peak": peak, "blocks": n_blocks})
     summary = {
         "arch": cfg.name,
         "first_loss": losses[0],
@@ -423,22 +447,29 @@ def train_lm(cfg, args, on_step=None) -> TrainedLM:
         "avg_step_s": float(np.mean(times[1:])) if len(times) > 1 else times[0],
         "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9
-        if device.type == "cuda" else None,
-        "params": n_params,
+        "peak_mem_gb": peak,
+        "params": n_params + sum(r["blocks"] for r in per_rank),
     }
-    return TrainedLM(summary, losses, times, topo, step, params, opt_state)
+    if grid is not None:
+        summary["ranks"] = len(per_rank)
+        summary["peak_mem_gb_per_rank"] = [r["peak"] for r in per_rank]
+        summary["losses"] = losses
+    return TrainedLM(summary, losses, times, topo, step, params, opt_state, joined)
 
 
 def run_lm(args) -> dict:
     """Train the LM pool as the flags say; returns (and prints) the result
     dict: the JAX launcher's keys plus ``device``, ``device_name``,
-    ``peak_mem_gb`` (None on the CPU) and ``params``."""
+    ``peak_mem_gb`` (None on the CPU) and ``params``. Under torchrun rank 0
+    alone prints, adding ``ranks``, ``peak_mem_gb_per_rank`` and every
+    step's loss."""
     from repro_torch.configs import get_arch
 
-    out = train_lm(get_arch(args.arch, smoke=not args.full_arch), args).summary
-    print(out)
-    return out
+    trained = train_lm(get_arch(args.arch, smoke=not args.full_arch), args)
+    if ranks.is_leader():
+        print(trained.summary)
+    ranks.leave(trained.joined)
+    return trained.summary
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -49,6 +49,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig, pipeline_padding
+from repro_torch.core.spmd_pipe import (
+    StageRing, spmd_pipeline, spmd_pipeline_backward, spmd_pipeline_interleaved,
+)
 from repro_torch.kernels import attach_values
 from repro_torch.kernels.flash.kernel import check_order
 from repro_torch.models.transformer import blocks as B
@@ -65,7 +68,14 @@ class Topology:
     micro-batch) and the loss's batch chunks. ``long_context`` is the
     one-card part of the reference's ``seq_shard_decode``: a decode whose
     layers all take ``layer_windows(long_context=True)``'s windows, over a
-    ring as wide as the largest (``cache_plan``); nothing is sharded."""
+    ring as wide as the largest (``cache_plan``); nothing is sharded.
+
+    ``ring``: None runs every stage in this process. A
+    ``core.ranks.RankGrid`` of one replica (``RankGrid(1, pipe_devices)``)
+    makes this process one ring position of a torchrun world: it holds
+    ``held_stages(topo, position)``, its params' and caches' stacked leaves
+    only those rows (``init_params(..., stages=...)``, ``position_shard``,
+    ``init_cache``), and its activations hop by point-to-point ops."""
 
     num_stages: int = 1
     num_micro: int = 1
@@ -75,6 +85,7 @@ class Topology:
     remat: bool = True
     loss_chunks: int = 8
     long_context: bool = False
+    ring: object = dataclasses.field(default=None, compare=False)
 
     @property
     def pipe_devices(self) -> int:
@@ -130,13 +141,29 @@ def _stacked_slots(cfg: ArchConfig, num_stages: int) -> int:
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, num_stages: int = 1,
-                dtype=torch.float32, device="cpu") -> dict:
-    """Random weights drawn on ``device`` from a ``torch.Generator`` seeded
-    with ``seed`` (the JAX package's init scheme: normal(0.02) matrices,
-    zero norms and biases, the Mamba constants; not its bits — tests that
-    compare with JAX convert its params instead)."""
+                dtype=torch.float32, device="cpu", stages=None) -> dict:
+    """Random weights drawn on ``device`` (the JAX package's init scheme:
+    normal(0.02) matrices, zero norms and biases, the Mamba constants; not
+    its bits — tests that compare with JAX convert its params instead).
+
+    The leaves outside the stack come from a ``torch.Generator`` seeded with
+    ``seed``; stage s's ``blocks`` rows from one seeded with (seed, s) alone
+    (``stage_seed``). ``stages`` (default: all ``num_stages``) names the
+    stages whose rows to draw, in row order: a ring position draws only its
+    own (``held_stages``), the same rows one process draws for them, and no
+    rank ever holds the whole stack."""
     check_supported(cfg)
-    return _build_params(cfg, torch.Generator(device=device).manual_seed(seed), num_stages, dtype)
+    stages = list(range(num_stages)) if stages is None else list(stages)
+    gen = lambda s: torch.Generator(device=device).manual_seed(
+        seed if s is None else stage_seed(seed, s))
+    return _build_params(cfg, gen, stages, num_stages, dtype)
+
+
+def stage_seed(seed: int, stage: int) -> int:
+    """The generator seed of stage ``stage``'s block rows: a function of
+    (seed, stage) only."""
+    hi, lo = np.random.SeedSequence((seed, stage + 1)).generate_state(2)
+    return (int(hi) << 32) | int(lo)
 
 
 class _NoDraws:
@@ -151,10 +178,12 @@ def abstract_params(cfg: ArchConfig, num_stages: int = 1, dtype=torch.float32) -
     data and no draws. Counterpart of the reference's ``_abstract_params``
     (``jax.eval_shape`` of its init)."""
     check_supported(cfg)
-    return _build_params(cfg, _NoDraws(), num_stages, dtype)
+    return _build_params(cfg, lambda s: _NoDraws(), list(range(num_stages)), num_stages, dtype)
 
 
-def _build_params(cfg: ArchConfig, gen, num_stages: int, dtype) -> dict:
+def _build_params(cfg: ArchConfig, gen_of: Callable, stages: list, num_stages: int,
+                  dtype) -> dict:
+    gen = gen_of(None)
     device = gen.device
     params = {
         "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), dtype=dtype),
@@ -164,12 +193,41 @@ def _build_params(cfg: ArchConfig, gen, num_stages: int, dtype) -> dict:
         params["head"] = normal_init(gen, (cfg.d_model, cfg.vocab_size), dtype=dtype)
     if cfg.mtp:
         params["mtp_proj"] = normal_init(gen, (cfg.d_model, cfg.d_model), dtype=dtype)
-    lead = (num_stages, _stacked_slots(cfg, num_stages))
     if cfg.arch_type == "hybrid":
         params["shared_attn"] = B.init_block(cfg, gen, dtype=dtype)
     init = B.init_mamba_block if cfg.arch_type in ("ssm", "hybrid") else B.init_block
-    params["blocks"] = init(cfg, gen, lead=lead, dtype=dtype)
+    slots = _stacked_slots(cfg, num_stages)
+    if device.type == "meta" or len(stages) == 1:
+        params["blocks"] = init(cfg, gen_of(stages[0]), lead=(len(stages), slots), dtype=dtype)
+        return params
+    # one stage's rows at a time, into the stack: the draw holds one extra stage
+    blocks = None
+    for row, s in enumerate(stages):
+        part = init(cfg, gen_of(s), lead=(1, slots), dtype=dtype)
+        if blocks is None:
+            blocks = opt_lib.tree_map(lambda a: a.new_empty((len(stages), *a.shape[1:])), part)
+        opt_lib.tree_map(lambda dst, src: dst[row:row + 1].copy_(src), blocks, part)
+        del part
+    params["blocks"] = blocks
     return params
+
+
+def held_stages(topo: "Topology", position: int) -> list[int]:
+    """The (virtual) stages ring position ``position`` holds, in row order:
+    {position} under fill-drain, {v·D + position} interleaved."""
+    if topo.schedule == "interleaved" and topo.num_stages > 1:
+        return [v * topo.pipe_devices + position for v in range(topo.num_virtual)]
+    return [position]
+
+
+def position_shard(tree: dict, topo: "Topology", position: int) -> dict:
+    """One ring position's copy of a full parameter tree (the port's own, or
+    the reference's through ``convert.params_from_jax``; Adam's moments
+    alike): the ``blocks`` rows of ``held_stages``, every other leaf whole."""
+    rows = held_stages(topo, position)
+    take = lambda a: a[torch.tensor(rows, device=a.device)].clone()
+    return {k: opt_lib.tree_map(take if k == "blocks" else torch.clone, v)
+            for k, v in tree.items()}
 
 
 def make_extras(cfg: ArchConfig, num_stages: int, *, long_context: bool = False) -> dict:
@@ -314,13 +372,15 @@ def cache_plan(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> dict:
 def init_cache(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
                dtype=torch.float32, device="cpu") -> dict:
     """A zero cache: leaves (num_stages, num_micro, slots, b_mb, ...), the
-    layout of ``abstract_cache``."""
+    layout of ``abstract_cache``; on a ring position (``topo.ring``) only
+    its own stage's row, (1, num_micro, slots, b_mb, ...)."""
     check_supported(cfg)
     plan = cache_plan(cfg, topo, shape)
     sp = stacked_shape_plan(cfg, topo.num_stages)
+    rows = topo.num_stages if topo.ring is None else 1
 
     def build(one: dict, slots: int) -> dict:
-        lead = (topo.num_stages, plan["nm"], slots)
+        lead = (rows, plan["nm"], slots)
         return {k: torch.zeros((*lead, *v.shape), dtype=v.dtype, device=device)
                 for k, v in one.items()}
 
@@ -337,13 +397,13 @@ def init_cache(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
 
 
 def _stage_fn(cfg: ArchConfig, topo: Topology, extras: dict, blocks: Callable,
-              shared: dict | None, mode: str, *, positions=None, cur_pos=None) -> Callable:
+              shared: Callable | None, mode: str, *, positions=None, cur_pos=None) -> Callable:
     """``stage(s, h, cache) -> h``: stage ``s``'s layer slots over one
     micro-batch's activation ``h``. ``blocks(s, i)`` gives slot i's params;
     ``cache`` is the (stage, micro-batch) view of the cache, its leaves
     (slots, ...), written in place (None when training). On a hybrid, groups
     of mamba slots, each followed by one application of the weight-shared
-    attention block ``shared`` (``_hybrid_stage`` of the JAX model)."""
+    attention block ``shared(s)`` (``_hybrid_stage`` of the JAX model)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
 
@@ -382,17 +442,21 @@ def _stage_fn(cfg: ArchConfig, topo: Topology, extras: dict, blocks: Callable,
                 h = mamba(blocks(s, j), _slot_extras(m_ex, s, j), h,
                           None if cache is None else _slot(cache["mamba"], j))
             if n_attn:
-                h = attn(shared, _slot_extras(a_ex, s, g), h,
+                h = attn(shared(s), _slot_extras(a_ex, s, g), h,
                          None if cache is None else _slot(cache["attn"], g))
         return h
 
     return hybrid_stage
 
 
-def _fill_drain_order(num_stages: int, num_micro: int) -> list[tuple[int, int]]:
-    """(stage, micro-batch) pairs in GPipe fill-drain order."""
-    return [(s, t - s) for t in range(num_micro + num_stages - 1)
-            for s in range(num_stages) if 0 <= t - s < num_micro]
+def _ring(topo: Topology, serving: bool = False) -> StageRing:
+    """The step's stage ring: ``pipe_devices`` positions of ``num_virtual``
+    stages for interleaved training, else ``num_stages`` positions of one
+    (the serving steps always run fill-drain); on ``topo.ring``'s ranks
+    when it is set."""
+    if not serving and topo.schedule == "interleaved" and topo.num_stages > 1:
+        return StageRing(topo.pipe_devices, topo.num_virtual, topo.num_micro, topo.ring)
+    return StageRing(topo.num_stages, 1, topo.num_micro, topo.ring)
 
 
 def _interleaved_order(num_devices: int, num_virtual: int,
@@ -401,9 +465,7 @@ def _interleaved_order(num_devices: int, num_virtual: int,
     ``spmd_pipeline_interleaved``: at tick t, ring position d runs
     micro-batch (t - d) mod C of round (t - d) // C, virtual stage
     round·D + d."""
-    D, V, C = num_devices, num_virtual, num_micro
-    return [(((t - d) // C) * D + d, (t - d) % C) for t in range(V * C + D - 1)
-            for d in range(D) if 0 <= t - d < V * C]
+    return StageRing(num_devices, num_virtual, num_micro).order()
 
 
 def _micro_split(x: torch.Tensor, topo: Topology) -> list:
@@ -412,43 +474,92 @@ def _micro_split(x: torch.Tensor, topo: Topology) -> list:
     return list(x.reshape(topo.num_micro, x.shape[0] // topo.num_micro, *x.shape[1:]))
 
 
-def _run_stages(stage: Callable, order: list, acts: list, cache: dict | None = None) -> None:
-    """Each (stage, micro-batch) of ``order`` over ``acts[micro]``, with the
-    pair's cache view."""
-    for s, m in order:
-        acts[m] = stage(s, acts[m], None if cache is None else _slot(cache, s, m))
+def _check_rows(ring: StageRing, tree: dict, what: str) -> None:
+    """Every leaf of ``tree`` stacks the rows of the stages this process
+    holds: all of them in one process, its own on a ring position."""
+    rows = ring.K if ring.grid is None else ring.V
+    got = {tuple(a.shape[:1]) for a in opt_lib.tree_leaves(tree)}
+    if got != {(rows,)}:
+        where = "one process" if ring.grid is None else f"ring position {ring.positions[0]}"
+        raise ValueError(f"{what} stack {sorted(got)} rows; {where} holds {rows} "
+                         "(position_shard / init_params(stages=held_stages(...)))")
+
+
+def _from_last(ring: StageRing, value: torch.Tensor | None, shape, dtype, device) -> torch.Tensor:
+    """``value``, made on the position of the last stage, on every position
+    (a broadcast from that rank; in one process, the value itself)."""
+    if ring.grid is None:
+        return value
+    import torch.distributed as dist
+
+    buf = value.contiguous() if value is not None else torch.empty(shape, dtype=dtype,
+                                                                    device=device)
+    dist.broadcast(buf, src=ring.grid.rank_at(ring.last))
+    return buf
+
+
+def _gathered(grid, value: torch.Tensor) -> list:
+    """Every ring position's ``value``, in position order."""
+    import torch.distributed as dist
+
+    got = [torch.empty_like(value) for _ in range(grid.D)]
+    dist.all_gather(got, value)  # the world is the one ring (StageRing refuses a data axis)
+    return [got[grid.rank_at(d)] for d in range(grid.D)]
+
+
+def _ascending_sum(parts: list) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...``, in that order."""
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out.add_(p)
+    return out
+
+
+def _flat(tree: dict) -> torch.Tensor:
+    return torch.cat([a.reshape(-1) for a in opt_lib.tree_leaves(tree)])
+
+
+def _unflat_into(tree: dict, flat: torch.Tensor) -> None:
+    off = 0
+    for a in opt_lib.tree_leaves(tree):
+        a.copy_(flat[off:off + a.numel()].view_as(a))
+        off += a.numel()
 
 
 # ------------------------------------------------------------ step fns --
 
 
-def _unstacked(blocks: dict, per: int) -> Callable:
-    """``(s, i) -> slot params`` over views of the stacked leaves. One
-    ``unbind`` per leaf: its backward stacks the slots' gradients once,
-    with zeros for a slot that was skipped."""
-    views = opt_lib.tree_map(lambda a: a.flatten(0, 1).unbind(0), blocks)
-    return lambda s, i: opt_lib.tree_map(lambda v: v[s * per + i], views)
-
-
 def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
                     lr: float = 1e-4) -> Callable:
     """One training step: ``step(params, opt_state, {"tokens": (B, S+1)}) ->
-    (params, opt_state, {"loss": 0-d tensor})``. Embed, the staged stack over
-    ``num_micro`` micro-batches (each (stage, micro-batch) under
+    (params, opt_state, {"loss": 0-d tensor})``. Embed, the stage ring over
+    ``num_micro`` micro-batches (``spmd_pipeline`` or
+    ``spmd_pipeline_interleaved``; each (stage, micro-batch) under
     ``torch.utils.checkpoint`` when ``topo.remat``), the masked mean
     next-token loss over ``loss_chunks`` chunks along the minor batch dim
-    (each checkpointed), the gradients of every parameter (zeros for a
+    (each checkpointed), then the backward pipeline
+    (``spmd_pipeline_backward``: the ticks in reverse, one autograd pass per
+    (stage, micro-batch)), the gradients of every parameter (zeros for a
     skipped slot), and one Adam update (``optimizer.adam(lr)``, the
     reference's defaults) applied to ``params`` and ``opt_state`` in place.
-    ``step.optimizer`` is the optimizer, for ``init``; ``step.loss(params,
-    batch)`` the step's loss without the update."""
+
+    Each layer slot of each stage (and, on the hybrid, each stage's use of
+    the shared attention block) is an autograd leaf of its own, whose
+    gradient sums its micro-batches C-1 down to 0 in place; the shared
+    block's per-stage gradients are then summed in ascending stage order. With ``topo.ring`` the same
+    step runs on each rank over its own rows: the last position computes
+    the loss over the whole batch and broadcasts it, the replicated leaves'
+    gradients (``embed``, ``final_ln``, ``head``, ``mtp_proj``: nonzero only
+    where used) are summed over the ring, the shared block's gathered, and
+    every rank applies Adam to its own tree — bit for bit the one-process
+    step's numbers. ``step.optimizer`` is the optimizer, for ``init``;
+    ``step.loss(params, batch)`` the step's loss without the update."""
     check_supported(cfg)
     if topo.schedule not in ("fill_drain", "interleaved"):
         raise ValueError(
             f"Topology.schedule must be 'fill_drain' or 'interleaved', got {topo.schedule!r}"
         )
-    interleaved = topo.schedule == "interleaved" and topo.num_stages > 1
-    if interleaved:
+    if topo.schedule == "interleaved" and topo.num_stages > 1:
         if cfg.arch_type == "hybrid":
             raise NotImplementedError(
                 "interleaved schedule requires a homogeneous block stack; "
@@ -459,14 +570,13 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
                 f"interleaved schedule needs num_micro ({topo.num_micro}) >= "
                 f"physical stage devices ({topo.pipe_devices})"
             )
-        order = _interleaved_order(topo.pipe_devices, topo.num_virtual, topo.num_micro)
-    else:
-        order = _fill_drain_order(topo.num_stages, topo.num_micro)
+    ring = _ring(topo)
     seq = shape.seq_len
     extras = make_extras(cfg, topo.num_stages)
-    per = _stacked_slots(cfg, topo.num_stages)
     optimizer = opt_lib.adam(lr)
     want = {name: spec[0] for name, spec in batch_specs(cfg, shape).items()}
+    held = [k for d in ring.positions for k in ring.stages(d)]
+    last = ring.holds(ring.K - 1)
 
     def chunk_loss(params, yi, li, mi):
         logits = lm_head_logits(cfg, params, yi)
@@ -484,19 +594,8 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
             total = total + 0.3 * ((lse2 - ll2) * mi2).sum()
         return total, mi.sum()
 
-    def loss_fn(params, batch):
-        # frontend rows, where there are any, split into micro-batches with x
-        x = embed_inputs(cfg, params, dict(batch, tokens=batch["tokens"][:, :-1]))
-        positions = make_positions(cfg, seq, device=x.device)
-        stage = _stage_fn(cfg, topo, extras, _unstacked(params["blocks"], per),
-                          params.get("shared_attn"), "train", positions=positions)
-        acts = _micro_split(x, topo)
-        for s, m in order:
-            if topo.remat:
-                acts[m] = checkpoint(stage, s, acts[m], None, use_reentrant=False)
-            else:
-                acts[m] = stage(s, acts[m], None)
-        y = torch.cat(acts)
+    def head_loss(params, y, batch):
+        """The loss over the whole batch from the last stage's output."""
         labels, mask = labels_from_batch(batch, seq)
         bsz = y.shape[0]
         chunks = min(topo.loss_chunks, bsz)
@@ -512,22 +611,123 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
             total, count = total + s_i, count + c_i
         return total / torch.clamp(count, min=1.0)
 
+    def wire(batch):
+        """One hop's shape: a micro-batch's activation, or its cotangent."""
+        return batch["tokens"].shape[0] // topo.num_micro, seq, cfg.d_model
+
+    def forward(params, blocks, shared, batch, fwd):
+        """Embed on stage 0's position and run the ring; ``fwd(stage, k, m,
+        h)`` runs one item. Returns (x, {m: the last stage's output})."""
+        embed = params["embed"]
+        positions = make_positions(cfg, seq, device=embed.device)
+        stage = _stage_fn(cfg, topo, extras, blocks, shared, "train", positions=positions)
+        x = xs = None
+        if ring.holds(0):
+            # frontend rows, where there are any, split into micro-batches with x
+            x = embed_inputs(cfg, params, dict(batch, tokens=batch["tokens"][:, :-1]))
+            xs = _micro_split(x, topo)
+        outs = spmd_pipeline_interleaved(lambda k, m, h: fwd(stage, k, m, h), xs, ring,
+                                         wire_shape=wire(batch), dtype=embed.dtype,
+                                         device=embed.device)
+        return x, outs
+
+    def loss_fn(params, batch):
+        _check_rows(ring, params["blocks"], "params['blocks']")
+        blocks = lambda k, i: _slot(params["blocks"], ring.row_of(k), i)
+        shared = (lambda k: params["shared_attn"]) if "shared_attn" in params else None
+        _, outs = forward(params, blocks, shared, batch, lambda st, k, m, h: st(k, h, None))
+        loss = head_loss(params, torch.cat([outs[m] for m in range(topo.num_micro)]), batch) \
+            if last else None
+        return _from_last(ring, loss, (), torch.float32, params["embed"].device)
+
     def train_step(params: dict, opt_state, batch: dict):
         got = {name: tuple(batch[name].shape) for name in want if name in batch}
         if got != want:
             raise ValueError(f"batch of shapes {got}, step built for {want}")
-        leaves = opt_lib.tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss = loss_fn(leaves, batch)
-        flat = opt_lib.tree_leaves(leaves)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
-        del leaves, flat
-        optimizer.apply_(grads, opt_state, params)
-        return params, opt_state, {"loss": loss.detach()}
+        _check_rows(ring, params["blocks"], "params['blocks']")
+        grads = opt_lib.tree_map(torch.zeros_like, params)
+
+        def leaf(p, g):
+            # an autograd leaf over p whose gradient accumulates into g in place
+            out = p.detach().requires_grad_(True)
+            out.grad = g
+            return out
+
+        leaves = {k: opt_lib.tree_map(leaf, v, grads[k]) for k, v in params.items()
+                  if k not in ("blocks", "shared_attn")}
+        # one leaf per (stage, slot), its gradient a view of its row of grads:
+        # each backward pass adds into it, and no pass stacks a stage's rows
+        per = _stacked_slots(cfg, topo.num_stages)
+        slots = {(k, i): opt_lib.tree_map(
+            lambda p, g: leaf(p[ring.row_of(k), i], g[ring.row_of(k), i]),
+            params["blocks"], grads["blocks"]) for k in held for i in range(per)}
+        blocks = lambda k, i: slots[(k, i)]
+        shared = None
+        if "shared_attn" in params:
+            aliases = {k: opt_lib.tree_map(lambda p: leaf(p, torch.zeros_like(p)),
+                                           params["shared_attn"]) for k in held}
+            shared = aliases.__getitem__
+        saved = {}
+
+        def fwd(stage, k, m, h):
+            h = h.detach().requires_grad_(True)
+            if topo.remat:
+                y = checkpoint(stage, k, h, None, use_reentrant=False)
+            else:
+                y = stage(k, h, None)
+            saved[(k, m)] = (h, y)
+            return y.detach()
+
+        x, outs = forward(leaves, blocks, shared, batch, fwd)
+        loss, cotangents = None, {}
+        if last:
+            ys = [outs[m].requires_grad_(True) for m in range(topo.num_micro)]
+            loss = head_loss(leaves, torch.cat(ys), batch)
+            torch.autograd.backward(loss)
+            cotangents = {m: y.grad for m, y in enumerate(ys)}
+            del ys
+
+        def bwd(k, m, g):
+            h, y = saved.pop((k, m))
+            torch.autograd.backward(y, g)
+            return h.grad
+
+        d_x = spmd_pipeline_backward(bwd, cotangents, ring, wire_shape=wire(batch),
+                                     dtype=params["embed"].dtype, device=params["embed"].device)
+        del cotangents, outs
+        if x is not None:
+            torch.autograd.backward(x, torch.stack([d_x[m] for m in range(topo.num_micro)])
+                                    .reshape(x.shape))
+        del x, d_x, leaves, slots
+        if shared is not None:  # one gradient per stage, summed in ascending stage order
+            parts = [_flat(opt_lib.tree_map(lambda a: a.grad, aliases[k])) for k in held]
+            del aliases, shared
+            if ring.grid is not None:
+                parts = _gathered(ring.grid, parts[0])
+            _unflat_into(grads["shared_attn"], _ascending_sum(parts))
+            del parts
+        if ring.grid is not None:  # each replicated leaf: its users' gradients, zeros elsewhere
+            import torch.distributed as dist
+
+            for k, v in grads.items():
+                if k not in ("blocks", "shared_attn"):
+                    for g in opt_lib.tree_leaves(v):
+                        dist.all_reduce(g)
+        loss = _from_last(ring, None if loss is None else loss.detach(), (), torch.float32,
+                          params["embed"].device)
+        optimizer.apply_(opt_lib.tree_leaves(grads), opt_state, params)
+        return params, opt_state, {"loss": loss}
 
     train_step.optimizer = optimizer
     train_step.loss = loss_fn
     return train_step
+
+
+def _serve_ring(topo: Topology, params: dict, cache: dict) -> StageRing:
+    ring = _ring(topo, serving=True)
+    _check_rows(ring, params["blocks"], "params['blocks']")
+    _check_rows(ring, cache, "the cache")
+    return ring
 
 
 def _prefill(cfg: ArchConfig, topo: Topology, extras: dict, params: dict, cache: dict,
@@ -536,23 +736,30 @@ def _prefill(cfg: ArchConfig, topo: Topology, extras: dict, params: dict, cache:
     check's positions (the m-rope decode's own), of ``make_positions``'
     shape, whose mask row is checked here never to decrease, as the flash
     kernel needs (``make_positions``' never does, by construction)."""
-    # frontend rows, where there are any, split into micro-batches with x
-    x = embed_inputs(cfg, params, batch)
-    if x.shape[1] != seq:
-        raise ValueError(f"prompt of {x.shape[1]} rows, step built for {seq}")
+    ring = _serve_ring(topo, params, cache)
+    embed = params["embed"]
+    rows = batch["tokens"].shape[1] + (batch["frontend_embeds"].shape[1]
+                                       if "frontend_embeds" in batch else 0)
+    if rows != seq:
+        raise ValueError(f"prompt of {rows} rows, step built for {seq}")
     if positions is None:
-        positions = make_positions(cfg, seq, device=x.device)
+        positions = make_positions(cfg, seq, device=embed.device)
     else:
         want = (3, seq) if cfg.rope_kind == "mrope" else (seq,)
         if tuple(positions.shape) != want:
             raise ValueError(f"positions of shape {tuple(positions.shape)}, the step needs {want}")
         check_order("positions", positions[0] if cfg.rope_kind == "mrope" else positions)
-        positions = positions.to(x.device, torch.int32)
-    stage = _stage_fn(cfg, topo, extras, lambda s, i: _slot(params["blocks"], s, i),
-                      params.get("shared_attn"), "prefill", positions=positions)
-    acts = _micro_split(x, topo)
-    _run_stages(stage, _fill_drain_order(topo.num_stages, topo.num_micro), acts, cache)
-    y_last = torch.cat([a[:, -1] for a in acts])
+        positions = positions.to(embed.device, torch.int32)
+    stage = _stage_fn(cfg, topo, extras, lambda s, i: _slot(params["blocks"], ring.row_of(s), i),
+                      lambda s: params.get("shared_attn"), "prefill", positions=positions)
+    # frontend rows, where there are any, split into micro-batches with x
+    xs = _micro_split(embed_inputs(cfg, params, batch), topo) if ring.holds(0) else None
+    b = batch["tokens"].shape[0]
+    outs = spmd_pipeline(lambda s, m, h: stage(s, h, _slot(cache, ring.row_of(s), m)), xs, ring,
+                         wire_shape=(b // topo.num_micro, seq, cfg.d_model), dtype=embed.dtype,
+                         device=embed.device)
+    y_last = torch.cat([outs[m][:, -1] for m in range(topo.num_micro)]) if outs else None
+    y_last = _from_last(ring, y_last, (b, cfg.d_model), embed.dtype, embed.device)
     return lm_head_logits(cfg, params, y_last), cache
 
 
@@ -560,7 +767,10 @@ def make_prefill_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> Ca
     """Full-sequence prefill: ``step(params, cache, {"tokens": (B, S -
     s_front)[, "frontend_embeds": (B, s_front, d)]}) -> (last-token logits
     (B, V) float32, cache)``, the cache (from ``init_cache`` at ``shape``)
-    filled in place."""
+    filled in place. On ``topo.ring``'s ranks every rank passes the whole
+    batch: position 0 embeds it, each position fills its own cache rows,
+    and the last position's final hidden rows are broadcast, so every rank
+    returns the logits."""
     check_supported(cfg)
     seq = shape.seq_len
     extras = make_extras(cfg, topo.num_stages)
@@ -576,18 +786,29 @@ def make_serve_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> Call
     -> (next tokens (B,) int32, cache, logits (B, V) float32)``, the cache
     (from ``init_cache`` at ``shape``) updated in place at slot pos mod W.
     With ``topo.long_context`` every layer attends within its long-context
-    window, over a ring that wraps at the largest (``cache_plan``)."""
+    window, over a ring that wraps at the largest (``cache_plan``). On
+    ``topo.ring``'s ranks every rank passes the tokens, position 0 embeds
+    them, and the last position's final hidden rows are broadcast, so every
+    rank returns the next tokens and the logits."""
     check_supported(cfg)
     extras = make_extras(cfg, topo.num_stages, long_context=topo.long_context)
-    order = _fill_drain_order(topo.num_stages, topo.num_micro)
 
     def serve_step(params: dict, cache: dict, batch: dict):
-        x = params["embed"][batch["tokens"].long()][:, None, :]  # (B, 1, d)
-        stage = _stage_fn(cfg, topo, extras, lambda s, i: _slot(params["blocks"], s, i),
-                          params.get("shared_attn"), "decode", cur_pos=int(batch["pos"]))
-        acts = _micro_split(x, topo)
-        _run_stages(stage, order, acts, cache)
-        logits = lm_head_logits(cfg, params, torch.cat(acts)[:, 0])
+        ring = _serve_ring(topo, params, cache)
+        embed = params["embed"]
+        stage = _stage_fn(cfg, topo, extras,
+                          lambda s, i: _slot(params["blocks"], ring.row_of(s), i),
+                          lambda s: params.get("shared_attn"), "decode",
+                          cur_pos=int(batch["pos"]))
+        xs = _micro_split(embed[batch["tokens"].long()][:, None, :], topo) \
+            if ring.holds(0) else None  # (B, 1, d)
+        b = batch["tokens"].shape[0]
+        outs = spmd_pipeline(lambda s, m, h: stage(s, h, _slot(cache, ring.row_of(s), m)), xs,
+                             ring, wire_shape=(b // topo.num_micro, 1, cfg.d_model),
+                             dtype=embed.dtype, device=embed.device)
+        y = torch.cat([outs[m][:, 0] for m in range(topo.num_micro)]) if outs else None
+        logits = lm_head_logits(cfg, params,
+                                _from_last(ring, y, (b, cfg.d_model), embed.dtype, embed.device))
         return logits.argmax(dim=-1).to(torch.int32), cache, logits
 
     return serve_step

@@ -96,6 +96,23 @@ def test_op_gradient_matches_jax():
         close(g, w)
 
 
+def test_plain_gradient_finite_under_strong_decay():
+    """A chunk of 128 at dt·A near -10 a step: above the diagonal la_i - la_j
+    reaches ~1270, whose exp overflows. The causal mask sits inside the exp,
+    so the masked entries take exp(-inf) = 0 and a zero gradient: every
+    gradient stays finite (masking after the exp gave inf x 0 = NaN), and
+    the output equals the sequential reference's."""
+    x, dt, A, B, C = t(*inputs(1, 128, 2, 4, 8, seed=16))
+    A = torch.full((2,), -100.0)
+    leaves = [a.requires_grad_() for a in (x, dt, B, C)]
+    y, state = ssd_chunked(leaves[0], leaves[1], A, leaves[2], leaves[3], chunk=128)
+    grads = torch.autograd.grad((y.sum(), state.sum()), leaves)
+    assert all(bool(g.isfinite().all()) for g in grads)
+    ref_y, ref_state = ssd_reference(x.detach(), dt.detach(), A, B.detach(), C.detach())
+    close(y.detach(), ref_y)
+    close(state.detach(), ref_state)
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     x, dt, A, B, C = t(*inputs(1, 50, 2, 8, 16, seed=15))
     loga = dt * A
