@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA GPUs.
 
-    python3 chip_smoke.py                # phases 1-20 on one card (21 on 2+, 22 on 4)
+    python3 chip_smoke.py                # phases 1-20 on one card (21 on 2+, 22-23 on 4)
     python3 chip_smoke.py --phases 21    # phase 1, then phase 21 on up to 4 cards
     python3 chip_smoke.py --phases 22    # phase 1, then phase 22 on 4 cards
+    python3 chip_smoke.py --phases 23    # phase 1, then phase 23 on 4 cards
 
 Phases (each prints its seconds); any failure stops the run with a non-zero
 exit:
@@ -334,6 +335,39 @@ exit:
    repro_torch.launch.train --mode lm`` (mamba2-130m), both ``--stages 4``
    on 4 cards, started together: one result dict each, from rank 0. On a
    machine with fewer cards phase 22 prints why it did not run.
+
+23. The LM data axis on four cards: 2 data replicas of a 2-position stage
+   ring (``Topology(data=2, ring=RankGrid(2, 2))``: ZeRO-3 gathers, the
+   expert-parallel modes, the sequence-sharded decode), fp32, through
+   ``chip_smoke.py --rank-worker lmdata`` under ``torchrun``, each rank's
+   lines in ``build/phase23/``. First each full-width leg's per-rank state
+   is printed against the card's 80 GB, and 23c's training expert cut is
+   the widest of 64, 48, 32 whose predicted state fits 0.7 of the card.
+   23a, cut depth, held bit for bit on every rank against
+   ``Topology(data=2)`` in one process on one card (losses, tokens, logits,
+   and digests of every params and Adam-moment row and data shard the rank
+   holds): codeqwen1.5-7b at 8 layers trained 2 steps with ZeRO-3 on and
+   off and interleaved (4 virtual stages), zamba2-7b at 24 slots trained
+   (its shared block gathered), arctic-480b at 2 layers and 8 experts
+   trained under ``gathered`` and ``a2a``, qwen2.5-32b at 8 layers
+   prefilled (512) and decoded 16 steps. 23d codeqwen1.5-7b at full width,
+   ``long_context_window`` 64, one row decoded 81 steps over a ring split
+   32 + 32: tokens and last logits bit for bit against one card, the last
+   step within 1e-3 of a windowed 81-row prefill. 23b codeqwen1.5-7b at its
+   32 layers trained with ZeRO-3, ``--seq 256 --batch 8 --chunks 2``, 4
+   steps: losses alike on every rank, per rank the median step, tokens/s,
+   peak and a traced step's busy share and NCCL time. 23c arctic-480b at 2
+   layers served with all 128 experts (64 a rank): the first decode's
+   logits within 1e-3 of a fresh prefill that drops no token, then trained
+   2 steps on the expert cut. Every rank's first flash and SSD calls of each
+   leg are held against the plain version, and the launches a rank makes
+   on each main path are counted. The two kernels are timed on one card at
+   the data axis's launch shapes. 23e ``torchrun -m
+   repro_torch.launch.serve`` (codeqwen1.5-7b) and ``-m
+   repro_torch.launch.train --mode lm`` (mamba2-130m), both ``--stages 2``
+   on 4 cards (2 data replicas), started together: one result dict each,
+   from rank 0. On a machine with fewer cards phase 23 prints why it did
+   not run.
 
 ``--phases`` (e.g. ``--phases 21``) runs phase 1, then the phases named (and
 those whose results they take), then the closing lines; the kernels line
@@ -4155,9 +4189,9 @@ def worker_stream(H, torch, rl):
 
 
 def rank_worker(leg: str) -> int:
-    """``chip_smoke.py --rank-worker ring4|ring2|lm4`` under torchrun: this
-    rank's legs of phase 21 (``ring...``) or 22 (``lm4``), its record in
-    ``rank_dir(leg)``."""
+    """``chip_smoke.py --rank-worker ring4|ring2|lm4|lmdata`` under
+    torchrun: this rank's legs of phase 21 (``ring...``), 22 (``lm4``) or
+    23 (``lmdata``), its record in ``rank_dir(leg)``."""
     import torch
     import torch.distributed as dist
 
@@ -4182,7 +4216,13 @@ def rank_worker(leg: str) -> int:
     rl = RankLog(joined.rank, leg, torch.get_num_threads())
     refs = torch.load(rank_dir(leg) / "refs.pt", weights_only=False)
     try:
-        if leg == "lm4":
+        if leg == "lmdata":
+            grid = ranks.RankGrid(2, LM_DATA_CARDS // 2)
+            worker_lm_data_cut(H, torch, rl, refs, grid)
+            worker_lm_data_long(H, torch, rl, refs, grid)
+            worker_lm_data_train_full(H, torch, rl)
+            worker_lm_data_moe(H, torch, rl, refs["experts"])
+        elif leg == "lm4":
             worker_lm_cut(H, torch, rl, refs)
             worker_lm_train_full(H, torch, rl)
             worker_lm_serve_full(H, torch, rl)
@@ -4233,7 +4273,10 @@ CARD_BYTES = 80e9  # one H100's memory
 
 
 def rank_dir(leg: str) -> Path:
-    """Where a worker leg's records go: phase 22's (``lm...``) or 21's."""
+    """Where a worker leg's records go: phase 23's (``lmdata``), 22's
+    (``lm4``) or 21's."""
+    if leg == "lmdata":
+        return LM_DATA_DIR
     return LM_RING_DIR if leg.startswith("lm") else RANKS_DIR
 
 
@@ -4604,6 +4647,555 @@ def worker_lm_serve_full(H, torch, rl):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- phase 23: the LM data axis --
+
+LM_DATA_CARDS = 4  # phase 23: 2 data replicas of a 2-position stage ring, one rank a card
+LM_DATA_DIR = ROOT / "build" / "phase23"
+PHASE23_SKIP = "phase 23 needs 4 cards (run it on a host with 4 cards)"
+LM_DATA_SEQ, LM_DATA_BATCH, LM_DATA_MICRO = 256, 8, 2  # phase 16's, 2 micro-batches a replica
+LM_DATA_TRAIN = [  # 23b-c, 23e: the launcher's flags at full width
+    "--mode", "lm", "--full-arch", "--seq", str(LM_DATA_SEQ), "--batch", str(LM_DATA_BATCH),
+    "--chunks", str(LM_DATA_MICRO), "--lr", "3e-4", "--log-every", "0", "--device", "cuda",
+]
+LM_DATA_CUTS = (  # 23a: (tag, kind, arch, cut, Topology fields), dp 2 x D 2 against one card
+    ("codeqwen zero3", "train", "codeqwen1.5-7b", {"num_layers": 8}, {}),
+    ("codeqwen zero1", "train", "codeqwen1.5-7b", {"num_layers": 8}, {"zero3": False}),
+    ("codeqwen interleaved", "train", "codeqwen1.5-7b", {"num_layers": 8},
+     {"num_stages": 4, "schedule": "interleaved", "num_virtual": 2}),
+    ("zamba2 train", "train", "zamba2-7b", {"num_layers": 24}, {}),
+    ("arctic gathered", "train", "arctic-480b", {"num_layers": 2, "num_experts": 8}, {}),
+    ("arctic a2a", "train", "arctic-480b", {"num_layers": 2, "num_experts": 8},
+     {"moe_mode": "a2a"}),
+    ("qwen2.5 serve", "serve", "qwen2.5-32b", {"num_layers": 8}, {}),
+)
+LM_DATA_FULL_TRAIN = ("codeqwen1.5-7b", ["--stages", "2", "--steps", "4"])  # 23b
+LM_DATA_MOE = ("arctic-480b", {"num_layers": 2})  # 23c: served with all 128 experts
+LM_DATA_MOE_EXPERTS = (64, 48, 32)  # 23c's training: the widest cut whose state fits
+LM_DATA_MOE_FIT = 0.7  # of the card: the predicted state 23c's training may take
+LM_DATA_CLI = (  # 23e: the launchers as a user starts them on 4 cards, 2 data replicas
+    ["-m", "repro_torch.launch.serve", "--arch", "codeqwen1.5-7b", "--stages", "2",
+     *LM_SERVE_ARGS],
+    ["-m", "repro_torch.launch.train", *LM_DATA_TRAIN, "--arch", "mamba2-130m", "--stages",
+     "2", "--steps", "3"],
+)
+
+
+def lm_data_topology(fields, ring=None):
+    """A 23a case's Topology: 2 stages, 2 micro-batches, 2 data replicas."""
+    from repro_torch.models.transformer.model import Topology
+
+    base = {"num_stages": 2, "num_micro": LM_DATA_MICRO, "loss_chunks": 4}
+    return Topology(data=2, ring=ring, **{**base, **fields})
+
+
+def grid_digests(torch, tree, cfg, topo, moments=False, position=None, replica=None):
+    """``tree_digests`` over a data axis: a ``blocks`` leaf per stage row
+    (``path@stage``), and a leaf the layout splits (``param_layout``, or
+    ``moment_specs`` with ``moments``) per data shard (``...#r``): in one
+    process (``position`` None) every row and shard, on a rank its own."""
+    from repro_torch.models.transformer.model import _cut, held_stages, leaf_layout
+
+    layout = leaf_layout(cfg, topo)
+    dims = layout.moments if moments else layout.params
+    stages = list(range(topo.num_stages)) if position is None else held_stages(topo, position)
+    out = {}
+
+    def walk(t, d, path):
+        for k, v in t.items():
+            p = f"{path}{k}"
+            if isinstance(v, dict):
+                walk(v, d[k], p + "/")
+                continue
+            dim = d[k]
+            if p.startswith("blocks/"):
+                rows = [(f"{p}@{s}", v[i]) for i, s in enumerate(stages)]
+                dim = None if dim is None else dim - 1
+            else:
+                rows = [(p, v)]
+            for key, a in rows:
+                if dim is None:
+                    out[key] = bits_digest(torch, a)
+                elif position is None:
+                    for r in range(topo.data):
+                        out[f"{key}#{r}"] = bits_digest(torch, _cut(a, dim, topo.data, r))
+                else:
+                    out[f"{key}#{replica}"] = bits_digest(torch, a)
+
+    walk(tree, dims, "")
+    return out
+
+
+def lm_data_case(H, torch, kind, arch, cut, fields, grid=None, capture=None):
+    """One 23a case at full width, cut depth: one process on one card
+    (``grid`` None, every replica) or this rank of the grid; what is held
+    bit for bit, with digests per stage row and data shard."""
+    from argparse import Namespace
+
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models.transformer.model import held_stages, init_params, make_train_step
+
+    cfg, note = cut_config(get_arch(arch, smoke=False), cut)
+    topo = lm_data_topology(fields, grid)
+    own, place = {}, {}
+    if grid is not None:
+        own = {"stages": held_stages(topo, grid.position), "data_rank": grid.replica}
+        place = {"position": grid.position, "replica": grid.replica}
+    limits = {name: LM_RING_CAPTURE for name in active_slots(cfg)} if capture is None else capture
+    torch.cuda.reset_peak_memory_stats(H.dev)
+    with deterministic(torch), KernelCapture(limits) as cap:
+        params = init_params(cfg, seed=0, num_stages=topo.num_stages, device=H.dev, topo=topo,
+                             **own)
+        if kind == "train":
+            args = Namespace(seq=LM_DATA_SEQ, batch=LM_DATA_BATCH, seed=0)
+            step = make_train_step(cfg, topo, ShapeConfig("t", LM_DATA_SEQ, LM_DATA_BATCH,
+                                                          "train"), lr=3e-4)
+            opt = step.optimizer.init(params)
+            losses, step_s = [], []
+            for i in range(2):
+                batch = lm_batch(cfg, args, i, H.dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            got = {"losses": losses, "step_s": step_s,
+                   "params": grid_digests(torch, params, cfg, topo, **place),
+                   "mu": grid_digests(torch, opt.mu, cfg, topo, True, **place),
+                   "nu": grid_digests(torch, opt.nu, cfg, topo, True, **place)}
+            del step, opt
+        else:
+            b, plen = 8, 512
+            prompt = torch.from_numpy(token_batch(batch=b, seq=plen, vocab=cfg.vocab_size,
+                                                  seed=0)[:, :-1][:, :plen].astype(np.int64))
+            gen = generate(cfg, topo, params, prompt.to(H.dev), 16)
+            got = {"tokens": gen.tokens.tolist(), "prefill_s": gen.prefill_s,
+                   "decode_s": gen.decode_s,
+                   "logits": [bits_digest(torch, gen.prefill_logits),
+                              bits_digest(torch, gen.first_decode_logits)]}
+            del gen
+    got.update(note=note, topo=repr(topo), peak=torch.cuda.max_memory_allocated(H.dev) / 1e9)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, cap
+
+
+def lm_data_long(H, torch, grid=None):
+    """23d: codeqwen1.5-7b at full width, ``long_context_window`` cut to
+    64, one row decoded from an empty ring over positions 0-80 (teacher
+    forced; the ring wraps after 64), the ring split over the data axis
+    (``Topology.seq_shard``): one process on one card, or this rank. One
+    process also runs the windowed prefill the last step is held to."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.models.transformer.model import (
+        Topology, held_stages, init_cache, init_params, make_prefill_step, make_serve_step)
+
+    cfg = dataclasses.replace(get_arch("codeqwen1.5-7b", smoke=False),
+                              long_context_window=LONG_WINDOW)
+    topo = Topology(num_stages=2, num_micro=1, long_context=True, data=2, ring=grid)
+    own = {} if grid is None else {"stages": held_stages(topo, grid.position),
+                                   "data_rank": grid.replica}
+    params = init_params(cfg, seed=0, num_stages=2, device=H.dev, topo=topo, **own)
+    shape = ShapeConfig("long", LONG_STEPS, 1, "decode")
+    toks = torch.from_numpy(token_batch(batch=1, seq=LONG_STEPS, vocab=cfg.vocab_size, seed=0)[
+        :, :LONG_STEPS].astype(np.int32)).to(H.dev)
+    cache = init_cache(cfg, topo, shape, device=H.dev)
+    step = make_serve_step(cfg, topo, shape)
+    tokens = []
+    with deterministic(torch), torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(LONG_STEPS):
+            tok, cache, logits = step(params, cache, {"tokens": toks[:, pos], "pos": pos})
+            tokens.append(int(tok[0]))
+        torch.cuda.synchronize()
+    got = {"tokens": tokens, "logits": bits_digest(torch, logits), "last": logits.cpu(),
+           "decode_s": time.perf_counter() - t0, "slots": cache["k"].shape[4]}
+    del cache, step
+    if grid is None:
+        wcfg = dataclasses.replace(cfg, window_size=LONG_WINDOW)
+        ptopo = Topology(num_stages=2, num_micro=1)
+        pshape = ShapeConfig("check", LONG_STEPS, 1, "prefill")
+        with torch.inference_mode():
+            fresh, _ = make_prefill_step(wcfg, ptopo, pshape)(
+                params, init_cache(wcfg, ptopo, pshape, device=H.dev), {"tokens": toks})
+        got["fresh"] = fresh.cpu()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def lm_data_references(H, torch, experts):
+    """23a and 23d on one card (``H.dev``), deterministic: every case at the
+    grid's Topology with every replica in this process, saved for the rank
+    workers with 23c's training cut (``experts``)."""
+    refs = {"experts": experts}
+    for tag, kind, arch, cut, fields in LM_DATA_CUTS:
+        t0 = time.perf_counter()
+        got, _ = lm_data_case(H, torch, kind, arch, cut, fields, capture={})
+        refs[tag] = got
+        what = (f"losses {got['losses']}, steps {got['step_s']} s" if kind == "train" else
+                f"tokens[0] {got['tokens'][0]}, prefill {got['prefill_s']:.6f} s, decode "
+                f"{got['decode_s'] / 16:.6f} s a token")
+        log(f"[lm-data] 23a one card, {tag}{got['note']}, {got['topo']}: {what}; peak "
+            f"{got['peak']:.3f} GB; {time.perf_counter() - t0:.1f} s [{H.card}]")
+    t0 = time.perf_counter()
+    refs["long"] = lm_data_long(H, torch)
+    long = refs["long"]
+    log(f"[lm-data] 23d one card: codeqwen1.5-7b long_context_window -> {LONG_WINDOW}, "
+        f"{LONG_STEPS} steps of one row over {long['slots']} ring slots, 2 replicas in one "
+        f"process: {long['decode_s'] / LONG_STEPS * 1e3:.3f} ms a step, tokens "
+        f"{long['tokens'][-8:]} (last 8); {time.perf_counter() - t0:.1f} s [{H.card}]")
+    torch.save(refs, LM_DATA_DIR / "refs.pt")
+    return refs
+
+
+def lm_data_timing(H, torch):
+    """The LM kernels timed on one card at phase 23's launch shapes: flash
+    at 23c's arctic prefill micro-batch (a replica's 2 rows of 512) and
+    23b's training micro-batch, SSD at 23a's zamba2 training call."""
+    timing = {
+        "flash_attention_kernel": time_flash(
+            H, torch, "one arctic-480b data-axis prefill launch (2 x 512 tokens, GQA 56/8, hd "
+            "128, causal, fp32)", *flash_inputs(H, 2, 512, 56, 8, 128)),
+        "ssd_kernel": time_ssd(
+            H, torch, "one zamba2 data-axis training call (2 x 256 tokens, 112 heads, P 64, N "
+            "64, chunk 128)", *ssd_inputs(H, 2, 256, 112, 64, 64)),
+    }
+    time_flash(H, torch, "one codeqwen data-axis training launch (2 x 256 tokens, 32 heads, hd "
+               "128, causal, fp32)", *flash_inputs(H, 2, 256, 32, 32, 128))
+    for name, record in timing.items():
+        H.timing.setdefault(name, record)
+
+
+def data_state_gb(cfg, topo, position, train):
+    """The fp32 GB a rank at ring ``position`` holds before any activation
+    on a data axis of ``topo.data``: its stage rows of its shard of every
+    split leaf, every whole leaf, and when training the gradients and
+    Adam's two moments (``moment_specs``: the ``embed``/``head`` moments
+    split too)."""
+    from repro_torch.models.transformer.model import abstract_params, held_stages, leaf_layout
+    from repro_torch.train.optimizer import tree_leaves
+
+    meta = abstract_params(cfg, topo.num_stages)
+    layout = leaf_layout(cfg, topo)
+    share = len(held_stages(topo, position)) / topo.num_stages
+    n = 0.0
+    for key, tree in meta.items():
+        for a, dp, dm in zip(tree_leaves(tree), tree_leaves(layout.params[key]),
+                             tree_leaves(layout.moments[key])):
+            rows = a.numel() * (share if key == "blocks" else 1)
+            p = rows / (topo.data if dp is not None else 1)
+            m = rows / (topo.data if dm is not None else 1)
+            n += 2 * p + 2 * m if train else p
+    return n * 4 / 1e9
+
+
+def lm_data_moe_experts(H):
+    """23c's training cut: the most experts (of ``LM_DATA_MOE_EXPERTS``)
+    whose predicted per-rank state fits ``LM_DATA_MOE_FIT`` of the card."""
+    from repro_torch.configs import get_arch
+
+    arch, cut = LM_DATA_MOE
+    preds = {}
+    for e in LM_DATA_MOE_EXPERTS:
+        cfg, _ = cut_config(get_arch(arch, smoke=False), {**cut, "num_experts": e})
+        preds[e] = max(data_state_gb(cfg, lm_data_topology({}), d, True) for d in range(2))
+    pick = next((e for e in LM_DATA_MOE_EXPERTS if preds[e] <= LM_DATA_MOE_FIT * CARD_BYTES / 1e9),
+                None)
+    log(f"[lm-data] 23c {arch} training, 2 layers, dp 2 x D 2: predicted fp32 params, gradients "
+        f"and Adam moments per rank " + ", ".join(f"{e} experts {g:.3f} GB" for e, g in
+                                                 preds.items())
+        + f"; the widest within {LM_DATA_MOE_FIT} of the card's {CARD_BYTES / 1e9:.0f} GB: "
+        f"{pick} [{H.card}]")
+    if pick is None:
+        raise AssertionError(f"23c: no expert cut of {LM_DATA_MOE_EXPERTS} fits")
+    return pick
+
+
+def lm_data_predictions(H):
+    """Each full-width leg's per-rank state against the card's memory,
+    printed before the run (a leg that cannot fit stops here)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer.model import Topology
+
+    legs = (("23b", LM_DATA_FULL_TRAIN[0], {}, True),
+            ("23c serve", LM_DATA_MOE[0], LM_DATA_MOE[1], False),
+            ("23d", "codeqwen1.5-7b", {}, False),
+            ("23e serve", "codeqwen1.5-7b", {}, False))
+    for leg, arch, cut, train in legs:
+        cfg, note = cut_config(get_arch(arch, smoke=False), cut)
+        topo = Topology(num_stages=2, num_micro=LM_DATA_MICRO, data=2)
+        gbs = [data_state_gb(cfg, topo, d, train) for d in range(2)]
+        log(f"[lm-data] {leg} {arch}{note}, dp 2 x D 2: fp32 "
+            f"{'params, gradients and Adam moments' if train else 'weights'} per rank "
+            + ", ".join(f"{g:.3f}" for g in gbs) + f" GB of the card's {CARD_BYTES / 1e9:.0f} "
+            f"[{H.card}]")
+        if max(gbs) > 0.9 * CARD_BYTES / 1e9:
+            raise AssertionError(f"{leg}: a rank's state {max(gbs):.1f} GB would not fit")
+
+
+def lm_data_cli(H, torch):
+    """23e: ``torchrun --nproc-per-node 4`` of both LM launchers with
+    ``--stages 2`` (2 data replicas), started together as a user starts
+    them: one result dict each, from rank 0."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={LM_DATA_CARDS}", *argv], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for argv in LM_DATA_CLI]
+    outs = []
+    try:
+        for argv, proc in zip(LM_DATA_CLI, procs):
+            out, _ = proc.communicate(timeout=RANK_LAUNCH_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"torchrun {' '.join(argv[:2])}: exit {proc.returncode}\n"
+                                     f"{out[-6000:]}")
+            dicts = [ast.literal_eval(line) for line in out.splitlines()
+                     if line.startswith("{'arch'")]
+            if len(dicts) != 1 or dicts[0].get("ranks") != LM_DATA_CARDS \
+                    or dicts[0].get("data_parallel") != 2:
+                raise AssertionError(f"torchrun {' '.join(argv[:2])}: {len(dicts)} result "
+                                     f"dicts\n{out[-6000:]}")
+            outs.append(dicts[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    served, trained = outs
+    if not all(math.isfinite(x) for x in trained["losses"]):
+        raise AssertionError(f"torchrun train: losses {trained['losses']}")
+    log(f"[lm-data] 23e torchrun -m repro_torch.launch.serve (codeqwen1.5-7b, 32 layers) and -m "
+        f"repro_torch.launch.train --mode lm (mamba2-130m), each --stages 2 on 4 ranks (2 data "
+        f"replicas), together {time.perf_counter() - t0:.1f} s: serve prefill_s "
+        f"{served['prefill_s']}, decode_s_per_tok {served['decode_s_per_tok']}, tokens_per_s "
+        f"{served['tokens_per_s']}, sample {served['sample']}, peak per rank "
+        f"{served['peak_mem_gb_per_rank']}; train losses {trained['losses']}, avg step "
+        f"{trained['avg_step_s']}, peak per rank {trained['peak_mem_gb_per_rank']} [{H.card}]")
+
+
+def phase_lm_data(H, torch):
+    """Phase 23: the LM data axis on four cards, 2 replicas of a 2-position
+    ring. 23a cut-depth cases bit for bit on every rank against one card's
+    ``Topology(data=2)``; 23b codeqwen1.5-7b trained at its 32 layers with
+    ZeRO-3; 23c arctic-480b served with all 128 experts, then trained on a
+    cut; 23d the sequence-sharded long-context decode; 23e both LM
+    launchers under torchrun. Returns what did not run, having printed it
+    ("" when all of it ran)."""
+    n = torch.cuda.device_count()
+    if n < LM_DATA_CARDS:
+        log(f"[lm-data] not run: {PHASE23_SKIP} (this machine has {n})")
+        return f"phase 23 not run ({PHASE23_SKIP})"
+    shutil.rmtree(LM_DATA_DIR, ignore_errors=True)
+    LM_DATA_DIR.mkdir(parents=True)
+    lm_data_predictions(H)
+    lm_data_references(H, torch, lm_data_moe_experts(H))
+    lm_data_timing(H, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_rank_worker(H, torch, LM_DATA_CARDS, "lmdata")
+    lm_data_cli(H, torch)
+    return ""
+
+
+# ---------------------------------------------- phase 23: the rank worker --
+
+
+def worker_lm_data_cut(H, torch, rl, refs, grid):
+    """23a on this rank: each cut case on the grid, bit for bit against the
+    one-card case of ``refs``: the losses, this rank's rows and shards of
+    the params and of Adam's moments (digests), the tokens and logits; this
+    rank's kernel calls held against the plain version."""
+    for tag, kind, arch, cut, fields in LM_DATA_CUTS:
+        got, cap = lm_data_case(H, torch, kind, arch, cut, fields, grid)
+        want = refs[tag]
+        keys = ("losses", "params", "mu", "nu") if kind == "train" else ("tokens", "logits")
+        for key in keys:
+            mine = got[key]
+            if isinstance(mine, dict):
+                missing = [k for k in mine if k not in want[key]]
+                if missing:
+                    raise AssertionError(f"23a {tag} rank {rl.rank}: {key} {missing[:4]} not in "
+                                         "the one-card digests")
+                ref = {k: want[key][k] for k in mine}
+            else:
+                ref = want[key]
+            if mine != ref:
+                bad = [k for k in mine if mine[k] != ref[k]][:4] if isinstance(mine, dict) \
+                    else mine
+                raise AssertionError(f"23a {tag} rank {rl.rank}: {key} not bit-identical to one "
+                                     f"card ({bad})")
+        rl.launched(cap.launches)
+        cap.compare(H, torch, f"23a {tag} rank {rl.rank}")
+        leaves = len(got["params"]) if kind == "train" else 0
+        rl.line(f"23a {tag}{got['note']}, {got['topo']}: "
+                + (f"losses {got['losses']}, {leaves} row and shard digests of params, mu and "
+                   f"nu, steps {got['step_s']} s" if kind == "train" else
+                   f"tokens {len(got['tokens'])} x {len(got['tokens'][0])}, prefill and first "
+                   f"decode logits, prefill {got['prefill_s']:.6f} s")
+                + f" bit-identical to one card; peak {got['peak']:.3f} GB; launches "
+                f"{cap.launches} [{H.card}]")
+
+
+def worker_lm_data_long(H, torch, rl, refs, grid):
+    """23d on this rank: the tokens and the last logits bit for bit against
+    one card's two replicas, the last step within 1e-3 of the windowed
+    prefill's."""
+    got = lm_data_long(H, torch, grid)
+    want = refs["long"]
+    if got["tokens"] != want["tokens"] or got["logits"] != want["logits"]:
+        raise AssertionError(f"23d rank {rl.rank}: tokens or logits not bit-identical to one "
+                             f"card ({got['tokens'][-4:]} vs {want['tokens'][-4:]})")
+    err = float((got["last"] - want["fresh"]).abs().max())
+    if not err <= DECODE_VS_PREFILL_ATOL:
+        raise AssertionError(f"23d rank {rl.rank}: the decode at position {LONG_STEPS - 1} is "
+                             f"{err:.3g} from the windowed prefill")
+    rl.line(f"23d codeqwen1.5-7b full width, long_context_window -> {LONG_WINDOW}, {LONG_STEPS} "
+            f"steps of one row, {got['slots']} of the ring's {2 * got['slots']} slots on this "
+            f"rank: tokens and last logits bit-identical to one card; the last step vs the "
+            f"windowed {LONG_STEPS}-row prefill: max |logit diff| {err:.6g} (limit "
+            f"{DECODE_VS_PREFILL_ATOL}); {got['decode_s'] / LONG_STEPS * 1e3:.3f} ms a step "
+            f"[{H.card}]")
+
+
+def worker_lm_data_train_full(H, torch, rl):
+    """23b on this rank: codeqwen1.5-7b at its 32 layers, 16 a ring
+    position, ZeRO-3 over 2 replicas: losses finite and every rank's alike,
+    this rank's flash launches (forward and recompute of its 16 layers x 2
+    micro-batches a step), the median step, peak and tokens/s, one traced
+    step per rank."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.overlap_report import capture_rank_reports
+    from repro_torch.launch.train import build_parser, lm_batch, train_lm
+    from repro_torch.models.transformer.model import held_stages
+
+    arch, flags = LM_DATA_FULL_TRAIN
+    args = build_parser().parse_args([*LM_DATA_TRAIN, "--arch", arch, *flags])
+    cfg = get_arch(arch, smoke=not args.full_arch)
+    with KernelCapture({"flash_attention_kernel": LM_RING_CAPTURE}) as cap:
+        trained = train_lm(cfg, args)
+    topo = trained.topo
+    mine = active_slots(cfg, topo.num_stages, held_stages(topo, topo.ring.position))
+    want = {k: 2 * n * args.chunks * args.steps for k, n in mine.items()}
+    if cap.launches != want:
+        raise AssertionError(f"23b rank {rl.rank}: launches {cap.launches}, want {want}")
+    losses = trained.losses
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, losses)
+    if not all(map(math.isfinite, losses)) or any(x != losses for x in every):
+        raise AssertionError(f"23b rank {rl.rank}: losses {every}")
+    rl.launched(cap.launches)
+    cap.compare(H, torch, f"23b rank {rl.rank}")
+    median = statistics.median(trained.step_s[1:])
+    peak = trained.summary["peak_mem_gb"]
+    batch = lm_batch(cfg, args, args.steps, H.dev)
+    reports = capture_rank_reports(
+        lambda: trained.step(trained.params, trained.opt_state, batch))
+    rl.data["23b"] = {"median_s": median, "peak_gb": peak, "losses": losses,
+                      "per_rank_peak": trained.summary["peak_mem_gb_per_rank"]}
+    rl.line(f"23b {arch} full width, {cfg.num_layers} layers, {trained.topo}: losses {losses} "
+            f"(every rank alike); step s {trained.step_s}; median after the first {median:.6f} "
+            f"s, {args.batch * args.seq / median:.1f} tokens/s; peak {peak} GB; launches "
+            f"{cap.launches} [{H.card}]")
+    rank_report_lines(H, rl, "23b one train step", reports)
+    del trained, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def worker_lm_data_moe(H, torch, rl, experts):
+    """23c on this rank: arctic-480b cut to 2 layers, one a ring position,
+    served with all 128 experts (64 a rank), every expert taking all of a
+    call's tokens (``no_expert_drops``: the second layer's cache depends on
+    the first's MoE): the prefill's flash launches, the first decode's
+    logits within 1e-3 of a fresh prefill's that drops no token (and the
+    gap to one at the reference's capacity); then trained 2 steps with
+    ``experts`` experts."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.transformer.model import (
+        _prefill, held_stages, init_cache, make_extras)
+
+    arch, cut = LM_DATA_MOE
+    args = serve_lm.build_parser().parse_args(["--arch", arch, *LM_SERVE_ARGS, "--stages", "2"])
+    cfg, note = cut_config(get_arch(arch, smoke=False), cut)
+    # 2 layers: the second's cache depends on the first's MoE, so the run
+    # takes every token at every expert, as the prefill it is held to does
+    with no_expert_drops(), KernelCapture({"flash_attention_kernel": LM_RING_CAPTURE}) as cap:
+        served = serve_lm.serve(args, cfg)
+    topo, gen = served.topo, served.generation
+    mine = active_slots(cfg, topo.num_stages, held_stages(topo, topo.ring.position))
+    want = {k: n * args.chunks for k, n in mine.items()}
+    if cap.launches != want:
+        raise AssertionError(f"23c rank {rl.rank}: launches {cap.launches}, want {want}")
+    rl.launched(cap.launches)
+    cap.compare(H, torch, f"23c serve rank {rl.rank}")
+    b, plen = served.prompt.shape[0], served.prompt_len
+    tok0 = torch.from_numpy(gen.tokens[:, 0]).to(H.dev, torch.int64)
+    longer = {"tokens": torch.cat([served.prompt, tok0[:, None]], dim=1)}
+    shape = ShapeConfig("check", plen + 1, b, "prefill")
+
+    def fresh():
+        with torch.inference_mode():
+            return _prefill(cfg, topo, make_extras(cfg, topo.num_stages), served.params,
+                            init_cache(cfg, topo, shape, device=H.dev), longer, plen + 1)[0]
+
+    with no_expert_drops():
+        whole = fresh()
+    dropping = fresh()
+    err = float((gen.first_decode_logits - whole).abs().max())
+    gap = float((gen.first_decode_logits - dropping).abs().max())
+    if not err <= DECODE_VS_PREFILL_ATOL:
+        raise AssertionError(f"23c rank {rl.rank}: decode at position {plen} {err:.3g} from a "
+                             f"fresh {plen + 1}-row prefill that drops no token")
+    summary = served.summary
+    rl.data["23c serve"] = {k: summary[k] for k in ("prefill_s", "decode_s_per_tok",
+                                                    "tokens_per_s", "peak_mem_gb", "params")}
+    rl.line(f"23c {arch} full width{note}, all {cfg.num_experts} experts "
+            f"({cfg.num_experts // 2} a rank) taking every token, {topo}: prefill_s {summary['prefill_s']}, "
+            f"decode_s_per_tok {summary['decode_s_per_tok']}, tokens_per_s "
+            f"{summary['tokens_per_s']}, peak {summary['peak_mem_gb']} GB; decode vs a fresh "
+            f"{plen + 1}-row prefill dropping no token: max |logit diff| {err:.6g} (limit "
+            f"{DECODE_VS_PREFILL_ATOL}); vs one at the reference's capacity {gap:.6g}; launches "
+            f"{cap.launches} [{H.card}]")
+    del served, gen, whole, dropping
+    gc.collect()
+    torch.cuda.empty_cache()
+    targs = train_launch.build_parser().parse_args(
+        [*LM_DATA_TRAIN, "--arch", arch, "--stages", "2", "--steps", "2"])
+    tcfg, tnote = cut_config(get_arch(arch, smoke=False), {**cut, "num_experts": experts})
+    with KernelCapture({"flash_attention_kernel": LM_RING_CAPTURE}) as cap:
+        trained = train_launch.train_lm(tcfg, targs)
+    want = {k: 2 * n * targs.chunks * targs.steps for k, n in mine.items()}
+    if cap.launches != want or not all(map(math.isfinite, trained.losses)):
+        raise AssertionError(f"23c rank {rl.rank}: launches {cap.launches} (want {want}), "
+                             f"losses {trained.losses}")
+    rl.launched(cap.launches)
+    cap.compare(H, torch, f"23c train rank {rl.rank}")
+    rl.data["23c train"] = {"step_s": trained.step_s, "peak_gb": trained.summary["peak_mem_gb"]}
+    rl.line(f"23c {arch} trained{tnote} ({experts // 2} experts a rank), {trained.topo}: losses "
+            f"{trained.losses}, step s {trained.step_s}, peak {trained.summary['peak_mem_gb']} "
+            f"GB; launches {cap.launches} [{H.card}]")
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # a phase and the phases whose results it takes
 PHASE_NEEDS = {"5": ("4",), "12": ("6",), "21": ("3",)}
 
@@ -4614,9 +5206,9 @@ def parse_phases(text):
     if text is None:
         return None
     phases = {p.strip() for p in text.split(",") if p.strip()}
-    unknown = phases - {str(n) for n in range(2, 23)}
+    unknown = phases - {str(n) for n in range(2, 24)}
     if unknown:
-        raise SystemExit(f"--phases: no phase {sorted(unknown)}; phases are 2-22")
+        raise SystemExit(f"--phases: no phase {sorted(unknown)}; phases are 2-23")
     for p in list(phases):
         phases.update(PHASE_NEEDS.get(p, ()))
     return phases
@@ -4629,7 +5221,7 @@ def main() -> int:
                          "build), e.g. 21; default: every phase")
     ap.add_argument("--rank-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.rank_worker is not None:  # one rank of phase 21, started by torchrun
+    if args.rank_worker is not None:  # one rank of phase 21-23, started by torchrun
         return rank_worker(args.rank_worker)
     phases = parse_phases(args.phases)
     import torch
@@ -4689,14 +5281,14 @@ def main() -> int:
         })
     log("[compare] largest share of the tolerance used, per kernel: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
-    # phases 21-22 run only where the cards are: "" when run, else why not
+    # phases 21-23 run only where the cards are: "" when run, else why not
     ran = [p for p, note in not_run.items() if note == ""]
     skipped = [note for note in not_run.values() if note]
     if phases is None:
         names = f"all {20 + len(ran)} phases"
     else:
         names = "phases " + ", ".join(
-            ["1", *sorted(phases - {"21", "22"}, key=int), *sorted(ran)])
+            ["1", *sorted(phases - {"21", "22", "23"}, key=int), *sorted(ran)])
     log(f"[done] {names} passed in {time.perf_counter() - t_start:.1f} s"
         + "".join(f"; {note}" for note in skipped))
     log(f"[card] {card_line}")
@@ -4708,9 +5300,9 @@ def main() -> int:
 
 
 def run_phases(H, torch, phases=None):
-    """Phases 2-22 (or those of ``phases``), each timed. Returns, for each
-    of phases 21 and 22 that was asked for, what of it did not run ("" when
-    all of it ran)."""
+    """Phases 2-23 (or those of ``phases``), each timed. Returns, for each
+    of phases 21-23 that was asked for, what of it did not run ("" when all
+    of it ran)."""
 
     def phase(label, fn, *args):
         if phases is not None and label.rstrip("abc") not in phases:
@@ -4765,6 +5357,8 @@ def run_phases(H, torch, phases=None):
     not_run = {"21": phase("21", phase_ranks, served_compiled)}
     torch.cuda.empty_cache()
     not_run["22"] = phase("22", phase_lm_ring)
+    torch.cuda.empty_cache()
+    not_run["23"] = phase("23", phase_lm_data)
     return {p: note for p, note in not_run.items() if note is not None}
 
 

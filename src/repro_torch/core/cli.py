@@ -68,31 +68,24 @@ def join_ranks(cli: "PipelineCLIConfig") -> "ranks.Ranks | None":
 
 def join_lm_ring(positions: int, device: str):
     """``(ranks.Ranks, ranks.RankGrid)`` of an LM launcher under torchrun,
-    ``(None, None)`` in one process. The world must be the stage ring's
-    ``positions`` (``--stages``, or ``--pipe-devices`` interleaved): one
-    position per rank, ``RankGrid(1, positions)``. A world of ``dp`` rings
-    is the reference's data (``fsdp``) axis, with its ZeRO-3 gathers and
-    MoE's expert-parallel modes: ``NotImplementedError`` (ROADMAP item
-    9(b)). Any other world raises ``ValueError`` before joining: a rank
-    left out of the ring would hang the others, and no world runs whole
-    copies of the model instead."""
+    ``(None, None)`` in one process. A world of ``dp · positions`` ranks
+    (``positions``: ``--stages``, or ``--pipe-devices`` interleaved) joins
+    ``RankGrid(dp, positions)``: ``dp`` replicas of the stage ring over the
+    data axis (the reference's ``fsdp`` axis: ZeRO-3 gathers, MoE's expert
+    parallelism), one ring position of one replica per rank. Any other
+    world raises ``ValueError`` before joining: a rank outside the grid
+    would hang the others."""
     world = ranks.planned_world_size()
     if world <= 1:
         return None, None
-    if world != positions:
-        if positions >= 1 and world % positions == 0:
-            raise NotImplementedError(
-                f"a world of {world} ranks over a stage ring of {positions} positions is "
-                f"{world // positions} data replicas of the ring: the LM data axis (the "
-                "reference's fsdp axis: ZeRO-3 gathers, MoE's expert-parallel modes) is "
-                f"ROADMAP item 9(b), not ported; run {positions} ranks, or pass --stages "
-                f"{world} (--pipe-devices {world} under --schedule interleaved)")
+    if positions < 1 or world % positions:
         raise ValueError(
             f"a world of {world} ranks cannot hold a stage ring of {positions} positions: "
-            f"run {positions} ranks, or pass --stages {world} (--pipe-devices {world} "
-            "under --schedule interleaved)")
+            f"run a multiple of {positions} ranks (data replicas x {positions} positions), "
+            f"or pass a --stages that divides {world} (--pipe-devices under --schedule "
+            "interleaved)")
     joined = ranks.join(device)
-    return joined, ranks.RankGrid(1, positions)
+    return joined, ranks.RankGrid(world // positions, positions)
 
 
 def log_overlap(cli: "PipelineCLIConfig") -> None:

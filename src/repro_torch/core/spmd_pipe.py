@@ -561,10 +561,10 @@ class StageRing:
     micro-batch (t - d) mod C of round v = (t - d) // C, virtual stage
     v·D + d; the V·C + D - 1 ticks hold every (stage, micro-batch) once.
 
-    With ``grid`` (a ``core.ranks.RankGrid`` of one replica) this process
-    holds only position ``grid.position``, and a stage's output reaches the
-    next position by point-to-point ops; without, it holds every position
-    and a hop hands the tensor over. ``row_of(k)`` is virtual stage k's row
+    With ``grid`` (a ``core.ranks.RankGrid``) this process holds only
+    position ``grid.position`` of its replica's ring, and a stage's output
+    reaches the next position by point-to-point ops; without, it holds
+    every position and a hop hands the value over. ``row_of(k)`` is virtual stage k's row
     of the stacked leaves this process holds: k itself in one process, its
     round v on a rank (the reference's ``circ`` rows)."""
 
@@ -572,7 +572,7 @@ class StageRing:
         D, V, C = num_devices, num_virtual, num_micro
         if V > 1 and C < D:
             raise ValueError(f"interleaved pipeline needs num_micro ({C}) >= devices ({D})")
-        if grid is not None and (grid.D != D or grid.dp != 1):
+        if grid is not None and grid.D != D:
             raise ValueError(f"a ring of {D} positions on a rank grid of {grid.dp} x {grid.D}")
         self.D, self.V, self.C, self.grid = D, V, C, grid
         self.K = D * V

@@ -22,7 +22,7 @@ requested combination fails.
 
 ``--multi-pod``, ``--moe-mode a2a`` and ``--no-zero3`` describe several
 cards (a second pod, expert parallelism, unsharded replicas over a data
-axis); each raises ``NotImplementedError`` (ROADMAP queue 1 item 9).
+axis); each raises ``NotImplementedError`` (ROADMAP queue 1 item 9(c)).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ from repro_torch.roofline.analysis import HW, collective_bytes, model_flops, roo
 from repro_torch.roofline.counter import OpCounter
 
 CARD = "NVIDIA H100 80GB HBM3"  # the card whose data-sheet rates and memory the roofline uses
-MULTI_CARD = "needs more than one card (ROADMAP queue 1 item 9)"
+MULTI_CARD = "needs more than one card (ROADMAP queue 1 item 9(c))"
 
 
 def topology_for(cfg, shape, *, num_micro: int | None = None, remat: bool = True,

@@ -9,14 +9,20 @@ through the pipelined serve step. Counterpart of ``repro.launch.serve``.
 The flags are the JAX driver's, plus ``--device`` (default ``cuda``, which
 raises without a card; ``cpu`` asks for the CPU). Under ``torchrun`` the
 ``--stages`` ring runs one stage per rank (``core.cli.join_lm_ring``: the
-world must be ``--stages``; NCCL, or gloo with ``--device cpu``): each rank
-draws and holds only its own stage's weights and caches, every rank returns
-the same tokens, and rank 0 prints the result, with ``ranks`` and each
-rank's peak memory (``peak_mem_gb_per_rank``):
+world must be a multiple dp of ``--stages``; NCCL, or gloo with ``--device
+cpu``): dp > 1 replicas of the ring each serve ``1/dp`` of the batch's
+rows (the reference's data axis, with its ZeRO-3 gathers and MoE's
+``gathered`` mode), each rank draws and holds only its own stage's
+weights, shards and caches, every rank returns the same tokens, and rank 0
+prints the result, with ``ranks``, ``data_parallel`` and each rank's peak
+memory (``peak_mem_gb_per_rank``):
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
-        --arch qwen2.5-32b --full-arch --stages 4 --prompt-len 512 --batch 8 Weights are random, drawn
-on the device from ``--seed``; ``--full-arch`` takes the published widths
+        --arch qwen2.5-32b --full-arch --stages 4 --prompt-len 512 --batch 8
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch codeqwen1.5-7b --stages 2 --batch 8 --device cpu
+
+Weights are random, drawn on the device from ``--seed``; ``--full-arch`` takes the published widths
 and depth, else the arch's smoke config. On the card the prefill's
 attention runs the hand-written flash kernel and Mamba's scan the SSD
 kernel (zamba2's hybrid stage runs both). On a frontend arch
@@ -45,8 +51,8 @@ from repro_torch.core import ranks
 from repro_torch.core.cli import join_lm_ring, resolve_device
 from repro_torch.data.tokens import frontend_embeds, token_batch
 from repro_torch.models.transformer.model import (
-    Topology, check_supported, frontend_rows, held_stages, init_cache, init_params,
-    make_prefill_step, make_serve_step,
+    Topology, abstract_params, check_supported, frontend_rows, held_stages, init_cache,
+    init_params, make_prefill_step, make_serve_step,
 )
 
 
@@ -162,7 +168,7 @@ def serve(args, cfg: ArchConfig | None = None) -> Served:
     """Build the model on ``--device``, serve one batch, summarize. ``cfg``:
     a built config (a caller may cut its depth), else ``--arch``'s. Under
     torchrun this rank joins the ``--stages`` ring (``Served.joined``; the
-    caller leaves it) and holds its own stage."""
+    caller leaves it) and holds its own stage's rows of its data shard."""
     cfg = get_arch(args.arch, smoke=not args.full_arch) if cfg is None else cfg
     check_supported(cfg)
     stages = max(args.stages, 1)
@@ -170,9 +176,11 @@ def serve(args, cfg: ArchConfig | None = None) -> Served:
     device = joined.device if joined is not None else resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    topo = Topology(num_stages=stages, num_micro=args.chunks, ring=grid)
-    params = init_params(cfg, seed=args.seed, num_stages=stages, device=device,
-                         stages=None if grid is None else held_stages(topo, grid.position))
+    topo = Topology(num_stages=stages, num_micro=args.chunks,
+                    data=1 if grid is None else grid.dp, ring=grid)
+    params = init_params(cfg, seed=args.seed, num_stages=stages, device=device, topo=topo,
+                         stages=None if grid is None else held_stages(topo, grid.position),
+                         data_rank=None if grid is None else grid.replica)
     s_front = frontend_rows(cfg, args.prompt_len)
     n_text = args.prompt_len - s_front
     prompt = torch.from_numpy(token_batch(
@@ -185,9 +193,7 @@ def serve(args, cfg: ArchConfig | None = None) -> Served:
     gen = generate(cfg, topo, params, prompt, args.decode_steps, frontend)
     n_tokens = int(gen.tokens.size)
     peak = torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None
-    blocks = sum(int(p.numel()) for p in _leaves(params["blocks"]))
-    rest = sum(int(p.numel()) for p in _leaves(params)) - blocks
-    per_rank = ranks.gathered({"peak": peak, "blocks": blocks})
+    per_rank = ranks.gathered({"peak": peak})
     summary = {
         "arch": cfg.name,
         "batch": args.batch,
@@ -197,12 +203,13 @@ def serve(args, cfg: ArchConfig | None = None) -> Served:
         "sample": gen.tokens[0][:8].tolist(),
         "tokens_per_s": n_tokens / (gen.prefill_s + gen.decode_s),
         "peak_mem_gb": peak,
-        "params": rest + sum(r["blocks"] for r in per_rank),
+        "params": sum(int(p.numel()) for p in _leaves(abstract_params(cfg, stages))),
         "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
     if grid is not None:
         summary["ranks"] = len(per_rank)
+        summary["data_parallel"] = grid.dp
         summary["peak_mem_gb_per_rank"] = [r["peak"] for r in per_rank]
     return Served(summary, cfg, topo, params, prompt, frontend, gen, joined)
 

@@ -54,14 +54,21 @@ forward and in each recompute:
         --arch mamba2-130m --full-arch --stages 2 --chunks 2 --steps 50
 
 Under torchrun the LM step runs one ring position per rank
-(``core.cli.join_lm_ring``): the world must be ``--stages`` under
-fill_drain, or ``--pipe-devices`` (default: the world) under interleaved,
-each rank then holding virtual stages {v·D + d}. Each rank draws and
-trains only its own rows, bit for bit the one-process step's; rank 0
-prints the result:
+(``core.cli.join_lm_ring``): the world must be a multiple dp of the ring's
+positions, ``--stages`` under fill_drain or ``--pipe-devices`` (default:
+the largest divisor of ``--stages`` the world holds, as the reference
+picks it) under interleaved, each rank then holding virtual stages
+{v·D + d}. dp > 1 is the reference's data axis: replica r trains rows
+``[r·B/dp, (r+1)·B/dp)`` of each batch, with ZeRO-3-split blocks and
+ZeRO-1-split ``embed``/``head`` moments, and MoE in its ``gathered`` mode
+(the reference launcher's defaults). Each rank draws and trains only its
+own rows and shards, bit for bit the one-process step's; rank 0 prints the
+result:
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --mode lm --arch codeqwen1.5-7b --full-arch --stages 4 --chunks 4 --steps 4
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --mode lm --arch codeqwen1.5-7b --stages 2 --steps 3 --seq 64 --batch 4 --device cpu
 """
 
 from __future__ import annotations
@@ -362,15 +369,15 @@ def lm_batch(cfg, args, step: int, device):
 def train_lm(cfg, args, on_step=None) -> TrainedLM:
     """Train ``cfg`` (a built config; a caller may cut its depth) as the
     ``--mode lm`` flags say. ``on_step(i, params, opt_state, loss)`` is
-    called after each step. Under torchrun this rank joins the stage ring
+    called after each step. Under torchrun this rank joins the rank grid
     (``core.cli.join_lm_ring``; ``TrainedLM.joined``, which the caller
-    leaves) and trains its own stage's rows: ``params`` and ``opt_state``
-    are its shard, the losses every rank's alike."""
+    leaves) and trains its own stage's rows of its data shard: ``params``
+    and ``opt_state`` are its shard, the losses every rank's alike."""
     import torch
 
     from repro_torch.configs import ShapeConfig
     from repro_torch.models.transformer.model import (
-        Topology, check_supported, held_stages, init_params, make_train_step,
+        Topology, abstract_params, check_supported, held_stages, init_params, make_train_step,
     )
     from repro_torch.train.loop import synchronize
     from repro_torch.train.optimizer import tree_leaves
@@ -387,7 +394,9 @@ def train_lm(cfg, args, on_step=None) -> TrainedLM:
         # ring positions: --pipe-devices, else the largest divisor of stages
         # that fits the devices: the world's ranks under torchrun, one card
         # alone (V = stages)
-        pipe_dev = args.pipe_devices or ranks.planned_world_size()
+        world = ranks.planned_world_size()
+        pipe_dev = args.pipe_devices or max(
+            d for d in range(1, min(world, stages) + 1) if stages % d == 0)
         if stages % pipe_dev:
             raise ValueError(f"--pipe-devices {pipe_dev} must divide --stages {stages}")
         num_virtual = stages // pipe_dev
@@ -399,13 +408,15 @@ def train_lm(cfg, args, on_step=None) -> TrainedLM:
     if schedule == "interleaved" and num_micro < pipe_dev:
         num_micro = pipe_dev  # the ring needs C >= devices
         print(f"[lm] bumping --chunks to {num_micro} (interleaved needs >= --pipe-devices)")
-    if args.batch % num_micro:
+    data = 1 if grid is None else grid.dp
+    b_local = max(args.batch // data, 1)
+    if b_local % num_micro:
         raise ValueError(
             f"micro-batch count {num_micro} must divide the per-device batch "
-            f"{args.batch} (--batch {args.batch} over 1 data shards)"
+            f"{b_local} (--batch {args.batch} over {data} data shards)"
         )
     topo = Topology(num_stages=stages, num_micro=num_micro, loss_chunks=min(4, args.batch),
-                    schedule=schedule, num_virtual=num_virtual, ring=grid)
+                    schedule=schedule, num_virtual=num_virtual, data=data, ring=grid)
     if schedule == "interleaved" and ranks.is_leader():
         print(f"[lm] schedule=interleaved stages={stages} devices={pipe_dev} "
               f"virtual/device={num_virtual} micro={num_micro}")
@@ -413,11 +424,10 @@ def train_lm(cfg, args, on_step=None) -> TrainedLM:
         torch.cuda.reset_peak_memory_stats(device)
     step = make_train_step(cfg, topo, ShapeConfig("cli", args.seq, args.batch, "train"),
                            lr=args.lr)
-    params = init_params(cfg, seed=args.seed, num_stages=stages, device=device,
-                         stages=None if grid is None else held_stages(topo, grid.position))
+    params = init_params(cfg, seed=args.seed, num_stages=stages, device=device, topo=topo,
+                         stages=None if grid is None else held_stages(topo, grid.position),
+                         data_rank=None if grid is None else grid.replica)
     opt_state = step.optimizer.init(params)
-    n_blocks = sum(int(p.numel()) for p in tree_leaves(params["blocks"]))
-    n_params = sum(int(p.numel()) for p in tree_leaves(params)) - n_blocks
 
     losses, times = [], []
     for i in range(args.steps):
@@ -438,7 +448,7 @@ def train_lm(cfg, args, on_step=None) -> TrainedLM:
     if not all(bool(p.isfinite().all()) for p in tree_leaves(params)):
         raise AssertionError("training diverged: the last update left non-finite params")
     peak = torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None
-    per_rank = ranks.gathered({"peak": peak, "blocks": n_blocks})
+    per_rank = ranks.gathered({"peak": peak})
     summary = {
         "arch": cfg.name,
         "first_loss": losses[0],
@@ -448,10 +458,11 @@ def train_lm(cfg, args, on_step=None) -> TrainedLM:
         "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "peak_mem_gb": peak,
-        "params": n_params + sum(r["blocks"] for r in per_rank),
+        "params": sum(int(p.numel()) for p in tree_leaves(abstract_params(cfg, stages))),
     }
     if grid is not None:
         summary["ranks"] = len(per_rank)
+        summary["data_parallel"] = grid.dp
         summary["peak_mem_gb_per_rank"] = [r["peak"] for r in per_rank]
         summary["losses"] = losses
     return TrainedLM(summary, losses, times, topo, step, params, opt_state, joined)

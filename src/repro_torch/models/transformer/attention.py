@@ -9,9 +9,12 @@ It is the plain version of the flash-attention kernel
 (``repro_torch.kernels.flash``), which the prefill runs on the card.
 ``naive_attention`` is the quadratic oracle the tests hold both against.
 
-``decode_attention`` attends one new token against a KV cache. The JAX
-version's mesh ``axis`` (flash-decoding over a sequence-sharded cache) is
-not carried over: the port serves from one card.
+``decode_attention`` attends one new token against a KV cache whose
+sequence is split over the replicas of ``axis`` (a
+``core.data_group.DataGroup``; one replica holds it whole), as the
+reference's mesh ``axis`` does (flash-decoding): each replica scores its
+own slots, the group takes the maximum, then sums the partial softmax
+sums and outputs in ascending replica order.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.core.data_group import DataGroup
 from repro_torch.models.transformer.common import softcap as _softcap
 
 _NEG = -2.0e38  # large negative for f32 masking (avoids inf - inf NaNs)
@@ -95,31 +99,46 @@ def naive_attention(q, k, v, *, q_pos, kv_pos, window: int = 0, attn_softcap: fl
     return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
-def decode_attention(
-    q: torch.Tensor,  # (B, H, hd) — one new token
-    k_cache: torch.Tensor,  # (B, W, KV, hd)
-    v_cache: torch.Tensor,  # (B, W, KV, hd_v)
-    kv_pos: torch.Tensor,  # (W,) positions; < 0 marks empty slots
-    cur_pos: int,  # position of the new token
-    *,
-    window: int = 0,
-    attn_softcap: float = 0.0,
-) -> torch.Tensor:
-    """Single-token attention against a ring-buffer cache -> (B, H, hd_v)."""
+def _decode_scores(q, k_cache, kv_pos, cur_pos, window, attn_softcap):
+    """(scores (B, KV, G, W) float32, mask (W,)) of one token over a cache."""
     b, h, hd = q.shape
     kv_heads = k_cache.shape[2]
-    g = h // kv_heads
-    qg = q.reshape(b, kv_heads, g, hd).float() * softmax_scale(hd)
-
+    qg = q.reshape(b, kv_heads, h // kv_heads, hd).float() * softmax_scale(hd)
     s = torch.einsum("bkgd,bckd->bkgc", qg, k_cache.float())
     s = _softcap(s, attn_softcap)
     ok = (kv_pos >= 0) & (kv_pos <= cur_pos)
     if window > 0:
         ok = ok & ((cur_pos - kv_pos) < window)
-    s = torch.where(ok, s, _NEG)
-    m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None]) * ok
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bkgc,bckd->bkgd", p, v_cache.float())
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, h, v_cache.shape[-1]).to(q.dtype)
+    return torch.where(ok, s, _NEG), ok
+
+
+def decode_attention(
+    q: list,  # per replica (B, H, hd) — one new token
+    k_cache: list,  # per replica (B, W, KV, hd): its slots
+    v_cache: list,  # per replica (B, W, KV, hd_v)
+    kv_pos: list,  # per replica (W,) positions; < 0 marks empty slots
+    cur_pos: int,  # position of the new token
+    *,
+    window: int = 0,
+    attn_softcap: float = 0.0,
+    axis: DataGroup | None = None,
+) -> list:
+    """Single-token attention against a ring-buffer cache split over the
+    replicas of ``axis`` (default ``DataGroup(1)``: one replica, its cache
+    whole): every argument but ``cur_pos`` is a list over the local
+    replicas, and so is the result, one (B, H, hd_v) each."""
+    axis = DataGroup(1) if axis is None else axis
+    parts = [_decode_scores(qi, ki, pi, cur_pos, window, attn_softcap)
+             for qi, ki, pi in zip(q, k_cache, kv_pos)]
+    ms = axis.max([s.amax(dim=-1) for s, _ in parts])
+    sums = []
+    for (s, ok), m, v in zip(parts, ms, v_cache):
+        p = torch.exp(s - m[..., None]) * ok
+        sums.append(torch.cat([torch.einsum("bkgc,bckd->bkgd", p, v.float()),
+                               p.sum(dim=-1)[..., None]], dim=-1))
+    outs = []
+    for qi, v, tot in zip(q, v_cache, axis.sum(sums)):
+        acc, l = tot[..., :-1], tot[..., -1]
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.reshape(qi.shape[0], qi.shape[1], v.shape[-1]).to(qi.dtype))
+    return outs

@@ -14,13 +14,28 @@ kv, rope on a 64-wide part with one key rope shared by the heads, and a
 compressed ``ckv`` cache that decode expands through ``w_uk``/``w_uv``);
 the FFN is dense or MoE (``moe.moe_apply``, routed over the tokens of one
 call: one (stage, micro-batch)).
+
+The ``*_all`` forms run a block for every data replica this process holds
+(``core.data_group.DataGroup``: all of them in one process, its own on a
+rank): params, activations and caches are lists, one per replica. A block
+without a collective is the one-replica block per replica; with a
+``DataAxis`` MoE reaches over the data axis (``moe_apply``'s expert-
+parallel modes), and under ``seq_shard`` the decode attends over a cache
+whose sequence is split over it (the reference's ``seq_axis``): each
+replica holds ``w_local`` of the ring's ``w_total`` slots, replica r slots
+``r·w_local ..``, the owner of slot ``cur_pos mod w_total`` writes it, and
+every replica holds the same tokens, so the layers without a collective
+give every replica the same rows.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.data_group import DataGroup
 from repro_torch.kernels.flash.ops import flash_attention
 from repro_torch.models.transformer.attention import decode_attention
 from repro_torch.models.transformer.common import apply_mrope, apply_rope, normal_init, rms_norm
@@ -150,12 +165,45 @@ def attn_apply(cfg: ArchConfig, p: dict, h_in: torch.Tensor, *, positions: torch
     return (out, entry) if return_cache else out
 
 
-def ring_positions(cur_pos: int, w_local: int, *, device=None) -> torch.Tensor:
+def ring_positions(cur_pos: int, w_local: int, *, device=None, offset: int = 0,
+                   w_total: int | None = None) -> torch.Tensor:
     """Global positions held by ring-buffer slots, derived (not stored):
     slot i holds p_i = cur_pos - ((cur_pos - i) mod W); p_i < 0 ⇒ empty.
-    Valid because serving fills positions contiguously 0..cur_pos."""
-    idx = torch.arange(w_local, dtype=torch.int64, device=device)
-    return cur_pos - torch.remainder(cur_pos - idx, w_local)
+    Valid because serving fills positions contiguously 0..cur_pos. A
+    replica of a sequence-split cache holds slots ``offset ..
+    offset + w_local`` of a ring of ``w_total``."""
+    w_total = w_total or w_local
+    idx = torch.arange(w_local, dtype=torch.int64, device=device) + offset
+    return cur_pos - torch.remainder(cur_pos - idx, w_total)
+
+
+def _decode_entry(cfg: ArchConfig, p: dict, h_in: torch.Tensor, cur_pos: int):
+    """The new token's (q (B, H, hd), k, v, cache entry) at ``cur_pos``."""
+    shape = (3, 1) if cfg.rope_kind == "mrope" else (1,)
+    pos = torch.full(shape, cur_pos, dtype=torch.int32, device=h_in.device)
+    q, k_new, v_new, entry = _project_qkv(cfg, p, h_in, pos)
+    return q[:, 0], k_new, v_new, entry
+
+
+def _write_slot(cfg: ArchConfig, cache: dict, slot: int, k_new, v_new, entry) -> None:
+    if cfg.attn_kind == "mla":
+        cache["ckv"][:, slot] = entry["ckv"][:, 0]
+    else:
+        cache["k"][:, slot] = k_new[:, 0]
+        cache["v"][:, slot] = v_new[:, 0]
+
+
+def _cache_kv(cfg: ArchConfig, p: dict, cache: dict):
+    """(k (B, W, H|KV, hd), v) over the cache's slots: GQA's own, or MLA's
+    compressed cache expanded through ``w_uk``/``w_uv``."""
+    if cfg.attn_kind != "mla":
+        return cache["k"], cache["v"]
+    b, w = cache["ckv"].shape[:2]
+    h, nope, rope = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    ckv_all, kr_all = cache["ckv"].split([cfg.kv_lora_rank, rope], -1)
+    k_nope = (ckv_all @ p["w_uk"]).reshape(b, w, h, nope)
+    v_all = (ckv_all @ p["w_uv"]).reshape(b, w, h, cfg.v_head_dim)
+    return torch.cat([k_nope, kr_all[:, :, None, :].expand(b, w, h, rope)], dim=-1), v_all
 
 
 def attn_decode_apply(cfg: ArchConfig, p: dict, h_in: torch.Tensor, cache: dict, *,
@@ -168,28 +216,37 @@ def attn_decode_apply(cfg: ArchConfig, p: dict, h_in: torch.Tensor, cache: dict,
     ``cur_pos`` on all three axes, as the reference's decode does
     (``repro.models.transformer.blocks.attn_decode_apply``), not by the t
     its prefill would give it (``cur_pos - s_front + 1``): the reference's
-    decode and its own prefill disagree there, and the port copies it."""
-    b = h_in.shape[0]
-    shape = (3, 1) if cfg.rope_kind == "mrope" else (1,)
-    pos = torch.full(shape, cur_pos, dtype=torch.int32, device=h_in.device)
-    q, k_new, v_new, entry = _project_qkv(cfg, p, h_in, pos)
-    if cfg.attn_kind == "mla":
-        w = cache["ckv"].shape[1]
-        cache["ckv"][:, cur_pos % w] = entry["ckv"][:, 0]
-        h, nope, rope = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-        ckv_all, kr_all = cache["ckv"].split([cfg.kv_lora_rank, rope], -1)
-        k_nope = (ckv_all @ p["w_uk"]).reshape(b, w, h, nope)
-        v_all = (ckv_all @ p["w_uv"]).reshape(b, w, h, cfg.v_head_dim)
-        k_all = torch.cat([k_nope, kr_all[:, :, None, :].expand(b, w, h, rope)], dim=-1)
-    else:
-        w = cache["k"].shape[1]
-        cache["k"][:, cur_pos % w] = k_new[:, 0]
-        cache["v"][:, cur_pos % w] = v_new[:, 0]
-        k_all, v_all = cache["k"], cache["v"]
-    kv_pos = ring_positions(cur_pos, w, device=h_in.device)
-    out = decode_attention(q[:, 0], k_all, v_all, kv_pos, cur_pos, window=window,
-                           attn_softcap=cfg.attn_softcap)
-    return out.reshape(b, 1, -1) @ p["w_o"], cache
+    decode and its own prefill disagree there, and the port copies it.
+    ``attn_decode_all`` over a group of one."""
+    return attn_decode_all(cfg, [p], [h_in], [cache], cur_pos=cur_pos, window=window,
+                           group=DataGroup(1))[0], cache
+
+
+def attn_decode_all(cfg: ArchConfig, ps: list, hs: list, caches: list, *, cur_pos: int,
+                    window: int, group: DataGroup) -> list:
+    """``attn_decode_apply`` over a cache whose ring is split over the
+    replicas of ``group``: one (p, h_in, cache) per local replica, each
+    cache holding its replica's ``w_local`` slots of ``w_total = w_local ·
+    group.size``, replica r slots ``r·w_local ..``. Only the owner of slot
+    ``cur_pos mod w_total`` writes it; the attention's softmax is taken over
+    the group (``decode_attention(axis=group)``). -> [out (B, 1, d)]."""
+    w_local = (caches[0]["ckv"] if cfg.attn_kind == "mla" else caches[0]["k"]).shape[1]
+    w_total = w_local * group.size
+    slot = cur_pos % w_total
+    qs, ks, vs, poss = [], [], [], []
+    for p, h_in, cache, r in zip(ps, hs, caches, group.local):
+        q, k_new, v_new, entry = _decode_entry(cfg, p, h_in, cur_pos)
+        if slot // w_local == r:
+            _write_slot(cfg, cache, slot - r * w_local, k_new, v_new, entry)
+        k_all, v_all = _cache_kv(cfg, p, cache)
+        qs.append(q)
+        ks.append(k_all)
+        vs.append(v_all)
+        poss.append(ring_positions(cur_pos, w_local, device=h_in.device, offset=r * w_local,
+                                   w_total=w_total))
+    outs = decode_attention(qs, ks, vs, poss, cur_pos, window=window,
+                            attn_softcap=cfg.attn_softcap, axis=group)
+    return [out.reshape(h.shape[0], 1, -1) @ p["w_o"] for out, h, p in zip(outs, hs, ps)]
 
 
 def init_attn_cache(cfg: ArchConfig, mb: int, w_local: int, *, dtype=torch.float32,
@@ -207,26 +264,60 @@ def init_attn_cache(cfg: ArchConfig, mb: int, w_local: int, *, dtype=torch.float
 # ---------------------------------------------------------------- blocks --
 
 
+@dataclasses.dataclass(frozen=True)
+class DataAxis:
+    """How a block reaches over the data axis: the replicas' ``group``,
+    MoE's mode there (``moe.MOE_MODES``), and whether the decode cache's
+    sequence is split over it."""
+
+    group: DataGroup
+    moe_mode: str = "gathered"
+    seq_shard: bool = False
+
+
+def _pre_ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, a: torch.Tensor):
+    """(h + the attention output, the FFN's normed input)."""
+    if cfg.sandwich_norms:
+        a = rms_norm(a, lp["ln1_post"], eps=cfg.norm_eps)
+    h = h + a
+    return h, rms_norm(h, lp["ln2"], eps=cfg.norm_eps)
+
+
+def _post_ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    if cfg.sandwich_norms:
+        f = rms_norm(f, lp["ln2_post"], eps=cfg.norm_eps)
+    return h + f
+
+
+def _moe_kw(cfg: ArchConfig) -> dict:
+    return dict(num_experts=cfg.num_experts, k=cfg.experts_per_token,
+                router_kind=cfg.router_kind, mlp_kind=cfg.mlp_kind)
+
+
 def _ffn_tail(cfg: ArchConfig, lp: dict, h: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """Residual attention output, then the residual FFN or MoE (sandwich
     norms on gemma2). The MoE routes the B·S tokens of ``h`` (one
     micro-batch) in one call; its aux loss is discarded, as the
     reference's blocks discard it."""
-    if cfg.sandwich_norms:
-        a = rms_norm(a, lp["ln1_post"], eps=cfg.norm_eps)
-    h = h + a
-    x = rms_norm(h, lp["ln2"], eps=cfg.norm_eps)
+    h, x = _pre_ffn(cfg, lp, h, a)
     if cfg.num_experts:
         b, s, d = x.shape
-        f, _aux = moe_apply(lp["moe"], x.reshape(b * s, d), num_experts=cfg.num_experts,
-                            k=cfg.experts_per_token, router_kind=cfg.router_kind,
-                            mlp_kind=cfg.mlp_kind)
+        f, _aux = moe_apply(lp["moe"], x.reshape(b * s, d), **_moe_kw(cfg))
         f = f.reshape(b, s, d)
     else:
         f = ffn_apply(lp["ffn"], x, kind=cfg.mlp_kind)
-    if cfg.sandwich_norms:
-        f = rms_norm(f, lp["ln2_post"], eps=cfg.norm_eps)
-    return h + f
+    return _post_ffn(cfg, lp, h, f)
+
+
+def _ffn_tails(cfg: ArchConfig, lps: list, hs: list, as_: list, data) -> list:
+    """``_ffn_tail`` for every local replica; MoE over ``data``'s group."""
+    if data is None or not cfg.num_experts:
+        return [_ffn_tail(cfg, lp, h, a) for lp, h, a in zip(lps, hs, as_)]
+    pre = [_pre_ffn(cfg, lp, h, a) for lp, h, a in zip(lps, hs, as_)]
+    b, s, d = pre[0][1].shape
+    fs, _aux = moe_apply([lp["moe"] for lp in lps], [x.reshape(b * s, d) for _, x in pre],
+                         ep_axis=data.group, mode=data.moe_mode, **_moe_kw(cfg))
+    return [_post_ffn(cfg, lp, h, f.reshape(b, s, d)) for lp, (h, _), f in zip(lps, pre, fs)]
 
 
 def block_train(cfg: ArchConfig, lp: dict, ex: dict, h: torch.Tensor, *,
@@ -234,38 +325,66 @@ def block_train(cfg: ArchConfig, lp: dict, ex: dict, h: torch.Tensor, *,
     """One attention(+FFN) layer over the full sequence (training): the
     forward of ``block_prefill`` without the cache. A padding slot is the
     identity, so its params get no gradient from it."""
-    if not ex["active"] > 0:
-        return h
-    a = attn_apply(cfg, lp["attn"], rms_norm(h, lp["ln1"], eps=cfg.norm_eps),
-                   positions=positions, window=int(ex["window"]), kv_block=kv_block)
-    return _ffn_tail(cfg, lp, h, a)
+    return block_train_all(cfg, [lp], ex, [h], positions=positions, kv_block=kv_block)[0]
 
 
 def block_prefill(cfg: ArchConfig, lp: dict, ex: dict, h: torch.Tensor, cache: dict, *,
                   positions: torch.Tensor, kv_block: int = 512):
     """Full-sequence forward that also writes this layer's KV entries into
     ``cache`` (width == seq_len). -> (h, cache)."""
-    if not ex["active"] > 0:
-        return h, cache
-    a, entry = attn_apply(
-        cfg, lp["attn"], rms_norm(h, lp["ln1"], eps=cfg.norm_eps), positions=positions,
-        window=int(ex["window"]), kv_block=kv_block, return_cache=True,
-    )
-    for name, value in entry.items():
-        cache[name].copy_(value)
-    return _ffn_tail(cfg, lp, h, a), cache
+    return block_prefill_all(cfg, [lp], ex, [h], [cache], positions=positions,
+                             kv_block=kv_block)[0], cache
 
 
 def block_decode(cfg: ArchConfig, lp: dict, ex: dict, h: torch.Tensor, cache: dict, *,
                  cur_pos: int):
     """One-token forward against this layer's cache (updated in place)."""
+    return block_decode_all(cfg, [lp], ex, [h], [cache], cur_pos=cur_pos)[0], cache
+
+
+def _attn_all(cfg, lps, ex, hs, positions, kv_block, return_cache=False):
+    return [attn_apply(cfg, lp["attn"], rms_norm(h, lp["ln1"], eps=cfg.norm_eps),
+                       positions=positions, window=int(ex["window"]), kv_block=kv_block,
+                       return_cache=return_cache) for lp, h in zip(lps, hs)]
+
+
+def block_train_all(cfg: ArchConfig, lps: list, ex: dict, hs: list, *, positions,
+                    kv_block: int = 512, data: DataAxis | None = None) -> list:
+    """``block_train`` for every local replica (MoE over ``data``)."""
     if not ex["active"] > 0:
-        return h, cache
-    a, cache = attn_decode_apply(
-        cfg, lp["attn"], rms_norm(h, lp["ln1"], eps=cfg.norm_eps), cache,
-        cur_pos=cur_pos, window=int(ex["window"]),
-    )
-    return _ffn_tail(cfg, lp, h, a), cache
+        return hs
+    as_ = _attn_all(cfg, lps, ex, hs, positions, kv_block)
+    return _ffn_tails(cfg, lps, hs, as_, data)
+
+
+def block_prefill_all(cfg: ArchConfig, lps: list, ex: dict, hs: list, caches: list, *,
+                      positions, kv_block: int = 512, data: DataAxis | None = None) -> list:
+    """``block_prefill`` for every local replica, each writing its cache."""
+    if not ex["active"] > 0:
+        return hs
+    as_ = []
+    for (a, entry), cache in zip(_attn_all(cfg, lps, ex, hs, positions, kv_block, True), caches):
+        for name, value in entry.items():
+            cache[name].copy_(value)
+        as_.append(a)
+    return _ffn_tails(cfg, lps, hs, as_, data)
+
+
+def block_decode_all(cfg: ArchConfig, lps: list, ex: dict, hs: list, caches: list, *,
+                     cur_pos: int, data: DataAxis | None = None) -> list:
+    """``block_decode`` for every local replica; under ``data.seq_shard``
+    the attention runs over the sequence-split cache."""
+    if not ex["active"] > 0:
+        return hs
+    normed = [rms_norm(h, lp["ln1"], eps=cfg.norm_eps) for lp, h in zip(lps, hs)]
+    if data is not None and data.seq_shard:
+        as_ = attn_decode_all(cfg, [lp["attn"] for lp in lps], normed, caches,
+                              cur_pos=cur_pos, window=int(ex["window"]), group=data.group)
+    else:
+        as_ = [attn_decode_apply(cfg, lp["attn"], x, cache, cur_pos=cur_pos,
+                                 window=int(ex["window"]))[0]
+               for lp, x, cache in zip(lps, normed, caches)]
+    return _ffn_tails(cfg, lps, hs, as_, data)
 
 
 def _mamba(cfg: ArchConfig, lp: dict, h: torch.Tensor, **kw):

@@ -28,7 +28,10 @@ def normal_init(
     """``scale``-scaled standard normals drawn from ``gen`` on ``device``
     (the generator's own device when None), scaled in place so a large leaf
     costs one allocation. On the meta device nothing is drawn: the leaf comes
-    back empty (``model.abstract_params``)."""
+    back empty (``model.abstract_params``). A ``gen`` with a ``normal``
+    method (``model.ShardDraws``) draws the leaf itself."""
+    if hasattr(gen, "normal"):
+        return gen.normal(tuple(shape), scale=scale, dtype=dtype)
     device = gen.device if device is None else device
     if torch.device(device).type == "meta":
         return torch.empty(tuple(shape), dtype=dtype, device=device)

@@ -1,14 +1,17 @@
 """Full LM assembly: embed → pipelined block stack → head. Counterpart of
 ``repro.models.transformer.model``: training, prefill and decode.
 
-The JAX model runs its stages on a mesh (``shard_map`` over the "model"
-axis, pipeline ticks inside ``spmd_pipeline``). The port runs on one card:
+The JAX model runs its stages on a ``("data", "model")`` mesh
+(``shard_map`` over the "model" axis, pipeline ticks inside
+``spmd_pipeline``, the "data" axis its ``fsdp`` axis). The port's
 ``make_train_step``, ``make_prefill_step`` and ``make_serve_step`` return
-steps that walk stages × micro-batches on the host, every stage on the same
-device — in fill-drain order (tick t runs stage s on micro-batch t - s), or
-for training under ``schedule="interleaved"`` in the order of
-``spmd_pipeline_interleaved`` (virtual stage v·D + d on ring position d).
-Parameters and caches keep the JAX layout, so the two compare leaf by leaf:
+steps that walk stages × micro-batches on the host — in fill-drain order
+(tick t runs stage s on micro-batch t - s), or for training under
+``schedule="interleaved"`` in the order of ``spmd_pipeline_interleaved``
+(virtual stage v·D + d on ring position d) — for every replica of the data
+axis (``Topology.data``) in one process, or one (replica, ring position)
+per rank of a ``RankGrid`` (``Topology.ring``). Parameters and caches
+keep the JAX layout, so the two compare leaf by leaf:
 
 * params: ``embed`` (V, d), ``final_ln`` (d,), ``head`` (d, V) unless tied,
   ``mtp_proj`` (d, d) on an arch with the multi-token-prediction head,
@@ -41,6 +44,7 @@ kind the port does not know.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
@@ -49,6 +53,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig, pipeline_padding
+from repro_torch.core.data_group import DataGroup, ordered_sum
 from repro_torch.core.spmd_pipe import (
     StageRing, spmd_pipeline, spmd_pipeline_backward, spmd_pipeline_interleaved,
 )
@@ -60,22 +65,37 @@ from repro_torch.train import optimizer as opt_lib
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """Pipeline shape of a step on one device: stages walked on the host
-    (virtual stages when interleaved), micro-batches per step, the plain
-    attention's KV block (the CPU route of the flash op), and for training
-    the schedule (``fill_drain`` or ``interleaved`` over ``num_stages /
-    num_virtual`` ring positions), activation recomputation per (stage,
-    micro-batch) and the loss's batch chunks. ``long_context`` is the
-    one-card part of the reference's ``seq_shard_decode``: a decode whose
-    layers all take ``layer_windows(long_context=True)``'s windows, over a
-    ring as wide as the largest (``cache_plan``); nothing is sharded.
+    """Pipeline shape of a step: stages (virtual stages when interleaved),
+    micro-batches per step, the plain attention's KV block (the CPU route
+    of the flash op), and for training the schedule (``fill_drain`` or
+    ``interleaved`` over ``num_stages / num_virtual`` ring positions),
+    activation recomputation per (stage, micro-batch) and the loss's batch
+    chunks.
 
-    ``ring``: None runs every stage in this process. A
-    ``core.ranks.RankGrid`` of one replica (``RankGrid(1, pipe_devices)``)
-    makes this process one ring position of a torchrun world: it holds
-    ``held_stages(topo, position)``, its params' and caches' stacked leaves
-    only those rows (``init_params(..., stages=...)``, ``position_shard``,
-    ``init_cache``), and its activations hop by point-to-point ops."""
+    ``data`` is the reference's ``fsdp_size``: replicas of the stage ring
+    over the data axis, replica r taking rows ``[r·b_local, (r+1)·b_local)``
+    of the batch. Across it the block leaves are ZeRO-3-split (``zero3``,
+    the reference's default: a replica holds ``1 / data`` of a split leaf
+    and gathers it just before its layer runs; off, the blocks are
+    replicated and only the ``embed``/``head`` moments are split, ZeRO-1),
+    the experts are split (expert parallelism), and MoE runs ``moe_mode``
+    (``gathered`` or ``a2a``). ``param_layout`` says where each leaf lives.
+
+    ``long_context`` is the reference's ``seq_shard_decode``: a decode
+    whose layers all take ``layer_windows(long_context=True)``'s windows,
+    over a ring as wide as the largest (``cache_plan``); with ``data`` > 1
+    that ring is split over the data axis, every replica holds the same
+    tokens, and the decode's MoE runs ``replicated``.
+
+    ``ring``: None runs every replica and every stage in this process (a
+    hop is a hand-over, a data-axis collective an ordered local sum or
+    concatenation: ``core.data_group``). A ``core.ranks.RankGrid(data,
+    pipe_devices)`` makes this process one ring position of one replica in
+    a torchrun world: it holds ``held_stages(topo, position)``, its params'
+    and caches' stacked leaves only those rows and its data shard of each
+    split leaf (``init_params(..., stages=..., data_rank=...)``,
+    ``grid_shard``, ``init_cache``); its activations hop by point-to-point
+    ops and the data axis's collectives run over its ``data_group``."""
 
     num_stages: int = 1
     num_micro: int = 1
@@ -85,6 +105,9 @@ class Topology:
     remat: bool = True
     loss_chunks: int = 8
     long_context: bool = False
+    data: int = 1
+    moe_mode: str = "gathered"
+    zero3: bool = True
     ring: object = dataclasses.field(default=None, compare=False)
 
     @property
@@ -99,6 +122,11 @@ class Topology:
             )
         return self.num_stages // self.num_virtual
 
+    @property
+    def seq_shard(self) -> bool:
+        """Whether a long-context decode splits its ring over the data axis."""
+        return self.long_context and self.data > 1
+
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a block kind the port does not build."""
@@ -111,6 +139,20 @@ def check_supported(cfg: ArchConfig) -> None:
         unknown.append(f"{cfg.rope_kind} positions")
     if unknown:
         raise NotImplementedError(f"{cfg.name}: {', '.join(unknown)} not built by repro_torch")
+
+
+def check_topology(cfg: ArchConfig, topo: Topology) -> None:
+    """Raise ``ValueError`` for a data axis the config or the ring cannot hold."""
+    if topo.data < 1:
+        raise ValueError(f"Topology.data must be >= 1, got {topo.data}")
+    if topo.moe_mode not in ("gathered", "a2a"):
+        raise ValueError(f"Topology.moe_mode must be 'gathered' or 'a2a', got {topo.moe_mode!r}")
+    if cfg.num_experts and cfg.num_experts % topo.data:
+        raise ValueError(f"{cfg.num_experts} experts do not split over a data axis of {topo.data}")
+    grid = topo.ring
+    if grid is not None and grid.dp != topo.data:
+        raise ValueError(f"a Topology of data {topo.data} on a rank grid of {grid.dp} replicas "
+                         f"x {grid.D} positions")
 
 
 # ------------------------------------------------------------- stacking --
@@ -141,7 +183,8 @@ def _stacked_slots(cfg: ArchConfig, num_stages: int) -> int:
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, num_stages: int = 1,
-                dtype=torch.float32, device="cpu", stages=None) -> dict:
+                dtype=torch.float32, device="cpu", stages=None, topo: Topology | None = None,
+                data_rank: int | None = None) -> dict:
     """Random weights drawn on ``device`` (the JAX package's init scheme:
     normal(0.02) matrices, zero norms and biases, the Mamba constants; not
     its bits — tests that compare with JAX convert its params instead).
@@ -151,12 +194,48 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, num_stages: int = 1,
     (``stage_seed``). ``stages`` (default: all ``num_stages``) names the
     stages whose rows to draw, in row order: a ring position draws only its
     own (``held_stages``), the same rows one process draws for them, and no
-    rank ever holds the whole stack."""
+    rank ever holds the whole stack.
+
+    With ``topo.data`` > 1, a leaf that ``param_layout`` splits over the
+    data axis is drawn one data shard at a time, shard r of stage s from a
+    generator seeded with (seed, s, r) alone (``shard_seed``; the shared
+    block's with s = -1), its other leaves from the stage's generator.
+    ``data_rank`` (default: every shard, the whole leaf) names the shard to
+    draw: a rank of a ``RankGrid`` draws only its own, the rows one process
+    draws for it."""
     check_supported(cfg)
     stages = list(range(num_stages)) if stages is None else list(stages)
     gen = lambda s: torch.Generator(device=device).manual_seed(
         seed if s is None else stage_seed(seed, s))
-    return _build_params(cfg, gen, stages, num_stages, dtype)
+    if topo is None or topo.data == 1:
+        return _build_params(cfg, gen, stages, num_stages, dtype)
+    check_topology(cfg, topo)
+    shards = list(range(topo.data)) if data_rank is None else [data_rank]
+    layout, shapes = leaf_layout(cfg, topo), abstract_params(cfg, topo.num_stages)
+
+    def draws(s: int, common: torch.Generator, top: str) -> ShardDraws:
+        lead = 2 if top == "blocks" else 0
+        gens = [torch.Generator(device=device).manual_seed(shard_seed(seed, s, r))
+                for r in shards]
+        return ShardDraws(common, gens, topo.data,
+                          _dims_by_shape(layout.params[top], shapes[top], lead), lead)
+
+    return _build_params(cfg, lambda s: gen(s) if s is None else draws(s, gen(s), "blocks"),
+                         stages, num_stages, dtype,
+                         shared_of=lambda common: draws(-1, common, "shared_attn"))
+
+
+def _dims_by_shape(dims: dict, shapes: dict, lead: int) -> dict:
+    """{a leaf's shape after its ``lead`` stacking dims: its split dim
+    there, or None} over a tree of ``leaf_layout`` split dims and its
+    ``abstract_params`` shapes. The layout decides by path; the draws see
+    only shapes, and no two leaves of one shape split differently."""
+    out = {}
+    for d, a in zip(opt_lib.tree_leaves(dims), opt_lib.tree_leaves(shapes)):
+        key, dim = tuple(a.shape[lead:]), None if d is None else d - lead
+        if out.setdefault(key, dim) != dim:
+            raise ValueError(f"leaves of shape {key} split on dims {out[key]} and {dim}")
+    return out
 
 
 def stage_seed(seed: int, stage: int) -> int:
@@ -164,6 +243,37 @@ def stage_seed(seed: int, stage: int) -> int:
     (seed, stage) only."""
     hi, lo = np.random.SeedSequence((seed, stage + 1)).generate_state(2)
     return (int(hi) << 32) | int(lo)
+
+
+def shard_seed(seed: int, stage: int, data_rank: int) -> int:
+    """The generator seed of data shard ``data_rank`` of stage ``stage``'s
+    split leaves (stage -1: the shared block's): a function of the three
+    only."""
+    hi, lo = np.random.SeedSequence((seed, stage + 1, data_rank + 1)).generate_state(2)
+    return (int(hi) << 32) | int(lo)
+
+
+class ShardDraws:
+    """``normal_init``'s source under a data-split layout: a leaf that
+    ``dims`` (its shape after the ``lead`` stacking dims: its split dim
+    there, or None; ``_dims_by_shape``) splits is drawn shard by shard,
+    each from its own generator of ``gens``, and the shards concatenated;
+    any other leaf is drawn from ``common``, as every replica draws it."""
+
+    def __init__(self, common: torch.Generator, gens: list, size: int, dims: dict, lead: int):
+        self.common, self.gens, self.size, self.dims, self.lead = (
+            common, gens, size, dims, lead)
+        self.device = common.device
+
+    def normal(self, shape: tuple, *, scale: float, dtype) -> torch.Tensor:
+        dim = self.dims[tuple(shape[self.lead:])]
+        if dim is None:
+            return normal_init(self.common, shape, scale=scale, dtype=dtype)
+        dim += self.lead
+        part = list(shape)
+        part[dim] //= self.size
+        pieces = [normal_init(g, part, scale=scale, dtype=dtype) for g in self.gens]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
 
 
 class _NoDraws:
@@ -182,7 +292,7 @@ def abstract_params(cfg: ArchConfig, num_stages: int = 1, dtype=torch.float32) -
 
 
 def _build_params(cfg: ArchConfig, gen_of: Callable, stages: list, num_stages: int,
-                  dtype) -> dict:
+                  dtype, shared_of: Callable = lambda gen: gen) -> dict:
     gen = gen_of(None)
     device = gen.device
     params = {
@@ -194,7 +304,7 @@ def _build_params(cfg: ArchConfig, gen_of: Callable, stages: list, num_stages: i
     if cfg.mtp:
         params["mtp_proj"] = normal_init(gen, (cfg.d_model, cfg.d_model), dtype=dtype)
     if cfg.arch_type == "hybrid":
-        params["shared_attn"] = B.init_block(cfg, gen, dtype=dtype)
+        params["shared_attn"] = B.init_block(cfg, shared_of(gen), dtype=dtype)
     init = B.init_mamba_block if cfg.arch_type in ("ssm", "hybrid") else B.init_block
     slots = _stacked_slots(cfg, num_stages)
     if device.type == "meta" or len(stages) == 1:
@@ -210,6 +320,127 @@ def _build_params(cfg: ArchConfig, gen_of: Callable, stages: list, num_stages: i
         del part
     params["blocks"] = blocks
     return params
+
+
+# ------------------------------------------------------- sharding layout --
+
+STAGE_AXIS, DATA_AXIS = "model", "data"  # the reference's mesh axis names
+
+
+def _split_rule(top: str, expert: bool, dims: tuple, topo: Topology) -> int | None:
+    """The dim of a leaf (after its stacking dims) that the data axis
+    splits, or None: the reference's ``param_layout`` rule. A block's
+    expert leaf whenever ``data`` > 1 (its expert dim); under ``zero3`` a
+    block or shared-block leaf of two or more dims whose first divides."""
+    if topo.data <= 1 or top not in ("blocks", "shared_attn"):
+        return None
+    if expert and top == "blocks":
+        return 0
+    if topo.zero3 and len(dims) >= 2 and dims[0] % topo.data == 0:
+        return 0
+    return None
+
+
+def _with_paths(fn: Callable, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _with_paths(fn, v, (*path, k)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _is_expert(path) -> bool:
+    return any(n.startswith("we_") for n in path)
+
+
+def param_layout(cfg: ArchConfig, params_shapes: dict, topo: Topology) -> tuple[dict, dict]:
+    """-> (spec tree, ZeRO-3 gather-mask tree): the reference's
+    ``param_layout`` (``repro/models/transformer/model.py:190``) over a
+    tree of ``init_params``' shapes (``abstract_params``). A spec is the
+    tuple of mesh axis names (``"model"``, ``"data"``) or None, one per
+    dim, as the reference's ``PartitionSpec``; the mask is True where a
+    leaf is gathered before its layer runs (the split non-expert leaves).
+    Expert leaves stay split over the data axis (expert parallelism);
+    ``embed``, ``head``, ``final_ln`` and ``mtp_proj`` are replicated."""
+
+    def spec(path, leaf):
+        top, shape = path[0], tuple(leaf.shape)
+        if top in ("embed", "head", "final_ln", "mtp_proj"):
+            return (None,) * len(shape)
+        if top == "shared_attn":
+            dim = _split_rule(top, False, shape, topo)
+            return tuple(DATA_AXIS if i == dim else None for i in range(len(shape)))
+        dims = shape[2:]
+        dim = _split_rule(top, _is_expert(path), dims, topo)
+        return (STAGE_AXIS, None, *(DATA_AXIS if i == dim else None for i in range(len(dims))))
+
+    def gather(path, leaf):
+        top = path[0]
+        if top not in ("blocks", "shared_attn") or _is_expert(path):
+            return False
+        dims = tuple(leaf.shape) if top == "shared_attn" else tuple(leaf.shape[2:])
+        return _split_rule(top, False, dims, topo) is not None
+
+    return _with_paths(spec, params_shapes), _with_paths(gather, params_shapes)
+
+
+def moment_specs(cfg: ArchConfig, params_shapes: dict, topo: Topology) -> dict:
+    """Adam's moments' specs: the params', but the replicated ``embed`` and
+    ``head`` moments ZeRO-1-split over the data axis (``embed`` on its
+    vocab dim, else on ``d_model``; ``head`` on its vocab dim), as the
+    reference's ``moment_specs``."""
+    specs, _ = param_layout(cfg, params_shapes, topo)
+    if topo.data <= 1:
+        return specs
+    out = dict(specs)
+    vocab, d = cfg.vocab_size, cfg.d_model
+    if "embed" in out and vocab % topo.data == 0:
+        out["embed"] = (DATA_AXIS, None)
+    elif "embed" in out and d % topo.data == 0:
+        out["embed"] = (None, DATA_AXIS)
+    if "head" in out and vocab % topo.data == 0:
+        out["head"] = (None, DATA_AXIS)
+    return out
+
+
+def _split_dims(specs: dict) -> dict:
+    """Each leaf's data-split dim, or None where it is whole on every replica."""
+    return _with_paths(lambda _, sp: sp.index(DATA_AXIS) if DATA_AXIS in sp else None, specs)
+
+
+@dataclasses.dataclass
+class LeafLayout:
+    """Where a step's leaves live on the data axis: ``params`` and
+    ``moments``, trees of each leaf's split dim (None: whole on every
+    replica); ``gather``, the ZeRO-3 mask (``param_layout``)."""
+
+    params: dict
+    moments: dict
+    gather: dict
+
+
+@functools.lru_cache(maxsize=64)
+def leaf_layout(cfg: ArchConfig, topo: Topology) -> LeafLayout:
+    """The data-axis layout of ``init_params``' tree under ``topo``
+    (``param_layout`` and ``moment_specs`` over ``abstract_params``)."""
+    shapes = abstract_params(cfg, topo.num_stages)
+    specs, gather = param_layout(cfg, shapes, topo)
+    return LeafLayout(_split_dims(specs), _split_dims(moment_specs(cfg, shapes, topo)), gather)
+
+
+def _layout(cfg: ArchConfig, topo: Topology, params: dict) -> LeafLayout:
+    """``leaf_layout``, or without a data axis every leaf of ``params``
+    whole (no meta build of the tree)."""
+    if topo.data > 1:
+        return leaf_layout(cfg, topo)
+    whole = opt_lib.tree_map(lambda _: None, params)
+    return LeafLayout(whole, whole, opt_lib.tree_map(lambda _: False, params))
+
+
+def _cut(a: torch.Tensor, dim, size: int, r: int) -> torch.Tensor:
+    """Data shard r of ``a`` along ``dim`` (``a`` itself when None)."""
+    if dim is None or size == 1:
+        return a
+    n = a.shape[dim] // size
+    return a.narrow(dim, r * n, n)
 
 
 def held_stages(topo: "Topology", position: int) -> list[int]:
@@ -228,6 +459,17 @@ def position_shard(tree: dict, topo: "Topology", position: int) -> dict:
     take = lambda a: a[torch.tensor(rows, device=a.device)].clone()
     return {k: opt_lib.tree_map(take if k == "blocks" else torch.clone, v)
             for k, v in tree.items()}
+
+
+def grid_shard(tree: dict, cfg: ArchConfig, topo: "Topology", position: int, data_rank: int,
+               moments: bool = False) -> dict:
+    """One rank's copy of a full parameter tree (Adam's moments with
+    ``moments``): ``position_shard``'s rows, then its data shard of every
+    leaf the layout splits (``param_layout``, ``moment_specs``)."""
+    layout = leaf_layout(cfg, topo)
+    dims = layout.moments if moments else layout.params
+    part = position_shard(tree, topo, position)
+    return opt_lib.tree_map(lambda a, d: _cut(a, d, topo.data, data_rank).clone(), part, dims)
 
 
 def make_extras(cfg: ArchConfig, num_stages: int, *, long_context: bool = False) -> dict:
@@ -354,11 +596,12 @@ def labels_from_batch(batch: dict, seq: int) -> tuple[torch.Tensor, torch.Tensor
 
 
 def cache_plan(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> dict:
-    """Static cache geometry: micro-batch rows and ring width (decode:
-    seq_len + 16 slots, or with ``topo.long_context`` the largest window of
-    ``layer_windows(long_context=True)``, 0 for an SSM, as at
-    ``repro/models/transformer/model.py:675-680`` unsharded; prefill:
-    seq_len)."""
+    """Static cache geometry (the reference's ``cache_plan``): micro-batch
+    rows of the whole batch and ring width (decode: seq_len + 16 slots, or
+    with ``topo.long_context`` the largest window of
+    ``layer_windows(long_context=True)``, 0 for an SSM, split over the data
+    axis into ``w_local = w_total / data`` when ``topo.seq_shard``;
+    prefill: seq_len)."""
     b_mb = max(shape.global_batch // topo.num_micro, 1)
     if shape.kind != "decode":
         w = shape.seq_len
@@ -366,69 +609,192 @@ def cache_plan(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> dict:
         w = max(cfg.layer_windows(long_context=True)) if cfg.arch_type != "ssm" else 0
     else:
         w = shape.seq_len + 16
-    return {"b_mb": b_mb, "w_total": w, "w_local": w, "nm": topo.num_micro}
+    w_local = w // topo.data if topo.seq_shard else w
+    return {"b_mb": b_mb, "w_total": w, "w_local": w_local, "nm": topo.num_micro}
 
 
 def init_cache(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
                dtype=torch.float32, device="cpu") -> dict:
     """A zero cache: leaves (num_stages, num_micro, slots, b_mb, ...), the
-    layout of ``abstract_cache``; on a ring position (``topo.ring``) only
-    its own stage's row, (1, num_micro, slots, b_mb, ...)."""
+    layout of ``abstract_cache``; on a rank (``topo.ring``) only its own
+    stage's row, (1, num_micro, slots, b_mb, ...), and with a data axis its
+    replica's rows of each micro-batch (``b_mb / data``), or under
+    ``topo.seq_shard`` its ``w_local`` ring slots."""
     check_supported(cfg)
+    check_topology(cfg, topo)
     plan = cache_plan(cfg, topo, shape)
     sp = stacked_shape_plan(cfg, topo.num_stages)
     rows = topo.num_stages if topo.ring is None else 1
+    b, w = plan["b_mb"], plan["w_local"]
+    if topo.seq_shard:
+        if plan["w_total"] % topo.data:
+            raise ValueError(f"a ring of {plan['w_total']} slots does not split over a data "
+                             f"axis of {topo.data}")
+        w = w if topo.ring is not None else plan["w_total"]
+    elif topo.data > 1:
+        if b % topo.data:
+            raise ValueError(f"micro-batches of {b} rows do not split over a data axis of "
+                             f"{topo.data}")
+        b = b // topo.data if topo.ring is not None else b
 
     def build(one: dict, slots: int) -> dict:
         lead = (rows, plan["nm"], slots)
         return {k: torch.zeros((*lead, *v.shape), dtype=v.dtype, device=device)
                 for k, v in one.items()}
 
-    mamba = lambda: B.init_mamba_cache(cfg, plan["b_mb"], dtype=dtype, device="meta")
-    attn = lambda: B.init_attn_cache(cfg, plan["b_mb"], plan["w_local"], dtype=dtype,
-                                     device="meta")
+    mamba = lambda: B.init_mamba_cache(cfg, b, dtype=dtype, device="meta")
+    attn = lambda: B.init_attn_cache(cfg, b, w, dtype=dtype, device="meta")
     if cfg.arch_type == "hybrid":
         return {"mamba": build(mamba(), sp["mamba_per_stage"]),
                 "attn": build(attn(), sp["attn_per_stage"])}
     return build(mamba() if cfg.arch_type == "ssm" else attn(), sp["per_stage"])
 
 
+# ------------------------------------------------------------- replicas --
+#
+# A step runs the replicas of the data axis this process holds
+# (``DataGroup.local``): every one in one process, its own on a rank. Its
+# stage functions take and return lists with one entry per local replica;
+# the ring executors pass a list in one process (a hop hands it over) and
+# a rank's one tensor between ranks (``_pack``/``_unpack``).
+
+
+def _pack(ring: StageRing, xs: list):
+    return xs if ring.grid is None else xs[0]
+
+
+def _unpack(ring: StageRing, h) -> list:
+    return h if ring.grid is None else [h]
+
+
+def _own(a: torch.Tensor, dim, group: DataGroup, r: int) -> torch.Tensor:
+    """Replica r's rows of a leaf this process holds: its data shard in one
+    process (the whole leaf on a rank, which holds only its own)."""
+    return a if group.grid is not None else _cut(a, dim, group.size, r)
+
+
+def _replica_views(tree: dict, splits: dict, group: DataGroup) -> list:
+    """Each local replica's view of a tree: its rows of every split leaf,
+    every other leaf whole."""
+    return [opt_lib.tree_map(lambda a, d: _own(a, d, group, r), tree, splits)
+            for r in group.local]
+
+
+def _gathered_params(trees: list, mask, group: DataGroup) -> list:
+    """ZeRO-3: each local replica's tree with every leaf of ``mask``
+    gathered over the data axis (``DataGroup.gather``: its backward is the
+    reduce-scatter of the gradient), just before the layer runs."""
+    if group.size == 1:
+        return trees
+    if isinstance(mask, dict):
+        parts = {k: _gathered_params([t[k] for t in trees], v, group) for k, v in mask.items()}
+        return [{k: parts[k][j] for k in mask} for j in range(len(trees))]
+    return group.gather(trees) if mask else trees
+
+
+def _slot_dims(splits: dict) -> dict:
+    """Split dims of a stacked ``blocks`` tree, in one slot's coordinates."""
+    return opt_lib.tree_map(lambda d: None if d is None else d - 2, splits)
+
+
+def _cache_views(cache: dict, topo: Topology, group: DataGroup) -> list:
+    """Each local replica's view of one (stage, micro-batch) cache (leaves
+    (slots, b_mb, ...)): its rows of the micro-batch, or under
+    ``seq_shard`` its ring slots of the attention leaves (the mamba state,
+    the same on every replica, whole)."""
+    if group.grid is not None or group.size == 1:
+        return [cache]
+
+    def view(path, a, r):
+        if not topo.seq_shard:
+            return _cut(a, 1, group.size, r)
+        return _cut(a, 2, group.size, r) if path[-1] in ("k", "v", "ckv") else a
+
+    return [_with_paths(lambda path, a: view(path, a, r), cache) for r in group.local]
+
+
+def _replica_batches(batch: dict, group: DataGroup, replicated: bool = False) -> list:
+    """Each local replica's batch: rows ``[r·b_local, (r+1)·b_local)`` of
+    every batched leaf (the reference's ``P(data)`` on dim 0), or the whole
+    batch when ``replicated``."""
+    if replicated or group.size == 1:
+        return [batch] * len(group.local)
+    b = batch["tokens"].shape[0]
+    if b % group.size:
+        raise ValueError(f"a batch of {b} rows does not split over a data axis of {group.size}")
+    n = b // group.size
+    rows = lambda v, r: v[r * n:(r + 1) * n] if torch.is_tensor(v) and v.dim() else v
+    return [{k: rows(v, r) for k, v in batch.items()} for r in group.local]
+
+
+def _data_axis(topo: Topology, group: DataGroup, mode: str) -> "B.DataAxis | None":
+    """How a step's blocks reach over the data axis (None without one)."""
+    if group.size == 1:
+        return None
+    seq = mode == "decode" and topo.seq_shard
+    return B.DataAxis(group, "replicated" if seq else topo.moe_mode, seq)
+
+
 # ---------------------------------------------------------------- stages --
 
 
 def _stage_fn(cfg: ArchConfig, topo: Topology, extras: dict, blocks: Callable,
-              shared: Callable | None, mode: str, *, positions=None, cur_pos=None) -> Callable:
-    """``stage(s, h, cache) -> h``: stage ``s``'s layer slots over one
-    micro-batch's activation ``h``. ``blocks(s, i)`` gives slot i's params;
-    ``cache`` is the (stage, micro-batch) view of the cache, its leaves
-    (slots, ...), written in place (None when training). On a hybrid, groups
-    of mamba slots, each followed by one application of the weight-shared
-    attention block ``shared(s)`` (``_hybrid_stage`` of the JAX model)."""
+              shared: Callable | None, mode: str, *, positions=None, cur_pos=None,
+              data: "B.DataAxis | None" = None, remat: bool = False) -> Callable:
+    """``stage(s, hs, caches) -> hs``: stage ``s``'s layer slots over one
+    micro-batch of every local replica: ``hs`` a list of activations,
+    ``caches`` a list of the replicas' (stage, micro-batch) cache views,
+    leaves (slots, ...), written in place (None when training).
+    ``blocks(s, i)`` gives slot i's params, one tree per replica, ZeRO-3
+    gathered where it is called. On a hybrid, groups of mamba slots, each
+    followed by one application of the weight-shared attention block
+    ``shared(s)``, gathered for each application (``_hybrid_stage`` of the
+    JAX model). With ``remat`` each layer (a slot, or an application of the
+    shared block) runs under ``torch.utils.checkpoint`` with its gather
+    inside: the forward keeps only the layer's input, and the backward
+    gathers and recomputes one layer at a time, so a layer's gathered
+    weights live only until its own backward. Under ``data.seq_shard``
+    every replica holds the same rows, and one process runs a mamba slot
+    once for all of them (their state is one)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
+    slot = lambda caches, i: None if caches is None else [_slot(c, i) for c in caches]
 
-    def attn(lp, ex, h, c):
+    def layer(fn, hs):
+        return checkpoint(fn, hs, use_reentrant=False) if remat else fn(hs)
+
+    def attn(lps, ex, hs, cs):
         if mode == "train":
-            return B.block_train(cfg, lp, ex, h, positions=positions, kv_block=topo.kv_block)
+            return B.block_train_all(cfg, lps, ex, hs, positions=positions,
+                                     kv_block=topo.kv_block, data=data)
         if mode == "prefill":
-            return B.block_prefill(cfg, lp, ex, h, c, positions=positions,
-                                   kv_block=topo.kv_block)[0]
-        return B.block_decode(cfg, lp, ex, h, c, cur_pos=cur_pos)[0]
+            return B.block_prefill_all(cfg, lps, ex, hs, cs, positions=positions,
+                                       kv_block=topo.kv_block, data=data)
+        return B.block_decode_all(cfg, lps, ex, hs, cs, cur_pos=cur_pos, data=data)
 
-    def mamba(lp, ex, h, c):
-        if mode == "train":
-            return B.mamba_block_train(cfg, lp, ex, h)
-        fn = B.mamba_block_prefill if mode == "prefill" else B.mamba_block_decode
-        return fn(cfg, lp, ex, h, c)[0]
+    def mamba(lps, ex, hs, cs):
+        def run(lp, h, c):
+            if mode == "train":
+                return B.mamba_block_train(cfg, lp, ex, h)
+            fn = B.mamba_block_prefill if mode == "prefill" else B.mamba_block_decode
+            return fn(cfg, lp, ex, h, c)[0]
+
+        cs = [None] * len(hs) if cs is None else cs
+        if data is not None and data.seq_shard and len(hs) > 1:
+            return [run(lps[0], hs[0], cs[0])] * len(hs)
+        return [run(lp, h, c) for lp, h, c in zip(lps, hs, cs)]
 
     if cfg.arch_type != "hybrid":
         block = mamba if cfg.arch_type == "ssm" else attn
 
-        def stage(s, h, cache):
+        def stage(s, hs, caches):
+            def one(i):
+                return lambda hs: block(blocks(s, i), _slot_extras(extras, s, i), hs,
+                                        slot(caches, i))
+
             for i in range(extras["active"].shape[1]):
-                h = block(blocks(s, i), _slot_extras(extras, s, i), h,
-                          None if cache is None else _slot(cache, i))
-            return h
+                hs = layer(one(i), hs)
+            return hs
 
         return stage
 
@@ -436,15 +802,23 @@ def _stage_fn(cfg: ArchConfig, topo: Topology, extras: dict, blocks: Callable,
     n_attn = a_ex["active"].shape[1]
     m_grp = m_ex["active"].shape[1] // max(n_attn, 1)
 
-    def hybrid_stage(s, h, cache):
+    def hybrid_stage(s, hs, caches):
+        def one_mamba(j):
+            return lambda hs: mamba(blocks(s, j), _slot_extras(m_ex, s, j), hs,
+                                    None if caches is None else [_slot(c["mamba"], j)
+                                                                 for c in caches])
+
+        def one_shared(g):
+            return lambda hs: attn(shared(s), _slot_extras(a_ex, s, g), hs,
+                                   None if caches is None else [_slot(c["attn"], g)
+                                                                for c in caches])
+
         for g in range(max(n_attn, 1)):
             for j in range(g * m_grp, (g + 1) * m_grp):
-                h = mamba(blocks(s, j), _slot_extras(m_ex, s, j), h,
-                          None if cache is None else _slot(cache["mamba"], j))
+                hs = layer(one_mamba(j), hs)
             if n_attn:
-                h = attn(shared(s), _slot_extras(a_ex, s, g), h,
-                         None if cache is None else _slot(cache["attn"], g))
-        return h
+                hs = layer(one_shared(g), hs)
+        return hs
 
     return hybrid_stage
 
@@ -474,6 +848,12 @@ def _micro_split(x: torch.Tensor, topo: Topology) -> list:
     return list(x.reshape(topo.num_micro, x.shape[0] // topo.num_micro, *x.shape[1:]))
 
 
+def _micro_inputs(ring: StageRing, topo: Topology, xs: list) -> list:
+    """The ring's inputs: per micro-batch, every local replica's rows."""
+    split = [_micro_split(x, topo) for x in xs]
+    return [_pack(ring, [sp[m] for sp in split]) for m in range(topo.num_micro)]
+
+
 def _check_rows(ring: StageRing, tree: dict, what: str) -> None:
     """Every leaf of ``tree`` stacks the rows of the stages this process
     holds: all of them in one process, its own on a ring position."""
@@ -487,43 +867,112 @@ def _check_rows(ring: StageRing, tree: dict, what: str) -> None:
 
 def _from_last(ring: StageRing, value: torch.Tensor | None, shape, dtype, device) -> torch.Tensor:
     """``value``, made on the position of the last stage, on every position
-    (a broadcast from that rank; in one process, the value itself)."""
+    of this replica's ring (a broadcast over its stage group; in one
+    process, the value itself)."""
     if ring.grid is None:
         return value
     import torch.distributed as dist
 
     buf = value.contiguous() if value is not None else torch.empty(shape, dtype=dtype,
                                                                     device=device)
-    dist.broadcast(buf, src=ring.grid.rank_at(ring.last))
+    dist.broadcast(buf, src=ring.grid.rank_at(ring.last), group=ring.grid.stage_group)
     return buf
 
 
+def _outputs(ring: StageRing, topo: Topology, outs: dict, pick: Callable = lambda y: y) -> list:
+    """Each local replica's rows of the last stage's outputs, where they
+    are made (``pick`` of each micro-batch's, concatenated)."""
+    per_micro = [_unpack(ring, outs[m]) for m in range(topo.num_micro)]
+    return [torch.cat([pick(ys[j]) for ys in per_micro]) for j in range(len(per_micro[0]))]
+
+
+def _last_rows(ring: StageRing, topo: Topology, outs: dict, pick: Callable, shape, dtype,
+               device) -> list:
+    """``_outputs`` on every position: broadcast from the last stage's over
+    each replica's ring."""
+    if ring.grid is None:
+        return _outputs(ring, topo, outs, pick)
+    y = _outputs(ring, topo, outs, pick)[0] if outs else None
+    return [_from_last(ring, y, shape, dtype, device)]
+
+
 def _gathered(grid, value: torch.Tensor) -> list:
-    """Every ring position's ``value``, in position order."""
+    """Every ring position's ``value``, in position order (an all-gather
+    over this replica's stage group)."""
     import torch.distributed as dist
 
     got = [torch.empty_like(value) for _ in range(grid.D)]
-    dist.all_gather(got, value)  # the world is the one ring (StageRing refuses a data axis)
-    return [got[grid.rank_at(d)] for d in range(grid.D)]
-
-
-def _ascending_sum(parts: list) -> torch.Tensor:
-    """``parts[0] + parts[1] + ...``, in that order."""
-    out = parts[0].clone()
-    for p in parts[1:]:
-        out.add_(p)
-    return out
+    dist.all_gather(got, value, group=grid.stage_group)
+    row = sorted(grid.rows[grid.replica])  # the group's ranks, in group order
+    return [got[row.index(grid.rank_at(d))] for d in range(grid.D)]
 
 
 def _flat(tree: dict) -> torch.Tensor:
     return torch.cat([a.reshape(-1) for a in opt_lib.tree_leaves(tree)])
 
 
-def _unflat_into(tree: dict, flat: torch.Tensor) -> None:
-    off = 0
+def _unflat(tree: dict, flat: torch.Tensor) -> dict:
+    """``flat`` cut into views shaped as ``tree``'s leaves."""
+    it, off = [], 0
     for a in opt_lib.tree_leaves(tree):
-        a.copy_(flat[off:off + a.numel()].view_as(a))
+        it.append(flat[off:off + a.numel()].view_as(a))
         off += a.numel()
+    it.reverse()
+    return opt_lib.tree_map(lambda _: it.pop(), tree)
+
+
+def _sum_over_data(pending: list, group: DataGroup) -> None:
+    """Each ``(dst, parts)``: ``dst`` becomes the ordered sum over the
+    data axis of the replicas' gradients ``parts`` (this process's)."""
+    if group.size == 1:
+        return
+    for dst, parts in pending:
+        dst.copy_(group.sum(parts)[0])
+
+
+def _moments_init(params: dict, layout: LeafLayout, group: DataGroup) -> "opt_lib.AdamState":
+    """Adam's zero state: float32 moments shaped as ``params``, but on a
+    rank the ZeRO-1-split ``embed``/``head`` moments its own rows only."""
+
+    def zeros(p, d_param, d_moment):
+        shape = list(p.shape)
+        if group.grid is not None and d_moment is not None and d_moment != d_param:
+            shape[d_moment] //= group.size
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+    device = params["embed"].device
+    return opt_lib.AdamState(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        mu=opt_lib.tree_map(zeros, params, layout.params, layout.moments),
+        nu=opt_lib.tree_map(zeros, params, layout.params, layout.moments),
+    )
+
+
+def _apply_adam(optimizer, grads: dict, state, params: dict, layout: LeafLayout,
+                group: DataGroup) -> None:
+    """Adam in place over this process's leaves. On a rank of a data axis a
+    ZeRO-1 leaf (``embed``/``head``: whole params, split moments) updates
+    its own rows, which are then all-gathered back into the whole leaf;
+    every other leaf is this rank's alone. Element by element the update is
+    the one-process step's over the whole tree."""
+    if group.grid is None or group.size == 1:
+        optimizer.apply_(opt_lib.tree_leaves(grads), state, params)
+        return
+    r, size = group.local[0], group.size
+    ps, gs, regather = [], [], []
+    for p, g, d_param, d_moment in zip(*(opt_lib.tree_leaves(t) for t in (
+            params, grads, layout.params, layout.moments))):
+        if d_moment is not None and d_moment != d_param:
+            ps.append(_cut(p, d_moment, size, r))
+            gs.append(_cut(g, d_moment, size, r))
+            regather.append((p, d_moment))
+        else:
+            ps.append(p)
+            gs.append(g)
+    optimizer.apply_(gs, opt_lib.AdamState(state.step, opt_lib.tree_leaves(state.mu),
+                                           opt_lib.tree_leaves(state.nu)), ps)
+    for p, dim in regather:
+        p.copy_(group.concat([_cut(p, dim, size, r)], dim)[0])
 
 
 # ------------------------------------------------------------ step fns --
@@ -534,8 +983,8 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
     """One training step: ``step(params, opt_state, {"tokens": (B, S+1)}) ->
     (params, opt_state, {"loss": 0-d tensor})``. Embed, the stage ring over
     ``num_micro`` micro-batches (``spmd_pipeline`` or
-    ``spmd_pipeline_interleaved``; each (stage, micro-batch) under
-    ``torch.utils.checkpoint`` when ``topo.remat``), the masked mean
+    ``spmd_pipeline_interleaved``; each layer of a (stage, micro-batch)
+    under ``torch.utils.checkpoint`` when ``topo.remat``), the masked mean
     next-token loss over ``loss_chunks`` chunks along the minor batch dim
     (each checkpointed), then the backward pipeline
     (``spmd_pipeline_backward``: the ticks in reverse, one autograd pass per
@@ -546,15 +995,28 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
     Each layer slot of each stage (and, on the hybrid, each stage's use of
     the shared attention block) is an autograd leaf of its own, whose
     gradient sums its micro-batches C-1 down to 0 in place; the shared
-    block's per-stage gradients are then summed in ascending stage order. With ``topo.ring`` the same
-    step runs on each rank over its own rows: the last position computes
-    the loss over the whole batch and broadcasts it, the replicated leaves'
-    gradients (``embed``, ``final_ln``, ``head``, ``mtp_proj``: nonzero only
-    where used) are summed over the ring, the shared block's gathered, and
-    every rank applies Adam to its own tree — bit for bit the one-process
-    step's numbers. ``step.optimizer`` is the optimizer, for ``init``;
-    ``step.loss(params, batch)`` the step's loss without the update."""
+    block's per-stage gradients are then summed in ascending stage order.
+    With ``topo.ring`` the same step runs on each rank over its own rows:
+    the last position computes the loss and broadcasts it, the replicated
+    leaves' gradients (``embed``, ``final_ln``, ``head``, ``mtp_proj``:
+    nonzero only where used) are summed over the ring, the shared block's
+    gathered, and every rank applies Adam to its own tree — bit for bit the
+    one-process step's numbers.
+
+    With ``topo.data`` > 1 every replica runs its rows of the batch through
+    the ring: the loss is the masked mean over the whole batch (each
+    replica's (sum, count) summed over the data axis before the backward,
+    so every gradient is the global mean's), a ZeRO-3-split leaf is
+    gathered where its layer runs and its gradient reduce-scattered there,
+    the gradients of the leaves whole on every replica are summed over the
+    data axis, and Adam updates each replica's shards (``embed``/``head``:
+    its ZeRO-1 rows, then all-gathered). Every sum over replicas runs in
+    ascending replica order (``core.data_group``). ``step.optimizer`` is
+    the optimizer, its ``init`` the moments in the layout of
+    ``moment_specs``; ``step.loss(params, batch)`` the step's loss without
+    the update."""
     check_supported(cfg)
+    check_topology(cfg, topo)
     if topo.schedule not in ("fill_drain", "interleaved"):
         raise ValueError(
             f"Topology.schedule must be 'fill_drain' or 'interleaved', got {topo.schedule!r}"
@@ -571,12 +1033,20 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
                 f"physical stage devices ({topo.pipe_devices})"
             )
     ring = _ring(topo)
+    group = DataGroup(topo.data, topo.ring)
+    data = _data_axis(topo, group, "train")
+    if topo.data > 1:
+        leaf_layout(cfg, topo)  # built once, here
     seq = shape.seq_len
+    nm = topo.num_micro
     extras = make_extras(cfg, topo.num_stages)
-    optimizer = opt_lib.adam(lr)
+    base = opt_lib.adam(lr)
+    optimizer = base._replace(
+        init=lambda params: _moments_init(params, _layout(cfg, topo, params), group))
     want = {name: spec[0] for name, spec in batch_specs(cfg, shape).items()}
     held = [k for d in ring.positions for k in ring.stages(d)]
     last = ring.holds(ring.K - 1)
+    wire = (shape.global_batch // topo.data // nm, seq, cfg.d_model)
 
     def chunk_loss(params, yi, li, mi):
         logits = lm_head_logits(cfg, params, yi)
@@ -594,8 +1064,9 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
             total = total + 0.3 * ((lse2 - ll2) * mi2).sum()
         return total, mi.sum()
 
-    def head_loss(params, y, batch):
-        """The loss over the whole batch from the last stage's output."""
+    def head_sums(params, y, batch):
+        """(loss sum, count) over one replica's rows of the batch from the
+        last stage's output."""
         labels, mask = labels_from_batch(batch, seq)
         bsz = y.shape[0]
         chunks = min(topo.loss_chunks, bsz)
@@ -609,35 +1080,43 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
         for i in range(chunks):
             s_i, c_i = checkpoint(chunk_loss, params, yc[i], lc[i], mc[i], use_reentrant=False)
             total, count = total + s_i, count + c_i
-        return total / torch.clamp(count, min=1.0)
+        return total, count
 
-    def wire(batch):
-        """One hop's shape: a micro-batch's activation, or its cotangent."""
-        return batch["tokens"].shape[0] // topo.num_micro, seq, cfg.d_model
+    def mean_loss(sums):
+        """(each replica's share of the global mean loss, the mean): its
+        sum over the count summed over the data axis."""
+        denom = torch.clamp(group.sum([c.detach() for _, c in sums])[0], min=1.0)
+        total = group.sum([s.detach() for s, _ in sums])[0]
+        return [s / denom for s, _ in sums], total / denom
 
-    def forward(params, blocks, shared, batch, fwd):
+    def forward(top_trees, blocks, shared, batches, fwd, remat=False):
         """Embed on stage 0's position and run the ring; ``fwd(stage, k, m,
-        h)`` runs one item. Returns (x, {m: the last stage's output})."""
-        embed = params["embed"]
+        h)`` runs one item. Returns (each replica's x, {m: the last stage's
+        output})."""
+        embed = top_trees[0]["embed"]
         positions = make_positions(cfg, seq, device=embed.device)
-        stage = _stage_fn(cfg, topo, extras, blocks, shared, "train", positions=positions)
-        x = xs = None
+        stage = _stage_fn(cfg, topo, extras, blocks, shared, "train", positions=positions,
+                          data=data, remat=remat)
+        xs = inputs = None
         if ring.holds(0):
             # frontend rows, where there are any, split into micro-batches with x
-            x = embed_inputs(cfg, params, dict(batch, tokens=batch["tokens"][:, :-1]))
-            xs = _micro_split(x, topo)
-        outs = spmd_pipeline_interleaved(lambda k, m, h: fwd(stage, k, m, h), xs, ring,
-                                         wire_shape=wire(batch), dtype=embed.dtype,
-                                         device=embed.device)
-        return x, outs
+            xs = [embed_inputs(cfg, t, dict(b, tokens=b["tokens"][:, :-1]))
+                  for t, b in zip(top_trees, batches)]
+            inputs = _micro_inputs(ring, topo, xs)
+        outs = spmd_pipeline_interleaved(lambda k, m, h: fwd(stage, k, m, h), inputs, ring,
+                                         wire_shape=wire, dtype=embed.dtype, device=embed.device)
+        return xs, outs
 
     def loss_fn(params, batch):
         _check_rows(ring, params["blocks"], "params['blocks']")
-        blocks = lambda k, i: _slot(params["blocks"], ring.row_of(k), i)
-        shared = (lambda k: params["shared_attn"]) if "shared_attn" in params else None
-        _, outs = forward(params, blocks, shared, batch, lambda st, k, m, h: st(k, h, None))
-        loss = head_loss(params, torch.cat([outs[m] for m in range(topo.num_micro)]), batch) \
-            if last else None
+        batches = _replica_batches(batch, group)
+        blocks, shared = _serve_params(cfg, topo, group, ring, params)
+        run = lambda st, k, m, h: _pack(ring, st(k, _unpack(ring, h), None))
+        _, outs = forward([params] * len(group.local), blocks, shared, batches, run)
+        loss = None
+        if last:
+            ys = _outputs(ring, topo, outs)
+            loss = mean_loss([head_sums(params, y, b) for y, b in zip(ys, batches)])[1]
         return _from_last(ring, loss, (), torch.float32, params["embed"].device)
 
     def train_step(params: dict, opt_state, batch: dict):
@@ -645,7 +1124,16 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
         if got != want:
             raise ValueError(f"batch of shapes {got}, step built for {want}")
         _check_rows(ring, params["blocks"], "params['blocks']")
+        layout = _layout(cfg, topo, params)
+        slot_dims = _slot_dims(layout.params["blocks"])
+        slot_gather = layout.gather["blocks"]
+        shared_dims = layout.params.get("shared_attn")
+        shared_gather = layout.gather.get("shared_attn")
+        tops = [k for k in params if k not in ("blocks", "shared_attn")]
+        batches = _replica_batches(batch, group)
         grads = opt_lib.tree_map(torch.zeros_like, params)
+        L = len(group.local)
+        pending = []  # (gradient, replicas' parts) to sum over the data axis
 
         def leaf(p, g):
             # an autograd leaf over p whose gradient accumulates into g in place
@@ -653,70 +1141,136 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
             out.grad = g
             return out
 
-        leaves = {k: opt_lib.tree_map(leaf, v, grads[k]) for k, v in params.items()
-                  if k not in ("blocks", "shared_attn")}
+        def own_leaves(ptree, gtree, dims) -> list:
+            """Per local replica, a tree of leaves over its rows of each
+            split leaf (gradient: its rows of ``gtree``); a leaf whole on
+            every replica gets a gradient of its own per replica (in one
+            process), summed over the data axis after the backward."""
+            def one(p, g, d):
+                if d is not None:
+                    return tuple(leaf(_own(p, d, group, r), _own(g, d, group, r))
+                                 for r in group.local)
+                out = replicas_of(p, g)
+                pending.append((g, [o.grad for o in out]))
+                return out
+
+            per = opt_lib.tree_map(one, ptree, gtree, dims)
+            return [opt_lib.tree_map(lambda t: t[j], per) for j in range(L)]
+
+        def replicas_of(p, g):
+            # one leaf per local replica: the first's gradient is g, the
+            # others' their own until they are summed into it
+            return (leaf(p, g), *(leaf(p, torch.zeros_like(p)) for _ in range(L - 1)))
+
+        top_leaves = [{} for _ in range(L)]
+        for k in tops:
+            parts = replicas_of(params[k], grads[k])
+            for j in range(L):
+                top_leaves[j][k] = parts[j]
         # one leaf per (stage, slot), its gradient a view of its row of grads:
         # each backward pass adds into it, and no pass stacks a stage's rows
         per = _stacked_slots(cfg, topo.num_stages)
-        slots = {(k, i): opt_lib.tree_map(
-            lambda p, g: leaf(p[ring.row_of(k), i], g[ring.row_of(k), i]),
-            params["blocks"], grads["blocks"]) for k in held for i in range(per)}
-        blocks = lambda k, i: slots[(k, i)]
-        shared = None
+        slots = {(k, i): own_leaves(_slot(params["blocks"], ring.row_of(k), i),
+                                    _slot(grads["blocks"], ring.row_of(k), i), slot_dims)
+                 for k in held for i in range(per)}
+        blocks = lambda k, i: _gathered_params(slots[(k, i)], slot_gather, group)
+        shared = aliases = None
         if "shared_attn" in params:
-            aliases = {k: opt_lib.tree_map(lambda p: leaf(p, torch.zeros_like(p)),
-                                           params["shared_attn"]) for k in held}
-            shared = aliases.__getitem__
+            # per stage a gradient of its own (the stages' sum runs in
+            # ascending stage order), each replica its rows of a split leaf
+            def alias(p, d):
+                return tuple(leaf(q, torch.zeros_like(q))
+                             for q in (_own(p, d, group, r) for r in group.local))
+
+            aliases = {}
+            for k in held:
+                per_leaf = opt_lib.tree_map(alias, params["shared_attn"], shared_dims)
+                aliases[k] = [opt_lib.tree_map(lambda t: t[j], per_leaf) for j in range(L)]
+            shared = lambda k: _gathered_params(aliases[k], shared_gather, group)
         saved = {}
 
         def fwd(stage, k, m, h):
-            h = h.detach().requires_grad_(True)
-            if topo.remat:
-                y = checkpoint(stage, k, h, None, use_reentrant=False)
-            else:
-                y = stage(k, h, None)
-            saved[(k, m)] = (h, y)
-            return y.detach()
+            hs = [x.detach().requires_grad_(True) for x in _unpack(ring, h)]
+            ys = stage(k, hs, None)
+            saved[(k, m)] = (hs, ys)
+            return _pack(ring, [y.detach() for y in ys])
 
-        x, outs = forward(leaves, blocks, shared, batch, fwd)
+        xs, outs = forward(top_leaves, blocks, shared, batches, fwd, remat=topo.remat)
         loss, cotangents = None, {}
         if last:
-            ys = [outs[m].requires_grad_(True) for m in range(topo.num_micro)]
-            loss = head_loss(leaves, torch.cat(ys), batch)
-            torch.autograd.backward(loss)
-            cotangents = {m: y.grad for m, y in enumerate(ys)}
-            del ys
+            ys = [[y.requires_grad_(True) for y in _unpack(ring, outs[m])] for m in range(nm)]
+            sums = [head_sums(t, torch.cat([ys[m][j] for m in range(nm)]), b)
+                    for j, (t, b) in enumerate(zip(top_leaves, batches))]
+            shares, loss = mean_loss(sums)
+            torch.autograd.backward(shares)
+            cotangents = {m: _pack(ring, [y.grad for y in ys[m]]) for m in range(nm)}
+            del ys, sums, shares
 
         def bwd(k, m, g):
-            h, y = saved.pop((k, m))
-            torch.autograd.backward(y, g)
-            return h.grad
+            hs, ys = saved.pop((k, m))
+            torch.autograd.backward(ys, _unpack(ring, g))
+            return _pack(ring, [h.grad for h in hs])
 
-        d_x = spmd_pipeline_backward(bwd, cotangents, ring, wire_shape=wire(batch),
+        d_x = spmd_pipeline_backward(bwd, cotangents, ring, wire_shape=wire,
                                      dtype=params["embed"].dtype, device=params["embed"].device)
         del cotangents, outs
-        if x is not None:
-            torch.autograd.backward(x, torch.stack([d_x[m] for m in range(topo.num_micro)])
-                                    .reshape(x.shape))
-        del x, d_x, leaves, slots
-        if shared is not None:  # one gradient per stage, summed in ascending stage order
-            parts = [_flat(opt_lib.tree_map(lambda a: a.grad, aliases[k])) for k in held]
+        if xs is not None:
+            torch.autograd.backward(xs, [torch.stack([_unpack(ring, d_x[m])[j] for m in range(nm)])
+                                         .reshape(x.shape) for j, x in enumerate(xs)])
+        del xs, d_x, slots
+        if aliases is not None:
+            _sum_shared(aliases, grads["shared_attn"], shared_dims, pending)
             del aliases, shared
+        _sum_tops(top_leaves, grads, tops, layout)
+        del top_leaves
+        _sum_over_data(pending, group)
+        del pending
+        loss = _from_last(ring, loss, (), torch.float32, params["embed"].device)
+        _apply_adam(optimizer, grads, opt_state, params, layout, group)
+        return params, opt_state, {"loss": loss}
+
+    def _sum_shared(aliases, dst, shared_dims, pending):
+        """The shared block's gradient: per replica its stages' gradients
+        summed in ascending stage order (over the ring on ranks); a split
+        leaf's into its rows, a whole one's then summed over the data axis."""
+        per_rep = []
+        for j in range(len(group.local)):
+            parts = [_flat(opt_lib.tree_map(lambda a: a.grad, aliases[k][j])) for k in held]
             if ring.grid is not None:
                 parts = _gathered(ring.grid, parts[0])
-            _unflat_into(grads["shared_attn"], _ascending_sum(parts))
-            del parts
-        if ring.grid is not None:  # each replicated leaf: its users' gradients, zeros elsewhere
-            import torch.distributed as dist
+            per_rep.append(_unflat(aliases[held[0]][j], ordered_sum(parts)))
 
-            for k, v in grads.items():
-                if k not in ("blocks", "shared_attn"):
-                    for g in opt_lib.tree_leaves(v):
-                        dist.all_reduce(g)
-        loss = _from_last(ring, None if loss is None else loss.detach(), (), torch.float32,
-                          params["embed"].device)
-        optimizer.apply_(opt_lib.tree_leaves(grads), opt_state, params)
-        return params, opt_state, {"loss": loss}
+        def put(g, d, *parts):
+            if d is None:
+                if group.size == 1:
+                    g.copy_(parts[0])
+                else:
+                    pending.append((g, list(parts)))
+            else:
+                for part, r in zip(parts, group.local):
+                    _own(g, d, group, r).copy_(part)
+
+        opt_lib.tree_map(put, dst, shared_dims, *per_rep)
+
+    def _sum_tops(top_leaves, grads, tops, layout):
+        """``embed``, ``final_ln``, ``head``, ``mtp_proj``: each replica's
+        users' gradients (zeros elsewhere) summed over the ring, then over
+        the data axis — a ZeRO-1 leaf only its own rows, which its update
+        reads."""
+        import torch.distributed as dist
+
+        for k in tops:
+            parts = [t[k].grad for t in top_leaves]
+            if ring.grid is not None and ring.D > 1:
+                dist.all_reduce(parts[0], group=ring.grid.stage_group)
+            if group.size == 1:
+                continue
+            dim = layout.moments[k]
+            if dim is None:
+                grads[k].copy_(group.sum(parts)[0])
+            else:
+                for r, rows in zip(group.local, group.reduce_rows(parts, dim)):
+                    _cut(grads[k], dim, group.size, r).copy_(rows)
 
     train_step.optimizer = optimizer
     train_step.loss = loss_fn
@@ -730,13 +1284,42 @@ def _serve_ring(topo: Topology, params: dict, cache: dict) -> StageRing:
     return ring
 
 
+def _serve_params(cfg: ArchConfig, topo: Topology, group: DataGroup, ring: StageRing,
+                  params: dict):
+    """(blocks(s, i), shared(s)) of a serving stage: each local replica's
+    slot params, ZeRO-3 gathered where the stage calls them."""
+    layout = _layout(cfg, topo, params)
+    dims = _slot_dims(layout.params["blocks"])
+    blocks = lambda s, i: _gathered_params(_replica_views(
+        _slot(params["blocks"], ring.row_of(s), i), dims, group), layout.gather["blocks"], group)
+    shared = None
+    if "shared_attn" in params:
+        shared = lambda s: _gathered_params(_replica_views(
+            params["shared_attn"], layout.params["shared_attn"], group),
+            layout.gather["shared_attn"], group)
+    return blocks, shared
+
+
+def _replica_logits(cfg: ArchConfig, topo: Topology, group: DataGroup, params: dict,
+                    ys: list, replicated: bool) -> torch.Tensor:
+    """The whole batch's logits from each local replica's final rows: the
+    replicas' rows in replica order (an all-gather on ranks), or one
+    replica's where every replica holds every row."""
+    logits = [lm_head_logits(cfg, params, y) for y in ys]
+    if replicated or group.size == 1:
+        return logits[0]
+    return group.concat(logits)[0]
+
+
 def _prefill(cfg: ArchConfig, topo: Topology, extras: dict, params: dict, cache: dict,
              batch: dict, seq: int, positions: torch.Tensor | None = None):
     """The prefill of ``make_prefill_step``, at ``positions`` when given: a
     check's positions (the m-rope decode's own), of ``make_positions``'
     shape, whose mask row is checked here never to decrease, as the flash
     kernel needs (``make_positions``' never does, by construction)."""
+    check_topology(cfg, topo)
     ring = _serve_ring(topo, params, cache)
+    group = DataGroup(topo.data, topo.ring)
     embed = params["embed"]
     rows = batch["tokens"].shape[1] + (batch["frontend_embeds"].shape[1]
                                        if "frontend_embeds" in batch else 0)
@@ -750,17 +1333,21 @@ def _prefill(cfg: ArchConfig, topo: Topology, extras: dict, params: dict, cache:
             raise ValueError(f"positions of shape {tuple(positions.shape)}, the step needs {want}")
         check_order("positions", positions[0] if cfg.rope_kind == "mrope" else positions)
         positions = positions.to(embed.device, torch.int32)
-    stage = _stage_fn(cfg, topo, extras, lambda s, i: _slot(params["blocks"], ring.row_of(s), i),
-                      lambda s: params.get("shared_attn"), "prefill", positions=positions)
+    blocks, shared = _serve_params(cfg, topo, group, ring, params)
+    stage = _stage_fn(cfg, topo, extras, blocks, shared, "prefill", positions=positions,
+                      data=_data_axis(topo, group, "prefill"))
+    batches = _replica_batches(batch, group)
     # frontend rows, where there are any, split into micro-batches with x
-    xs = _micro_split(embed_inputs(cfg, params, batch), topo) if ring.holds(0) else None
-    b = batch["tokens"].shape[0]
-    outs = spmd_pipeline(lambda s, m, h: stage(s, h, _slot(cache, ring.row_of(s), m)), xs, ring,
-                         wire_shape=(b // topo.num_micro, seq, cfg.d_model), dtype=embed.dtype,
-                         device=embed.device)
-    y_last = torch.cat([outs[m][:, -1] for m in range(topo.num_micro)]) if outs else None
-    y_last = _from_last(ring, y_last, (b, cfg.d_model), embed.dtype, embed.device)
-    return lm_head_logits(cfg, params, y_last), cache
+    xs = _micro_inputs(ring, topo, [embed_inputs(cfg, params, b) for b in batches]) \
+        if ring.holds(0) else None
+    b_local = batch["tokens"].shape[0] // topo.data
+    run = lambda s, m, h: _pack(ring, stage(s, _unpack(ring, h), _cache_views(
+        _slot(cache, ring.row_of(s), m), topo, group)))
+    outs = spmd_pipeline(run, xs, ring, wire_shape=(b_local // topo.num_micro, seq, cfg.d_model),
+                         dtype=embed.dtype, device=embed.device)
+    ys = _last_rows(ring, topo, outs, lambda y: y[:, -1], (b_local, cfg.d_model), embed.dtype,
+                    embed.device)
+    return _replica_logits(cfg, topo, group, params, ys, replicated=False), cache
 
 
 def make_prefill_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> Callable:
@@ -768,12 +1355,15 @@ def make_prefill_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> Ca
     s_front)[, "frontend_embeds": (B, s_front, d)]}) -> (last-token logits
     (B, V) float32, cache)``, the cache (from ``init_cache`` at ``shape``)
     filled in place. On ``topo.ring``'s ranks every rank passes the whole
-    batch: position 0 embeds it, each position fills its own cache rows,
-    and the last position's final hidden rows are broadcast, so every rank
-    returns the logits."""
+    batch: position 0 embeds its replica's rows, each position fills its
+    own cache rows, and the last position's final hidden rows are
+    broadcast over the ring and all-gathered over the data axis, so every
+    rank returns the whole batch's logits."""
     check_supported(cfg)
     seq = shape.seq_len
     extras = make_extras(cfg, topo.num_stages)
+    if topo.data > 1:
+        leaf_layout(cfg, topo)  # built once, here
 
     def prefill_step(params: dict, cache: dict, batch: dict):
         return _prefill(cfg, topo, extras, params, cache, batch, seq)
@@ -786,29 +1376,38 @@ def make_serve_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> Call
     -> (next tokens (B,) int32, cache, logits (B, V) float32)``, the cache
     (from ``init_cache`` at ``shape``) updated in place at slot pos mod W.
     With ``topo.long_context`` every layer attends within its long-context
-    window, over a ring that wraps at the largest (``cache_plan``). On
+    window, over a ring that wraps at the largest (``cache_plan``); with a
+    data axis too (``topo.seq_shard``) every replica decodes the whole
+    batch over its share of the ring, and MoE runs ``replicated``. On
     ``topo.ring``'s ranks every rank passes the tokens, position 0 embeds
-    them, and the last position's final hidden rows are broadcast, so every
-    rank returns the next tokens and the logits."""
+    its replica's, and the final hidden rows are broadcast over the ring
+    (and all-gathered over the data axis), so every rank returns the next
+    tokens and the logits of the whole batch."""
     check_supported(cfg)
+    check_topology(cfg, topo)
     extras = make_extras(cfg, topo.num_stages, long_context=topo.long_context)
+    group = DataGroup(topo.data, topo.ring)
+    data = _data_axis(topo, group, "decode")
+    if topo.data > 1:
+        leaf_layout(cfg, topo)  # built once, here
 
     def serve_step(params: dict, cache: dict, batch: dict):
         ring = _serve_ring(topo, params, cache)
         embed = params["embed"]
-        stage = _stage_fn(cfg, topo, extras,
-                          lambda s, i: _slot(params["blocks"], ring.row_of(s), i),
-                          lambda s: params.get("shared_attn"), "decode",
-                          cur_pos=int(batch["pos"]))
-        xs = _micro_split(embed[batch["tokens"].long()][:, None, :], topo) \
-            if ring.holds(0) else None  # (B, 1, d)
-        b = batch["tokens"].shape[0]
-        outs = spmd_pipeline(lambda s, m, h: stage(s, h, _slot(cache, ring.row_of(s), m)), xs,
-                             ring, wire_shape=(b // topo.num_micro, 1, cfg.d_model),
+        blocks, shared = _serve_params(cfg, topo, group, ring, params)
+        stage = _stage_fn(cfg, topo, extras, blocks, shared, "decode",
+                          cur_pos=int(batch["pos"]), data=data)
+        batches = _replica_batches(batch, group, replicated=topo.seq_shard)
+        xs = _micro_inputs(ring, topo, [embed[b["tokens"].long()][:, None, :] for b in batches]) \
+            if ring.holds(0) else None  # (b, 1, d)
+        b_local = batches[0]["tokens"].shape[0]
+        run = lambda s, m, h: _pack(ring, stage(s, _unpack(ring, h), _cache_views(
+            _slot(cache, ring.row_of(s), m), topo, group)))
+        outs = spmd_pipeline(run, xs, ring, wire_shape=(b_local // topo.num_micro, 1, cfg.d_model),
                              dtype=embed.dtype, device=embed.device)
-        y = torch.cat([outs[m][:, 0] for m in range(topo.num_micro)]) if outs else None
-        logits = lm_head_logits(cfg, params,
-                                _from_last(ring, y, (b, cfg.d_model), embed.dtype, embed.device))
+        ys = _last_rows(ring, topo, outs, lambda y: y[:, 0], (b_local, cfg.d_model), embed.dtype,
+                        embed.device)
+        logits = _replica_logits(cfg, topo, group, params, ys, replicated=topo.seq_shard)
         return logits.argmax(dim=-1).to(torch.int32), cache, logits
 
     return serve_step

@@ -181,18 +181,20 @@ def test_train_flops_equal_the_walk_but_one_named_residual():
     recompute, two backward products) at its padded width; the port's
     forward and recompute run the flash kernel and its backward the plain
     version's products (``aten.bmm``). Outside attention, the port does
-    one product fewer per (stage, micro-batch): non-reentrant
-    ``torch.utils.checkpoint`` stops its recompute early, once the last
-    tensor the backward needs is rebuilt, so each checkpointed stage's last
-    FFN down-projection, whose output no backward reads, is not recomputed:
-    2·B_mb·S·d_ff·d per micro-batch, 2·B·S·d_ff·d in all (16,777,216 here,
-    which equals B·S·d·V at this size, since d_ff = V / 2). Without the
-    early stop the residual is 0."""
+    one product fewer per (layer, micro-batch): non-reentrant
+    ``torch.utils.checkpoint`` (one per layer) stops its recompute early,
+    once the last tensor the backward needs is rebuilt, so each
+    checkpointed layer's FFN down-projection, whose output no backward
+    reads, is not recomputed: 2·B_mb·S·d_ff·d per layer and micro-batch,
+    2·B·S·d_ff·d per layer in all (16,777,216 here, which equals B·S·d·V at
+    this size, since d_ff = V / 2). Without the early stop the residual is
+    0."""
     cfg = get_arch("codeqwen1.5-7b", smoke=True)
     walk = _reference_walk("codeqwen1.5-7b", "train", S)
     outside = walk - 4 * _padded_attention_flops(cfg, S)
-    residual = 2 * B * S * cfg.d_ff * cfg.d_model
-    assert residual == 16_777_216 == B * S * cfg.d_model * cfg.vocab_size
+    per_layer = 2 * B * S * cfg.d_ff * cfg.d_model
+    assert per_layer == 16_777_216 == B * S * cfg.d_model * cfg.vocab_size
+    residual = cfg.num_layers * per_layer
     c = _port_count("codeqwen1.5-7b", "train", S)
     assert c.flops_by_op["aten.mm"] + residual == outside == 805_306_368
     assert c.kernel_calls == {"flash_attention_kernel": 2 * cfg.num_layers * MICRO}

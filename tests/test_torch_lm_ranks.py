@@ -21,7 +21,9 @@ of each leaf's largest entry, three losses within 1e-4) and codeqwen's
 prefill with greedy decode (tokens equal). Every rank and the one-process
 side run with one torch thread and deterministic algorithms; each world
 joins with a timeout, so a hang fails instead of stalling the suite. The
-two LM launchers run once each under ``torchrun`` on 2 ranks.
+two LM launchers run once each under ``torchrun`` on 2 ranks, and the
+training launcher with ``--stages 2`` on the 4 ranks, 2 data replicas of
+the ring (``tests/test_torch_lm_data.py`` holds the data axis itself).
 """
 
 import ast
@@ -181,7 +183,7 @@ def _world_cases(world: int, jax_in):
         out["decode long"] = decode_long(*long_context(grid))
         base = ["--mode", "lm", "--device", "cpu", "--steps", "1", "--seq", "16",
                 "--batch", "4", "--log-every", "0"]
-        out["refuse data axis"] = refusal(lambda: tlaunch.main([*base, "--stages", "2"]))
+        out["data axis"] = tlaunch.main([*base, "--stages", "2"])
         out["refuse world"] = refusal(lambda: tserve.main(
             ["--device", "cpu", "--stages", "3", "--prompt-len", "16", "--batch", "4"]))
         out["refuse micro"] = refusal(lambda: TM.make_train_step(
@@ -498,15 +500,21 @@ def test_ring_matches_jax_two_device_greedy_decode(worlds):
         np.testing.assert_array_equal(results["jax serve"], want)
 
 
+def test_ring_world_of_two_rings_joins_the_data_axis(worlds):
+    """On 4 ranks ``--stages 2`` is 2 data replicas of a 2-stage ring: the
+    launcher joins ``RankGrid(2, 2)`` and trains, every rank alike."""
+    got = [results["data axis"] for results in worlds["four"]]
+    assert all(g["ranks"] == 4 and g["data_parallel"] == 2 for g in got)
+    assert all(g["losses"] == got[0]["losses"] for g in got)
+
+
 @pytest.mark.parametrize("case, error, match", [
-    ("refuse data axis", "NotImplementedError", r"ROADMAP item 9\(b\)"),
     ("refuse world", "ValueError", "cannot hold a stage ring of 3 positions"),
     ("refuse micro", "ValueError", r"needs num_micro \(2\) >= physical stage devices \(4\)"),
 ])
 def test_ring_refusals(worlds, case, error, match):
-    """On 4 ranks: ``--stages 2`` would be 2 data replicas of a 2-stage
-    ring (the LM data axis); ``--stages 3`` fits no ring; interleaved
-    needs as many micro-batches as ring positions. Every rank raises."""
+    """On 4 ranks: ``--stages 3`` fits no ring; interleaved needs as many
+    micro-batches as ring positions. Every rank raises."""
     import re
 
     for results in worlds["four"]:
@@ -584,16 +592,19 @@ def test_held_stages_and_shards():
 
 def test_ring_world_checks_before_joining(monkeypatch):
     """The launchers' world checks read ``WORLD_SIZE`` before any group
-    exists: a data axis or a mismatched world raises, one process runs."""
-    from repro_torch.core.cli import join_lm_ring
+    exists: a world that is no multiple of the ring raises, a multiple
+    joins ``RankGrid(world / positions, positions)``, one process runs."""
+    from repro_torch.core import cli
 
-    assert join_lm_ring(4, "cpu") == (None, None)
+    assert cli.join_lm_ring(4, "cpu") == (None, None)
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 9\(b\)"):
-        join_lm_ring(2, "cpu")
     with pytest.raises(ValueError, match="cannot hold a stage ring of 3"):
-        join_lm_ring(3, "cpu")
+        cli.join_lm_ring(3, "cpu")
     assert not ranks.active()
+    monkeypatch.setattr(cli.ranks, "join", lambda device: ("joined", device))
+    monkeypatch.setattr(cli.ranks, "RankGrid", lambda dp, D: ("grid", dp, D))
+    assert cli.join_lm_ring(2, "cpu") == (("joined", "cpu"), ("grid", 2, 2))
+    assert cli.join_lm_ring(4, "cpu") == (("joined", "cpu"), ("grid", 1, 4))
 
 
 class _Position0:

@@ -163,11 +163,112 @@ def test_moe_apply_and_its_gradients_match_jax(arch, factor):
         assert float(np.abs(got[name] - want[name]).max()) <= ATOL * max(scale, 1.0), name
 
 
+# The reference's expert-parallel call on a ("data",) mesh of 2 forced host
+# devices, in a process of its own (the device count is set before JAX starts).
+EP_SCRIPT = r"""
+import os, pickle, sys
+# one compute thread: the suite's workers share the cores
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=2 "
+                           "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType, PartitionSpec as P
+from repro.core import compat
+from repro.models.transformer import moe as JMoE
+with open(sys.argv[1], "rb") as f:
+    p, x, kw = pickle.load(f)
+mesh = jax.make_mesh((2,), ("data",), axis_types=(AxisType.Auto,))
+p = jax.tree_util.tree_map(jnp.asarray, p)
+spec = {k: P("data") if k.startswith("we_") else jax.tree_util.tree_map(lambda _: P(), v)
+        for k, v in p.items()}
+out = {}
+for mode in ("gathered", "a2a"):
+    fn = lambda p, x: JMoE.moe_apply(p, x, ep_axis="data", ep_size=2, mode=mode, **kw)[0]
+    sharded = compat.shard_map(fn, mesh=mesh, in_specs=(spec, P("data")), out_specs=P("data"))
+    out[mode] = np.asarray(jax.jit(sharded)(p, jnp.asarray(x)))
+with open(sys.argv[2], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def _ep_rank(rank, port, p, x, kw, out_dir):
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.core.data_group import DataGroup
+    from repro_torch.core.ranks import RankGrid
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=60))
+    try:
+        group = DataGroup(2, RankGrid(2, 1))
+        own = {k: v.chunk(2)[rank] if k.startswith("we_") else v for k, v in p.items()}
+        out = {mode: TMoE.moe_apply(own, x.chunk(2)[rank], ep_axis=group, mode=mode, **kw)[0]
+               for mode in ("gathered", "a2a")}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
 def test_moe_apply_refuses_expert_parallel():
+    """``moe_apply`` refuses an expert-parallel call it cannot run: a data
+    group (``ep_axis``) that does not split the experts, or a mode that is
+    not one of the reference's three."""
+    from repro_torch.core.data_group import DataGroup
+
     cfg, p, x = layer("arctic-480b")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TMoE.moe_apply(params_from_jax(p), torch.from_numpy(x), ep_axis="model",
-                       **moe_kwargs(cfg))
+    kw = moe_kwargs(cfg)
+    with pytest.raises(ValueError, match="do not split"):
+        TMoE.moe_apply(params_from_jax(p), torch.from_numpy(x), ep_axis=DataGroup(3), **kw)
+    with pytest.raises(ValueError, match="moe mode"):
+        TMoE.moe_apply(params_from_jax(p), torch.from_numpy(x), ep_axis=DataGroup(2),
+                       mode="scattered", **kw)
+
+
+def test_moe_apply_expert_parallel_matches_jax_dp2():
+    """``moe_apply`` over a data group (``ep_axis``) on a 2-rank gloo world,
+    each rank holding half of arctic's experts and half of the tokens: the
+    ``gathered`` and ``a2a`` modes equal the reference's dp 2 call
+    (``ep_axis`` on a 2-device mesh) within 1e-5."""
+    import os
+    import pickle
+    import socket
+    import subprocess
+    import sys
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    cfg, p, x = layer("arctic-480b")
+    kw = moe_kwargs(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.pkl"), os.path.join(tmp, "out.pkl")
+        with open(src, "wb") as f:
+            pickle.dump((p, x, kw), f)
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+        env = {**os.environ, "JAX_PLATFORMS": "cpu",
+               "PYTHONPATH": f"{root}{os.pathsep}{os.environ.get('PYTHONPATH', '')}"}
+        ref = subprocess.Popen([sys.executable, "-c", EP_SCRIPT, src, dst], env=env,
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        try:
+            mp.start_processes(_ep_rank, args=(port, params_from_jax(p), torch.from_numpy(x),
+                                               kw, tmp), nprocs=2, start_method="spawn")
+            log, _ = ref.communicate(timeout=120)
+        finally:
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
+        assert ref.returncode == 0, log
+        with open(dst, "rb") as f:
+            want = pickle.load(f)
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    for mode in ("gathered", "a2a"):
+        close(torch.cat([g[mode] for g in got]), want[mode])
 
 
 # ---------------------------------------------------------- whole archs --

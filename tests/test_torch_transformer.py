@@ -100,8 +100,8 @@ def test_decode_attention(window, cap):
     cur = 25  # ring of 20 slots past its first wrap
     kv_pos = np.asarray(TB.ring_positions(cur, 20))
     np.testing.assert_array_equal(kv_pos, np.asarray(JB.ring_positions(jnp.asarray(cur), 20)))
-    got = decode_attention(*map(torch.from_numpy, (q, k, v)), torch.from_numpy(kv_pos), cur,
-                           window=window, attn_softcap=cap)
+    got = decode_attention(*([torch.from_numpy(a)] for a in (q, k, v, kv_pos)), cur,
+                           window=window, attn_softcap=cap)[0]
     want = jax_decode_attention(*map(jnp.asarray, (q, k, v, kv_pos)), jnp.asarray(cur),
                                 window=window, attn_softcap=cap)
     close(got, want)
