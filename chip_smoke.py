@@ -300,7 +300,16 @@ exit:
    one-card serve at both thread counts. 21e powerlaw-1m (2^20 nodes), the paper GAT, 4 stages x 8
    chunks on 4 ranks: each rank builds the plan, one deterministic step,
    two timed; then rank 0 leaves the group and holds the step bit for bit
-   against the one-card compiled step (phase 14a's) and times that. Last,
+   against the one-card compiled step (phase 14a's) and times that. 21f
+   (before 21c) the planner on the 4-rank ring: ``run_gnn`` with
+   ``--partition profiled`` (1f1b, 8 chunks) and with ``--auto``: rank 0
+   alone profiles on its card and prints the table, every rank records its
+   table digest and pick; the pick on the engine from the seed, 3
+   deterministic steps per rank, which this process holds bit for bit
+   against one card's host fill_drain under the chosen balance and chunks;
+   per pick the predicted step beside the measured median and beside the
+   uniform (2, 1, 1, 2) balance's under the same schedule and chunks, and
+   every rank's NCCL ``SendRecv`` share of a traced step of each. Last,
    ``torchrun -m repro_torch.launch.train`` and ``-m
    repro_torch.launch.serve_gnn`` as a user starts them on 4 cards: one
    result dict (rank 0), losses within 1e-5 of one card's, every query
@@ -359,9 +368,16 @@ exit:
    peak and a traced step's busy share and NCCL time. 23c arctic-480b at 2
    layers served with all 128 experts (64 a rank): the first decode's
    logits within 1e-3 of a fresh prefill that drops no token, then trained
-   2 steps on the expert cut. Every rank's first flash and SSD calls of each
-   leg are held against the plain version, and the launches a rank makes
-   on each main path are counted. The two kernels are timed on one card at
+   2 steps on the expert cut. 23f codeqwen1.5-7b at full width cut to 8
+   layers: each rank counts one train step on its card under ``OpCounter``,
+   on the dp 2 x D 2 grid and on a pods 2 x D 2 grid (``Topology.pods``)
+   of the same ranks; this process holds each rank's count against the
+   same rank's count on meta in a fake world of 4
+   (``dryrun.count_on_grid``), op for op (aten FLOPs and bytes by op,
+   kernel calls and work, collectives by kind), and its peak increment over
+   the step's entry within 10% of the card allocator's. Every rank's first
+   flash and SSD calls of each leg are held against the plain version, and
+   the launches a rank makes on each main path are counted. The two kernels are timed on one card at
    the data axis's launch shapes. 23e ``torchrun -m
    repro_torch.launch.serve`` (codeqwen1.5-7b) and ``-m
    repro_torch.launch.train --mode lm`` (mamba2-130m), both ``--stages 2``
@@ -387,6 +403,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
@@ -3621,6 +3638,10 @@ RING_CASES = {  # ranks -> (schedule, overlap) run through run_gnn and the engin
     2: (("interleaved", "off"), ("zb-v", "off")),
 }
 HOST_RING = dict(rotation=2, device_order=(2, 0, 3, 1))  # 21a: the reference's placed host test
+PLAN_CASES = {  # 21f: the planner on the 4-rank ring, through run_gnn (profiled: 21b's 1f1b)
+    "profiled": ["--partition", "profiled", "--schedule", "1f1b"],
+    "auto": ["--auto"],
+}
 GRID_STEPS = 3
 CAPTURE_LIMIT = 32  # kernel calls a rank keeps, per kernel, to hold against the plain version
 
@@ -3930,6 +3951,44 @@ def ranks_cli(H, torch, refs):
         f"s: {' | '.join(lines[1:3])} | {verify[0]} [{H.card}]")
 
 
+def plan_references(H, torch, reports):
+    """21f's check: every rank's table digest and pick alike, and each
+    rank's update under the pick bit for bit one card's host fill-drain
+    under the same balance and chunks (deterministic, this process's card)."""
+    from repro_torch.core.pipeline import make_engine
+
+    for name in PLAN_CASES:
+        recs = [rep["plan"][name] for rep in reports]
+        picks = {(r["sha"], r["schedule"], r["chunks"], tuple(r["balance"])) for r in recs}
+        if len(picks) != 1:
+            raise AssertionError(f"21f {name}: the ranks took different plans: {picks}")
+        (sha, schedule, chunks, balance), = picks
+        args, cli, model, plan = ring_model([*RING_ARGS, "--device", H.dev.type, "--chunks",
+                                             str(chunks)])
+        host = make_engine(model, cli.gpipe_config(balance, device=H.dev))
+        with deterministic(torch):
+            params, _, _, losses = train_steps(torch, host, plan, RING_STEPS)
+            metrics = {k: float(v) for k, v in host.evaluate(params, plan).items()}
+        want = cpu_tree(params)
+        for r in range(len(recs)):
+            got = torch.load(RANKS_DIR / f"plan-{name}-rank{r}.pt", weights_only=False)
+            if not same_trees(torch, got["params"], want) or got["losses"] != losses \
+                    or got["eval"] != metrics:
+                raise AssertionError(f"21f {name} rank {r}: not bit-identical to one card's host "
+                                     f"fill_drain under {balance} x {chunks} chunks")
+        rec = recs[0]
+        log(f"[ranks] 21f {name}: every rank's plan digest {sha}; pick {schedule} x {chunks} "
+            f"chunks, balance {balance}: every rank's params, losses {losses} and eval after "
+            f"{RING_STEPS} steps bit-identical to one card's host fill_drain under it; "
+            f"predicted {rec['predicted_ms']:.6f} ms, measured {rec['median_ms']:.6f} ms "
+            f"(rank 0; {rec['median_ms'] / rec['predicted_ms']:.3f}x); uniform (2, 1, 1, 2) "
+            f"{rec['uniform_ms']:.6f} ms, pick / uniform {rec['median_ms'] / rec['uniform_ms']:.4f}"
+            f"; SendRecv shares {rec['sendrecv']} [{H.card}] x 4")
+        for line in rec["table"]:
+            log(f"[ranks] 21f {name} rank 0 printed: {line}")
+        del host
+
+
 def phase_ranks(H, torch, served_compiled):
     """Phase 21: the paper's pipeline with one stage per card (21a host
     engine with ``devices``; 21b the compiled ring over NCCL; 21c the
@@ -3955,6 +4014,7 @@ def phase_ranks(H, torch, served_compiled):
         log(f"[ranks] {not_run}")
         return not_run
     reports = run_rank_worker(H, torch, 4, "ring4")
+    plan_references(H, torch, reports)
     serve, one = reports[0]["serve"], served_compiled
     log(f"[ranks] 21d served on 4 ranks ({reports[0]['threads']} CPU threads each): "
         f"{serve['achieved_qps']} q/s, p50 {serve['p50_s'] * 1e3} ms, p99 "
@@ -4043,6 +4103,102 @@ def worker_ring(H, torch, rl, world, refs):
                     f"{rep['collective_time_us'] / rep['step_us']:.6f} of the step), hidden "
                     f"{rep['overlap_fraction']:.6f} of it [{H.card}]")
         del pipe
+
+
+def plan_engine(H, cli_args, out):
+    """The engine, plan and model of a 21f run: ``run_gnn``'s flags with
+    the pick of its result ``out`` (schedule, chunks, balance; an ``--auto``
+    pick's placement from the planner again, its costs cached in this
+    process on rank 0 and broadcast)."""
+    from repro_torch.core.autotune import plan_for_cli
+    from repro_torch.core.pipeline import make_engine
+
+    picked = ["--schedule", out["schedule"], "--chunks", str(out["chunks"])]
+    args, cli, model, plan = ring_model([*cli_args, *picked])
+    if out["partition"] == "auto":
+        from repro_torch.graphs import load_dataset
+
+        auto = plan_for_cli(model, load_dataset(args.dataset, seed=args.seed), cli,
+                            strategy=args.strategy, seed=args.seed, device=H.dev)
+        if (auto.schedule, auto.chunks, list(auto.balance)) != \
+                (out["schedule"], out["chunks"], out["balance"]):
+            raise AssertionError(f"21f: the planner's second pick {auto.schedule} "
+                                 f"{auto.chunks} {auto.balance} differs from run_gnn's {out}")
+        config = auto.to_config(device=str(H.dev))
+    else:
+        config = cli.gpipe_config(tuple(out["balance"]), device=H.dev)
+    return make_engine(model, config), plan, model
+
+
+def worker_plan(H, torch, rl):
+    """21f on this rank: ``run_gnn`` with ``--partition profiled`` (1f1b)
+    and with ``--auto``: rank 0 alone profiles and prints the table, every
+    rank records its table digest and pick; each bucket-GAT launch in the
+    first calls held against the plain version. Then the pick on the engine
+    from the seed: ``RING_STEPS`` deterministic steps (params, losses and
+    eval saved for the parent's one-card host fill-drain under the same
+    balance), its median step beside the uniform (2, 1, 1, 2) balance's
+    under the same schedule and chunks, and one traced step of each: every
+    rank's NCCL ``SendRecv`` share."""
+    from repro_torch.core.overlap_report import capture_rank_reports
+    from repro_torch.core.pipeline import make_engine
+    from repro_torch.launch.train import build_parser, run_gnn
+
+    base = [*RING_ARGS, "--engine", "compiled", "--device", H.dev.type,
+            "--epochs", str(RING_STEPS)]
+    records = {}
+    for name, flags in PLAN_CASES.items():
+        text = io.StringIO()
+        # rank 0's profile runs the padded GAT kernel on a padded chunk
+        limits = {"bucket_gat_kernel": CAPTURE_LIMIT, "gat_aggregate_kernel": 8}
+        with deterministic(torch), KernelCapture(limits) as cap, contextlib.redirect_stdout(text):
+            out = run_gnn(build_parser().parse_args([*base, *flags]))
+        printed = text.getvalue()
+        marker = "[auto] evaluated" if name == "auto" else "[gnn] profiled balance="
+        if (marker in printed) != (rl.rank == 0):
+            raise AssertionError(f"21f {name} rank {rl.rank}: the table printed "
+                                 f"{'nowhere' if rl.rank == 0 else 'on this rank too'}")
+        rl.launched(cap.launches)
+        cap.compare(H, torch, f"21f {name} rank {rl.rank}")
+        pipe, plan, model = plan_engine(H, base, out)
+        with deterministic(torch):
+            params, state, opt, losses = train_steps(torch, pipe, plan, RING_STEPS)
+            metrics = {k: float(v) for k, v in pipe.evaluate(params, plan).items()}
+        if losses != out["epoch_losses"]:
+            raise AssertionError(f"21f {name} rank {rl.rank}: engine losses {losses} != run_gnn's "
+                                 f"{out['epoch_losses']}")
+        torch.save({"params": cpu_tree(params), "losses": losses, "eval": metrics},
+                   RANKS_DIR / f"plan-{name}-rank{rl.rank}.pt")
+        uniform = make_engine(model, dataclasses.replace(pipe.config, balance=(2, 1, 1, 2),
+                                                         placement=None))
+        medians, shares = {}, {}
+        for label, engine in (("pick", pipe), ("uniform", uniform)):
+            p, st, o, _ = train_steps(torch, engine, plan, 1)
+            times, p, st = timed_steps(torch, engine, plan, p, st, o, RING_TIMED)
+            medians[label] = statistics.median(times[1:])
+            reports = capture_rank_reports(lambda: engine.train_step(p, st, plan, 999, o))
+            if reports:
+                shares[label] = [round(rep["collective_time_us"] / rep["step_us"], 6)
+                                 for rep in reports]
+        records[name] = {"sha": out["plan_sha"], "schedule": out["schedule"],
+                         "chunks": out["chunks"], "balance": out["balance"],
+                         "predicted_ms": out["predicted_step_s"] * 1e3,
+                         "median_ms": medians["pick"], "uniform_ms": medians["uniform"],
+                         "sendrecv": shares, "losses": losses,
+                         "table": [ln for ln in printed.splitlines()
+                                   if ln.startswith(("[auto]", "[gnn] profiled", "     0",
+                                                     "     1", "     2"))]}
+        rl.line(f"21f {name:8s} plan digest {out['plan_sha']}: schedule {out['schedule']} "
+                f"chunks {out['chunks']} balance {tuple(out['balance'])}, predicted "
+                f"{out['predicted_step_s'] * 1e3:.6f} ms, measured median "
+                f"{medians['pick']:.6f} ms ({torch.get_num_threads()} CPU threads); uniform "
+                f"(2, 1, 1, 2) under the same schedule and chunks {medians['uniform']:.6f} ms; "
+                f"GAT launches {cap.launches} [{H.card}]")
+        for label, per_rank in shares.items():
+            rl.line(f"21f {name:8s} {label:7s} NCCL SendRecv share of a traced step, ranks "
+                    f"0-3: {per_rank} [{H.card}]")
+        del pipe, uniform
+    rl.data["plan"] = records
 
 
 def worker_grid(H, torch, rl, refs):
@@ -4222,6 +4378,7 @@ def rank_worker(leg: str) -> int:
             worker_lm_data_long(H, torch, rl, refs, grid)
             worker_lm_data_train_full(H, torch, rl)
             worker_lm_data_moe(H, torch, rl, refs["experts"])
+            worker_lm_data_count(H, torch, rl, grid)
         elif leg == "lm4":
             worker_lm_cut(H, torch, rl, refs)
             worker_lm_train_full(H, torch, rl)
@@ -4230,6 +4387,7 @@ def rank_worker(leg: str) -> int:
             worker_ring(H, torch, rl, 2, refs)
         else:
             worker_ring(H, torch, rl, 4, refs)
+            worker_plan(H, torch, rl)
             worker_grid(H, torch, rl, refs)
             worker_serve(H, torch, rl)
             worker_stream(H, torch, rl)  # leaves the group
@@ -4672,6 +4830,8 @@ LM_DATA_FULL_TRAIN = ("codeqwen1.5-7b", ["--stages", "2", "--steps", "4"])  # 23
 LM_DATA_MOE = ("arctic-480b", {"num_layers": 2})  # 23c: served with all 128 experts
 LM_DATA_MOE_EXPERTS = (64, 48, 32)  # 23c's training: the widest cut whose state fits
 LM_DATA_MOE_FIT = 0.7  # of the card: the predicted state 23c's training may take
+LM_DATA_COUNT = ("codeqwen1.5-7b", {"num_layers": 8})  # 23f: one rank's step counted
+LM_DATA_COUNT_GRIDS = (("dp 2 x D 2", (1, 2, 2)), ("pods 2 x D 2", (2, 1, 2)))  # (pods, data, D)
 LM_DATA_CLI = (  # 23e: the launchers as a user starts them on 4 cards, 2 data replicas
     ["-m", "repro_torch.launch.serve", "--arch", "codeqwen1.5-7b", "--stages", "2",
      *LM_SERVE_ARGS],
@@ -4686,6 +4846,59 @@ def lm_data_topology(fields, ring=None):
 
     base = {"num_stages": 2, "num_micro": LM_DATA_MICRO, "loss_chunks": 4}
     return Topology(data=2, ring=ring, **{**base, **fields})
+
+
+def count_topology(grid_shape, ring=None):
+    """A 23f grid's Topology: ``(pods, data, D)``, 2 micro-batches a replica."""
+    from repro_torch.models.transformer.model import Topology
+
+    pods, data, D = grid_shape
+    return Topology(num_stages=D, num_micro=LM_DATA_MICRO, loss_chunks=4, data=data, pods=pods,
+                    ring=ring)
+
+
+def counts_of(counter):
+    """An ``OpCounter``'s counts, op for op: aten FLOPs and bytes by op,
+    kernel calls, operations and bytes, collectives by kind."""
+    return {"flops": dict(counter.flops_by_op), "bytes": dict(counter.bytes_by_op),
+            "calls": dict(counter.kernel_calls), "kernel_ops": dict(counter.kernel_ops),
+            "kernel_bytes": dict(counter.kernel_bytes), "collectives": dict(counter.collectives)}
+
+
+def lm_data_counts(H, torch, reports):
+    """23f's check, in this process (no group; a fake world of 4 for each
+    count): each rank's card count of its step, on each grid, equal to the
+    same rank's count on meta op for op, and its peak increment within
+    ``PEAK_RTOL`` of the card allocator's."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.dryrun import count_on_grid
+
+    arch, cut = LM_DATA_COUNT
+    cfg, _ = cut_config(get_arch(arch), cut)
+    shape = ShapeConfig("23f", LM_DATA_SEQ, LM_DATA_BATCH, "train")
+    for label, grid_shape in LM_DATA_COUNT_GRIDS:
+        pods, data, D = grid_shape
+        for r, rep in enumerate(reports):
+            got = rep["count"][label]
+            _, meta = count_on_grid(cfg, shape, pods=pods, data=data, stages=D, rank=r,
+                                    topology=lambda g, s=grid_shape: count_topology(s, g))
+            want = counts_of(meta)
+            if got["counts"] != want:
+                diff = {k: (got["counts"][k], want[k]) for k in want
+                        if got["counts"][k] != want[k]}
+                raise AssertionError(f"23f {label} rank {r}: the card's count differs from "
+                                     f"meta's: {str(diff)[:1500]}")
+            if abs(got["ratio"] - 1.0) > PEAK_RTOL:
+                raise AssertionError(f"23f {label} rank {r}: the counter's peak increment is "
+                                     f"{got['ratio']:.4f} of the card's (limit 1 +- "
+                                     f"{PEAK_RTOL})")
+            coll = {k: v for k, v in want["collectives"].items() if v}
+            log(f"[lm-data] 23f {label} rank {r} ({got['place']}): card count == meta count "
+                f"in a fake world of 4, op for op: aten {sum(want['flops'].values())} FLOPs, "
+                f"{sum(want['bytes'].values())} B over {len(want['bytes'])} ops, kernel calls "
+                f"{want['calls']}, collectives {coll}; peak increment counter "
+                f"{got['counted_gb']:.6f} GB, card {got['card_gb']:.6f} GB, ratio "
+                f"{got['ratio']:.4f}; step under the counter {got['count_s']:.3f} s [{H.card}]")
 
 
 def grid_digests(torch, tree, cfg, topo, moments=False, position=None, replica=None):
@@ -4991,9 +5204,11 @@ def phase_lm_data(H, torch):
     ring. 23a cut-depth cases bit for bit on every rank against one card's
     ``Topology(data=2)``; 23b codeqwen1.5-7b trained at its 32 layers with
     ZeRO-3; 23c arctic-480b served with all 128 experts, then trained on a
-    cut; 23d the sequence-sharded long-context decode; 23e both LM
-    launchers under torchrun. Returns what did not run, having printed it
-    ("" when all of it ran)."""
+    cut; 23d the sequence-sharded long-context decode; 23f each rank's
+    codeqwen step cut to 8 layers counted on its card on the dp 2 x D 2 and
+    the pods 2 x D 2 grids, held against meta; 23e both LM launchers under
+    torchrun. Returns what did not run, having printed it ("" when all of
+    it ran)."""
     n = torch.cuda.device_count()
     if n < LM_DATA_CARDS:
         log(f"[lm-data] not run: {PHASE23_SKIP} (this machine has {n})")
@@ -5005,7 +5220,8 @@ def phase_lm_data(H, torch):
     lm_data_timing(H, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    run_rank_worker(H, torch, LM_DATA_CARDS, "lmdata")
+    reports = run_rank_worker(H, torch, LM_DATA_CARDS, "lmdata")
+    lm_data_counts(H, torch, reports)
     lm_data_cli(H, torch)
     return ""
 
@@ -5115,6 +5331,55 @@ def worker_lm_data_train_full(H, torch, rl):
     del trained, batch
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def worker_lm_data_count(H, torch, rl, grid):
+    """23f on this rank: codeqwen1.5-7b at full width, cut to 8 layers, one
+    train step on the card under ``OpCounter`` (``dryrun.build_step``:
+    seed-0 params, this rank's shard) on the dp 2 x D 2 grid and on a pods 2
+    x D 2 grid of the same ranks; its counts and its peak increment over
+    the step's entry beside the allocator's, for the parent to hold against
+    meta."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import ranks
+    from repro_torch.launch.dryrun import build_step, count_step
+
+    arch, cut = LM_DATA_COUNT
+    cfg, _ = cut_config(get_arch(arch), cut)
+    shape = ShapeConfig("23f", LM_DATA_SEQ, LM_DATA_BATCH, "train")
+    flash = H.FK.flash_attention_kernel
+    out = {}
+    for label, grid_shape in LM_DATA_COUNT_GRIDS:
+        pods, data, D = grid_shape
+        g = grid if pods == 1 else ranks.RankGrid(data, D, pods=pods)
+        topo = count_topology(grid_shape, g)
+        step, inputs = build_step(cfg, shape, topo, device=H.dev)
+        torch.cuda.synchronize()
+        before = flash.launches
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        card = count_step(step, inputs)
+        torch.cuda.synchronize()
+        count_s = time.perf_counter() - t0
+        card_inc = torch.cuda.max_memory_allocated() - held
+        counted_inc = card.peak_bytes - card.entry_bytes
+        launched = flash.launches - before
+        if H.dev.type == "cuda" and launched != card.kernel_calls.get("flash_attention_kernel", 0):
+            raise AssertionError(f"23f {label} rank {rl.rank}: the counter saw "
+                                 f"{dict(card.kernel_calls)}, flash launched {launched}")
+        rl.launched({"flash_attention_kernel": launched})
+        place = f"pod {g.pod}, replica {g.replica}, position {g.position}"
+        out[label] = {"counts": counts_of(card), "ratio": counted_inc / card_inc,
+                      "counted_gb": counted_inc / 1e9, "card_gb": card_inc / 1e9,
+                      "count_s": count_s, "place": place}
+        rl.line(f"23f {label}, {place}: one step counted on the card in {count_s:.3f} s, flash "
+                f"launches {launched}, collectives "
+                f"{ {k: v for k, v in card.collectives.items() if v} } [{H.card}]")
+        del step, inputs, card
+        gc.collect()
+        torch.cuda.empty_cache()
+    rl.data["count"] = out
 
 
 def worker_lm_data_moe(H, torch, rl, experts):

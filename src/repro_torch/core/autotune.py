@@ -65,12 +65,15 @@ class PlanConstraints:
     placement axis (predicted time is placement-invariant in the model, so
     rotations only ever lose ties to the schedule's default placement —
     they are enumerated to keep the axis inspectable, and prunable via
-    ``budget``)."""
+    ``budget``). ``min_devices`` prunes candidates whose ring is narrower:
+    on ranks the world fixes the ring (``plan_for_cli``), and a rank left
+    out of it would hang the others' collectives."""
 
     num_stages: int = 4
     chunk_counts: tuple[int, ...] = DEFAULT_CHUNK_COUNTS
     schedules: tuple[str, ...] = PLAN_SCHEDULES
     max_devices: int | None = None
+    min_devices: int | None = None
     max_live_activations: int | None = None
     budget: int | None = None
     transfer_cost: float = 0.0
@@ -133,6 +136,8 @@ class PipelinePlan:
     data_parallel: int = 1
     overlap: str = "off"
     device: str = "cuda"
+    # every chunk count's costs the planner read: what another rank plans from
+    costs_by_chunks: dict = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def num_stages(self) -> int:
@@ -309,6 +314,14 @@ def plan_pipeline(
                                              f"max_devices {cons.max_devices}"),
                     ))
                     continue
+                if cons.min_devices is not None and D < cons.min_devices:
+                    candidates.append((
+                        (math.inf, 0, C, sched_idx, False, (), D, 0),
+                        PlanCandidate(name, C, uniform, nd, 0, math.inf, 0,
+                                      pruned=f"ring of {D} positions < the "
+                                             f"{cons.min_devices} ranks"),
+                    ))
+                    continue
                 try:
                     sched = get_schedule(name, num_devices=nd)
                     peak = sched.peak_live_activations(S, C)
@@ -386,6 +399,7 @@ def plan_pipeline(
         data_parallel=data_parallel,
         overlap=overlap,
         device=device,
+        costs_by_chunks=dict(costs_cache),
     )
 
 
@@ -400,6 +414,7 @@ def plan_for_cli(
     seed: int = 0,
     cache_path: str | None = None,
     costs_by_chunks: dict[int, LayerCosts] | None = None,
+    device=None,
 ) -> PipelinePlan:
     """``plan_pipeline`` parameterized by a ``PipelineCLIConfig`` — the one
     translation every ``--auto`` entry point (train / serve) shares. ``--stages`` fixes the balance length (default: the
@@ -407,30 +422,67 @@ def plan_for_cli(
     default); ``--auto-budget`` caps the enumeration; the engine / backend /
     data-parallel / overlap / device flags ride into the plan untouched —
     the planner resolves schedule, chunks, balance and placement, nothing
-    else. ``--device`` is resolved first: no card means a raise."""
+    else. ``--device`` is resolved first: no card means a raise; ``device``
+    (a rank's card) overrides it.
+
+    Under a process group the world fixes the ring: D = world /
+    ``--data-parallel`` positions, so candidates of any other ring width are
+    pruned (``max_devices`` = ``min_devices`` = D). Rank 0 alone plans, and
+    profiles on its own card (and reads and writes ``cache_path``); the
+    costs it planned from reach every rank by one broadcast, every rank
+    plans from them, and a gather of the ranked table raises if any rank's
+    differs: one plan on every rank, as the reference's one process has. An
+    error on rank 0 (no candidate fits the ring) raises on every rank."""
+    from repro_torch.core import ranks
     from repro_torch.core.cli import resolve_device
 
-    device = str(resolve_device(cli.device))
+    device = str(device if device is not None else resolve_device(cli.device))
     stages = cli.stages if cli.stages > 1 else 4
     chunk_counts = tuple(sorted(set(DEFAULT_CHUNK_COUNTS) | {cli.chunks}))
+    ring = None
+    if ranks.active():
+        world = ranks.world_size()
+        if world % cli.data_parallel:
+            raise ValueError(f"a world of {world} ranks does not split into --data-parallel "
+                             f"{cli.data_parallel} replicas of a ring")
+        ring = world // cli.data_parallel
     cons = PlanConstraints(
         num_stages=stages,
         chunk_counts=chunk_counts,
         budget=cli.auto_budget,
+        max_devices=ring,
+        min_devices=ring,
     )
-    return plan_pipeline(
-        model,
-        graph,
-        cons,
-        params=params,
-        rng=rng,
-        strategy=strategy,
-        seed=seed,
-        costs_by_chunks=costs_by_chunks,
-        cache_path=cache_path,
-        engine=cli.engine,
-        backend=cli.backend,
-        data_parallel=cli.data_parallel,
-        overlap=cli.overlap,
-        device=device,
-    )
+
+    def plan(costs, graph, cache_path):
+        return plan_pipeline(
+            model,
+            graph,
+            cons,
+            params=params,
+            rng=rng,
+            strategy=strategy,
+            seed=seed,
+            costs_by_chunks=costs,
+            cache_path=cache_path,
+            engine=cli.engine,
+            backend=cli.backend,
+            data_parallel=cli.data_parallel,
+            overlap=cli.overlap,
+            device=device,
+        )
+
+    if ring is None:
+        return plan(costs_by_chunks, graph, cache_path)
+    picked = None
+
+    def on_leader():
+        nonlocal picked
+        picked = plan(costs_by_chunks, graph, cache_path)
+        return picked.costs_by_chunks
+
+    costs = ranks.from_leader(on_leader)
+    if picked is None:  # every other rank plans from rank 0's costs alone
+        picked = plan(costs, None, None)
+    ranks.same_on_every_rank(picked.table(), "the --auto plan table")
+    return picked

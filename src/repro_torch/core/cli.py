@@ -12,7 +12,6 @@ counterpart of.
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import torch
 
@@ -46,22 +45,20 @@ def resolve_device(name: str) -> torch.device:
 
 def join_ranks(cli: "PipelineCLIConfig") -> "ranks.Ranks | None":
     """Join torchrun's process group when ``WORLD_SIZE`` > 1 (None
-    otherwise): the compiled engine then runs one ring position per rank.
-    The host engine's several-card form is ``GPipeConfig.devices`` in one
-    process, so ``--engine host`` raises here; so do ``--auto`` and
-    ``--partition profiled``, whose per-rank profiles could pick different
-    pipelines and hang the ring."""
-    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 and not ranks.active():
+    otherwise): the compiled engine then runs one ring position per rank,
+    on a world of the ring's D or ``--data-parallel`` x D ranks
+    (``ranks.RankGrid`` refuses any other; under ``--auto`` the planner
+    fits the ring to the world). The host engine's several-card form is
+    ``GPipeConfig.devices`` in one process, so ``--engine host`` raises
+    here. ``--auto`` and ``--partition profiled`` plan on rank 0 alone and
+    hand every rank the same plan (``core.autotune.plan_for_cli``,
+    ``launch.train.profiled_balance``)."""
+    if ranks.planned_world_size() <= 1:
         return None
     if cli.engine == "host":
         raise ValueError(
             "--engine host under torchrun: the host engine runs in one process "
             "(GPipeConfig.devices places its stages on several cards); pass --engine compiled"
-        )
-    if cli.auto or cli.partition == "profiled":
-        raise ValueError(
-            "--auto and --partition profiled profile on each rank, which could pick "
-            "different pipelines: pass --schedule/--chunks with --partition uniform"
         )
     return ranks.join(cli.device)
 

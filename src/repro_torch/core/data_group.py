@@ -49,14 +49,28 @@ def ordered_sum(parts: list) -> torch.Tensor:
 class DataGroup:
     """The replicas of a step in this process: ``local`` (replica indices)
     of ``size``. ``grid``: a rank grid, whose ``data_group`` joins this
-    rank's peers; None in one process."""
+    rank's peers; None in one process. ``axis="pod"`` makes it the grid's
+    pod axis instead (the reference's ``pod_axis``): the pods of one
+    (replica, position), joined by ``pod_group``, ``grid.pod`` this
+    rank's."""
 
-    def __init__(self, size: int, grid=None):
-        if grid is not None and grid.dp != size:
-            raise ValueError(f"a data axis of {size} on a rank grid of {grid.dp} replicas")
-        self.size, self.grid = size, grid
-        self.local = list(range(size)) if grid is None else [grid.replica if size > 1 else 0]
+    def __init__(self, size: int, grid=None, axis: str = "data"):
+        if axis not in ("data", "pod"):
+            raise ValueError(f"a DataGroup's axis is data or pod, got {axis!r}")
+        self.size, self.grid, self.axis = size, grid, axis
         self.ranked = grid is not None and size > 1
+        if grid is None:
+            self.local = list(range(size))
+            return
+        held = grid.dp if axis == "data" else getattr(grid, "pods", 1)
+        if held != size:
+            raise ValueError(f"a {axis} axis of {size} on a rank grid of {held}")
+        self.local = [0 if size == 1 else grid.replica if axis == "data" else grid.pod]
+
+    @property
+    def process_group(self):
+        """The torch process group of this rank's peers on the axis."""
+        return self.grid.data_group if self.axis == "data" else self.grid.pod_group
 
     # --------------------------------------------------------- no gradient --
 
@@ -67,9 +81,12 @@ class DataGroup:
             return list(xs)
         import torch.distributed as dist
 
-        got = [torch.empty_like(xs[0]) for _ in range(self.size)]
-        dist.all_gather(got, xs[0].contiguous(), group=self.grid.data_group)
-        return got
+        # one buffer the backend writes in place (a list of outputs makes
+        # NCCL gather into a flat copy of its own first)
+        x = xs[0].contiguous()
+        got = torch.empty((self.size, *x.shape), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(got.view(-1), x.view(-1), group=self.process_group)
+        return list(got.unbind(0))
 
     def sum(self, xs: list) -> list:
         """The ordered sum over replicas, for each local one."""
@@ -105,7 +122,7 @@ class DataGroup:
 
         sends = [s.contiguous() for s in sends]
         got = [torch.empty_like(s) for s in sends]
-        dist.all_to_all(got, sends, group=self.grid.data_group)
+        dist.all_to_all(got, sends, group=self.process_group)
         return got
 
     # ----------------------------------------------------------- gradients --

@@ -16,12 +16,14 @@ point-to-point op whose peer never comes fails instead of hanging.
 Nothing falls back: no card for a ``cuda`` rank, or a group whose backend
 does not match the device asked for, raises.
 
-``RankGrid(dp, D, device_order)`` lays the world out as ``dp`` replicas of
-a ring of ``D`` positions: rank ``r·D + device_order[d]`` holds position d
-of replica r (the reference's grid, its columns reordered by the
-placement's ``device_order``). It makes every replica's stage group and
-every position's data group on every rank, in the same order, as
-``torch.distributed.new_group`` requires. The reference takes the first
+``RankGrid(dp, D, device_order, pods)`` lays the world out as ``dp``
+replicas of a ring of ``D`` positions in each of ``pods`` pods: rank
+``(p·dp + r)·D + device_order[d]`` holds position d of replica r in pod p
+(the reference's grid, its columns reordered by the placement's
+``device_order``; the pod axis is the reference's multi-pod mesh). It
+makes every ring's stage group, every position's data group in each pod
+and every (replica, position)'s pod group on every rank, in the same
+order, as ``torch.distributed.new_group`` requires. The reference takes the first
 ``D`` or ``dp·D`` devices and lets the rest idle; a rank left out of the
 ring here would never join its collectives and would hang every other
 rank's, so a world whose size is neither ``D`` nor ``dp·D`` raises.
@@ -128,26 +130,71 @@ def gathered(obj) -> list:
     return out
 
 
+def from_leader(fn):
+    """``fn()`` run on rank 0 alone, its value broadcast to every rank
+    (pickled; ``fn()`` itself without a group). An exception on rank 0 is
+    raised there and reaches every other rank as a ``ValueError`` with its
+    message, so no rank waits on one that failed; the other ranks wait in
+    the broadcast while rank 0 works."""
+    if not active():
+        return fn()
+    box, failed = [None], None
+    if dist.get_rank() == 0:
+        try:
+            box[0] = ("ok", fn())
+        except Exception as err:  # noqa: BLE001 — re-raised below, on every rank
+            failed = err
+            box[0] = ("error", f"rank 0: {type(err).__name__}: {err}"
+                      if not isinstance(err, ValueError) else str(err))
+    dist.broadcast_object_list(box, src=0)
+    if failed is not None:
+        raise failed
+    status, value = box[0]
+    if status == "error":
+        raise ValueError(value)
+    return value
+
+
+def same_on_every_rank(obj, what: str) -> None:
+    """Raise ``ValueError`` on every rank unless every rank's ``obj`` equals
+    rank 0's (a gather; nothing without a group)."""
+    everyone = gathered(obj)
+    differ = [r for r, o in enumerate(everyone) if o != everyone[0]]
+    if differ:
+        raise ValueError(f"{what} differs between rank 0 and ranks {differ}")
+
+
 def is_leader() -> bool:
     """Rank 0, or the only process: the one that prints results."""
     return not active() or dist.get_rank() == 0
 
 
 class RankGrid:
-    """``dp`` replicas of a ring of ``D`` positions over the joined world.
+    """``dp`` replicas of a ring of ``D`` positions over the joined world,
+    in each of ``pods`` pods.
 
-    ``position`` and ``replica`` are this rank's place; ``rank_at(d)`` is
-    the global rank at position d of this rank's replica (its ring
-    neighbours are ``rank_at(position ± 1)``); ``stage_group`` joins this
-    replica's ring and ``data_group`` the ranks at this position across
-    replicas (both None, the default group, where the world is the group).
+    ``position`` and ``replica`` are this rank's place in its pod, ``pod``
+    the pod; ``row`` = ``pod·dp + replica`` indexes ``rows``, the rings in
+    (pod, replica) order. ``rank_at(d)`` is the global rank at position d
+    of this rank's ring (its neighbours are ``rank_at(position ± 1)``);
+    ``stage_group`` joins this ring, ``data_group`` the ranks at this
+    position across the replicas of this pod, and ``pod_group`` the ranks
+    of this (replica, position) across pods: the reference's ``pod`` axis,
+    whose pods each hold a whole ``(data, stage)`` grid. A group is None
+    where its axis has one member (``stage_group``: where the world is the
+    ring).
     """
 
-    def __init__(self, dp: int, D: int, device_order: tuple | None = None):
+    def __init__(self, dp: int, D: int, device_order: tuple | None = None, pods: int = 1):
         if not active():
             raise RuntimeError("RankGrid needs a joined process group of more than one rank")
         world, rank = dist.get_world_size(), dist.get_rank()
-        if world not in (D, dp * D):
+        if pods > 1:
+            if world != pods * dp * D:
+                raise ValueError(
+                    f"world size {world} is not {pods} pods x data_parallel {dp} x {D} "
+                    "ranks: a rank outside the grid would hang its collectives")
+        elif world not in (D, dp * D):
             raise ValueError(
                 f"world size {world} is neither the ring's {D} ranks nor data_parallel {dp} "
                 f"x {D} ranks: a rank outside the grid would hang its collectives"
@@ -157,31 +204,48 @@ class RankGrid:
             if sorted(device_order) != list(order):
                 raise ValueError(f"device_order {device_order} is not a permutation of 0..{D - 1}")
             order = tuple(device_order)
-        self.D, self.dp = D, world // D
-        self.rows = [[r * D + order[d] for d in range(D)] for r in range(self.dp)]
-        (self.replica, self.position), = [
-            (r, d) for r, row in enumerate(self.rows) for d, x in enumerate(row) if x == rank]
-        self.stage_group = self.data_group = None
-        if self.dp > 1:
-            for row in self.rows:  # every rank makes every group, in one order
+        self.D, self.pods = D, pods
+        self.dp = world // (D * pods)
+        self.rows = [[q * D + order[d] for d in range(D)] for q in range(pods * self.dp)]
+        (self.row, self.position), = [
+            (q, d) for q, row in enumerate(self.rows) for d, x in enumerate(row) if x == rank]
+        self.pod, self.replica = divmod(self.row, self.dp)
+        self.stage_group = self.data_group = self.pod_group = None
+        # every rank makes every group, in one order: rings, then each pod's
+        # data columns, then the pod columns
+        if len(self.rows) > 1:
+            for row in self.rows:
                 group = dist.new_group(sorted(row))
                 if rank in row:
                     self.stage_group = group
-            for d in range(D):
-                column = [row[d] for row in self.rows]
-                group = dist.new_group(column)
-                if rank in column:
-                    self.data_group = group
+        if self.dp > 1:
+            for p in range(pods):
+                for d in range(D):
+                    column = [self.rows[p * self.dp + r][d] for r in range(self.dp)]
+                    group = dist.new_group(column)
+                    if rank in column:
+                        self.data_group = group
+        if pods > 1:
+            for r in range(self.dp):
+                for d in range(D):
+                    column = [self.rows[p * self.dp + r][d] for p in range(pods)]
+                    group = dist.new_group(column)
+                    if rank in column:
+                        self.pod_group = group
 
     def __repr__(self) -> str:
-        return (f"RankGrid(data_parallel={self.dp}, ring={self.D}, replica={self.replica}, "
-                f"position={self.position})")
+        pods = f"pods={self.pods}, pod={self.pod}, " if self.pods > 1 else ""
+        return (f"RankGrid({pods}data_parallel={self.dp}, ring={self.D}, "
+                f"replica={self.replica}, position={self.position})")
 
     def rank_at(self, position: int) -> int:
-        """The global rank at ring ``position`` of this rank's replica."""
-        return self.rows[self.replica][position % self.D]
+        """The global rank at ring ``position`` of this rank's ring."""
+        return self.rows[self.row][position % self.D]
 
     def describe(self) -> dict:
         """The grid for logs: its shape and this rank's place."""
-        return {"data_parallel": self.dp, "ring": self.D, "rows": self.rows,
-                "replica": self.replica, "position": self.position}
+        out = {"data_parallel": self.dp, "ring": self.D, "rows": self.rows,
+               "replica": self.replica, "position": self.position}
+        if self.pods > 1:
+            out.update(pods=self.pods, pod=self.pod)
+        return out

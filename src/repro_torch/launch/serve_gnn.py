@@ -422,25 +422,29 @@ def _run(args, cli, joined) -> dict:
     params = model.init_params(args.seed)
     if cli.auto:
         # serving shares the planner: the pick's schedule/chunks/balance/
-        # placement configure the engine whose eval programs serve traffic
+        # placement configure the engine whose eval programs serve traffic;
+        # on ranks rank 0 profiles and every rank takes the same plan
         from repro_torch.core.autotune import plan_for_cli
 
-        auto_plan = plan_for_cli(model, g, cli, seed=args.seed)
-        print(auto_plan.format_table(limit=10))
+        auto_plan = plan_for_cli(model, g, cli, seed=args.seed, device=device,
+                                 costs_by_chunks=getattr(args, "costs_by_chunks", None))
+        if leader:
+            print(auto_plan.format_table(limit=10))
         if cli.dry_run:
             return {"mode": "auto-dry-run", "schedule": auto_plan.schedule,
                     "chunks": auto_plan.chunks, "balance": list(auto_plan.balance)}
         cli = dataclasses.replace(cli, schedule=auto_plan.schedule, chunks=auto_plan.chunks,
                                   stages=auto_plan.num_stages, partition="auto")
         balance = auto_plan.balance
-        engine = make_engine(model, auto_plan)
+        engine = make_engine(model, auto_plan.to_config(device=str(device)))
     else:
         if cli.partition == "profiled":
             from repro_torch.core.microbatch import make_plan
             from repro_torch.launch.train import profiled_balance
 
             chunk = make_plan(g, cli.chunks).stacked().graph.chunk(0).to(device)
-            balance = profiled_balance(model, chunk, cli, seed=args.seed)
+            balance = profiled_balance(model, chunk, cli, seed=args.seed,
+                                       layer_costs=getattr(args, "layer_costs", None))
         else:
             balance = cli.uniform_balance()
         engine = make_engine(model, cli.gpipe_config(balance, device=device))

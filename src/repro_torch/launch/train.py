@@ -167,7 +167,8 @@ def _run_gnn(args, cli, joined) -> dict:
 
     if cli.auto:
         # self-tuning planner: profile -> enumerate -> predict -> pick; the
-        # pick overrides --schedule/--chunks/--partition/--placement
+        # pick overrides --schedule/--chunks/--partition/--placement. On
+        # ranks rank 0 profiles and every rank takes the same plan.
         from repro_torch.core.autotune import plan_for_cli
 
         auto_plan = plan_for_cli(
@@ -176,10 +177,13 @@ def _run_gnn(args, cli, joined) -> dict:
             seed=args.seed,
             cache_path=getattr(args, "cost_cache", None),
             costs_by_chunks=getattr(args, "costs_by_chunks", None),
+            device=device,
         )
-        if auto_plan.costs is not None:
-            _print_costs(auto_plan.costs, f"chunks={auto_plan.chunks}")
-        print(auto_plan.format_table(limit=10))
+        table_sha = table_digest(auto_plan.table())
+        if ranks.is_leader():
+            if auto_plan.costs is not None:
+                _print_costs(auto_plan.costs, f"chunks={auto_plan.chunks}")
+            print(auto_plan.format_table(limit=10))
         if cli.dry_run:
             out = {
                 "mode": "auto-dry-run",
@@ -191,58 +195,85 @@ def _run_gnn(args, cli, joined) -> dict:
                 # the pick's per-layer costs (seconds per chunk)
                 "layer_costs": auto_plan.costs.table() if auto_plan.costs else None,
             }
-            print(out)
+            if ranks.active():
+                out.update(ranks=ranks.world_size(), plan_sha=table_sha)
+            if ranks.is_leader():
+                print(out)
             return out
         cli = dataclasses.replace(cli, schedule=auto_plan.schedule, chunks=auto_plan.chunks,
                                   partition="auto")
         plan = make_plan(host_graph, auto_plan.chunks, strategy=args.strategy, halo_hops=2,
                          seed=args.seed)
-        pipe = make_engine(model, auto_plan)
+        pipe = make_engine(model, auto_plan.to_config(device=str(device)))
         _log_engine(cli, device, plan, pipe, auto_plan.balance,
                     f" predicted_step={auto_plan.predicted_step_s * 1e3:.2f}ms")
         return _train_pipeline(args, g, model, plan, pipe, cli=cli, balance=auto_plan.balance,
-                               predicted_step_s=auto_plan.predicted_step_s)
+                               predicted_step_s=auto_plan.predicted_step_s,
+                               plan_sha=table_sha)
 
     if streamed:
         plan = stream_plan
     else:
         plan = make_plan(host_graph, args.chunks, strategy=args.strategy, halo_hops=2,
                          seed=args.seed)
+    plan_sha = predicted = None
     if cli.partition == "profiled":
-        balance = profiled_balance(
+        balance, plan_sha, predicted = profiled_balance(
             model, plan.stacked().graph.chunk(0).to(device), cli, seed=args.seed,
             cost_cache=getattr(args, "cost_cache", None),
-            layer_costs=getattr(args, "layer_costs", None),
+            layer_costs=getattr(args, "layer_costs", None), detail=True,
         )
     else:
         balance = cli.uniform_balance()
     pipe = make_engine(model, cli.gpipe_config(balance, device=device))
     _log_engine(cli, device, plan, pipe, balance)
-    return _train_pipeline(args, g, model, plan, pipe, cli=cli, balance=balance)
+    return _train_pipeline(args, g, model, plan, pipe, cli=cli, balance=balance,
+                           predicted_step_s=predicted, plan_sha=plan_sha)
 
 
-def profiled_balance(model, chunk, cli, *, seed=0, cost_cache=None, layer_costs=None):
+def table_digest(rows) -> str:
+    """A short digest of a plan's table (its rows as JSON): what each rank
+    prints to show that every rank took the same plan."""
+    import hashlib
+    import json
+
+    return hashlib.sha1(json.dumps(rows, sort_keys=True).encode()).hexdigest()[:16]
+
+
+def profiled_balance(model, chunk, cli, *, seed=0, cost_cache=None, layer_costs=None,
+                     detail=False):
     """``--partition profiled``: the contiguous balance over ``cli.stages``
     that minimizes the schedule's predicted step under per-layer fwd/B/W
     costs measured on ``chunk`` (one padded chunk, the shape the engines
     dispatch per tick, on the device), or under ``layer_costs`` when a
-    caller hands them in. Prints the cost table and the pick."""
+    caller hands them in. Rank 0 (or the only process) prints the cost
+    table and the pick. On ranks rank 0 alone profiles (and reads and
+    writes ``cost_cache``), its costs reach every rank by one broadcast,
+    and a gather raises unless every rank's table and pick equal rank 0's.
+    With ``detail``, ``(balance, the table's digest, the predicted step
+    seconds)``."""
     from repro_torch.core.costmodel import cached_profile_layer_costs, choose_balance
     from repro_torch.core.schedule import get_schedule
 
-    costs = layer_costs
-    if costs is None:
-        costs = cached_profile_layer_costs(
+    def measure():
+        if layer_costs is not None:
+            return layer_costs
+        return cached_profile_layer_costs(
             model, model.init_params(seed, device=chunk.features.device), chunk,
             backend=cli.backend, cache_path=cost_cache,
         )
+
+    costs = ranks.from_leader(measure)
     balance, predicted = choose_balance(
         costs, cli.stages, get_schedule(cli.schedule, num_devices=cli.resolved_pipe_devices),
         cli.chunks,
     )
-    _print_costs(costs)
-    print(f"[gnn] profiled balance={balance} predicted_step={predicted * 1e3:.2f}ms")
-    return balance
+    table = {"costs": costs.table(), "balance": list(balance), "predicted_step_s": predicted}
+    ranks.same_on_every_rank(table, "the --partition profiled table")
+    if ranks.is_leader():
+        _print_costs(costs)
+        print(f"[gnn] profiled balance={balance} predicted_step={predicted * 1e3:.2f}ms")
+    return (balance, table_digest(table), predicted) if detail else balance
 
 
 def _print_costs(costs, label=""):
@@ -264,7 +295,8 @@ def _log_engine(cli, device, plan, pipe, balance, extra=""):
           f"bubble={pipe.describe()['bubble_fraction']:.2f}{extra}")
 
 
-def _train_pipeline(args, g, model, plan, pipe, *, cli, balance, predicted_step_s=None) -> dict:
+def _train_pipeline(args, g, model, plan, pipe, *, cli, balance, predicted_step_s=None,
+                    plan_sha=None) -> dict:
     """Epochs over ``pipe.train_step`` with the full-graph ``make_eval`` (the
     compiled engine, and any engine on a streamed plan: the eval program
     over the plan's core nodes), and the result dict the JAX launcher prints
@@ -324,6 +356,8 @@ def _train_pipeline(args, g, model, plan, pipe, *, cli, balance, predicted_step_
     }
     if predicted_step_s is not None:
         out["predicted_step_s"] = predicted_step_s
+    if plan_sha is not None:
+        out["plan_sha"] = plan_sha
     if ranks.active():
         out["ranks"] = ranks.world_size()
     if ranks.is_leader():

@@ -273,6 +273,7 @@ class DataAxis:
     group: DataGroup
     moe_mode: str = "gathered"
     seq_shard: bool = False
+    same_rows: bool = False  # every replica holds the same rows (a batch of one)
 
 
 def _pre_ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor, a: torch.Tensor):

@@ -87,15 +87,26 @@ class Topology:
     that ring is split over the data axis, every replica holds the same
     tokens, and the decode's MoE runs ``replicated``.
 
-    ``ring``: None runs every replica and every stage in this process (a
-    hop is a hand-over, a data-axis collective an ordered local sum or
-    concatenation: ``core.data_group``). A ``core.ranks.RankGrid(data,
-    pipe_devices)`` makes this process one ring position of one replica in
-    a torchrun world: it holds ``held_stages(topo, position)``, its params'
-    and caches' stacked leaves only those rows and its data shard of each
-    split leaf (``init_params(..., stages=..., data_rank=...)``,
-    ``grid_shard``, ``init_cache``); its activations hop by point-to-point
-    ops and the data axis's collectives run over its ``data_group``."""
+    ``pods`` is the reference's ``pod_axis``: each pod holds a whole
+    ``(data, stage)`` grid, the batch rows split ``pods · data`` ways in
+    (pod, data) order, pod p taking rows ``[p·B/pods, (p+1)·B/pods)``;
+    params and moments are the same in every pod (ZeRO-3, ZeRO-1 and the
+    experts split over ``data`` alone), the loss is the mean over the whole
+    batch, and the gradients are summed across pods in ascending pod order
+    before every pod applies the same update. The long-context decode
+    keeps its one row, replicated across pods.
+
+    ``ring``: None runs every pod, replica and stage in this process (a
+    hop is a hand-over, a data- or pod-axis collective an ordered local
+    sum or concatenation: ``core.data_group``). A ``core.ranks.RankGrid(
+    data, pipe_devices, pods=pods)`` makes this process one ring position
+    of one replica of one pod in a torchrun world: it holds
+    ``held_stages(topo, position)``, its params' and caches' stacked leaves
+    only those rows and its data shard of each split leaf
+    (``init_params(..., stages=..., data_rank=...)``, ``grid_shard``,
+    ``init_cache``); its activations hop by point-to-point ops, the data
+    axis's collectives run over its ``data_group`` and the pod axis's over
+    its ``pod_group``."""
 
     num_stages: int = 1
     num_micro: int = 1
@@ -108,6 +119,7 @@ class Topology:
     data: int = 1
     moe_mode: str = "gathered"
     zero3: bool = True
+    pods: int = 1
     ring: object = dataclasses.field(default=None, compare=False)
 
     @property
@@ -143,16 +155,17 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def check_topology(cfg: ArchConfig, topo: Topology) -> None:
     """Raise ``ValueError`` for a data axis the config or the ring cannot hold."""
-    if topo.data < 1:
-        raise ValueError(f"Topology.data must be >= 1, got {topo.data}")
+    if topo.data < 1 or topo.pods < 1:
+        raise ValueError(f"Topology.data and .pods must be >= 1, got {topo.data}, {topo.pods}")
     if topo.moe_mode not in ("gathered", "a2a"):
         raise ValueError(f"Topology.moe_mode must be 'gathered' or 'a2a', got {topo.moe_mode!r}")
     if cfg.num_experts and cfg.num_experts % topo.data:
         raise ValueError(f"{cfg.num_experts} experts do not split over a data axis of {topo.data}")
     grid = topo.ring
-    if grid is not None and grid.dp != topo.data:
-        raise ValueError(f"a Topology of data {topo.data} on a rank grid of {grid.dp} replicas "
-                         f"x {grid.D} positions")
+    if grid is not None and (grid.dp, getattr(grid, "pods", 1)) != (topo.data, topo.pods):
+        raise ValueError(f"a Topology of data {topo.data} and pods {topo.pods} on a rank grid "
+                         f"of {grid.dp} replicas x {grid.D} positions in "
+                         f"{getattr(grid, 'pods', 1)} pods")
 
 
 # ------------------------------------------------------------- stacking --
@@ -617,9 +630,10 @@ def init_cache(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
                dtype=torch.float32, device="cpu") -> dict:
     """A zero cache: leaves (num_stages, num_micro, slots, b_mb, ...), the
     layout of ``abstract_cache``; on a rank (``topo.ring``) only its own
-    stage's row, (1, num_micro, slots, b_mb, ...), and with a data axis its
-    replica's rows of each micro-batch (``b_mb / data``), or under
-    ``topo.seq_shard`` its ``w_local`` ring slots."""
+    stage's row, (1, num_micro, slots, b_mb, ...), and with a data or pod
+    axis its replica's rows of each micro-batch (``b_mb / (pods · data)``),
+    or under ``topo.seq_shard`` its ``w_local`` ring slots (a long-context
+    decode's one row on every pod)."""
     check_supported(cfg)
     check_topology(cfg, topo)
     plan = cache_plan(cfg, topo, shape)
@@ -631,11 +645,12 @@ def init_cache(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
             raise ValueError(f"a ring of {plan['w_total']} slots does not split over a data "
                              f"axis of {topo.data}")
         w = w if topo.ring is not None else plan["w_total"]
-    elif topo.data > 1:
-        if b % topo.data:
-            raise ValueError(f"micro-batches of {b} rows do not split over a data axis of "
-                             f"{topo.data}")
-        b = b // topo.data if topo.ring is not None else b
+    split = topo.data * topo.pods if shape.global_batch > 1 else 1  # a row of one: replicated
+    if not topo.seq_shard and split > 1:
+        if b % split:
+            raise ValueError(f"micro-batches of {b} rows do not split over {split} "
+                             "(pod, data) replicas")
+        b = b // split if topo.ring is not None else b
 
     def build(one: dict, slots: int) -> dict:
         lead = (rows, plan["nm"], slots)
@@ -697,13 +712,17 @@ def _slot_dims(splits: dict) -> dict:
     return opt_lib.tree_map(lambda d: None if d is None else d - 2, splits)
 
 
-def _cache_views(cache: dict, topo: Topology, group: DataGroup) -> list:
+def _cache_views(cache: dict, topo: Topology, group: DataGroup,
+                 same_rows: bool = False) -> list:
     """Each local replica's view of one (stage, micro-batch) cache (leaves
     (slots, b_mb, ...)): its rows of the micro-batch, or under
     ``seq_shard`` its ring slots of the attention leaves (the mamba state,
-    the same on every replica, whole)."""
+    the same on every replica, whole); with ``same_rows`` (a batch of one)
+    the whole cache, every replica's."""
     if group.grid is not None or group.size == 1:
         return [cache]
+    if same_rows and not topo.seq_shard:
+        return [cache] * len(group.local)
 
     def view(path, a, r):
         if not topo.seq_shard:
@@ -727,12 +746,16 @@ def _replica_batches(batch: dict, group: DataGroup, replicated: bool = False) ->
     return [{k: rows(v, r) for k, v in batch.items()} for r in group.local]
 
 
-def _data_axis(topo: Topology, group: DataGroup, mode: str) -> "B.DataAxis | None":
-    """How a step's blocks reach over the data axis (None without one)."""
+def _data_axis(topo: Topology, group: DataGroup, mode: str,
+               same_rows: bool = False) -> "B.DataAxis | None":
+    """How a step's blocks reach over the data axis (None without one).
+    ``same_rows``: a batch of one row, which every replica holds (the
+    reference shards no batch of one), as under the sequence-split decode."""
     if group.size == 1:
         return None
     seq = mode == "decode" and topo.seq_shard
-    return B.DataAxis(group, "replicated" if seq else topo.moe_mode, seq)
+    same = seq or same_rows
+    return B.DataAxis(group, "replicated" if same else topo.moe_mode, seq, same)
 
 
 # ---------------------------------------------------------------- stages --
@@ -754,8 +777,9 @@ def _stage_fn(cfg: ArchConfig, topo: Topology, extras: dict, blocks: Callable,
     inside: the forward keeps only the layer's input, and the backward
     gathers and recomputes one layer at a time, so a layer's gathered
     weights live only until its own backward. Under ``data.seq_shard``
-    every replica holds the same rows, and one process runs a mamba slot
-    once for all of them (their state is one)."""
+    (and for any batch of one row: ``data.same_rows``) every replica holds
+    the same rows, and one process runs a mamba slot once for all of them
+    (their state is one)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     slot = lambda caches, i: None if caches is None else [_slot(c, i) for c in caches]
@@ -780,7 +804,7 @@ def _stage_fn(cfg: ArchConfig, topo: Topology, extras: dict, blocks: Callable,
             return fn(cfg, lp, ex, h, c)[0]
 
         cs = [None] * len(hs) if cs is None else cs
-        if data is not None and data.seq_shard and len(hs) > 1:
+        if data is not None and data.same_rows and len(hs) > 1:
             return [run(lps[0], hs[0], cs[0])] * len(hs)
         return [run(lp, h, c) for lp, h, c in zip(lps, hs, cs)]
 
@@ -903,7 +927,7 @@ def _gathered(grid, value: torch.Tensor) -> list:
 
     got = [torch.empty_like(value) for _ in range(grid.D)]
     dist.all_gather(got, value, group=grid.stage_group)
-    row = sorted(grid.rows[grid.replica])  # the group's ranks, in group order
+    row = sorted(grid.rows[grid.row])  # the group's ranks, in group order
     return [got[row.index(grid.rank_at(d))] for d in range(grid.D)]
 
 
@@ -928,6 +952,23 @@ def _sum_over_data(pending: list, group: DataGroup) -> None:
         return
     for dst, parts in pending:
         dst.copy_(group.sum(parts)[0])
+
+
+def _sum_over_pods(trees: list, layout: LeafLayout, pods: DataGroup) -> dict:
+    """The ordered sum across pods of each local pod's gradient tree, into
+    the first: in one process over the pods' trees, on a rank over the
+    tree of every pod's rank at its (replica, position) (an all-gather,
+    then the sum). A rank sums only the rows its update reads of a ZeRO-1
+    leaf (``embed``/``head``: its own moment rows)."""
+    grid = pods.grid
+
+    def one(d_param, d_moment, *gs):
+        if grid is not None and d_moment is not None and d_moment != d_param:
+            gs = [_cut(g, d_moment, grid.dp, grid.replica) for g in gs]
+        gs[0].copy_(pods.sum(list(gs))[0])
+
+    opt_lib.tree_map(one, layout.params, layout.moments, *trees)
+    return trees[0]
 
 
 def _moments_init(params: dict, layout: LeafLayout, group: DataGroup) -> "opt_lib.AdamState":
@@ -1046,7 +1087,8 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
     want = {name: spec[0] for name, spec in batch_specs(cfg, shape).items()}
     held = [k for d in ring.positions for k in ring.stages(d)]
     last = ring.holds(ring.K - 1)
-    wire = (shape.global_batch // topo.data // nm, seq, cfg.d_model)
+    wire = (shape.global_batch // (topo.pods * topo.data) // nm, seq, cfg.d_model)
+    pods = DataGroup(topo.pods, topo.ring, axis="pod")
 
     def chunk_loss(params, yi, li, mi):
         logits = lm_head_logits(cfg, params, yi)
@@ -1082,12 +1124,14 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
             total, count = total + s_i, count + c_i
         return total, count
 
-    def mean_loss(sums):
-        """(each replica's share of the global mean loss, the mean): its
-        sum over the count summed over the data axis."""
-        denom = torch.clamp(group.sum([c.detach() for _, c in sums])[0], min=1.0)
+    def mean_loss(sums, denom=None):
+        """(each replica's share of the global mean loss, the loss sum over
+        the data axis, the count): its sum over the count summed over the
+        data axis, or over ``denom`` (the whole batch's, with pods)."""
+        if denom is None:
+            denom = torch.clamp(group.sum([c.detach() for _, c in sums])[0], min=1.0)
         total = group.sum([s.detach() for s, _ in sums])[0]
-        return [s / denom for s, _ in sums], total / denom
+        return [s / denom for s, _ in sums], total, denom
 
     def forward(top_trees, blocks, shared, batches, fwd, remat=False):
         """Embed on stage 0's position and run the ring; ``fwd(stage, k, m,
@@ -1109,15 +1153,29 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
 
     def loss_fn(params, batch):
         _check_rows(ring, params["blocks"], "params['blocks']")
-        batches = _replica_batches(batch, group)
         blocks, shared = _serve_params(cfg, topo, group, ring, params)
         run = lambda st, k, m, h: _pack(ring, st(k, _unpack(ring, h), None))
-        _, outs = forward([params] * len(group.local), blocks, shared, batches, run)
-        loss = None
-        if last:
-            ys = _outputs(ring, topo, outs)
-            loss = mean_loss([head_sums(params, y, b) for y, b in zip(ys, batches)])[1]
+        denom = None if topo.pods == 1 else _count(batch)
+        totals = []
+        for pod_batch in _replica_batches(batch, pods):
+            batches = _replica_batches(pod_batch, group)
+            _, outs = forward([params] * len(group.local), blocks, shared, batches, run)
+            if last:
+                ys = _outputs(ring, topo, outs)
+                _, total, denom = mean_loss([head_sums(params, y, b)
+                                             for y, b in zip(ys, batches)], denom)
+                totals.append(total)
+        loss = _pod_loss(totals, denom) if last else None
         return _from_last(ring, loss, (), torch.float32, params["embed"].device)
+
+    def _pod_loss(totals, denom):
+        """The mean loss from each local pod's loss sum (one pod: its own)."""
+        return (totals[0] if topo.pods == 1 else pods.sum(totals)[0]) / denom
+
+    def _count(batch):
+        """The whole batch's loss count (its mask's sum: a function of the
+        batch's shape), clamped as ``mean_loss``'s."""
+        return torch.clamp(labels_from_batch(batch, seq)[1].sum(), min=1.0)
 
     def train_step(params: dict, opt_state, batch: dict):
         got = {name: tuple(batch[name].shape) for name in want if name in batch}
@@ -1125,6 +1183,28 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
             raise ValueError(f"batch of shapes {got}, step built for {want}")
         _check_rows(ring, params["blocks"], "params['blocks']")
         layout = _layout(cfg, topo, params)
+        if topo.pods == 1:
+            grads, total, denom = pod_grads(params, batch, layout)
+            totals = [total]
+        else:
+            # every pod's gradients of the whole batch's mean loss (its count
+            # a function of the batch's shape alone), summed across pods in
+            # ascending pod order; the same update in every pod
+            denom = _count(batch)
+            parts = [pod_grads(params, b, layout, denom)
+                     for b in _replica_batches(batch, pods)]
+            grads = _sum_over_pods([g for g, _, _ in parts], layout, pods)
+            totals = [t for _, t, _ in parts]
+            del parts
+        loss = _pod_loss(totals, denom) if last else None
+        loss = _from_last(ring, loss, (), torch.float32, params["embed"].device)
+        _apply_adam(optimizer, grads, opt_state, params, layout, group)
+        return params, opt_state, {"loss": loss}
+
+    def pod_grads(params: dict, batch: dict, layout: LeafLayout, denom=None):
+        """One pod's pass over its rows of the batch: (the gradients, the
+        loss sum over the data axis and the count where the loss is made;
+        None elsewhere)."""
         slot_dims = _slot_dims(layout.params["blocks"])
         slot_gather = layout.gather["blocks"]
         shared_dims = layout.params.get("shared_attn")
@@ -1196,12 +1276,12 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
             return _pack(ring, [y.detach() for y in ys])
 
         xs, outs = forward(top_leaves, blocks, shared, batches, fwd, remat=topo.remat)
-        loss, cotangents = None, {}
+        total, cotangents = None, {}
         if last:
             ys = [[y.requires_grad_(True) for y in _unpack(ring, outs[m])] for m in range(nm)]
             sums = [head_sums(t, torch.cat([ys[m][j] for m in range(nm)]), b)
                     for j, (t, b) in enumerate(zip(top_leaves, batches))]
-            shares, loss = mean_loss(sums)
+            shares, total, denom = mean_loss(sums, denom)
             torch.autograd.backward(shares)
             cotangents = {m: _pack(ring, [y.grad for y in ys[m]]) for m in range(nm)}
             del ys, sums, shares
@@ -1225,9 +1305,7 @@ def make_train_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig, *,
         del top_leaves
         _sum_over_data(pending, group)
         del pending
-        loss = _from_last(ring, loss, (), torch.float32, params["embed"].device)
-        _apply_adam(optimizer, grads, opt_state, params, layout, group)
-        return params, opt_state, {"loss": loss}
+        return grads, total, denom
 
     def _sum_shared(aliases, dst, shared_dims, pending):
         """The shared block's gradient: per replica its stages' gradients
@@ -1311,6 +1389,23 @@ def _replica_logits(cfg: ArchConfig, topo: Topology, group: DataGroup, params: d
     return group.concat(logits)[0]
 
 
+def _over_pods(topo: Topology, run: Callable, cache: dict, batch: dict) -> torch.Tensor:
+    """``run(cache, batch)``'s logits over every pod: each local pod's run
+    over its rows of the batch and of the cache's micro-batches (in one
+    process a view of them, on a rank its own cache), the logits
+    concatenated in pod order (an all-gather over ``pod_group`` on a
+    rank). A batch of one row (the long-context decode's) is every pod's:
+    one run stands for all of them in one process, and each pod's rank
+    runs its own."""
+    if topo.pods == 1 or batch["tokens"].shape[0] == 1:
+        return run(cache, batch)
+    pods = DataGroup(topo.pods, topo.ring, axis="pod")
+    caches = [cache] if pods.grid is not None else [
+        opt_lib.tree_map(lambda a: _cut(a, 3, pods.size, p), cache) for p in pods.local]
+    logits = [run(c, b) for c, b in zip(caches, _replica_batches(batch, pods))]
+    return pods.concat(logits)[0]
+
+
 def _prefill(cfg: ArchConfig, topo: Topology, extras: dict, params: dict, cache: dict,
              batch: dict, seq: int, positions: torch.Tensor | None = None):
     """The prefill of ``make_prefill_step``, at ``positions`` when given: a
@@ -1334,20 +1429,26 @@ def _prefill(cfg: ArchConfig, topo: Topology, extras: dict, params: dict, cache:
         check_order("positions", positions[0] if cfg.rope_kind == "mrope" else positions)
         positions = positions.to(embed.device, torch.int32)
     blocks, shared = _serve_params(cfg, topo, group, ring, params)
+    same = batch["tokens"].shape[0] == 1
     stage = _stage_fn(cfg, topo, extras, blocks, shared, "prefill", positions=positions,
-                      data=_data_axis(topo, group, "prefill"))
-    batches = _replica_batches(batch, group)
-    # frontend rows, where there are any, split into micro-batches with x
-    xs = _micro_inputs(ring, topo, [embed_inputs(cfg, params, b) for b in batches]) \
-        if ring.holds(0) else None
-    b_local = batch["tokens"].shape[0] // topo.data
-    run = lambda s, m, h: _pack(ring, stage(s, _unpack(ring, h), _cache_views(
-        _slot(cache, ring.row_of(s), m), topo, group)))
-    outs = spmd_pipeline(run, xs, ring, wire_shape=(b_local // topo.num_micro, seq, cfg.d_model),
-                         dtype=embed.dtype, device=embed.device)
-    ys = _last_rows(ring, topo, outs, lambda y: y[:, -1], (b_local, cfg.d_model), embed.dtype,
-                    embed.device)
-    return _replica_logits(cfg, topo, group, params, ys, replicated=False), cache
+                      data=_data_axis(topo, group, "prefill", same))
+
+    def run(cache, batch):
+        batches = _replica_batches(batch, group, replicated=same)
+        # frontend rows, where there are any, split into micro-batches with x
+        xs = _micro_inputs(ring, topo, [embed_inputs(cfg, params, b) for b in batches]) \
+            if ring.holds(0) else None
+        b_local = batches[0]["tokens"].shape[0]
+        item = lambda s, m, h: _pack(ring, stage(s, _unpack(ring, h), _cache_views(
+            _slot(cache, ring.row_of(s), m), topo, group, same)))
+        outs = spmd_pipeline(item, xs, ring,
+                             wire_shape=(b_local // topo.num_micro, seq, cfg.d_model),
+                             dtype=embed.dtype, device=embed.device)
+        ys = _last_rows(ring, topo, outs, lambda y: y[:, -1], (b_local, cfg.d_model),
+                        embed.dtype, embed.device)
+        return _replica_logits(cfg, topo, group, params, ys, replicated=same)
+
+    return _over_pods(topo, run, cache, batch), cache
 
 
 def make_prefill_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> Callable:
@@ -1387,7 +1488,9 @@ def make_serve_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> Call
     check_topology(cfg, topo)
     extras = make_extras(cfg, topo.num_stages, long_context=topo.long_context)
     group = DataGroup(topo.data, topo.ring)
-    data = _data_axis(topo, group, "decode")
+    same = shape.global_batch == 1  # a batch of one: every replica's
+    rep = topo.seq_shard or same
+    data = _data_axis(topo, group, "decode", same)
     if topo.data > 1:
         leaf_layout(cfg, topo)  # built once, here
 
@@ -1397,17 +1500,23 @@ def make_serve_step(cfg: ArchConfig, topo: Topology, shape: ShapeConfig) -> Call
         blocks, shared = _serve_params(cfg, topo, group, ring, params)
         stage = _stage_fn(cfg, topo, extras, blocks, shared, "decode",
                           cur_pos=int(batch["pos"]), data=data)
-        batches = _replica_batches(batch, group, replicated=topo.seq_shard)
-        xs = _micro_inputs(ring, topo, [embed[b["tokens"].long()][:, None, :] for b in batches]) \
-            if ring.holds(0) else None  # (b, 1, d)
-        b_local = batches[0]["tokens"].shape[0]
-        run = lambda s, m, h: _pack(ring, stage(s, _unpack(ring, h), _cache_views(
-            _slot(cache, ring.row_of(s), m), topo, group)))
-        outs = spmd_pipeline(run, xs, ring, wire_shape=(b_local // topo.num_micro, 1, cfg.d_model),
-                             dtype=embed.dtype, device=embed.device)
-        ys = _last_rows(ring, topo, outs, lambda y: y[:, 0], (b_local, cfg.d_model), embed.dtype,
-                        embed.device)
-        logits = _replica_logits(cfg, topo, group, params, ys, replicated=topo.seq_shard)
+
+        def run(cache, batch):
+            batches = _replica_batches(batch, group, replicated=rep)
+            xs = _micro_inputs(ring, topo, [embed[b["tokens"].long()][:, None, :]
+                                            for b in batches]) \
+                if ring.holds(0) else None  # (b, 1, d)
+            b_local = batches[0]["tokens"].shape[0]
+            item = lambda s, m, h: _pack(ring, stage(s, _unpack(ring, h), _cache_views(
+                _slot(cache, ring.row_of(s), m), topo, group, same)))
+            outs = spmd_pipeline(item, xs, ring,
+                                 wire_shape=(b_local // topo.num_micro, 1, cfg.d_model),
+                                 dtype=embed.dtype, device=embed.device)
+            ys = _last_rows(ring, topo, outs, lambda y: y[:, 0], (b_local, cfg.d_model),
+                            embed.dtype, embed.device)
+            return _replica_logits(cfg, topo, group, params, ys, replicated=rep)
+
+        logits = _over_pods(topo, run, cache, batch)
         return logits.argmax(dim=-1).to(torch.int32), cache, logits
 
     return serve_step

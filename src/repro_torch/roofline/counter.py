@@ -21,9 +21,12 @@ For one step it records:
   op dispatched inside a call (the plain version on a CPU tensor, the
   output's allocation on a card or on meta) is the kernel's: it counts
   toward memory only, never toward the aten FLOPs or bytes;
-* **collectives** by the reference's five kinds, from the
-  ``_c10d_functional`` ops (and ``c10d`` point-to-point sends as
-  collective-permute), by output bytes. One card dispatches none.
+* **collectives** by the reference's five kinds, by output bytes: the
+  ``_c10d_functional`` ops, and the ``c10d`` ops ``torch.distributed``'s
+  calls dispatch (all-gathers, all-to-alls, reduce-scatters, all-reduces;
+  a broadcast as the reference's psum, an all-reduce; a point-to-point hop
+  as one collective-permute, counted at its send). One card dispatches
+  none; an unknown ``c10d`` op raises.
 
 So a CPU run, a meta run and a card run of one step compare op for op.
 """
@@ -43,11 +46,27 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch import kernels
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+# the functional collectives: counted by the bytes of the tensors they return
 _COLLECTIVE_OPS = {
     "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
     "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
     "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
-    "all_to_all_single": "all-to-all", "send": "collective-permute",
+    "all_to_all_single": "all-to-all",
+}
+# the c10d ops ``torch.distributed``'s calls dispatch (``dist.all_gather``,
+# ``all_to_all``, ``batch_isend_irecv``, ...): each writes the tensors of its
+# first argument, counted by their bytes. A point-to-point hop counts once,
+# at its send; its receive counts nothing. The ring's broadcast of the last
+# stage's rows is the reference's psum over the stage axis: an all-reduce.
+_C10D_OPS = {
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_coalesced_": "all-gather", "allgather_into_tensor_coalesced_": "all-gather",
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "broadcast_": "all-reduce",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "send": "collective-permute", "recv_": None, "recv_any_source_": None, "barrier": None,
 }
 _aten = torch.ops.aten
 # metadata queries: no data moves, and FlopCounterMode lets them through too
@@ -63,13 +82,13 @@ _METADATA = {
 _NO_BYTES = {_aten.empty, _aten.empty_like, _aten.empty_strided, _aten.lift_fresh}
 
 
-def _flat(args, kwargs=None) -> list:
-    """An op's arguments, one level of lists and tuples opened (all an aten
-    schema nests)."""
+def _flat(args, kwargs=None, depth: int = 1) -> list:
+    """An op's arguments, ``depth`` levels of lists and tuples opened (one
+    is all an aten schema nests; ``c10d.allgather_`` nests two)."""
     out = []
     for a in (*args, *(kwargs or {}).values()):
-        if isinstance(a, (list, tuple)):
-            out.extend(a)
+        if isinstance(a, (list, tuple)) and depth:
+            out.extend(_flat(a, depth=depth - 1))
         else:
             out.append(a)
     return out
@@ -207,10 +226,18 @@ class OpCounter(TorchDispatchMode):
             if storage._cdata not in seen:  # a new storage, not a view or an in-place write
                 self._track(storage)
         namespace = func.namespace
-        if namespace in ("_c10d_functional", "c10d"):
+        if namespace == "_c10d_functional":
             kind = _COLLECTIVE_OPS.get(packet.__name__.split(".")[-1])
             if kind is not None:
                 self.collectives[kind] += sum(map(_nbytes, outputs or inputs))
+            return out
+        if namespace == "c10d":
+            name = packet.__name__.split(".")[-1]
+            if name not in _C10D_OPS:
+                raise NotImplementedError(f"OpCounter does not know the collective c10d.{name}")
+            kind = _C10D_OPS[name]
+            if kind is not None:
+                self.collectives[kind] += sum(map(_nbytes, _tensors(_flat(args[:1], depth=2))))
             return out
         if self._in_kernel:
             return out

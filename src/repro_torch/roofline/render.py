@@ -1,11 +1,13 @@
-"""Render the one-card §Dry-run and §Roofline tables from dry-run reports.
+"""Render the §Dry-run and §Roofline tables from dry-run reports: one
+card, and one rank of the reference's 16x16 and 2x16x16 grids.
 Counterpart of ``repro.roofline.render``.
 
     PYTHONPATH=src python -m repro_torch.roofline.render [--dir reports/dryrun_torch]
 
 The reports are ``launch/dryrun.py``'s JSON files: meta-device counts at
-the card's data-sheet rates, so every number in both tables is a
-prediction.
+the card's data-sheet rates, so every number in the tables is a
+prediction. A grid's row is one rank's (its peak, work and collective
+bytes: the reference's per-device columns).
 """
 
 from __future__ import annotations
@@ -68,6 +70,10 @@ def roofline_table(rows, mesh="1 card") -> str:
     return "\n".join(out)
 
 
+GRID_TITLES = (("16x16", "single pod 16×16 (256 cards)"),
+               ("2x16x16", "multi-pod 2×16×16 (512 cards)"))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default="reports/dryrun_torch")
@@ -76,8 +82,15 @@ def main(argv=None):
     card = rows[0]["card"] if rows else "the card"
     print(f"## §Dry-run — one {card} (meta-device counts, predictions)\n")
     print(dryrun_table(rows))
+    for mesh, title in GRID_TITLES:
+        print(f"\n## §Dry-run — {title}, one rank's counts (meta, predictions)\n")
+        print(dryrun_table(rows, mesh))
     print(f"\n## §Roofline — one {card} at its data-sheet rates (predictions)\n")
     print(roofline_table(rows))
+    for mesh, title in GRID_TITLES:
+        print(f"\n## §Roofline — {title}, one rank at the card's data-sheet rates "
+              "(predictions)\n")
+        print(roofline_table(rows, mesh))
 
 
 if __name__ == "__main__":

@@ -370,10 +370,106 @@ def test_topology_for_matches_the_reference(arch, jdryrun):
             assert got.num_micro == want.num_micro
 
 
+def _topology_fields(topo, reference: bool) -> tuple:
+    if reference:
+        return (topo.num_stages, topo.num_micro, topo.remat, topo.loss_chunks, topo.kv_block,
+                topo.seq_shard_decode, topo.fsdp_size, 2 if topo.pod_axis else 1,
+                topo.moe_mode, topo.zero3, topo.schedule, topo.num_virtual)
+    return (topo.num_stages, topo.num_micro, topo.remat, topo.loss_chunks, topo.kv_block,
+            topo.seq_shard, topo.data, topo.pods, topo.moe_mode, topo.zero3, topo.schedule,
+            topo.num_virtual)
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", list_archs())
+def test_topology_for_grids_matches_the_reference(arch, mesh, jdryrun):
+    """On the reference's grids ``topology_for`` is the reference's field
+    for field: stages, micro-batches (min(target, batch / (16 · pods))),
+    remat, loss chunks, the sequence-split decode, data 16, the pods, the
+    MoE mode and ZeRO-3, for every shape and flag."""
+    for name, shape in SHAPES.items():
+        for moe_mode, zero3 in (("gathered", True), ("a2a", False)):
+            got = dryrun.topology_for(get_arch(arch), shape, mesh=mesh, moe_mode=moe_mode,
+                                      zero3=zero3)
+            want = jdryrun.topology_for(jax_arch(arch), JSHAPES[name], multi_pod=mesh != "16x16",
+                                        moe_mode=moe_mode, zero3=zero3)
+            assert _topology_fields(got, False) == _topology_fields(want, True), (name, mesh)
+
+
 def test_multi_card_flags_raise():
-    for flags in (["--multi-pod"], ["--moe-mode", "a2a"], ["--no-zero3"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    """``--moe-mode a2a`` and ``--no-zero3`` need a grid's data axis: on
+    one card (the default mesh) they raise ``ValueError`` naming it, and
+    so does ``--multi-pod`` with ``--mesh 1card``; an unknown mesh raises."""
+    for flags in (["--moe-mode", "a2a"], ["--no-zero3"], ["--mesh", "1card", "--multi-pod"],
+                  ["--mesh", "1card", "--no-zero3"]):
+        with pytest.raises(ValueError, match="data axis of a grid"):
             dryrun.main(["--arch", "codeqwen1.5-7b", "--shape", "decode_32k", *flags])
+    with pytest.raises(ValueError, match="mesh must be one of"):
+        dryrun.topology_for(get_arch("codeqwen1.5-7b"), SHAPES["decode_32k"], mesh="4x4")
+    assert dryrun.mesh_of(None, True) == dryrun.mesh_of("16x16", True) == "2x16x16"
+    assert dryrun.mesh_of(None, False) == "1card"
+
+
+def test_fake_world_refuses_a_group_and_leaves_none():
+    """The grid count joins a fake world of its own, inside a context
+    manager: it refuses to start under an existing group, and destroys its
+    own."""
+    import torch.distributed as dist
+
+    with dryrun.fake_world(8, 3):
+        assert dist.get_world_size() == 8 and dist.get_rank() == 3
+        with pytest.raises(RuntimeError, match="process group exists"):
+            with dryrun.fake_world(8, 0):
+                pass
+    assert not dist.is_initialized()
+
+
+def _leaf_paths(tree, path=()):
+    out = {}
+    for k, v in tree.items():
+        out.update(_leaf_paths(v, (*path, k)) if isinstance(v, dict) else {(*path, k): v})
+    return out
+
+
+def test_grid_collective_bytes_equal_the_closed_form():
+    """Rank 0 of a data 2 x 2-stage grid (position 0, replica 0), the smoke
+    codeqwen1.5-7b train step at 2 micro-batches with remat, counted on
+    meta: every collective kind equals a closed form over the leaf layout.
+    Per block slot it holds and micro-batch, its ZeRO-3-gathered leaves are
+    all-gathered twice (the forward and the recompute) and their gradient
+    reduce-scattered once (an all-to-all); its leaves whole on every
+    replica have their gradient summed once (an all-gather of 2). Each top
+    leaf's gradient is all-reduced over the ring; the ZeRO-1 ``embed`` and
+    ``head`` gradients reduce-scattered (all-to-all) and their updated rows
+    all-gathered back, ``final_ln``'s gradient all-gathered; the loss
+    broadcast from the last position (an all-reduce of 4 bytes). Position 0
+    sends each micro-batch's activations once (collective-permute)."""
+    cfg = get_arch("codeqwen1.5-7b", smoke=True)
+    shape = ShapeConfig("t", S, B, "train")
+    topo, counter = dryrun.count_on_grid(
+        cfg, shape, pods=1, data=2, stages=2, rank=0,
+        topology=lambda g: TM.Topology(num_stages=2, num_micro=MICRO, data=2, ring=g))
+    full = TM.abstract_params(cfg, 2)
+    layout = TM.leaf_layout(cfg, topo)
+    per = TM.stacked_shape_plan(cfg, 2)["per_stage"]
+    blocks = _leaf_paths(full["blocks"])
+    gather, dims = _leaf_paths(layout.gather["blocks"]), _leaf_paths(layout.params["blocks"])
+    slot = {p: a.numel() // (2 * per) * 4 for p, a in blocks.items()}
+    gathered = sum(b for p, b in slot.items() if gather[p])
+    whole = sum(b for p, b in slot.items() if dims[p] is None)
+    tops = {k: full[k].numel() * 4 for k in full if k != "blocks"}
+    zero1 = [k for k in tops if layout.moments[k] is not None]
+    assert sorted(zero1) == ["embed", "head"]
+    wire = (B // 2) // MICRO * S * cfg.d_model * 4
+    want = {
+        "all-gather": per * MICRO * 2 * gathered + per * 2 * whole
+        + sum(tops[k] for k in zero1) + 2 * sum(tops[k] for k in tops if k not in zero1),
+        "all-to-all": per * MICRO * gathered + sum(tops[k] for k in zero1),
+        "all-reduce": sum(tops.values()) + 4,
+        "reduce-scatter": 0,
+        "collective-permute": MICRO * wire,
+    }
+    assert counter.collectives == want
 
 
 def _reference_hw(hw):
@@ -427,6 +523,47 @@ def test_dryrun_cli_writes_its_report(tmp_path):
                                                                    training=False)
     table = render.dryrun_table([r])
     assert "codeqwen1.5-7b | decode_32k | 4 |" in table and "| no |" in table
+
+
+def test_dryrun_cli_writes_grid_reports(tmp_path):
+    """``--mesh 16x16`` and ``--multi-pod`` count rank 0 of each grid on
+    meta and write ``__16x16`` and ``__2x16x16`` reports with the
+    reference's keys; ``render`` prints both grids' tables."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                               "codeqwen1.5-7b", "--shape", "decode_32k", "--out", str(tmp_path),
+                               *flags], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for flags in (["--mesh", "16x16"], ["--multi-pod"])]
+    for proc in procs:
+        out, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, out[-2000:]
+    rows = []
+    for mesh, chips in (("16x16", 256), ("2x16x16", 512)):
+        r = json.loads((tmp_path / f"codeqwen1.5-7b__decode_32k__{mesh}.json").read_text())
+        rows.append(r)
+        assert (r["mesh"], r["chips"], r["moe_mode"], r["zero3"]) == (mesh, chips, "gathered",
+                                                                     True)
+        assert {"num_micro", "seq_shard_decode", "memory", "collective_bytes", "roofline",
+                "kind", "tag", "ok"} <= set(r)
+        # 32 layers over 16 stages, 128 rows over 16 x pods replicas: 2 layers' ring of
+        # 8 / pods rows x (32768 + 16) slots x 32 kv heads x 128 x (k, v), fp32
+        cfg = get_arch("codeqwen1.5-7b")
+        ring = 2 * (128 // (16 * (chips // 256))) * (32768 + 16) * cfg.num_kv_heads \
+            * cfg.head_dim * 2 * 4
+        assert r["memory"]["entry_bytes"] >= ring and r["memory"]["fits"]
+        coll = r["collective_bytes"]
+        assert coll["all-gather"] > 0 and coll["collective-permute"] > 0
+        assert r["num_micro"] == 4
+    text = subprocess.run([sys.executable, "-m", "repro_torch.roofline.render", "--dir",
+                           str(tmp_path)], env=env, capture_output=True, text=True,
+                          timeout=120).stdout
+    assert "single pod 16×16 (256 cards)" in text and "multi-pod 2×16×16 (512 cards)" in text
+    for r in rows:
+        assert render.dryrun_table(rows, r["mesh"]) in text
+        assert render.roofline_table(rows, r["mesh"]) in text
+        assert f"| codeqwen1.5-7b | decode_32k | 4 | {r['memory']['peak_estimate_gib']} |" \
+            in render.dryrun_table(rows, r["mesh"])
 
 
 # ------------------------------------------------------------- meta route --

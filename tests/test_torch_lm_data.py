@@ -28,6 +28,15 @@ reference's ``param_layout`` and ``moment_specs``, exactly. Every rank and
 the one-process side run with one torch thread and deterministic
 algorithms; each world joins with a timeout, so a hang fails instead of
 stalling the suite.
+
+The pod axis (``Topology.pods``, the reference's ``pod_axis``) runs in the
+same 4-rank world on two more grids: pods 2 x data 1 x D 2 and pods 2 x
+data 2 x D 1, bit for bit against the one-process ``Topology(pods=2)``
+(training, serving, the long-context decode replicated across pods), and
+against the reference's step on a (pod 2, data 1, model 2) ``Auto`` mesh.
+The same world counts one train step of each rank under ``OpCounter`` on
+gloo; this process counts the same rank's step on meta in a fake world
+(``launch.dryrun.count_on_grid``): op for op the same.
 """
 
 import dataclasses
@@ -52,6 +61,7 @@ from repro_torch.configs import ShapeConfig, get_arch
 from repro_torch.core import ranks
 from repro_torch.core.data_group import DataGroup, fanout, ordered_sum
 from repro_torch.data.tokens import token_batch
+from repro_torch.launch import dryrun
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.train import lm_batch
 from repro_torch.models.transformer import model as TM
@@ -87,6 +97,15 @@ JAX_TRAIN = [
     ("gathered", "arctic-480b", {}),
     ("a2a", "arctic-480b", {"moe_mode": "a2a"}),
 ]
+# (case, arch, Topology fields, (pods, data, D)): the pod grids of the 4-rank world
+POD_TRAIN = [
+    ("codeqwen pods", "codeqwen1.5-7b", {}, (2, 1, 2)),
+    ("codeqwen pods zero3", "codeqwen1.5-7b", {}, (2, 2, 1)),
+    ("arctic pods a2a", "arctic-480b", {"moe_mode": "a2a"}, (2, 2, 1)),
+]
+# (name, (pods, data, D)): the grids whose ranks count a train step on gloo and on meta
+COUNT_GRIDS = [("dp", (1, 2, 2)), ("pods", (2, 1, 2))]
+COUNT_SHAPE = ShapeConfig("t", SEQ, BATCH, "train")
 LAYOUT_ARCHS = ["codeqwen1.5-7b", "qwen2.5-32b", "gemma2-27b", "glm4-9b", "mamba2-130m",
                 "zamba2-7b", "arctic-480b", "deepseek-v3-671b", "musicgen-large", "qwen2-vl-2b"]
 
@@ -191,6 +210,35 @@ def long_topology(ring=None):
     return TM.Topology(num_stages=2, num_micro=1, long_context=True, data=2, ring=ring)
 
 
+def pod_topology(grid_shape, ring=None, **fields):
+    """A pod grid's ``Topology``: ``(pods, data, D)``."""
+    pods, data, D = grid_shape
+    fields = {"num_stages": D, "num_micro": MICRO, "loss_chunks": LOSS_CHUNKS, **fields}
+    return TM.Topology(pods=pods, data=data, ring=ring, **fields)
+
+
+def pod_long_topology(ring=None):
+    return TM.Topology(num_stages=2, num_micro=1, long_context=True, pods=2, ring=ring)
+
+
+def count_topology(grid_shape, ring=None):
+    return pod_topology(grid_shape, ring)
+
+
+def count_train(cfg, topo):
+    """One train step of this rank (or process) counted under ``OpCounter``
+    (``launch.dryrun.build_step`` on the CPU): aten FLOPs and bytes by op,
+    kernel calls and work, collectives by kind."""
+    step, inputs = dryrun.build_step(cfg, COUNT_SHAPE, topo, device="cpu")
+    return counts_of(dryrun.count_step(step, inputs))
+
+
+def counts_of(counter):
+    return {"flops": dict(counter.flops_by_op), "bytes": dict(counter.bytes_by_op),
+            "calls": dict(counter.kernel_calls), "kernel_ops": dict(counter.kernel_ops),
+            "kernel_bytes": dict(counter.kernel_bytes), "collectives": dict(counter.collectives)}
+
+
 def jax_params():
     """The whole trees the reference's steps and the grid start from: the
     port's own data-split draws, as numpy."""
@@ -231,6 +279,24 @@ def _cases(grid, D, jax_in):
     return out
 
 
+def _pod_cases(grids, jax_in):
+    """The pod grids' cases: ``grids`` maps a ``(pods, data, D)`` shape to
+    this rank's ``RankGrid`` of it (None in one process)."""
+    out = {}
+    for name, arch, fields, shape in POD_TRAIN:
+        out[f"train {name}"] = train(config(arch), pod_topology(shape, grids[shape], **fields))
+    out["serve pods"] = serve(config("codeqwen1.5-7b"), pod_topology((2, 1, 2), grids[(2, 1, 2)]))
+    out["decode long pods"] = decode_long(long_config(), pod_long_topology(grids[(2, 1, 2)]))
+    if jax_in is not None:
+        cfg = get_arch("codeqwen1.5-7b", smoke=True)
+        topo = pod_topology((2, 1, 2), grids[(2, 1, 2)])
+        whole = params_from_jax(jax_in["codeqwen1.5-7b"])
+        grid = grids[(2, 1, 2)]
+        own = whole if grid is None else TM.position_shard(whole, topo, grid.position)
+        out["jax pods"] = train(cfg, topo, own)
+    return out
+
+
 def _rank_main(rank: int, world: int, port: int, out_dir: str, jax_in):
     torch.set_num_threads(1)
     torch.use_deterministic_algorithms(True)
@@ -240,6 +306,16 @@ def _rank_main(rank: int, world: int, port: int, out_dir: str, jax_in):
         grid = ranks.RankGrid(2, world // 2)
         results = _cases(grid, world // 2, jax_in)
         results["place"] = (grid.position, grid.replica)
+        if world == 4:
+            grids = {shape: ranks.RankGrid(shape[1], shape[2], pods=shape[0])
+                     for shape in ((2, 1, 2), (2, 2, 1))}
+            results.update(_pod_cases(grids, jax_in))
+            results["pod places"] = {shape: (g.pod, g.replica, g.position)
+                                     for shape, g in grids.items()}
+            cfg = config("codeqwen1.5-7b")
+            for name, shape in COUNT_GRIDS:
+                cgrid = grids[shape] if shape[0] > 1 else grid
+                results[f"count {name}"] = count_train(cfg, count_topology(shape, cgrid))
     finally:
         dist.destroy_process_group()
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -314,6 +390,28 @@ for name, arch, fields in inputs["train"]:
         if i == 0:
             res["mu"] = tree(opt.mu)
     out[name] = res
+# the pod axis: (pod 2, data 1, model 2), the batch split over (pod, data)
+try:
+    cfg = get_arch("codeqwen1.5-7b", smoke=True)
+    pmesh = jax.make_mesh((2, 1, 2), ("pod", "data", "model"), axis_types=(AxisType.Auto,) * 3)
+    topo = JM.Topology(num_stages=2, fsdp_size=1, pod_axis="pod", num_micro=MICRO,
+                       loss_chunks=LOSS_CHUNKS)
+    art = JM.make_train_step(cfg, topo, ShapeConfig("t", SEQ, BATCH, "train"), pmesh, lr=LR,
+                             dtype=jnp.float32)
+    params = dev(inputs["params"]["codeqwen1.5-7b"])
+    opt = art.meta["optimizer"].init(params)
+    batches = [{{"tokens": jnp.asarray(token_batch(batch=BATCH, seq=SEQ, vocab=cfg.vocab_size,
+                                                  seed=0, step=i))}} for i in range(STEPS)]
+    step = jax.jit(art.fn).lower(params, opt, batches[0]).compile(compiler_options=JIT)
+    res = {{"losses": []}}
+    for i in range(STEPS):
+        params, opt, m = step(params, opt, batches[i])
+        res["losses"].append(float(m["loss"]))
+        if i == 0:
+            res["mu"] = tree(opt.mu)
+    out["pods"] = res
+except Exception as err:  # the reference's failure is reported, not hidden
+    out["pods"] = {{"error": f"{{type(err).__name__}}: {{err}}"}}
 cfg = get_arch("codeqwen1.5-7b", smoke=True)
 topo = JM.Topology(num_stages=2, fsdp_size=2, num_micro=MICRO)
 params = dev(inputs["params"]["codeqwen1.5-7b"])
@@ -407,6 +505,15 @@ def worlds():
                                                   loss_chunks=LOSS_CHUNKS),
                                  tree_map(torch.clone, base))
             alone["dp2"] = train(cfg, topology(2), base)
+            alone["pods"] = _pod_cases({(2, 1, 2): None, (2, 2, 1): None}, params)
+            meta = {}
+            for name, shape in COUNT_GRIDS:
+                for rank in range(4):
+                    _, counter = dryrun.count_on_grid(
+                        cfg, COUNT_SHAPE, pods=shape[0], data=shape[1], stages=shape[2],
+                        rank=rank, topology=lambda g, shape=shape: count_topology(shape, g))
+                    meta[(name, rank)] = counts_of(counter)
+            alone["meta counts"] = meta
         jax_out = None
         if jax_proc is not None:
             log, _ = jax_proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
@@ -572,6 +679,101 @@ def test_dense_dp2_matches_dp1(worlds):
     np.testing.assert_allclose(l2, l1, atol=LOSSES_ATOL, rtol=0)
     for a, b in zip(tree_leaves(two["first"]), tree_leaves(one["first"])):
         assert float((a - b).abs().max()) <= MOMENT_TOL * float(b.abs().max())
+
+
+def pod_shard(tree, cfg, topo, place, moments=False):
+    """A pod grid rank's part of a one-process tree: every pod holds the
+    same, so its (position, replica) shard."""
+    _, replica, position = place
+    return TM.grid_shard(tree, cfg, topo, position, replica, moments=moments) \
+        if topo.data > 1 else TM.position_shard(tree, topo, position)
+
+
+@pytest.mark.parametrize("case, arch, fields, shape", POD_TRAIN)
+def test_pod_training_bit_identical(worlds, case, arch, fields, shape):
+    """pods 2 x data 1 x D 2 and pods 2 x data 2 x D 1 on 4 ranks, 2
+    steps: every rank's losses and its shard of the params and of Adam's
+    moments (the same in both pods) equal the one-process
+    ``Topology(pods=2)`` step's bit for bit; arctic's a2a exchange runs
+    over the data axis alone."""
+    cfg, topo = config(arch), pod_topology(shape, **fields)
+    want = worlds["alone"]["pods"][f"train {case}"]
+    pods = set()
+    for results in worlds["four"]:
+        got, place = results[f"train {case}"], results["pod places"][shape]
+        pods.add(place[0])
+        assert all(torch.equal(a, b) for a, b in zip(got["losses"], want["losses"])), place
+        for name in ("params", "mu", "nu"):
+            assert trees_equal(got[name], pod_shard(want[name], cfg, topo, place,
+                                                    moments=name != "params")), (place, name)
+    assert pods == {0, 1}
+
+
+def test_pod_serving_bit_identical(worlds):
+    """A prefill and 4 decode steps of 8 rows, 4 a pod: every rank's logits
+    and tokens (the whole batch's) and its rows of the caches (its pod's
+    rows of each micro-batch) equal one process's; the long-context decode's
+    one row, replicated across pods, equals one process's on every rank."""
+    want = worlds["alone"]["pods"]["serve pods"]
+    long_want = worlds["alone"]["pods"]["decode long pods"]
+    for results in worlds["four"]:
+        got, (pod, _, position) = results["serve pods"], results["pod places"][(2, 1, 2)]
+        assert torch.equal(got["logits"], want["logits"]) and \
+            torch.equal(got["tokens"], want["tokens"])
+        for name in ("pcache", "dcache"):
+            mine = cache_shard(want[name], topology(2), position, pod, seq=False)
+            assert trees_equal(got[name], mine), (pod, position, name)
+        long_got = results["decode long pods"]
+        assert torch.equal(long_got["logits"], long_want["logits"])
+        rows = tree_map(lambda a: a[[position]], long_want["cache"])
+        assert trees_equal(long_got["cache"], rows)
+
+
+def test_pods_match_jax_pod_mesh_train(worlds):
+    """From the same params, 2 steps on pods 2 x data 1 x D 2 against the
+    reference's step on a (pod 2, data 1, model 2) mesh: the step-1 loss
+    within 1e-5 relative, both losses within 1e-4, Adam's first moment
+    after step 1 within 1e-5 of each leaf's largest entry; and every rank
+    bit for bit the one-process ``Topology(pods=2)`` from those params."""
+    if worlds["jax"] is None:
+        pytest.skip("JAX is not installed")
+    want = worlds["jax"]["pods"]
+    if "error" in want:
+        pytest.skip(f"the reference's pod-mesh train step fails here (ROADMAP queue 3): "
+                    f"{want['error']}")
+    cfg, topo = get_arch("codeqwen1.5-7b", smoke=True), pod_topology((2, 1, 2))
+    alone = worlds["alone"]["pods"]["jax pods"]
+    ref = params_from_jax(want["mu"])
+    for results in worlds["four"]:
+        got, place = results["jax pods"], results["pod places"][(2, 1, 2)]
+        assert all(torch.equal(a, b) for a, b in zip(got["losses"], alone["losses"]))
+        losses = [float(x) for x in got["losses"][:STEPS]]
+        assert abs(losses[0] - want["losses"][0]) <= LOSS_RTOL * abs(want["losses"][0])
+        np.testing.assert_allclose(losses, want["losses"], atol=LOSSES_ATOL, rtol=0)
+        mine = _flat(got["first"])
+        shard = _flat(pod_shard(ref, cfg, topo, place, moments=True))
+        assert set(mine) == set(shard)
+        for path, b in shard.items():
+            a = mine[path]
+            assert a.shape == b.shape, path
+            assert float((a - b).abs().max()) <= MOMENT_TOL * float(b.abs().max()), path
+
+
+@pytest.mark.parametrize("grid", [name for name, _ in COUNT_GRIDS])
+def test_rank_count_on_gloo_equals_meta_fake_world(worlds, grid):
+    """Each rank's train step counted under ``OpCounter`` on gloo equals
+    the same rank's step counted on meta in a fake world of 4
+    (``dryrun.count_on_grid``), op for op: aten FLOPs and bytes by op,
+    kernel calls and work, and collectives by kind, some of each kind the
+    grid issues."""
+    for rank, results in enumerate(worlds["four"]):
+        got, want = results[f"count {grid}"], worlds["alone"]["meta counts"][(grid, rank)]
+        assert got == want, (grid, rank)
+        coll = got["collectives"]
+        assert coll["collective-permute"] > 0 and coll["all-reduce"] > 0
+        assert coll["all-gather"] > 0
+        if grid == "dp":
+            assert coll["all-to-all"] > 0  # the ZeRO-3 gradient's reduce-scatter
 
 
 # ------------------------------------------------------- one process only --

@@ -15,11 +15,19 @@ Every rank and the one-process side run with ``torch.set_num_threads(1)``
 and deterministic algorithms: the CPU index-put sums in a thread-dependent
 order otherwise. Each world joins with a timeout, so a hang fails instead
 of stalling the suite. The launchers run once each under ``torchrun``.
+
+The planner on ranks (``--auto``, ``--partition profiled``) runs in the
+same two worlds: through ``run_gnn`` and ``serve_gnn.run`` with injected
+costs and really profiled, every rank's table digest equal, the profiler
+called on rank 0 alone, and every update equal to the one-process host
+fill-drain under the balance and chunks the plan chose.
 """
 
 import ast
 import contextlib
+import dataclasses
 import datetime
+import io
 import os
 import socket
 import subprocess
@@ -35,8 +43,11 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import repro_torch.graphs as tg
+from repro_torch.core import autotune as tauto
+from repro_torch.core import costmodel as tcost
 from repro_torch.core import microbatch as tmb
 from repro_torch.core import ranks
+from repro_torch.core.cli import PipelineCLIConfig
 from repro_torch.core.overlap_report import capture_rank_reports
 from repro_torch.core.pipeline import GPipeConfig, make_engine
 from repro_torch.core.schedule import Placement
@@ -132,6 +143,112 @@ def serve(lockstep=None):
     return {r.query.qid: r.logp for r in results}
 
 
+# --------------------------------------------------- the planner on ranks --
+
+GAT_HEAVY = (1e-5, 1e-3, 1e-5, 1e-5, 8e-4, 1e-5)  # per-layer fwd seconds a chunk: the GAT layers
+
+
+def injected_costs():
+    """Per chunk count, a cost table whose two GAT layers dominate: a
+    deterministic pick that is not the uniform balance."""
+    return {c: tcost.LayerCosts(
+        names=("dropout_0", "gat_0", "elu", "dropout_1", "gat_1", "log_softmax"),
+        fwd=tuple(f / c for f in GAT_HEAVY), bwd=tuple(2 * f / c for f in GAT_HEAVY),
+        bwd_b=tuple(1.2 * f / c for f in GAT_HEAVY), bwd_w=tuple(0.8 * f / c for f in GAT_HEAVY))
+        for c in tauto.DEFAULT_CHUNK_COUNTS}
+
+
+def plan_args(argv, costs=None):
+    """``run_gnn``'s namespace for karate, 3 epochs, on the compiled
+    engine, with ``argv`` and injected ``costs_by_chunks``."""
+    ns = tlaunch.build_parser().parse_args(
+        ["--dataset", "karate", "--strategy", "halo", "--epochs", "3", "--log-every", "0",
+         "--device", "cpu", "--engine", "compiled", "--stages", "4", *argv])
+    if costs is not None:
+        ns.costs_by_chunks = costs
+    return ns
+
+
+@contextlib.contextmanager
+def counted_profiles(calls: list):
+    """Count ``profile_layer_costs`` calls into ``calls`` (the in-process
+    profile cache emptied first, so a profile is really taken)."""
+    real = tcost.profile_layer_costs
+    tcost._PROFILE_CACHE.clear()
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    tcost.profile_layer_costs = counting
+    try:
+        yield
+    finally:
+        tcost.profile_layer_costs = real
+
+
+def planned(fn, *args):
+    """``fn(*args)`` with its standard output and profiler calls caught:
+    ``(result or the ValueError's message, printed text, profiles taken)``."""
+    calls, text = [], io.StringIO()
+    with counted_profiles(calls), contextlib.redirect_stdout(text):
+        try:
+            out = fn(*args)
+        except ValueError as err:
+            out = str(err)
+    return out, text.getvalue(), len(calls)
+
+
+def plan_engine_run(cli):
+    """The planner's pick from injected costs (``plan_for_cli`` on this
+    world), trained 3 steps on the compiled engine: ``train``'s result and
+    the plan's (schedule, chunks, balance, rotation)."""
+    model, _ = gat()
+    plan = tauto.plan_for_cli(model, None, cli, costs_by_chunks=injected_costs(), device="cpu")
+    g = tg.load_dataset("karate")
+    res = train(model, tmb.make_plan(g, plan.chunks, strategy="halo"), balance=plan.balance,
+                schedule=plan.schedule, num_devices=plan.num_devices, placement=plan.placement,
+                engine="compiled")
+    rotation = plan.placement.stage_to_device if plan.placement is not None else None
+    return res, (plan.schedule, plan.chunks, plan.balance, rotation)
+
+
+def planner_cases(world: int) -> dict:
+    """The planner on this world's ranks: the CLI with injected and real
+    profiles, the pick on the engine, and a world no candidate fits."""
+    out = {}
+    costs = injected_costs()
+    out["auto cli"] = planned(tlaunch.run_gnn, plan_args(["--auto"], costs))
+    out["auto profiled"] = planned(tlaunch.run_gnn, plan_args(["--auto"]))
+    out["auto dry-run"] = planned(tlaunch.run_gnn, plan_args(["--auto", "--dry-run"], costs))
+    flags = ["--partition", "profiled", "--stages", "4", "--chunks", "4"] + (
+        ["--schedule", "1f1b"] if world == 4 else ["--schedule", "interleaved"])
+    out["profiled cli"] = planned(tlaunch.run_gnn, plan_args(flags))
+    out["auto engine"] = plan_engine_run(PipelineCLIConfig(stages=4, auto=True, device="cpu",
+                                                           engine="compiled"))
+    out["refuse-auto"] = planned(tlaunch.run_gnn, plan_args(
+        ["--auto", "--stages", "6" if world == 4 else "3"], costs))
+    if world == 4:
+        serve_ns = tserve.build_parser().parse_args([*SERVE_ARGS, "--auto", "--duration", "0.5"])
+        serve_ns.costs_by_chunks = costs
+        out["auto serve"] = planned(tserve.run, serve_ns)
+    return out
+
+
+def host_fill_drain_cli(out: dict) -> dict:
+    """The one-process host fill-drain under a ranked run's chosen balance
+    and chunks, through ``run_gnn``'s own epoch loop: its result dict."""
+    ns = plan_args([])
+    g = tg.load_dataset("karate")
+    model = tnet.build_paper_gat(g.num_features, g.num_classes)
+    plan = tmb.make_plan(g, out["chunks"], strategy="halo", halo_hops=2, seed=0)
+    cli = dataclasses.replace(PipelineCLIConfig.from_args(ns), engine="host",
+                              schedule="fill_drain", chunks=out["chunks"])
+    pipe = make_engine(model, cli.gpipe_config(tuple(out["balance"]), device="cpu"))
+    return tlaunch._train_pipeline(ns, g, model, plan, pipe, cli=cli,
+                                   balance=tuple(out["balance"]))
+
+
 def refusal(fn) -> str | None:
     try:
         fn()
@@ -156,6 +273,7 @@ def _world_cases(world: int, jax_params):
                 lambda: eng.train_step(params, state, plan, 11, opt), trace_dir=trace_dir)
         out["refuse-world"] = refusal(lambda: train(model, plan, engine="compiled"))
         out["refuse-host"] = refusal(lambda: tlaunch.main([*KARATE_ARGS, "--engine", "host"]))
+        out.update(planner_cases(world))
         return out
     for schedule in WORLD4:
         out[schedule] = train(*gat(), schedule=schedule, engine="compiled")
@@ -175,6 +293,7 @@ def _world_cases(world: int, jax_params):
     model, plan = gat()
     out["refuse-world"] = refusal(lambda: train(model, plan, balance=(2, 2, 2),
                                                 engine="compiled"))
+    out.update(planner_cases(world))
     return out
 
 
@@ -275,6 +394,16 @@ def worlds():
                 "serve": serve(),
                 "cli": tlaunch.main(KARATE_ARGS),
             }
+            planned = {}
+            g = tg.load_dataset("karate")
+            for world, results in (("four", four), ("two", two)):
+                for case in PLANNED:
+                    planned[(world, case)] = host_fill_drain_cli(results[0][case][0])
+                _, chunks, balance, _ = results[0]["auto engine"][1]
+                model, _ = gat()
+                planned[(world, "auto engine")] = train(
+                    model, tmb.make_plan(g, chunks, strategy="halo"), balance=balance,
+                    engine="host")
         outputs = {}
         for name, proc in cli.items():
             out, _ = proc.communicate(timeout=WORLD_TIMEOUT_S)
@@ -285,7 +414,7 @@ def worlds():
                 proc.kill()
                 proc.wait()
     return {"four": four, "two": two, "host": host, "alone": alone, "cli": outputs,
-            "jax": jax_end}
+            "jax": jax_end, "planned host": planned}
 
 
 # --------------------------------------------------------------- the tests --
@@ -407,12 +536,91 @@ def test_served_on_ranks_matches_one_process(worlds):
 
 def test_refusals_under_a_group(worlds):
     """A world that is neither the ring nor data_parallel x ring, and the
-    host engine under torchrun, raise ValueError on every rank."""
+    host engine under torchrun, raise ValueError on every rank; ``--auto``
+    is no longer refused there, but a world that no candidate's ring fits
+    raises on every rank, before any profile."""
     for results in worlds["four"]:
         assert "world size 4 is neither the ring's 3 ranks" in results["refuse-world"]
+    for world, key in (("four", "6 devices > max_devices 4"), ("two", "3 devices > max_devices 2")):
+        for results in worlds[world]:
+            msg, _, profiles = results["refuse-auto"]
+            assert isinstance(msg, str) and "every candidate was pruned" in msg, msg
+            assert key in msg and "positions < the" in msg and profiles == 0
     for results in worlds["two"]:
         assert "world size 2 is neither the ring's 4 ranks" in results["refuse-world"]
         assert "--engine host under torchrun" in results["refuse-host"]
+
+
+PLANNED = ("auto cli", "auto profiled", "profiled cli")
+
+
+@pytest.mark.parametrize("world", ["four", "two"])
+@pytest.mark.parametrize("case", [*PLANNED, "auto dry-run"])
+def test_planner_on_ranks_one_table(worlds, world, case):
+    """``--auto`` (injected and profiled costs, and ``--dry-run``) and
+    ``--partition profiled`` on the ring: every rank returns the same
+    table digest and pick, rank 0 alone prints the table, and rank 0 alone
+    calls the profiler (never, with injected costs)."""
+    results = [r[case] for r in worlds[world]]
+    outs = [out for out, _, _ in results]
+    assert all(isinstance(o, dict) for o in outs), outs
+    assert len({o["plan_sha"] for o in outs}) == 1
+    assert all((o["balance"], o["chunks"]) == (outs[0]["balance"], outs[0]["chunks"])
+               for o in outs)
+    marker = "[auto] evaluated" if case != "profiled cli" else "[gnn] profiled balance="
+    texts = [text for _, text, _ in results]
+    assert marker in texts[0] and not any(marker in t for t in texts[1:])
+    profiles = [n for _, _, n in results]
+    assert profiles[1:] == [0] * (len(results) - 1)
+    assert profiles[0] == (0 if case in ("auto cli", "auto dry-run") else profiles[0])
+    if case in ("auto profiled", "profiled cli"):
+        assert profiles[0] > 0
+    ring = 4 if world == "four" else 2
+    if case != "profiled cli":
+        assert outs[0]["schedule"] in (("fill_drain", "1f1b", "zb-h1") if ring == 4
+                                       else ("interleaved", "zb-v"))
+
+
+@pytest.mark.parametrize("world", ["four", "two"])
+@pytest.mark.parametrize("case", PLANNED)
+def test_planner_on_ranks_matches_host_fill_drain(worlds, world, case):
+    """Each rank's losses under the planned pipeline equal the one-process
+    host fill-drain's under the chosen balance and chunks, bit for bit."""
+    outs = [r[case][0] for r in worlds[world]]
+    want = worlds["planned host"][(world, case)]
+    for out in outs:
+        assert out["epoch_losses"] == want["epoch_losses"], (world, case)
+        assert out["ranks"] == len(outs)
+
+
+@pytest.mark.parametrize("world", ["four", "two"])
+def test_planned_engine_bit_identical_to_host_fill_drain(worlds, world):
+    """The injected costs' pick (``plan_for_cli`` on the ranks): a balance
+    other than the uniform one, on a ring as wide as the world, and every
+    rank's params, losses and eval after 3 steps equal the one-process host
+    fill-drain's under that balance bit for bit."""
+    picks = {r["auto engine"][1] for r in worlds[world]}
+    assert len(picks) == 1
+    (schedule, chunks, balance, _), = picks
+    assert balance != BALANCE
+    want_p, want_l, want_e, _ = worlds["planned host"][(world, "auto engine")]
+    for results in worlds[world]:
+        params, losses, ev, desc = results["auto engine"][0]
+        assert desc["ranks"]["ring"] == (4 if world == "four" else 2)
+        assert trees_equal(params, want_p)
+        assert all(torch.equal(a, b) for a, b in zip(losses, want_l))
+        assert all(torch.equal(ev[k], want_e[k]) for k in want_e)
+
+
+def test_auto_serve_on_ranks(worlds):
+    """``serve_gnn --auto`` on four ranks: rank 0 serves every query on the
+    planned pipeline, bit-identical to the full-graph forward (``--verify``),
+    the others follow its batches."""
+    first, *rest = (r["auto serve"] for r in worlds["four"])
+    summary, text, profiles = first
+    assert summary["partition"] == "auto" and summary["verify_mismatches"] == 0, summary
+    assert "[auto] evaluated" in text and profiles == 0
+    assert all("followed_batches" in out and "[auto]" not in t for out, t, _ in rest)
 
 
 def test_rank_reports_gathered_on_rank_0(worlds):
