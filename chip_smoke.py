@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA GPUs.
 
-    python3 chip_smoke.py                # phases 1-20 on one card (21 on 2+, 22-23 on 4)
+    python3 chip_smoke.py                # phases 1-20 and 24 on one card (21 on 2+, 22-23 on 4)
     python3 chip_smoke.py --phases 21    # phase 1, then phase 21 on up to 4 cards
     python3 chip_smoke.py --phases 22    # phase 1, then phase 22 on 4 cards
     python3 chip_smoke.py --phases 23    # phase 1, then phase 23 on 4 cards
@@ -259,11 +259,12 @@ exit:
 20. The ``examples/torch/`` scripts, each in a subprocess on its default
    device (the card), all five started together: each must exit 0.
    ``pipeline_parallel_gnn`` and ``scaling_larger_graphs`` take the CPU
-   test's smaller arguments: at their defaults they took 95.7 s. Beside
-   them, after phase 19, phase 19's full-width predictions count on meta in
-   two processes with no CUDA device (codeqwen1.5-7b at all four shapes;
-   deepseek-v3-671b at train_4k): each one-card verdict (peak against the
-   card's 80 GiB, the dominant term) prints after the examples.
+   test's smaller arguments: at their defaults they took 95.7 s. From the
+   start of phase 19 to the end of phase 24, phase 19's full-width
+   predictions count on meta in two processes with no CUDA device
+   (codeqwen1.5-7b at all four shapes; deepseek-v3-671b at train_4k): each
+   one-card verdict (peak against the card's 80 GiB, the dominant term)
+   prints after phase 24.
 
 21. Across cards (``[ranks]``), on every visible card up to 4; on a machine
    with one card it prints that it did not run (it needs 2+ cards, as on a
@@ -384,6 +385,35 @@ exit:
    on 4 cards (2 data replicas), started together: one result dict each,
    from rank 0. On a machine with fewer cards phase 23 prints why it did
    not run.
+
+24. The LM steps at the reference's own dtype, bf16, on one card
+   (``phase_bf16``, after phase 20, beside phase 19's predictions): params,
+   caches and activations bf16,
+   Adam's moments, Mamba's state, the loss and the logits float32, as the
+   reference builds its steps by default; TF32 off for the float32 parts.
+   Each kernel's bf16 instance is held on every captured call's own inputs
+   within one bf16 ulp of its plain version (``kernels.bf16_ulps``: at the
+   value, or at 2^-8 of the output's largest where the value is smaller;
+   flash against the plain version on the same bf16 inputs, SSD's y
+   against its float32 result rounded to bf16, its float32 state at 1e-4),
+   and its launches on each path counted (the ``kernels`` line's ``... bf16``
+   entries). 24a codeqwen1.5-7b served at full depth through
+   ``launch.serve.generate`` at phase 8's flags: prefill_s, decode ms a
+   token, tokens/s, peak; the prefill's logits within 0.10 of the largest
+   |logit| of the float32 step's from the same weights upcast, the first
+   decode's within 0.10 of a fresh bf16 prefill's. 24b mamba2-130m served
+   (the SSD kernel's bf16 instance) and trained at full depth, 2 stages,
+   4 steps. 24c zamba2-7b served at 81 slots (flash at hd 112, SSD at 112
+   heads). 24d codeqwen1.5-7b cut to 8 layers, ``--seq 256 --batch 8``, 2
+   micro-batches, 4 steps under deterministic algorithms on 1 stage, 2
+   stages and 2 stages interleaved: every loss and the last update's
+   params finite and bit for bit across the three. 24e deepseek-v3-671b's
+   prefill cut to one layer (flash at 192/128). 24f the dry run against
+   the card at bf16, as phase 19 at fp32, for 24a's prefill and 24d's
+   step. 24g each bf16 launch shape of 24a-24e timed with CUDA events over
+   replays: the kernel, its plain version, its bound at the bf16 rates, its
+   ulps from the plain version and, for flash,
+   ``scaled_dot_product_attention`` on the same bf16 tensors.
 
 ``--phases`` (e.g. ``--phases 21``) runs phase 1, then the phases named (and
 those whose results they take), then the closing lines; the kernels line
@@ -2393,20 +2423,23 @@ def phase_roofline(H, torch):
 
 
 def flash_bound(q, k, v, window=0, q_pos=None, kv_pos=None):
-    """(bound_ms, bound_by, bytes, ops, cuda_core_ms) of one fp32 flash
-    launch, from ``roofline.kernel_cost.flash_cost`` (the count the dry run
+    """(bound_ms, bound_by, bytes, ops, cuda_core_ms) of one flash launch,
+    from ``roofline.kernel_cost.flash_cost`` (the count the dry run
     reads): q, k, v read once and the output written once; per needed
     (query, key) pair a hd-long dot product and a hd_v-long multiply-add (2
     operations each) plus 4 softmax operations; with positions, the pairs
-    their mask needs. The bound counts the operations as the fp32-accurate
-    kernel issues them, three TF32 tensor-core products each (3xTF32) at the
-    TF32 rate; ``cuda_core_ms`` is the same count at the fp32 CUDA-core
-    rate, printed beside it."""
+    their mask needs. The bound counts the operations as the kernel issues
+    them: on fp32 inputs three TF32 tensor-core products each (3xTF32) at
+    the TF32 rate, on bf16 one bf16 product at the bf16 rate (bytes 2 a
+    value); ``cuda_core_ms`` is the same count at the fp32 CUDA-core rate,
+    printed beside it."""
     from repro_torch.kernels.flash.kernel import cost
     from repro_torch.roofline.kernel_cost import bound
 
+    from repro_torch.roofline.kernel_cost import precision_of
+
     ops, nbytes = cost(q, k, v, window=window, q_pos=q_pos, kv_pos=kv_pos)
-    t_bytes, t_ops = (t * 1e3 for t in bound(ops, nbytes, CARD))
+    t_bytes, t_ops = (t * 1e3 for t in bound(ops, nbytes, CARD, precision_of(q.dtype)))
     return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops,
             ops / CARD.fp32_flops * 1e3)
 
@@ -3333,11 +3366,11 @@ def phase_moe_lm(H, torch):
 
 # ------------------------------------------------- the dry run (phase 19) --
 
-DRYRUN_PREDICTIONS = (  # full width on meta, one process each, beside phase 20
+DRYRUN_PREDICTIONS = (  # full width on meta, one process each, beside phases 19-24
     [("codeqwen1.5-7b", s) for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")],
     [("deepseek-v3-671b", "train_4k")])
 # deepseek-v3-671b x train_4k, the longest, counted in 110.1 s on the card's
-# host (niced, beside phases 2-18)
+# host (niced, beside phases 2-18), in 128.1 s at bf16 (beside phase 20, PR 28)
 PREDICTION_TIMEOUT_S = 300
 DRYRUN_OUT = ROOT / "build" / "dryrun_predictions"
 PEAK_RTOL = 0.10  # the step's peak increment: counter against the card's allocator
@@ -3376,9 +3409,10 @@ def stop_predictions(predictions):
         log_file.close()
 
 
-def counted_on_card_and_meta(H, torch, label, cfg, topo, shape):
+def counted_on_card_and_meta(H, torch, label, cfg, topo, shape, dtype=None):
     """Build ``shape``'s step on the card (``dryrun.build_step``, params from
-    seed 0) and run it once under ``OpCounter``, then the same step on meta;
+    seed 0, in ``dtype``: float32 by default, the launchers' dtype) and run
+    it once under ``OpCounter``, then the same step on meta;
     hold the aten FLOPs and bytes equal op for op, the kernel calls equal to
     the wrappers' launch counts, the flash operations equal to
     ``kernel_cost``'s count, and the counter's peak within 10% of the card
@@ -3390,7 +3424,8 @@ def counted_on_card_and_meta(H, torch, label, cfg, topo, shape):
     from repro_torch.roofline.analysis import collective_bytes, model_flops, roofline_report
     from repro_torch.roofline.kernel_cost import flash_cost
 
-    step, inputs = build_step(cfg, shape, topo, device=H.dev)
+    dtype = torch.float32 if dtype is None else dtype
+    step, inputs = build_step(cfg, shape, topo, device=H.dev, dtype=dtype)
     torch.cuda.synchronize()
     wrappers = {"flash_attention_kernel": H.FK.flash_attention_kernel,
                 "ssd_kernel": H.DK.ssd_kernel}
@@ -3401,7 +3436,7 @@ def counted_on_card_and_meta(H, torch, label, cfg, topo, shape):
     torch.cuda.synchronize()
     card_total = torch.cuda.max_memory_allocated()
     launched = {name: w.launches - before[name] for name, w in wrappers.items()}
-    meta_step, meta_inputs = build_step(cfg, shape, topo, device="meta")
+    meta_step, meta_inputs = build_step(cfg, shape, topo, device="meta", dtype=dtype)
     meta = count_step(meta_step, meta_inputs)
     del meta_step, meta_inputs
     if dict(meta.flops_by_op) != dict(card.flops_by_op) or \
@@ -3421,7 +3456,8 @@ def counted_on_card_and_meta(H, torch, label, cfg, topo, shape):
     calls = card.kernel_calls.get("flash_attention_kernel", 0)
     b_mb = shape.global_batch // topo.num_micro
     want_ops = calls * flash_cost(b_mb, shape.seq_len, shape.seq_len, cfg.num_heads,
-                                  cfg.num_kv_heads, cfg.head_dim, cfg.head_dim, 4)[0]
+                                  cfg.num_kv_heads, cfg.head_dim, cfg.head_dim,
+                                  dtype.itemsize)[0]
     if card.kernel_ops.get("flash_attention_kernel", 0) != want_ops:
         raise AssertionError(f"{label}: flash operations {card.kernel_ops} != {want_ops}")
     # the step's own memory: what it added over what was live at entry
@@ -3433,7 +3469,8 @@ def counted_on_card_and_meta(H, torch, label, cfg, topo, shape):
         raise AssertionError(f"{label}: the counter's peak increment {counted_inc} B is "
                              f"{ratio:.4f} of the card's {card_inc} B (limit 1 +- {PEAK_RTOL})")
     for name in launched:
-        H.launches[name] = H.launches.get(name, 0) + launched[name]
+        key = name if dtype == torch.float32 else BF16_KEYS[name]
+        H.launches[key] = H.launches.get(key, 0) + launched[name]
 
     times = []
     for _ in range(STEP_REPEATS):
@@ -3451,9 +3488,11 @@ def counted_on_card_and_meta(H, torch, label, cfg, topo, shape):
                              device_collective=collective_bytes(counts["collectives"]), chips=1,
                              model_flops_global=model_flops(cfg, shape,
                                                             training=shape.kind == "train"),
-                             hw=CARD)
-    log(f"[dryrun-card] {label}: meta == card: aten {card.aten_flops} FLOPs "
-        f"({dict(card.flops_by_op)}), {card.aten_bytes} B over {len(card.bytes_by_op)} ops; "
+                             hw=CARD, aten_flops_by_dtype=counts["flops"]["by_dtype"],
+                             kernel_ops_by_precision=counts["flops"]["kernels_by_precision"])
+    log(f"[dryrun-card] {label}: {str(dtype)[6:]}, meta == card: aten {card.aten_flops} FLOPs "
+        f"({dict(card.flops_by_op)}; by dtype {dict(card.flops_by_dtype)}), {card.aten_bytes} B "
+        f"over {len(card.bytes_by_op)} ops; "
         f"kernel calls {dict(card.kernel_calls)} == launches; flash operations "
         f"{card.kernel_ops.get('flash_attention_kernel', 0)} == kernel_cost; peak increment "
         f"over entry: counter {counted_inc / 1e9:.6f} GB (peak {card.peak_bytes / 1e9:.6f} less "
@@ -3538,13 +3577,13 @@ def report_predictions(H, torch, predictions):
             raise AssertionError(f"the dry runs failed ({proc.returncode}): "
                                  f"{path.read_text()[-2000:]}")
     log(f"[dryrun] predictions: {time.perf_counter() - t0:.1f} s from their start to the last "
-        f"report, {len(procs)} processes beside phase 20")
+        f"report, {len(procs)} processes beside phases 19, 20 and 24")
     for arch, shape in itertools.chain(*DRYRUN_PREDICTIONS):
         r = json.loads((DRYRUN_OUT / f"{arch}__{shape}__1card.json").read_text())
         mem, rf = r["memory"], r["roofline"]
-        log(f"[dryrun] prediction {arch} x {shape} (meta, full width, {r['num_micro']} "
-            f"micro-batches, counted in {r['count_s']} s beside phase 20): peak "
-            f"{mem['peak_estimate_gib']} GiB {'fits' if mem['fits'] else 'does NOT fit'} the "
+        log(f"[dryrun] prediction {arch} x {shape} (meta, full width, {r['dtype']}, "
+            f"{r['num_micro']} micro-batches, counted in {r['count_s']} s beside phases 19-24): "
+            f"peak {mem['peak_estimate_gib']} GiB {'fits' if mem['fits'] else 'does NOT fit'} the "
             f"{mem['card_gib']} GiB card; aten {r['flops']['aten']:.6g} FLOPs, kernels "
             f"{r['flops']['kernels']}, {r['bytes']['total']:.6g} B; dominant "
             f"{rf['dominant']} ({rf['bound_s']:.6g} s: compute {rf['compute_s']:.6g}, memory "
@@ -3558,7 +3597,7 @@ def phase_dryrun(H, torch):
     micro-batches, 4 loss chunks, remat), each counted on the card and on
     meta (``counted_on_card_and_meta``); the long-context windows on the
     card (``long_context_decode``). The full-width predictions count
-    beside phase 20 (``start_predictions``, ``report_predictions``)."""
+    beside phases 19-24 (``start_predictions``, ``report_predictions``)."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.models.transformer.model import Topology
 
@@ -4881,7 +4920,8 @@ def lm_data_counts(H, torch, reports):
         for r, rep in enumerate(reports):
             got = rep["count"][label]
             _, meta = count_on_grid(cfg, shape, pods=pods, data=data, stages=D, rank=r,
-                                    topology=lambda g, s=grid_shape: count_topology(s, g))
+                                    topology=lambda g, s=grid_shape: count_topology(s, g),
+                                    dtype=torch.float32)
             want = counts_of(meta)
             if got["counts"] != want:
                 diff = {k: (got["counts"][k], want[k]) for k in want
@@ -5353,7 +5393,7 @@ def worker_lm_data_count(H, torch, rl, grid):
         pods, data, D = grid_shape
         g = grid if pods == 1 else ranks.RankGrid(data, D, pods=pods)
         topo = count_topology(grid_shape, g)
-        step, inputs = build_step(cfg, shape, topo, device=H.dev)
+        step, inputs = build_step(cfg, shape, topo, device=H.dev, dtype=torch.float32)
         torch.cuda.synchronize()
         before = flash.launches
         torch.cuda.reset_peak_memory_stats()
@@ -5461,6 +5501,463 @@ def worker_lm_data_moe(H, torch, rl, experts):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------- the reference's dtype (phase 24) --
+
+# 24a: the bf16 prefill's logits against the float32 step's from the same
+# weights upcast, and the bf16 decode's against a fresh bf16 prefill, each
+# as a share of the largest |logit| of the float32 (fresh) logits; the fp32
+# decode limit stays DECODE_VS_PREFILL_ATOL. bf16's rounding grows with
+# depth and width: at codeqwen1.5-7b's full width the prefill's gap to the
+# float32 step was 0.067 (PERF.md), where the CPU tests hold the port's bf16
+# logits within 0.02 of the reference's bf16 ones at smoke size
+BF16_VS_FP32_FRAC = 0.10
+BF16_DECODE_FRAC = 0.10
+BF16_ULPS = 1.0  # the bf16 instances against their plain version (kernels.bf16_ulps)
+BF16_KEYS = {"flash_attention_kernel": "flash_attention_kernel bf16",
+             "ssd_kernel": "ssd_kernel bf16"}
+BF16_TRAIN = ["--seq", "256", "--batch", "8", "--lr", "3e-4"]  # phase 16's run_lm defaults
+
+
+def held_bf16(H, name, label, got, want, shape):
+    """A bf16 kernel output against its plain version's, rounded to bf16:
+    at most ``BF16_ULPS`` apart (``kernels.bf16_ulps``); also prints how many
+    values are more than one ulp apart by the strict count, at the value's
+    own ulp, and the largest |value| among them."""
+    from repro_torch.kernels import bf16_ulps
+
+    t = H.torch
+    key = BF16_KEYS[name]
+    if got.dtype != t.bfloat16 or got.shape != want.shape:
+        raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)}, want bf16 "
+                             f"{tuple(want.shape)}")
+    ulps = bf16_ulps(got, want)
+    worst = float(ulps.max()) if ulps.numel() else 0.0
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    mag = want.double().abs()
+    strict = diff > t.exp2(t.floor(t.log2(mag.clamp(min=t.finfo(t.bfloat16).tiny))) - 7)
+    n_strict = int(strict.sum())
+    at = float(mag[strict].max()) if n_strict else 0.0
+    if not worst <= BF16_ULPS:
+        raise AssertionError(f"{label}: {worst:.3f} bf16 ulps from the plain version "
+                             f"(limit {BF16_ULPS})")
+    H.err[key] = max(H.err.get(key, 0.0), err)
+    H.used[key] = max(H.used.get(key, 0.0), worst / BF16_ULPS)
+    log(f"[bf16] {name:21s} {label:46s} {shape} {worst:.3f} ulps (limit {BF16_ULPS}), "
+        f"max|err| {err:.3g}; {n_strict} of {got.numel()} values over one ulp at their own "
+        f"magnitude, the largest |value| among them {at:.3g} (of {float(mag.max()):.3g})")
+
+
+def compare_bf16_flash(H, label, q, k, v, out=None, **kw):
+    """The flash kernel's bf16 instance (``out``, else launched here)
+    against the plain version on the same bf16 inputs."""
+    from repro_torch.kernels.flash.ref import flash_attention_ref
+
+    got = H.FK.flash_attention_kernel(q, k, v, **kw) if out is None else out
+    want = flash_attention_ref(q, k, v, **kw)
+    b, s, h, hd = q.shape
+    held_bf16(H, "flash_attention_kernel", label, got, want,
+              f"B={b} S={s:4d} H={h:3d} KV={k.shape[2]:3d} hd={hd:3d} hd_v={v.shape[-1]:3d}")
+
+
+def compare_bf16_ssd(H, label, x, dt, loga, B, C, chunk, out=None):
+    """The SSD kernel on bf16 x, B, C (``out``, else launched here): y
+    against the plain version's float32 result on the same values rounded
+    to bf16, the float32 final state at ``SSD_ATOL``."""
+    from repro_torch.kernels.ssd.ref import ssd_chunk_scan
+
+    y, state = H.DK.ssd_kernel(x, dt, loga, B, C, chunk=chunk) if out is None else out
+    want_y, want_state = ssd_chunk_scan(x.float(), dt, loga, B.float(), C.float(), chunk=chunk)
+    b, s, h, p = x.shape
+    shape = f"b={b} S={s:4d} h={h:3d} P={p:3d} N={B.shape[-1]:3d} chunk={chunk:3d}"
+    held_bf16(H, "ssd_kernel", f"{label} y", y, want_y.to(H.torch.bfloat16), shape)
+    err = float((state - want_state).abs().max())
+    if state.dtype != H.torch.float32 or not err <= SSD_ATOL:
+        raise AssertionError(f"{label}: final state {state.dtype}, max |err| {err:.3g} (limit "
+                             f"{SSD_ATOL})")
+
+
+def compare_bf16_calls(H, cap, label):
+    """Every call ``cap`` kept, held on its own inputs (``compare_bf16_*``)."""
+    for name, calls in cap.captured.items():
+        for i, (a, kw, out) in enumerate(calls):
+            if name == "flash_attention_kernel":
+                args = {k: kw[k] for k in ("window", "softcap", "q_pos", "kv_pos") if k in kw}
+                compare_bf16_flash(H, f"{label} call {i:3d}", *a, out=out, **args)
+            else:
+                compare_bf16_ssd(H, f"{label} call {i:3d}", *a, kw["chunk"], out=out)
+    cap.captured = {}
+
+
+def count_bf16(H, cap, want, what):
+    """Hold the wrappers' launches in ``cap`` to ``want`` ({kernel: n}) and
+    add them to the bf16 instances' main-path counts."""
+    for name, n in want.items():
+        if cap.launches[name] != n:
+            raise AssertionError(f"{what}: {name} launched {cap.launches[name]} times, want {n}")
+        H.launches[BF16_KEYS[name]] = H.launches.get(BF16_KEYS[name], 0) + n
+
+
+def bf16_prompt(torch, cfg, args, dev):
+    """``serve``'s prompt (and frontend rows) for ``args``, the rows bf16."""
+    from repro_torch.data.tokens import frontend_embeds, token_batch
+    from repro_torch.models.transformer.model import frontend_rows
+
+    s_front = frontend_rows(cfg, args.prompt_len)
+    n_text = args.prompt_len - s_front
+    prompt = torch.from_numpy(token_batch(batch=args.batch, seq=n_text, vocab=cfg.vocab_size,
+                                          seed=args.seed)[:, :-1][:, :n_text].astype("int64"))
+    front = torch.from_numpy(frontend_embeds(batch=args.batch, seq=s_front, d_model=cfg.d_model,
+                                             seed=args.seed)).to(dev, torch.bfloat16) \
+        if s_front else None
+    return prompt.to(dev), front
+
+
+def serve_bf16(H, torch, tag, arch, *, cut=None, decode=True, fp32_check=False):
+    """Serve ``arch`` at full width (fields ``cut``) from bf16 params
+    (``init_params(dtype=torch.bfloat16)``) through ``launch.serve.generate``
+    at phase 8's flags: caches bf16 (Mamba's ``ssm`` state float32), every
+    kernel launched once per active slot and micro-batch in the prefill, its
+    bf16 instance held on each slot's own inputs from micro-batch 0; with
+    ``decode``, the first decode step's logits against a fresh bf16 prefill
+    of one row more within ``BF16_DECODE_FRAC``; with ``fp32_check``, the
+    prefill's logits against the float32 step's from the same weights
+    upcast (TF32 off) within ``BF16_VS_FP32_FRAC``."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.serve import build_parser, generate
+    from repro_torch.models.transformer.model import (
+        Topology, _prefill, init_cache, init_params, make_extras, make_prefill_step)
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    args = build_parser().parse_args(["--arch", arch, *LM_SERVE_ARGS])
+    cfg, cut_note = cut_config(get_arch(arch), cut)
+    topo = Topology(num_stages=1, num_micro=args.chunks)
+    slots = active_slots(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=args.seed, device=H.dev, dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    prompt, front = bf16_prompt(torch, cfg, args, H.dev)
+    steps = args.decode_steps if decode else 0
+    with KernelCapture(slots) as cap:
+        gen = generate(cfg, topo, params, prompt, steps, front)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    count_bf16(H, cap, {name: n * args.chunks for name, n in slots.items()}, f"{tag} {arch}")
+    kinds = {str(a.dtype) for a in tree_leaves(gen.cache)}
+    want_kinds = {"torch.bfloat16"} | ({"torch.float32"} if "ssd_kernel" in slots else set())
+    if kinds != want_kinds:
+        raise AssertionError(f"{tag} {arch}: cache dtypes {kinds}, want {want_kinds}")
+    for logits in (gen.prefill_logits, gen.first_decode_logits) if decode else \
+            (gen.prefill_logits,):
+        if logits.dtype != torch.float32 or not bool(logits.isfinite().all()):
+            raise AssertionError(f"{tag} {arch}: logits {logits.dtype} or non-finite")
+    compare_bf16_calls(H, cap, f"{tag} {arch} prefill mb 0")
+
+    b, plen = prompt.shape[0], prompt.shape[1] + (0 if front is None else front.shape[1])
+    batch = {"tokens": prompt} if front is None else {"tokens": prompt, "frontend_embeds": front}
+    notes = []
+    if fp32_check:
+        params32 = tree_map(lambda p: p.float(), params)
+        pshape = ShapeConfig("fp32", plen, b, "prefill")
+        with torch.inference_mode():
+            logits32, _ = make_prefill_step(cfg, topo, pshape)(
+                params32, init_cache(cfg, topo, pshape, device=H.dev), batch)
+        torch.cuda.synchronize()
+        del params32
+        scale = float(logits32.abs().max())
+        err = float((gen.prefill_logits - logits32).abs().max())
+        agree = int((gen.prefill_logits.argmax(-1) == logits32.argmax(-1)).sum())
+        if not err <= BF16_VS_FP32_FRAC * scale:
+            raise AssertionError(f"{tag} {arch}: bf16 prefill logits {err:.4g} from the fp32 "
+                                 f"step's (limit {BF16_VS_FP32_FRAC} x {scale:.4g})")
+        notes.append(f"prefill vs the fp32 step from the same weights upcast: max |logit diff| "
+                     f"{err:.6g} = {err / scale:.5f} of the largest |logit| {scale:.6g} (limit "
+                     f"{BF16_VS_FP32_FRAC}), argmax agree {agree}/{b}")
+    if decode:
+        tok0 = torch.from_numpy(gen.tokens[:, 0]).to(H.dev, torch.int64)
+        longer = dict(batch, tokens=torch.cat([prompt, tok0[:, None]], dim=1))
+        shape = ShapeConfig("check", plen + 1, b, "prefill")
+        with torch.inference_mode():
+            fresh, _ = _prefill(cfg, topo, make_extras(cfg, 1), params,
+                                init_cache(cfg, topo, shape, dtype=torch.bfloat16, device=H.dev),
+                                longer, plen + 1)
+        torch.cuda.synchronize()
+        scale = float(fresh.abs().max())
+        err = float((gen.first_decode_logits - fresh).abs().max())
+        agree = int((gen.first_decode_logits.argmax(-1) == fresh.argmax(-1)).sum())
+        if not err <= BF16_DECODE_FRAC * scale:
+            raise AssertionError(f"{tag} {arch}: bf16 decode at position {plen} {err:.4g} from "
+                                 f"a fresh prefill (limit {BF16_DECODE_FRAC} x {scale:.4g})")
+        notes.append(f"decode vs a fresh bf16 {plen + 1}-row prefill: max |logit diff| "
+                     f"{err:.6g} = {err / scale:.5f} of the largest |logit| {scale:.6g} (limit "
+                     f"{BF16_DECODE_FRAC}), argmax agree {agree}/{b}")
+    n_tokens = int(gen.tokens.size)
+    launched = ", ".join(f"{name} bf16 {n * args.chunks}" for name, n in slots.items())
+    timing = f"prefill_s {gen.prefill_s:.6f}"
+    if steps:
+        timing += (f", decode ms a token {gen.decode_s / steps * 1e3:.6f}, tokens_per_s "
+                   f"{n_tokens / (gen.prefill_s + gen.decode_s):.3f}")
+    log(f"[bf16] {tag} {arch} served full width{cut_note} ({n_params} params, bf16), batch {b}, "
+        f"prompt {plen}, {steps} decode steps, {args.chunks} micro-batches: {timing}, "
+        f"peak_mem_gb {peak:.6f}; prefill launches {launched}"
+        + "".join(f"; {note}" for note in notes)
+        + f"; phase {time.perf_counter() - t_phase:.1f} s [{H.card}]")
+    del params, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bf16_train_run(torch, cfg, topo, params, args, steps, on_step=None):
+    """``steps`` train steps (``make_train_step``, lr ``args.lr``) from
+    ``params`` on ``args``' batches: (losses, step seconds, params, the
+    step, Adam's state)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models.transformer.model import make_train_step
+
+    step = make_train_step(cfg, topo, ShapeConfig("bf16", args.seq, args.batch, "train"),
+                           lr=args.lr)
+    opt = step.optimizer.init(params)
+    losses, times = [], []
+    for i in range(steps):
+        batch = lm_batch(cfg, args, i, params["embed"].device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if on_step is not None:
+            on_step(i)
+    return losses, times, params, step, opt
+
+
+def train_bf16(H, torch, tag, arch, stages, steps, *, cut=None):
+    """Train ``arch`` at full width (fields ``cut``) from bf16 params with
+    float32 Adam moments, ``stages`` stages of 2 micro-batches at phase
+    16's flags: every kernel launched twice (forward and recompute) per
+    active slot, micro-batch and step, the first forward's calls held on
+    their own inputs, losses and the last update's params finite; the
+    median step, tokens/s, peak, and the model FLOPs over the median step as
+    a share of the bf16 peak."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.train import build_parser
+    from repro_torch.models.transformer.model import Topology, init_params
+    from repro_torch.roofline import model_flops
+    from repro_torch.train.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    args = build_parser().parse_args(["--mode", "lm", "--arch", arch, *BF16_TRAIN])
+    cfg, cut_note = cut_config(get_arch(arch), cut)
+    topo = Topology(num_stages=stages, num_micro=2, loss_chunks=4)
+    first = {name: n * 2 for name, n in active_slots(cfg, stages).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=args.seed, num_stages=stages, device=H.dev,
+                         dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    with KernelCapture(first) as cap:
+        losses, times, params, step, opt = bf16_train_run(torch, cfg, topo, params, args, steps)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    count_bf16(H, cap, {name: 2 * n * steps for name, n in first.items()}, f"{tag} {arch}")
+    if not all(map(math.isfinite, losses)) or not all(
+            bool(p.isfinite().all()) for p in tree_leaves(params)):
+        raise AssertionError(f"{tag} {arch}: losses {losses} or the last update non-finite")
+    kinds = ({str(p.dtype) for p in tree_leaves(params)},
+             {str(m.dtype) for m in tree_leaves(opt.mu)})
+    compare_bf16_calls(H, cap, f"{tag} {arch} train step 0 forward")
+    median = statistics.median(times[1:])
+    flops = model_flops(cfg, ShapeConfig("t", args.seq, args.batch, "train"), training=True)
+    log(f"[bf16] {tag} {arch} trained full width{cut_note} ({n_params} params bf16, Adam's "
+        f"moments float32; params {sorted(kinds[0])}, moments {sorted(kinds[1])}), {topo}, seq "
+        f"{args.seq}, batch {args.batch}, lr {args.lr}: losses {losses}; step s {times}; median "
+        f"step after the first {median:.6f} s, {args.batch * args.seq / median:.1f} tokens/s, "
+        f"model FLOPs {flops:.6g} over it {flops / median / CARD.bf16_flops:.4f} of the bf16 "
+        f"peak ({CARD.bf16_flops:.3g}/s); peak allocated {peak:.6f} GB; launches {cap.launches}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s [{H.card}]")
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def restack(torch, params, num_stages):
+    """A 1-stage tree's blocks (1, L, ...) as ``num_stages`` stages of L /
+    ``num_stages`` slots, copied."""
+    from repro_torch.train.optimizer import tree_map
+
+    one = lambda a: a[0].reshape(num_stages, a.shape[1] // num_stages, *a.shape[2:]).clone()
+    return dict(tree_map(torch.clone, params), blocks=tree_map(one, params["blocks"]))
+
+
+def train_bf16_bit_identical(H, torch, tag, arch, steps, cut):
+    """``arch`` (fields ``cut``) trained from one bf16 init under
+    deterministic algorithms three ways: 1 stage fill_drain, 2 stages
+    fill_drain (the same rows restacked), 2 stages interleaved on one card
+    (2 virtual stages): every loss, and every param after the last update,
+    bit for bit; losses and params finite. Each run's median step and its
+    model FLOPs over it as a share of the bf16 peak."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.train import build_parser
+    from repro_torch.models.transformer.model import Topology, init_params
+    from repro_torch.roofline import model_flops
+    from repro_torch.train.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    args = build_parser().parse_args(["--mode", "lm", "--arch", arch, *BF16_TRAIN])
+    cfg, cut_note = cut_config(get_arch(arch), cut)
+    topo = lambda stages, **kw: Topology(num_stages=stages, num_micro=2, loss_chunks=4, **kw)
+    runs = (("1 stage fill_drain", 1, {}), ("2 stages fill_drain", 2, {}),
+            ("2 stages interleaved (2 virtual)", 2, {"schedule": "interleaved", "num_virtual": 2}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = init_params(cfg, seed=args.seed, device=H.dev, dtype=torch.bfloat16)
+    flops = model_flops(cfg, ShapeConfig("t", args.seq, args.batch, "train"), training=True)
+    ref, lines = None, []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for what, stages, kw in runs:
+            start = restack(torch, base, stages)
+            slots = {name: n * 2 for name, n in active_slots(cfg, stages).items()}
+            with KernelCapture({name: 0 for name in slots}) as cap:
+                losses, times, params, step, opt = bf16_train_run(
+                    torch, cfg, topo(stages, **kw), start, args, steps)
+            count_bf16(H, cap, {name: 2 * n * steps for name, n in slots.items()},
+                       f"{tag} {arch} {what}")
+            del step, opt, start
+            if not all(map(math.isfinite, losses)) or not all(
+                    bool(p.isfinite().all()) for p in tree_leaves(params)):
+                raise AssertionError(f"{tag} {arch} {what}: losses {losses} or params non-finite")
+            leaves = tree_leaves(restack(torch, params, 2) if stages == 1 else params)
+            del params
+            if ref is None:
+                ref = (losses, leaves)
+            else:
+                same = losses == ref[0] and all(H.torch.equal(a, b)
+                                                for a, b in zip(leaves, ref[1]))
+                if not same:
+                    raise AssertionError(f"{tag} {arch}: {what} differs from {runs[0][0]} "
+                                         f"(losses {losses} vs {ref[0]})")
+            median = statistics.median(times[1:])
+            lines.append(f"{what}: losses {losses}, median step {median:.6f} s, model FLOPs "
+                         f"{flops:.6g} over it {flops / median / CARD.bf16_flops:.4f} of the bf16 "
+                         "peak")
+            del leaves
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[bf16] {tag} {arch} full width{cut_note}, bf16 params, seq {args.seq}, batch "
+        f"{args.batch}, 2 micro-batches, {steps} steps under deterministic algorithms: "
+        + "; ".join(lines) + f"; every loss and the last update's params bit-identical across "
+        f"the three; peak allocated {peak:.6f} GB; phase {time.perf_counter() - t_phase:.1f} s "
+        f"[{H.card}]")
+    del base, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+BF16_FLASH_SHAPES = (  # 24g: (label, the launches on 24a-24e's paths, b, s, h, kv, hd, hd_v)
+    ("codeqwen prefill (24a)", "64 in 24a's prefill", 4, 512, 32, 32, 128, 128),
+    ("codeqwen training (24d)", "32 a step", 4, 256, 32, 32, 128, 128),
+    ("zamba2 prefill (24c)", "26 in 24c's prefill", 4, 512, 32, 32, 112, 112),
+    ("deepseek MLA prefill (24e)", "2 in 24e's prefill", 4, 512, 128, 128, 192, 128),
+)
+BF16_SSD_SHAPES = (  # 24g: (label, launches, b, s, h, p, n)
+    ("mamba2 prefill (24b)", "48 in 24b's prefill", 4, 512, 24, 64, 128),
+    ("mamba2 training (24b)", "96 a step", 4, 256, 24, 64, 128),
+    ("zamba2 prefill (24c)", "136 in 24c's prefill", 4, 512, 112, 64, 64),
+)
+
+
+def time_bf16(H, torch):
+    """24g: each bf16 launch shape of 24a-24e timed with CUDA events over
+    CUDA-graph replays (``Harness.time_ms``, as phase 5): the kernel, its
+    plain version on the same bf16 inputs, the bound at the bf16 rates
+    (flash: 2 bytes a value, one bf16 product an operation; SSD: x, B, C, y
+    2 bytes a value, its fp32 math 3xTF32), the distance from the plain
+    version in bf16 ulps, and for flash ``scaled_dot_product_attention`` on
+    the same bf16 tensors."""
+    from repro_torch.kernels.flash.ref import flash_attention_ref
+    from repro_torch.kernels.ssd.ref import ssd_chunk_scan
+
+    for i, (label, launches, b, s, h, kv, hd, hd_v) in enumerate(BF16_FLASH_SHAPES):
+        q, k, v = flash_inputs(H, b, s, h, kv, hd, hd_v=hd_v, dtype=torch.bfloat16)
+        compare_bf16_flash(H, f"24g {label}", q, k, v)
+        ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v))
+        plain_ms = H.time_ms(lambda: flash_attention_ref(q, k, v))
+        library = sdpa_call(torch, q, k, v)
+        library_ms = H.time_ms(library)
+        bound_ms, bound_by, nbytes, ops, _ = flash_bound(q, k, v)
+        record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": library_ms}
+        if i == 0:
+            H.timing[BF16_KEYS["flash_attention_kernel"]] = record
+        log(f"[timing] flash_attention_kernel bf16 {label} (B {b} x S {s}, {h}/{kv} heads, hd "
+            f"{hd}/{hd_v}, causal): kernel {ms:.6f} ms ({launches}), plain {plain_ms:.6f} ms, "
+            f"scaled_dot_product_attention bf16 {library_ms:.6f} ms, bound {bound_ms:.6f} ms "
+            f"({bound_by}: {nbytes} B, {ops} ops as bf16 products at {CARD.bf16_flops:.3g}/s), "
+            f"share of bound {bound_ms / ms:.3f} [{H.card}]")
+    for i, (label, launches, b, s, h, p, n) in enumerate(BF16_SSD_SHAPES):
+        x, dt, loga, B, C = ssd_inputs(H, b, s, h, p, n)
+        x, B, C = (a.to(torch.bfloat16) for a in (x, B, C))
+        compare_bf16_ssd(H, f"24g {label}", x, dt, loga, B, C, 128)
+        ms = H.time_ms(lambda: H.DK.ssd_kernel(x, dt, loga, B, C, chunk=128))
+        plain_ms = H.time_ms(lambda: ssd_chunk_scan(x, dt, loga, B, C, chunk=128))
+        bound_ms, bound_by, nbytes, ops, _ = ssd_bound(x, B, 128)
+        if i == 0:
+            H.timing[BF16_KEYS["ssd_kernel"]] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+        log(f"[timing] ssd_kernel bf16 {label} (b {b} x S {s}, {h} heads, P {p}, N {n}, chunk "
+            f"128; x, B, C, y bf16): kernel {ms:.6f} ms ({launches}), plain {plain_ms:.6f} ms, "
+            f"library none, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} ops as "
+            f"3xTF32 at {CARD.tf32_flops:.3g}/s), share of bound {bound_ms / ms:.3f} [{H.card}]")
+
+
+def phase_bf16(H, torch):
+    """Phase 24: the LM steps at the reference's own dtype on one card:
+    bf16 params, caches and activations, float32 Adam moments, Mamba state,
+    loss and logits (TF32 off for the float32 parts). 24a codeqwen1.5-7b
+    served at full depth (prefill against the float32 step, decode against
+    a fresh prefill); 24b mamba2-130m served and trained at full depth (the
+    SSD kernel's bf16 instance); 24c zamba2-7b served at 81 slots (flash at
+    hd 112, SSD at 112 heads); 24d codeqwen1.5-7b cut to 8 layers trained 4
+    steps, bit for bit across 1 and 2 stages and fill_drain and
+    interleaved; 24e deepseek-v3-671b's prefill cut to one layer (flash at
+    192/128); 24f the dry run against the card at bf16 for 24a's prefill
+    and 24d's step; 24g the kernels at 24a-24e's bf16 launch shapes."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models.transformer.model import Topology
+
+    serve_bf16(H, torch, "24a", "codeqwen1.5-7b", fp32_check=True)
+    serve_bf16(H, torch, "24b", "mamba2-130m")
+    train_bf16(H, torch, "24b", "mamba2-130m", stages=2, steps=4)
+    serve_bf16(H, torch, "24c", "zamba2-7b")
+    train_bf16_bit_identical(H, torch, "24d", "codeqwen1.5-7b", 4, {"num_layers": 8})
+    serve_bf16(H, torch, "24e", "deepseek-v3-671b", cut={"num_layers": 1}, decode=False)
+    cfg = get_arch("codeqwen1.5-7b")
+    counted_on_card_and_meta(
+        H, torch, "24f codeqwen1.5-7b bf16 prefill (24a: 512 tokens, batch 8, 2 micro-batches)",
+        cfg, Topology(num_stages=1, num_micro=2), ShapeConfig("serve_prefill", 512, 8, "prefill"),
+        dtype=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counted_on_card_and_meta(
+        H, torch, "24f codeqwen1.5-7b bf16 train step, 8 layers (24d: seq 256, batch 8, 2 "
+        "micro-batches, 4 loss chunks, remat)", dataclasses.replace(cfg, num_layers=8),
+        Topology(num_stages=1, num_micro=2, loss_chunks=4), ShapeConfig("cli", 256, 8, "train"),
+        dtype=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    time_bf16(H, torch)
+
+
 # a phase and the phases whose results it takes
 PHASE_NEEDS = {"5": ("4",), "12": ("6",), "21": ("3",)}
 
@@ -5471,9 +5968,9 @@ def parse_phases(text):
     if text is None:
         return None
     phases = {p.strip() for p in text.split(",") if p.strip()}
-    unknown = phases - {str(n) for n in range(2, 24)}
+    unknown = phases - {str(n) for n in range(2, 25)}
     if unknown:
-        raise SystemExit(f"--phases: no phase {sorted(unknown)}; phases are 2-23")
+        raise SystemExit(f"--phases: no phase {sorted(unknown)}; phases are 2-24")
     for p in list(phases):
         phases.update(PHASE_NEEDS.get(p, ()))
     return phases
@@ -5530,17 +6027,21 @@ def main() -> int:
     not_run = run_phases(H, torch, phases)
 
     kernels = []
-    for name, replaces in REPLACES.items():
-        if phases is not None and not H.launches.get(name):
+    # each kernel, then the bf16 instances of flash and SSD (phase 24) as entries of their own
+    instances = [(name, name) for name in REPLACES] + [(key, name) for name, key in
+                                                        BF16_KEYS.items()]
+    for key, name in instances:
+        if phases is not None and not H.launches.get(key):
             continue  # --phases: the kernels those phases launched
-        if not H.launches.get(name):
-            raise AssertionError(f"{name} was not launched on its main path")
-        if name not in H.timing:
-            raise AssertionError(f"{name} was launched but not timed: its timing is phase 5's")
-        tm = H.timing[name]
+        if not H.launches.get(key):
+            raise AssertionError(f"{key} was not launched on its main path")
+        if key not in H.timing:
+            raise AssertionError(f"{key} was launched but not timed: its timing is phase 5's "
+                                 "(phase 24's for the bf16 instances)")
+        tm = H.timing[key]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": replaces,
-            "launches": H.launches[name], "max_abs_err": H.err[name],
+            "name": key, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": H.launches[key], "max_abs_err": H.err[key],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
         })
@@ -5550,7 +6051,7 @@ def main() -> int:
     ran = [p for p, note in not_run.items() if note == ""]
     skipped = [note for note in not_run.values() if note]
     if phases is None:
-        names = f"all {20 + len(ran)} phases"
+        names = f"all {21 + len(ran)} phases"
     else:
         names = "phases " + ", ".join(
             ["1", *sorted(phases - {"21", "22", "23"}, key=int), *sorted(ran)])
@@ -5565,7 +6066,7 @@ def main() -> int:
 
 
 def run_phases(H, torch, phases=None):
-    """Phases 2-23 (or those of ``phases``), each timed. Returns, for each
+    """Phases 2-24 (or those of ``phases``), each timed. Returns, for each
     of phases 21-23 that was asked for, what of it did not run ("" when all
     of it ran)."""
 
@@ -5608,15 +6109,19 @@ def run_phases(H, torch, phases=None):
     phase("17", phase_frontend_lm)
     phase("18", phase_moe_lm)
     torch.cuda.empty_cache()
-    phase("19", phase_dryrun)
-    # phase 19's full-width predictions count on the host's other cores
-    # while the examples run: no timed phase runs beside them
-    if phases is None or {"19", "20"} & phases:
-        predictions = start_predictions()
-        try:
-            phase("20", phase_examples)
+    # phase 19's full-width predictions count on the host's other cores from
+    # the start of phase 19 to the end of phase 24, two single-thread
+    # processes beside card work (the host-bound phases 16-18 run before)
+    predictions = start_predictions() if phases is None or {"19", "20"} & phases else None
+    try:
+        phase("19", phase_dryrun)
+        phase("20", phase_examples)
+        torch.cuda.empty_cache()
+        phase("24", phase_bf16)
+        if predictions is not None:
             phase("19", report_predictions, predictions)
-        finally:
+    finally:
+        if predictions is not None:
             stop_predictions(predictions)
     torch.cuda.empty_cache()
     not_run = {"21": phase("21", phase_ranks, served_compiled)}

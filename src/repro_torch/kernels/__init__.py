@@ -19,7 +19,8 @@ so that a CPU, a meta and a card run of one step count alike.
 There is no environment override and no interpret mode. ``check_tensor``
 is the wrappers' shared guard on what a kernel takes; ``plain_vjp`` is the
 ops' shared backward (the TPU kernels had no backward kernel, so the ops
-differentiate the plain version, as the JAX ops' custom VJPs do).
+differentiate the plain version, as the JAX ops' custom VJPs do);
+``bf16_ulps`` the measure a bf16 output is held to its plain version by.
 """
 
 from __future__ import annotations
@@ -50,15 +51,16 @@ def takes_kernel(*tensors: torch.Tensor, meta: bool = False) -> bool:
 
 
 @contextlib.contextmanager
-def kernel_call(name: str, cost):
+def kernel_call(name: str, cost, precision: str = "tf32x3"):
     """Run one wrapper call as kernel ``name``'s: the innermost active
     counter attributes the ops dispatched inside to it and records
     ``cost()`` -> (operations, bytes), which is called only when a counter
-    is active (it may read position vectors from the device)."""
+    is active (it may read position vectors from the device), at
+    ``precision`` (``roofline.kernel_cost.PASSES``' keys)."""
     if not COUNTERS:
         yield
         return
-    with COUNTERS[-1].kernel(name, cost):
+    with COUNTERS[-1].kernel(name, cost, precision):
         yield
 
 
@@ -108,3 +110,28 @@ def plain_vjp(fn, primals, ct, needs=None):
         wanted = [leaf for leaf, n in zip(leaves, needs) if n]
         grads = iter(torch.autograd.grad(out, wanted, ct) if wanted else ())
     return tuple(next(grads) if n else None for n in needs)
+
+
+# values below this share of a tensor's largest are measured in the bf16 ulp
+# at that share (``bf16_ulps``)
+ULP_FLOOR = 2.0 ** -8
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance of ``got`` from ``want`` (bf16 tensors) in bf16
+    ulps: |got - want| over the spacing of bf16 values at |want|, or, where
+    |want| is below ``ULP_FLOOR`` of the tensor's largest |want|, at that
+    floor. bf16 keeps 8 significant bits, so a value 2^-8 of the largest is
+    at the resolution of the tensor's own scale; below it two fp32
+    computations of one value differ by many of its own ulps (near zero,
+    by thousands: a sum's rounding at the tensor's scale, not the value's),
+    which says nothing about either. Adjacent bf16 values at |want| are 1
+    apart. float64, on their device."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise TypeError(f"bf16_ulps takes two bfloat16 tensors, got {got.dtype} and {want.dtype}")
+    a, b = got.double(), want.double()
+    mag = b.abs()
+    floor = ULP_FLOOR * float(mag.max()) if mag.numel() else 0.0
+    mag = mag.clamp(min=max(floor, torch.finfo(torch.bfloat16).tiny))
+    spacing = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (a - b).abs() / spacing

@@ -50,7 +50,17 @@
 //   split on their fragments in registers; each landed K/V tile is split
 //   once, by the whole block, into a {big, small} buffer, so the 8 warps do
 //   not each split every K/V element again.
-//   bf16 inputs run bf16 MMAs directly (m16n8k16, P rounded to bf16).
+//   bf16 inputs run bf16 MMAs (m16n8k16) for S: q and k are bf16 values,
+//   so each product is exact and accumulates in fp32. P.V keeps P
+//   fp32-accurate, as the TPU kernel keeps P in fp32 for P.V: each p is
+//   split into a bf16 high part and the bf16 rounding of the rest, p = hi +
+//   lo to about 2^-17 of p, and two products, lo.V then hi.V, accumulate in
+//   fp32; V is exact in bf16. Rounding P to bf16 alone (one product, the
+//   instance before) dropped p's bits past 2^-9, where the plain version
+//   multiplies P in fp32. With the split, 0.016% of the codeqwen prefill
+//   launch's outputs are more than one ulp from the plain version at their
+//   own magnitude, all below 5e-4 of outputs up to ~5 (chip_smoke.py phase
+//   24g): there two fp32 roundings of one value differ by many of its ulps.
 // * P.V takes P from the S accumulators without a shuffle: within each
 //   group of 8 keys, the k-index t of the TF32 A fragment stands for key 2t
 //   and t + 4 for key 2t + 1, and V's B fragment reads the same keys.
@@ -93,7 +103,7 @@
 //   fp32 <= 128:  NW 8, BKV 32: 168,448 B, 255 registers (16-byte spill): 1
 //   fp32 <= 256:  NW 4, BKV 16: 166,144 B, 255 registers: 1
 //   bf16 <= 64:   NW 8, BKV 64:  55,296 B, 180 registers: 1 (registers)
-//   bf16 <= 128:  NW 8, BKV 64: 104,448 B, 226 registers: 1 (registers)
+//   bf16 <= 128:  NW 8, BKV 64: 104,448 B, 225 registers: 1 (registers)
 //   bf16 <= 256:  NW 4, BKV 32: 101,376 B, 240 registers: 2
 // The positions' instances add 8 BKV bytes (two tiles of key positions),
 // and fp32 spills there: 28 bytes at <= 128, 12 at <= 256.
@@ -164,6 +174,14 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
   v.x = lo;
   v.y = hi;
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (x0, x1) = hi + lo: hi the bf16 pair nearest, lo the bf16 pair nearest
+// the remainders
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - __bfloat162float(h.x), x1 - __bfloat162float(h.y));
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -537,16 +555,20 @@ flash_kernel(const T* __restrict__ q,        // (B, Sq, H, hd)
 #pragma unroll
       for (int j2 = 0; j2 < NT / 2; ++j2) {
         if (j2 * 16 < kmax) {
-          const uint32_t a[4] = {pack_bf16(s[2 * j2][0], s[2 * j2][1]),
-                                 pack_bf16(s[2 * j2][2], s[2 * j2][3]),
-                                 pack_bf16(s[2 * j2 + 1][0], s[2 * j2 + 1][1]),
-                                 pack_bf16(s[2 * j2 + 1][2], s[2 * j2 + 1][3])};
+          // P's A fragment as a high and a low part (split_bf16)
+          uint32_t ah[4], al[4];
+          split_bf16(s[2 * j2][0], s[2 * j2][1], ah[0], al[0]);
+          split_bf16(s[2 * j2][2], s[2 * j2][3], ah[1], al[1]);
+          split_bf16(s[2 * j2 + 1][0], s[2 * j2 + 1][1], ah[2], al[2]);
+          split_bf16(s[2 * j2 + 1][2], s[2 * j2 + 1][3], ah[3], al[3]);
           const __nv_bfloat16* vb = vbb + (j2 * 16 + 2 * t) * vst + g;
 #pragma unroll
           for (int n = 0; n < NV; ++n) {
             if (n * 8 < hdvp) {
               const __nv_bfloat16* p = vb + n * 8;
-              mma_bf16(o[n], a, pack_bf16(p[0], p[vst]), pack_bf16(p[8 * vst], p[9 * vst]));
+              const uint32_t b0 = pack_bf16(p[0], p[vst]), b1 = pack_bf16(p[8 * vst], p[9 * vst]);
+              mma_bf16(o[n], al, b0, b1);
+              mma_bf16(o[n], ah, b0, b1);
             }
           }
         }

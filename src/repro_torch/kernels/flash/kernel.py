@@ -80,7 +80,8 @@ def flash_attention_kernel(
     if (q_pos is None) != (kv_pos is None):
         raise ValueError("give both q_pos and kv_pos, or neither")
     with kernel_call("flash_attention_kernel",
-                     lambda: cost(q, k, v, window=window, q_pos=q_pos, kv_pos=kv_pos)):
+                     lambda: cost(q, k, v, window=window, q_pos=q_pos, kv_pos=kv_pos),
+                     "bf16" if q.dtype == torch.bfloat16 else "tf32x3"):
         return _flash(q, k, v, window, softcap, kv_block, q_pos, kv_pos, ordered)
 
 

@@ -57,6 +57,16 @@
 // shared memory at the prefill shape (one block an SM), and split {big,
 // small} pairs would double that past the 227 KB a block may have. The
 // split costs 4 ALU instructions per 3 MMAs.
+// bf16 inputs (the model's bf16 x, B and C; the TPU kernel's own rule:
+// inputs in their dtype, upcast in the kernel, the state fp32, y in x's
+// dtype) are converted to fp32 as they are staged into the same fp32 tiles,
+// so the math above runs unchanged; y is rounded to bf16 as it is written.
+// dt and loga stay fp32, as the model computes them. The bf16 instance
+// loads its tiles 16 bytes (8 values) at a time and widens them as it
+// stores them, where P and N are multiples of 8 (H_c's fp32 rows by
+// cp.async as in the fp32 instance): 0.133 ms at the prefill shape, the
+// fp32 instance's time, where plain 2-byte loads for every tile took 0.234
+// (H100 SXM at 700 W, chip_smoke.py phase 24g, PERF.md §6).
 // Shared memory, the layout padded so fragment loads hit distinct banks
 // (row strides = 8 mod 32 floats for the K-major reads of launch 1, 4 mod 32
 // for launch 3): launch 1, 4 (Qp (Pp + 8) + Qp (Np + 8) + 3 Qp + 8) bytes =
@@ -75,6 +85,7 @@
 // loads, which one resident block an SM cannot overlap with compute, and
 // MMA and shared-memory latency that the one block's warps hide poorly.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -154,24 +165,44 @@ __device__ __forceinline__ void mma3_tiles(float (&acc)[NA][4], const uint32_t (
   }
 }
 
-// Stage `rows` rows of `cols` floats (row r at src + r * row_stride; rows >=
-// valid and columns >= cols read as 0) into dst[r * dst_stride + c], c <
-// cols_p. vec: 16-byte cp.async copies (cols a multiple of 4, 16-byte aligned
-// rows); otherwise plain loads and stores.
-__device__ __forceinline__ void stage(float* dst, int dst_stride, const float* src,
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// Stage `rows` rows of `cols` values (row r at src + r * row_stride; rows >=
+// valid and columns >= cols read as 0) into dst[r * dst_stride + c] as fp32,
+// c < cols_p. vec: 16-byte rows pieces (16-byte aligned rows, cols and
+// cols_p multiples of 16 / sizeof(T), dst rows 16-byte aligned): fp32 by
+// cp.async, bf16 as one 16-byte load of 8 values widened to two float4
+// stores; otherwise plain loads, converted, and stores.
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, int dst_stride, const T* src,
                                       long long row_stride, int rows, int valid, int cols,
                                       int cols_p, bool vec) {
+  constexpr int V = 16 / sizeof(T);
   if (vec) {
-    const int per_row = cols_p / 4;
+    const int per_row = cols_p / V;
     for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
-      const int r = e / per_row, c = (e - r * per_row) * 4;
+      const int r = e / per_row, c = (e - r * per_row) * V;
       const bool in = r < valid && c < cols;
-      cp_async16(dst + r * dst_stride + c, in ? src + r * row_stride + c : src, in ? 16 : 0);
+      if constexpr (sizeof(T) == 4) {
+        cp_async16(dst + r * dst_stride + c, in ? src + r * row_stride + c : src, in ? 16 : 0);
+      } else {
+        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+        if (in) raw = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
+        // a bf16 value is the top half of its fp32 bits; the lower address is the low half
+        float4* to = reinterpret_cast<float4*>(dst + r * dst_stride + c);
+        to[0] = make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                            __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+        to[1] = make_float4(__uint_as_float(raw.z << 16), __uint_as_float(raw.z & 0xffff0000u),
+                            __uint_as_float(raw.w << 16), __uint_as_float(raw.w & 0xffff0000u));
+      }
     }
   } else {
     for (int e = threadIdx.x; e < rows * cols_p; e += blockDim.x) {
       const int r = e / cols_p, c = e - r * cols_p;
-      dst[r * dst_stride + c] = (r < valid && c < cols) ? src[r * row_stride + c] : 0.f;
+      dst[r * dst_stride + c] = (r < valid && c < cols) ? to_f32(src[r * row_stride + c]) : 0.f;
     }
   }
 }
@@ -211,11 +242,12 @@ struct Shape {
 // ------------------------------------------------------ 1. chunk states --
 // S_c[p][n] = sum_j xdw[j][p] B[j][n], xdw = x dt exp(la_Q - la). A warp
 // takes units of 16 rows of p x 64 columns of n.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-ssd_chunk_state(const float* __restrict__ x,     // (b, S, nh, P)
+ssd_chunk_state(const T* __restrict__ x,         // (b, S, nh, P)
                 const float* __restrict__ dt,    // (b, S, nh)
                 const float* __restrict__ loga,  // (b, S, nh)
-                const float* __restrict__ Bm,    // (b, S, N)
+                const T* __restrict__ Bm,        // (b, S, N)
                 float* __restrict__ states,      // (b, nh, nc, P, N)
                 float* __restrict__ decay,       // (b, nh, nc)
                 Shape d, bool vec) {
@@ -313,14 +345,15 @@ ssd_state_pass(float* __restrict__ states,       // (b, nh, nc, P, N)
 }
 
 // ------------------------------------------------------------ 3. output --
+template <typename T>
 __global__ void __launch_bounds__(kOutThreads, 1)
-ssd_chunk_output(const float* __restrict__ x,       // (b, S, nh, P)
+ssd_chunk_output(const T* __restrict__ x,           // (b, S, nh, P)
                  const float* __restrict__ dt,      // (b, S, nh)
                  const float* __restrict__ loga,    // (b, S, nh)
-                 const float* __restrict__ Bm,      // (b, S, N)
-                 const float* __restrict__ Cm,      // (b, S, N)
+                 const T* __restrict__ Bm,          // (b, S, N)
+                 const T* __restrict__ Cm,          // (b, S, N)
                  const float* __restrict__ states,  // (b, nh, nc, P, N): H_c
-                 float* __restrict__ y,             // (b, S, nh, P)
+                 T* __restrict__ y,                 // (b, S, nh, P)
                  Shape d, bool vec) {
   extern __shared__ __align__(16) float smem[];
   const int cs = d.Np + 4, xs = d.Pp + 4;
@@ -452,13 +485,13 @@ ssd_chunk_output(const float* __restrict__ x,       // (b, S, nh, P)
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + g + 8 * i;
     if (row >= valid) continue;
-    float* dst = y + ((tok0 + row) * d.nh + h) * d.P;
+    T* dst = y + ((tok0 + row) * d.nh + h) * d.P;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
       for (int cc = 0; cc < 2; ++cc) {
         const int col = n * 8 + 2 * t + cc;
-        if (col < d.P) dst[col] = yacc[n][2 * i + cc] + part[8 * i * xs + n * 8 + cc];
+        if (col < d.P) store(dst + col, yacc[n][2 * i + cc] + part[8 * i * xs + n * 8 + cc]);
       }
     }
   }
@@ -500,22 +533,54 @@ cudaError_t opt_in(K kernel, long long smem, long long& opted) {
   return err;
 }
 
+// Three launches on `stream`: chunk states, the state pass, the output, for
+// x, B, C and y of type T.
+template <typename T>
+int forward(const T* x, const float* dt, const float* loga, const T* B, const T* C, T* y,
+            float* h, float* states, float* decay, int batch, const Shape& d,
+            cudaStream_t s) {
+  const long long blocks = (long long)batch * d.nh * d.nc;
+  const long long PN = (long long)d.P * d.N;
+  static long long opted_state = 0, opted_output = 0;  // one pair an instance
+  const long long smem1 = state_smem(d), smem3 = output_smem(d);
+  cudaError_t err = opt_in(ssd_chunk_state<T>, smem1, opted_state);
+  if (err == cudaSuccess) err = opt_in(ssd_chunk_output<T>, smem3, opted_output);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte pieces of every staged row: x, B, C (16 / sizeof(T) values) and
+  // the fp32 states (4 values; a multiple of 8 is one of 4)
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = d.P % V == 0 && d.N % V == 0 &&
+                   (((uintptr_t)x | (uintptr_t)B | (uintptr_t)C | (uintptr_t)states) & 15) == 0;
+
+  ssd_chunk_state<T><<<(unsigned)blocks, kThreads, (size_t)smem1, s>>>(x, dt, loga, B, states,
+                                                                       decay, d, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 pass_grid((unsigned)(batch * d.nh), (unsigned)((PN + kThreads - 1) / kThreads));
+  ssd_state_pass<<<pass_grid, kThreads, 0, s>>>(states, decay, h, d.nc, (int)PN);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_chunk_output<T><<<(unsigned)blocks, kOutThreads, (size_t)smem3, s>>>(x, dt, loga, B, C,
+                                                                        states, y, d, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Dynamic shared memory the larger of the two chunk launches needs at (P, N,
-// Q), in bytes.
+// Q), in bytes (the same for either input type: tiles are staged as fp32).
 extern "C" long long ssd_smem_bytes(int P, int N, int Q) {
   const Shape d = make_shape(1, 1, P, N, Q);
   const long long a = state_smem(d), b = output_smem(d);
   return a > b ? a : b;
 }
 
-// Three launches on `stream`: chunk states, the state pass, the output.
-// states (b, nh, chunks, P, N) and decay (b, nh, chunks) are the caller's
-// scratch. Returns the first failing cudaError_t (0 = success).
-extern "C" int ssd_forward(const float* x, const float* dt, const float* loga, const float* B,
-                           const float* C, float* y, float* h, float* states, float* decay,
-                           int batch, int S, int nh, int P, int N, int Q, void* stream) {
+// dtype: the type of x, B, C and y, 0 = float32, 1 = bfloat16 (dt, loga,
+// the final state h and the scratch are float32). states (b, nh, chunks, P,
+// N) and decay (b, nh, chunks) are the caller's scratch. Returns the first
+// failing cudaError_t (0 = success).
+extern "C" int ssd_forward(const void* x, const float* dt, const float* loga, const void* B,
+                           const void* C, void* y, float* h, float* states, float* decay,
+                           int dtype, int batch, int S, int nh, int P, int N, int Q,
+                           void* stream) {
   if (batch <= 0 || S <= 0 || nh <= 0 || P <= 0 || N <= 0 || Q <= 0 || P > kMaxP || Q > kMaxQ)
     return (int)cudaErrorInvalidValue;
   const Shape d = make_shape(S, nh, P, N, Q);
@@ -525,21 +590,12 @@ extern "C" int ssd_forward(const float* x, const float* dt, const float* loga, c
       (long long)batch * nh > INT_MAX)
     return (int)cudaErrorInvalidConfiguration;
   const cudaStream_t s = (cudaStream_t)stream;
-  static long long opted_state = 0, opted_output = 0;
-  const long long smem1 = state_smem(d), smem3 = output_smem(d);
-  cudaError_t err = opt_in(ssd_chunk_state, smem1, opted_state);
-  if (err == cudaSuccess) err = opt_in(ssd_chunk_output, smem3, opted_output);
-  if (err != cudaSuccess) return (int)err;
-  const bool vec = P % 4 == 0 && N % 4 == 0 &&
-                   (((uintptr_t)x | (uintptr_t)B | (uintptr_t)C | (uintptr_t)states) & 15) == 0;
-
-  ssd_chunk_state<<<(unsigned)blocks, kThreads, (size_t)smem1, s>>>(x, dt, loga, B, states,
-                                                                    decay, d, vec);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const dim3 pass_grid((unsigned)(batch * nh), (unsigned)((PN + kThreads - 1) / kThreads));
-  ssd_state_pass<<<pass_grid, kThreads, 0, s>>>(states, decay, h, d.nc, (int)PN);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_chunk_output<<<(unsigned)blocks, kOutThreads, (size_t)smem3, s>>>(x, dt, loga, B, C, states,
-                                                                     y, d, vec);
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return forward<float>((const float*)x, dt, loga, (const float*)B, (const float*)C,
+                          (float*)y, h, states, decay, batch, d, s);
+  if (dtype == 1)
+    return forward<__nv_bfloat16>((const __nv_bfloat16*)x, dt, loga, (const __nv_bfloat16*)B,
+                                  (const __nv_bfloat16*)C, (__nv_bfloat16*)y, h, states, decay,
+                                  batch, d, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,11 @@
 """Public SSD op, model layout in and out, with autograd.
 
 Counterpart of ``repro.kernels.ssd.ops.ssd``: x (b, s, h, p), dt (b, s, h),
-A (h,), B/C (b, s, n). Unlike the JAX op it also returns the final state
-``(b, h, p, n)``, as ``ssd_chunked`` does, because the serving prefill
-hands it to the decode cache. The op forms ``loga = A·dt`` and calls the
+A (h,), B/C (b, s, n); x, B and C in the model's dtype (float32 or bf16,
+handed over uncast as the reference's op does), dt and A float32. Unlike
+the JAX op it also returns the final state ``(b, h, p, n)`` float32, as
+``ssd_chunked`` does, because the serving prefill hands it to the decode
+cache. The op forms ``loga = A·dt`` and calls the
 kernel wrapper (kernel on CUDA tensors, plain version on CPU tensors); the
 backward differentiates the plain version (``plain_vjp``), as the JAX op's
 custom VJP differentiates ``ssd_chunked``.

@@ -9,11 +9,14 @@ rank of the reference's production grids. Counterpart of
 
 The reference lowers and compiles each step on 512 placeholder devices and
 reads XLA's memory and cost analyses and its HLO walk. The port builds the
-step's params, optimizer state, cache and batch on the ``meta`` device in
-float32 (the dtype its launchers run) and runs the step once under
-``roofline.counter.OpCounter``: shapes only, no data, no card. The flash
-and SSD wrappers take their meta route (checks and allocations, no launch)
-and report their kernel's cost.
+step's params, optimizer state, cache and batch on the ``meta`` device at
+the reference's own dtype, bfloat16 (its step builders' default, which its
+dry run keeps): params, caches and activations in bfloat16, Adam's moments
+and the Mamba ``ssm`` state in float32, as the reference has them. It runs
+the step once under ``roofline.counter.OpCounter``: shapes only, no data,
+no card. The flash and SSD wrappers take their meta route (checks and
+allocations, no launch) and report their kernel's cost. ``build_step`` and
+``run_one`` take ``dtype=torch.float32`` for the dtype the launchers run.
 
 ``--mesh 1card`` (the default) counts the whole 16-stage model at full
 width and depth on one card: the port's answer to "what fits one card".
@@ -34,8 +37,9 @@ Each combination writes one JSON, ``<arch>__<shape>__<mesh>.json``: the
 peak of live bytes and whether it fits the card's memory, the counted FLOPs
 (aten and per kernel) and bytes, the kernel calls, ``collective_bytes`` and
 ``roofline`` (``roofline_report`` at the H100's data-sheet rates,
-``CARD``), with ``model_flops``. These are predictions, not measurements.
-The exit code is non-zero if any requested combination fails.
+``CARD``: bf16 products at the bf16 rate), with ``model_flops``. These are
+predictions, not measurements. The exit code is non-zero if any requested
+combination fails.
 """
 
 from __future__ import annotations
@@ -131,10 +135,11 @@ def fake_world(world: int, rank: int):
         dist.destroy_process_group()
 
 
-def build_step(cfg, shape, topo, *, device="meta", dtype=torch.float32):
+def build_step(cfg, shape, topo, *, device="meta", dtype=torch.bfloat16):
     """``(step, inputs)``: the step of ``shape.kind`` and its arguments —
-    params (``abstract_params`` on meta), the Adam state (training) or the
-    cache (serving) and the batch — on ``device``. On a rank of a grid
+    params (``abstract_params`` on meta) and cache in ``dtype``, the Adam
+    state (training: float32 moments) or the cache (serving) and the batch
+    — on ``device``. On a rank of a grid
     (``topo.ring``) the params are its ``grid_shard``, the state and cache
     its own rows, the batch the whole one, as every rank is handed. A
     decode batch's ``pos`` is the last position of ``shape.seq_len``, a
@@ -147,7 +152,7 @@ def build_step(cfg, shape, topo, *, device="meta", dtype=torch.float32):
     if grid is not None:
         params = grid_shard(params, cfg, topo, grid.position, grid.replica)
     batch = {name: torch.zeros(spec_shape, dtype=spec_dtype, device=device)
-             for name, (spec_shape, spec_dtype) in batch_specs(cfg, shape).items()}
+             for name, (spec_shape, spec_dtype) in batch_specs(cfg, shape, dtype).items()}
     if shape.kind == "train":
         step = make_train_step(cfg, topo, shape)
         return step, (params, step.optimizer.init(params), batch)
@@ -168,22 +173,22 @@ def count_step(step, inputs) -> OpCounter:
 
 
 def count_on_grid(cfg, shape, *, pods: int, data: int, stages: int, rank: int,
-                  topology) -> tuple[Topology, OpCounter]:
+                  topology, dtype=torch.bfloat16) -> tuple[Topology, OpCounter]:
     """Rank ``rank``'s step of a ``pods`` x ``data`` x ``stages`` grid
-    counted on meta, in a fake world of that many ranks: ``topology(grid)``
-    gives its ``Topology`` on the rank's ``RankGrid``. ``(the topology,
-    the counter)``."""
+    counted on meta at ``dtype``, in a fake world of that many ranks:
+    ``topology(grid)`` gives its ``Topology`` on the rank's ``RankGrid``.
+    ``(the topology, the counter)``."""
     with fake_world(pods * data * stages, rank):
         grid = RankGrid(data, stages, pods=pods)
         topo = topology(grid)
-        step, inputs = build_step(cfg, shape, topo)
+        step, inputs = build_step(cfg, shape, topo, dtype=dtype)
         return topo, count_step(step, inputs)
 
 
 def run_one(arch: str, shape_name: str, *, out_dir: str | None, mesh: str = "1card",
             position: int = 0, num_micro: int | None = None, remat: bool = True,
             moe_mode: str = "gathered", zero3: bool = True, verbose: bool = True,
-            tag: str = "") -> dict:
+            tag: str = "", dtype=torch.bfloat16) -> dict:
     cfg = get_arch(arch)
     shape = get_shape(shape_name)
     hw = HW.of(CARD)
@@ -191,7 +196,7 @@ def run_one(arch: str, shape_name: str, *, out_dir: str | None, mesh: str = "1ca
     if mesh == "1card":
         topo = topology_for(cfg, shape, num_micro=num_micro, remat=remat, moe_mode=moe_mode,
                             zero3=zero3)
-        step, inputs = build_step(cfg, shape, topo)
+        step, inputs = build_step(cfg, shape, topo, dtype=dtype)
         counter = count_step(step, inputs)
         del step, inputs
         chips, where = 1, f"one {hw.name}"
@@ -203,7 +208,7 @@ def run_one(arch: str, shape_name: str, *, out_dir: str | None, mesh: str = "1ca
             cfg, shape, pods=pods, data=data, stages=stages, rank=position,
             topology=lambda grid: topology_for(cfg, shape, mesh=mesh, num_micro=num_micro,
                                                remat=remat, moe_mode=moe_mode, zero3=zero3,
-                                               ring=grid))
+                                               ring=grid), dtype=dtype)
         chips, where = pods * data * stages, f"rank {position} of {mesh} ({hw.name}s)"
     count_s = time.perf_counter() - t0
     counts = counter.report()
@@ -212,7 +217,9 @@ def run_one(arch: str, shape_name: str, *, out_dir: str | None, mesh: str = "1ca
     mf = model_flops(cfg, shape, training=shape.kind == "train")
     report = roofline_report(aten_flops=counts["flops"]["aten"],
                              kernel_ops=counts["flops"]["kernels"], device_bytes=device_bytes,
-                             device_collective=coll, chips=chips, model_flops_global=mf, hw=hw)
+                             device_collective=coll, chips=chips, model_flops_global=mf, hw=hw,
+                             aten_flops_by_dtype=counts["flops"]["by_dtype"],
+                             kernel_ops_by_precision=counts["flops"]["kernels_by_precision"])
     peak = counts["memory"]["peak_bytes"]
     result = {
         "arch": arch,
@@ -221,6 +228,7 @@ def run_one(arch: str, shape_name: str, *, out_dir: str | None, mesh: str = "1ca
         "card": hw.name,
         "chips": chips,
         "kind": shape.kind,
+        "dtype": str(dtype).replace("torch.", ""),
         "num_micro": topo.num_micro,
         "num_stages": topo.num_stages,
         "long_context": topo.long_context,

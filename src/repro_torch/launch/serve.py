@@ -106,8 +106,11 @@ def generate(cfg: ArchConfig, topo: Topology, params: dict, prompt: torch.Tensor
              decode_steps: int, frontend: torch.Tensor | None = None) -> Generation:
     """Prefill ``prompt`` (B, S_text), after the frontend embeddings
     ``frontend`` (B, s_front, d) where the arch has a frontend, and decode
-    ``decode_steps`` greedy tokens on the prompt's device."""
+    ``decode_steps`` greedy tokens on the prompt's device. The caches take
+    the params' dtype (``embed``'s), as the reference's step builders give
+    their caches the dtype of their params."""
     dev = prompt.device
+    dtype = params["embed"].dtype
     b = prompt.shape[0]
     plen = prompt.shape[1] + (0 if frontend is None else frontend.shape[1])
     pshape = ShapeConfig("serve_prefill", plen, b, "prefill")
@@ -115,14 +118,14 @@ def generate(cfg: ArchConfig, topo: Topology, params: dict, prompt: torch.Tensor
     prefill = make_prefill_step(cfg, topo, pshape)
     step = make_serve_step(cfg, topo, dshape)
 
-    pcache = init_cache(cfg, topo, pshape, device=dev)
+    pcache = init_cache(cfg, topo, pshape, dtype=dtype, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
     logits, pcache = prefill(params, pcache, prompt_batch(prompt, frontend))
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
-    dcache = splice(init_cache(cfg, topo, dshape, device=dev), pcache)
+    dcache = splice(init_cache(cfg, topo, dshape, dtype=dtype, device=dev), pcache)
     del pcache
     tok = logits.argmax(dim=-1).to(torch.int32)
     generated, first = [tok], None

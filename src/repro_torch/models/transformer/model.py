@@ -576,19 +576,21 @@ def lm_head_logits(cfg: ArchConfig, params: dict, y: torch.Tensor) -> torch.Tens
 # ------------------------------------------------------------ batches --
 
 
-def batch_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+def batch_specs(cfg: ArchConfig, shape: ShapeConfig, dtype=torch.float32) -> dict:
     """{name: (shape, dtype)} of one step's input batch: decode ``tokens``
     (B,) and ``pos``; prefill ``tokens`` (B, S - s_front); train ``tokens``
     (B, S - s_front + 1), the last column the labels' shift; on a frontend
-    arch also ``frontend_embeds`` (B, s_front, d), s_front =
-    ``frontend_rows(cfg, S)``."""
+    arch also ``frontend_embeds`` (B, s_front, d) in ``dtype`` (the
+    params'), s_front = ``frontend_rows(cfg, S)``. The reference's spec
+    of the frontend rows is bfloat16 at its default dtype (and at float32
+    too); the step casts them to the activations' dtype either way."""
     bsz, seq = shape.global_batch, shape.seq_len
     if shape.kind == "decode":
         return {"tokens": ((bsz,), torch.int32), "pos": ((), torch.int32)}
     s_front = frontend_rows(cfg, seq)
     specs = {"tokens": ((bsz, seq - s_front + (1 if shape.kind == "train" else 0)), torch.int32)}
     if cfg.frontend != "none":
-        specs["frontend_embeds"] = ((bsz, s_front, cfg.d_model), torch.float32)
+        specs["frontend_embeds"] = ((bsz, s_front, cfg.d_model), dtype)
     return specs
 
 

@@ -9,7 +9,8 @@ tensors, on a card and on the ``meta`` device (shapes only: the dry run).
 For one step it records:
 
 * **FLOPs** per aten op, by ``torch.utils.flop_counter``'s formulas (the
-  products: mm, bmm, addmm, baddbmm, convolutions, SDPA);
+  products: mm, bmm, addmm, baddbmm, convolutions, SDPA), and per operand
+  dtype (the first floating-point input's), which sets their rate;
 * **bytes** per op, its tensor inputs plus its outputs. View ops move
   nothing and are skipped, as is ``empty``. The eager program runs one
   kernel per op, so these are the bytes it moves, unfused;
@@ -17,7 +18,8 @@ For one step it records:
   at entry (``resident``: params, optimizer state, cache, batch), plus every
   storage an op creates, minus each one when it is freed;
 * **kernel calls** by name, with the operations and bytes their wrappers
-  report (``roofline.kernel_cost``, through ``kernels.kernel_call``). Every
+  report (``roofline.kernel_cost``, through ``kernels.kernel_call``), and
+  their operations by the precision the call multiplies at. Every
   op dispatched inside a call (the plain version on a CPU tensor, the
   output's allocation on a card or on meta) is the kernel's: it counts
   toward memory only, never toward the aten FLOPs or bytes;
@@ -146,10 +148,12 @@ class OpCounter(TorchDispatchMode):
         leaves = [t for t in tree_flatten(resident)[0] if isinstance(t, torch.Tensor)]
         self.device = leaves[0].device if leaves else torch.device("cpu")
         self.flops_by_op: dict[str, int] = collections.Counter()
+        self.flops_by_dtype: dict[str, int] = collections.Counter()
         self.bytes_by_op: dict[str, int] = collections.Counter()
         self.kernel_calls: dict[str, int] = collections.Counter()
         self.kernel_ops: dict[str, int] = collections.Counter()
         self.kernel_bytes: dict[str, int] = collections.Counter()
+        self.kernel_ops_by_precision: dict[str, int] = collections.Counter()
         self.collectives = {k: 0 for k in COLLECTIVES}
         self._live: dict[int, int] = {}
         self.live_bytes = self.peak_bytes = 0
@@ -179,10 +183,10 @@ class OpCounter(TorchDispatchMode):
     # ----------------------------------------------------------- kernels --
 
     @contextlib.contextmanager
-    def kernel(self, name: str, cost):
-        """One call of kernel ``name``: ``cost()`` -> (operations, bytes)
-        recorded; the ops dispatched inside are the kernel's. A call inside
-        another is part of it."""
+    def kernel(self, name: str, cost, precision: str = "tf32x3"):
+        """One call of kernel ``name`` at ``precision``: ``cost()`` ->
+        (operations, bytes) recorded; the ops dispatched inside are the
+        kernel's. A call inside another is part of it."""
         if self._in_kernel:
             yield
             return
@@ -192,6 +196,7 @@ class OpCounter(TorchDispatchMode):
             self.kernel_calls[name] += 1
             self.kernel_ops[name] += int(ops)
             self.kernel_bytes[name] += int(nbytes)
+            self.kernel_ops_by_precision[precision] += int(ops)
             yield
         finally:
             self._in_kernel = 0
@@ -243,7 +248,11 @@ class OpCounter(TorchDispatchMode):
             return out
         name = f"{namespace}.{packet.__name__.split('.')[-1]}"
         if packet in flop_registry:
-            self.flops_by_op[name] += int(flop_registry[packet](*args, **kwargs, out_val=out))
+            flops = int(flop_registry[packet](*args, **kwargs, out_val=out))
+            self.flops_by_op[name] += flops
+            operand = next((t for t in inputs if t.is_floating_point()), None)
+            dtype = "float32" if operand is None else str(operand.dtype).replace("torch.", "")
+            self.flops_by_dtype[dtype] += flops
         if not _is_view(func) and packet not in _NO_BYTES:
             self.bytes_by_op[name] += sum(map(_nbytes, inputs)) + sum(map(_nbytes, outputs))
         return out
@@ -309,7 +318,8 @@ class OpCounter(TorchDispatchMode):
         """The counts as plain numbers (the dry run's JSON fields)."""
         return {
             "flops": {"aten": self.aten_flops, "by_op": dict(self.flops_by_op),
-                      "kernels": dict(self.kernel_ops)},
+                      "by_dtype": dict(self.flops_by_dtype), "kernels": dict(self.kernel_ops),
+                      "kernels_by_precision": dict(self.kernel_ops_by_precision)},
             "bytes": {"aten": self.aten_bytes, "kernels": dict(self.kernel_bytes)},
             "kernel_calls": dict(self.kernel_calls),
             "collectives": self.collective_totals(),

@@ -7,8 +7,10 @@ dry run's roofline. Each function takes shapes (and, for flash, the window
 and the position vectors as numpy arrays) and returns ``(operations,
 bytes)``: bytes are each input read once and each output written once;
 operations are those of the needed work, which the fp32-accurate kernels
-issue as three TF32 tensor-core products each (``TF32_PASSES``). ``bound``
-divides them by a card's data-sheet rates (``roofline.analysis.HW``).
+issue as three TF32 tensor-core products each (``TF32_PASSES``), and the
+flash kernel's bf16 instance as one bf16 product each: ``PASSES`` by
+precision (``precision_of``). ``bound`` divides them by a card's
+data-sheet rates (``roofline.analysis.HW``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,18 @@ import numpy as np
 # the flash and SSD kernels' fp32 scheme: three TF32 tensor-core products per
 # operation (3xTF32)
 TF32_PASSES = 3
+# tensor-core products per operation, by a kernel's precision: the 3xTF32
+# scheme, or bf16 operands multiplied once (the flash kernel's bf16 instance;
+# its P . V takes two products, P's bf16 high and low parts, against V's one
+# value, which its operation count of the needed work does not double)
+PASSES = {"tf32x3": TF32_PASSES, "bf16": 1}
+
+
+def precision_of(dtype) -> str:
+    """The precision a flash launch on ``dtype`` inputs multiplies at:
+    ``bf16`` for bfloat16, else ``tf32x3``. The SSD kernel runs its fp32
+    math whatever its inputs' dtype: always ``tf32x3``."""
+    return "bf16" if str(dtype).endswith("bfloat16") else "tf32x3"
 
 
 def _tri(n: int) -> int:
@@ -62,12 +76,15 @@ def flash_cost(b: int, sq: int, skv: int, h: int, kv: int, hd: int, hd_v: int, i
     return ops, nbytes
 
 
-def ssd_cost(b: int, s: int, h: int, p: int, n: int, chunk: int) -> tuple[int, int]:
+def ssd_cost(b: int, s: int, h: int, p: int, n: int, chunk: int,
+             itemsize: int = 4) -> tuple[int, int]:
     """(operations, bytes) of one SSD call: x, dt, loga, B, C read once, y
-    and the final state written once; per chunk and head the causal half of
-    C·Bᵀ and of G·(x·dt), C·Hᵀ and the state update, as multiply-adds (2
-    operations). The last chunk's padding does no needed work."""
-    nbytes = 4 * (2 * b * s * h * p + 2 * b * s * h + 2 * b * s * n + b * h * p * n)
+    and the final state written once (x, B, C and y ``itemsize`` bytes a
+    value, dt, loga and the state float32); per chunk and head the causal
+    half of C·Bᵀ and of G·(x·dt), C·Hᵀ and the state update, as
+    multiply-adds (2 operations). The last chunk's padding does no needed
+    work."""
+    nbytes = itemsize * (2 * b * s * h * p + 2 * b * s * n) + 4 * (2 * b * s * h + b * h * p * n)
     full, rest = divmod(s, chunk)
 
     def per_chunk(q):
@@ -78,8 +95,9 @@ def ssd_cost(b: int, s: int, h: int, p: int, n: int, chunk: int) -> tuple[int, i
     return ops, nbytes
 
 
-def bound(ops: int, nbytes: int, hw) -> tuple[float, float]:
+def bound(ops: int, nbytes: int, hw, precision: str = "tf32x3") -> tuple[float, float]:
     """(seconds by bytes, seconds by operations) of a kernel's work on the
-    card ``hw``: bytes over its memory rate, ``TF32_PASSES`` TF32 products per
-    operation over its TF32 rate. The bound is the larger."""
-    return nbytes / hw.hbm_bw, TF32_PASSES * ops / hw.tf32_flops
+    card ``hw``: bytes over its memory rate, ``PASSES[precision]`` products
+    per operation over that precision's rate (three TF32 products, or one
+    bf16). The bound is the larger."""
+    return nbytes / hw.hbm_bw, PASSES[precision] * ops / hw.rate_of(precision)

@@ -148,7 +148,8 @@ def _reference_walk(arch, kind, seq):
 def _port_count(arch, kind, seq, device="cpu", early_stop=True):
     cfg = get_arch(arch, smoke=True)
     step, inputs = dryrun.build_step(cfg, ShapeConfig("x", seq, B, kind),
-                                     TM.Topology(num_stages=1, num_micro=MICRO), device=device)
+                                     TM.Topology(num_stages=1, num_micro=MICRO), device=device,
+                                     dtype=torch.float32)
     with torch.utils.checkpoint.set_checkpoint_early_stop(early_stop):
         return count(step, *inputs, resident=inputs)
 
@@ -448,7 +449,8 @@ def test_grid_collective_bytes_equal_the_closed_form():
     shape = ShapeConfig("t", S, B, "train")
     topo, counter = dryrun.count_on_grid(
         cfg, shape, pods=1, data=2, stages=2, rank=0,
-        topology=lambda g: TM.Topology(num_stages=2, num_micro=MICRO, data=2, ring=g))
+        topology=lambda g: TM.Topology(num_stages=2, num_micro=MICRO, data=2, ring=g),
+        dtype=torch.float32)
     full = TM.abstract_params(cfg, 2)
     layout = TM.leaf_layout(cfg, topo)
     per = TM.stacked_shape_plan(cfg, 2)["per_stage"]
@@ -504,7 +506,8 @@ def test_roofline_report_and_render_equal_the_reference():
 
 
 def test_dryrun_cli_writes_its_report(tmp_path):
-    """Full width on meta, no card: codeqwen1.5-7b × decode_32k."""
+    """Full width on meta, no card: codeqwen1.5-7b × decode_32k, at the
+    reference's dtype (bf16 params and cache)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                           "codeqwen1.5-7b", "--shape", "decode_32k", "--out", str(tmp_path)],
@@ -513,9 +516,10 @@ def test_dryrun_cli_writes_its_report(tmp_path):
     (path,) = tmp_path.glob("*.json")
     r = json.loads(path.read_text())
     cfg = get_arch("codeqwen1.5-7b")
-    # the ring: 32 layers x 128 rows x (32768 + 16) slots x 32 kv heads x 128 x (k, v), fp32
-    ring = 32 * 128 * (32768 + 16) * cfg.num_kv_heads * cfg.head_dim * 2 * 4
+    # the ring: 32 layers x 128 rows x (32768 + 16) slots x 32 kv heads x 128 x (k, v), bf16
+    ring = 32 * 128 * (32768 + 16) * cfg.num_kv_heads * cfg.head_dim * 2 * 2
     assert r["memory"]["entry_bytes"] >= ring and not r["memory"]["fits"]
+    assert r["dtype"] == "bfloat16"
     assert r["memory"]["card_gib"] == 80.0
     assert r["roofline"]["dominant"] == "memory_s" and r["flops"]["aten"] > 0
     assert r["kernel_calls"] == {} and r["collective_bytes"]["total"] == 0
@@ -547,10 +551,10 @@ def test_dryrun_cli_writes_grid_reports(tmp_path):
         assert {"num_micro", "seq_shard_decode", "memory", "collective_bytes", "roofline",
                 "kind", "tag", "ok"} <= set(r)
         # 32 layers over 16 stages, 128 rows over 16 x pods replicas: 2 layers' ring of
-        # 8 / pods rows x (32768 + 16) slots x 32 kv heads x 128 x (k, v), fp32
+        # 8 / pods rows x (32768 + 16) slots x 32 kv heads x 128 x (k, v), bf16
         cfg = get_arch("codeqwen1.5-7b")
         ring = 2 * (128 // (16 * (chips // 256))) * (32768 + 16) * cfg.num_kv_heads \
-            * cfg.head_dim * 2 * 4
+            * cfg.head_dim * 2 * 2
         assert r["memory"]["entry_bytes"] >= ring and r["memory"]["fits"]
         coll = r["collective_bytes"]
         assert coll["all-gather"] > 0 and coll["collective-permute"] > 0

@@ -12,8 +12,12 @@ all-zero-norm SpMM rows must be exactly 0. A kernel-backend GCN step is held
 to the padded backend at 2e-4 in its loss and update (the tolerance of
 ``benchmarks/fig3.py``), and each gradient leaf within 1e-5 of its largest
 entry. The flash kernel is held at 1e-5 (2e-2 in bf16) and the SSD kernel
-at atol 1e-4, the JAX package's SSD tolerance; smoke-size LM serving on the
-card at 1e-4 against the same params on the CPU. The compiled engine's
+at atol 1e-4, the JAX package's SSD tolerance; their bf16 instances within
+one bf16 ulp (``kernels.bf16_ulps``: at the value, or at 2^-8 of the
+output's largest where the value is smaller) of the plain version's output
+in bf16 (flash: the plain version on the same bf16 inputs; SSD: its fp32
+result on the same values, rounded to bf16); smoke-size LM serving on the card at
+1e-4 against the same params on the CPU, and in bf16 through the kernels. The compiled engine's
 captured steps are held bit for bit to its eager program and to the host
 engine, under deterministic algorithms, and a streamed plan's step at
 ``data_parallel=2`` to ``data_parallel=1``; the double-buffered step (its
@@ -29,6 +33,7 @@ import pytest
 import torch
 
 from repro_torch.core.microbatch import make_plan
+from repro_torch.kernels import bf16_ulps
 from repro_torch.core.pipeline import GPipeConfig, make_engine
 from repro_torch.graphs import data as tdata
 from repro_torch.graphs import DoubleBufferedLoader, load_dataset, open_streamed, streamed_plan
@@ -435,6 +440,40 @@ def test_flash_kernel_bf16_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,window,cap", [
+    (4, 512, 32, 32, 128, None, 0, 0.0),  # codeqwen1.5-7b's prefill launch
+    (4, 256, 32, 32, 128, None, 0, 0.0),  # its training launch (--seq 256, 2 micro-batches)
+    (4, 512, 32, 32, 112, None, 0, 0.0),  # zamba2-7b's shared block, hd 112
+    (4, 512, 128, 128, 192, 128, 0, 0.0),  # deepseek-v3-671b's MLA prefill launch
+    (2, 300, 8, 4, 128, None, 100, 0.0),
+    (2, 257, 8, 4, 64, None, 40, 30.0),
+    (1, 129, 4, 2, 256, None, 0, 50.0),
+    (2, 513, 8, 1, 64, None, 0, 0.0),
+])
+def test_flash_kernel_bf16_within_one_ulp_on_card(cuda, b, s, h, kv, hd, hd_v, window, cap):
+    """The bf16 instance (P . V from P's bf16 high and low parts) against
+    the plain version on the same bf16 inputs, which computes in float32
+    and rounds once: at most one bf16 ulp apart."""
+    q, k, v = _flash_inputs(cuda, b, s, h, kv, hd, hd_v, dtype=torch.bfloat16, seed=s + hd)
+    before = FK.flash_attention_kernel.launches
+    got = FK.flash_attention_kernel(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_kernel.launches == before + 1 and got.dtype == torch.bfloat16
+    want = flash_attention_ref(q, k, v, window=window, softcap=cap)
+    assert float(bf16_ulps(got, want).max()) <= 1.0
+
+
+@pytest.mark.gpu
+def test_flash_kernel_bf16_masked_by_positions_within_one_ulp_on_card(cuda):
+    """qwen2-vl's prefill launch in bf16: masked by the t-row."""
+    q, k, v = _flash_inputs(cuda, 4, 512, 12, 2, 128, dtype=torch.bfloat16, seed=3)
+    pos = _t_row(cuda, 512, 128)
+    got = FK.flash_attention_kernel(q, k, v, q_pos=pos, kv_pos=pos)
+    want = flash_attention_ref(q, k, v, q_pos=pos, kv_pos=pos)
+    assert float(bf16_ulps(got, want).max()) <= 1.0
+
+
+@pytest.mark.gpu
 def test_flash_kernel_rejects_bad_inputs_on_card(cuda):
     q, k, v = _flash_inputs(cuda, 1, 64, 4, 3, 32)
     with pytest.raises(ValueError, match="group"):
@@ -557,6 +596,45 @@ def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, n, chunk, loga_scale
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,chunk,loga_scale", [
+    (4, 512, 24, 64, 128, 128, 1.0),  # mamba2-130m's prefill launch
+    (4, 512, 112, 64, 64, 128, 1.0),  # zamba2-7b's: 112 heads, N 64
+    (4, 256, 112, 64, 64, 128, 1.0),  # zamba2-7b's training launch
+    (2, 77, 24, 64, 128, 128, 1.0),
+    (2, 512, 24, 64, 128, 128, 40.0),
+    (1, 77, 3, 8, 16, 16, 1.0),
+    (1, 77, 3, 12, 20, 16, 1.0),  # P and N not multiples of 8: 2-byte loads
+])
+def test_ssd_kernel_bf16_within_one_ulp_on_card(cuda, b, s, h, p, n, chunk, loga_scale):
+    """bf16 x, B and C (dt and loga float32, as the model makes them): y in
+    bf16 within one ulp of the plain version's float32 result on the same
+    values rounded to bf16, the float32 final state at atol 1e-4."""
+    x, dt, A, B, C = _ssd_inputs(cuda, b, s, h, p, n, seed=s + h)
+    x, B, C = (a.to(torch.bfloat16) for a in (x, B, C))
+    loga = (dt * A * loga_scale).contiguous()
+    before = SSK.ssd_kernel.launches
+    y, state = SSK.ssd_kernel(x, dt, loga, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SSK.ssd_kernel.launches == before + 1
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    want_y, want_state = ssd_chunk_scan(x.float(), dt, loga, B.float(), C.float(), chunk=chunk)
+    assert float(bf16_ulps(y, want_y.to(torch.bfloat16)).max()) <= 1.0
+    torch.testing.assert_close(state, want_state, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_rejects_mixed_dtypes_on_card(cuda):
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 64, 2, 8, 16)
+    loga = (dt * A).contiguous()
+    with pytest.raises(TypeError, match="B"):
+        SSK.ssd_kernel(x.to(torch.bfloat16), dt, loga, B, C, chunk=16)
+    with pytest.raises(TypeError, match="dt"):
+        SSK.ssd_kernel(x, dt.to(torch.bfloat16), loga, B, C, chunk=16)
+    with pytest.raises(TypeError, match="x"):
+        SSK.ssd_kernel(x.half(), dt, loga, B.half(), C.half(), chunk=16)
+
+
+@pytest.mark.gpu
 def test_ssd_kernel_rejects_untiled_shapes_on_card(cuda):
     x, dt, A, B, C = _ssd_inputs(cuda, 1, 64, 2, 96, 16)
     with pytest.raises(ValueError, match="head dim"):
@@ -595,6 +673,44 @@ def test_lm_serving_on_card_goes_through_kernels(cuda, arch):
     torch.testing.assert_close(served.generation.prefill_logits.cpu(), cpu_gen.prefill_logits,
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(served.generation.tokens, cpu_gen.tokens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "mamba2-130m", "zamba2-7b"])
+def test_lm_serving_bf16_on_card_goes_through_kernels(cuda, arch):
+    """bf16 params at smoke size: the caches take their dtype, the prefill
+    launches each kernel once per layer slot and micro-batch, and its
+    logits agree with the CPU's bf16 prefill from the same params within
+    2% of the largest."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.models.transformer import model as TM
+
+    cfg = get_arch(arch, smoke=True)
+    topo = TM.Topology(num_stages=1, num_micro=2)
+    params = TM.init_params(cfg, seed=0, device=cuda, dtype=torch.bfloat16)
+    prompt = torch.from_numpy(token_batch(batch=4, seq=80, vocab=cfg.vocab_size, seed=0)[
+        :, :80].astype(np.int64))
+    SSK.ssd_kernel.launches = FK.flash_attention_kernel.launches = 0
+    gen = lm_serve.generate(cfg, topo, params, prompt.to(cuda), 3)
+    slots = {"ssd": cfg.num_layers, "flash": 0} if arch == "mamba2-130m" else \
+        {"ssd": 0, "flash": cfg.num_layers}
+    if arch == "zamba2-7b":
+        ex = TM.make_extras(cfg, 1)
+        slots = {"ssd": int(ex["mamba"]["active"].sum()), "flash": int(ex["attn"]["active"].sum())}
+    assert SSK.ssd_kernel.launches == 2 * slots["ssd"]
+    assert FK.flash_attention_kernel.launches == 2 * slots["flash"]
+    assert gen.cache is not None and all(
+        v.dtype == (torch.float32 if k == "ssm" else torch.bfloat16)
+        for k, v in _flat_leaves(gen.cache))
+    cpu = lm_serve.generate(cfg, topo, _tree_to(params, "cpu"), prompt, 0)
+    err = float((gen.prefill_logits.cpu() - cpu.prefill_logits).abs().max())
+    assert err <= 0.02 * float(cpu.prefill_logits.abs().max())
+
+
+def _flat_leaves(tree):
+    for k, v in tree.items():
+        yield from _flat_leaves(v) if isinstance(v, dict) else ((k, v),)
 
 
 @pytest.mark.gpu
@@ -987,13 +1103,13 @@ def test_meta_counts_equal_card_counts(cuda, arch, kind):
     shape = ShapeConfig("x", 80 if kind == "decode" else 64, 4, kind)
     topo = Topology(num_stages=1, num_micro=2)
     wrappers = {"flash_attention_kernel": FK.flash_attention_kernel, "ssd_kernel": SSK.ssd_kernel}
-    step, inputs = build_step(cfg, shape, topo, device=cuda)
+    step, inputs = build_step(cfg, shape, topo, device=cuda, dtype=torch.float32)
     torch.cuda.synchronize()
     before = {name: w.launches for name, w in wrappers.items()}
     card = count_step(step, inputs)
     torch.cuda.synchronize()
     launched = {name: w.launches - before[name] for name, w in wrappers.items()}
-    meta = count_step(*build_step(cfg, shape, topo, device="meta"))
+    meta = count_step(*build_step(cfg, shape, topo, device="meta", dtype=torch.float32))
     assert dict(meta.flops_by_op) == dict(card.flops_by_op)
     assert dict(meta.bytes_by_op) == dict(card.bytes_by_op)
     assert meta.kernel_calls == card.kernel_calls == {k: v for k, v in launched.items() if v}

@@ -15,8 +15,8 @@ bit for bit against the one-process step at the same ``Topology``: losses,
 each rank's shard of the params and of Adam's moments (codeqwen with ZeRO-3
 on and off and interleaved, zamba2's shared block, arctic's MoE gathered
 and a2a, deepseek's MLA and multi-token-prediction head), the prefill and
-decode logits, tokens and cache shards, and the sequence-sharded
-long-context decode. The same 4-rank grid also starts from params given to
+decode logits, tokens and cache shards, the sequence-sharded
+long-context decode, and codeqwen's training at bf16 params. The same 4-rank grid also starts from params given to
 the reference's dp 2 steps, run in a subprocess on an ``Auto`` (2, 2) mesh
 of 4 forced host devices: losses and Adam's first moments at
 ``tests/test_torch_lm_train.py``'s tolerances, greedy tokens equal, and
@@ -123,15 +123,16 @@ def topology(D, ring=None, **fields):
     return TM.Topology(data=2, ring=ring, **fields)
 
 
-def own_params(cfg, topo, seed=0):
+def own_params(cfg, topo, seed=0, dtype=torch.float32):
     """This process's params: the whole tree in one process, a rank's
     stage rows of its data shard (drawn from (seed, stage, shard)) on a
     rank."""
     grid = topo.ring
     if grid is None:
-        return TM.init_params(cfg, seed=seed, num_stages=topo.num_stages, topo=topo)
+        return TM.init_params(cfg, seed=seed, num_stages=topo.num_stages, topo=topo, dtype=dtype)
     return TM.init_params(cfg, seed=seed, num_stages=topo.num_stages, topo=topo,
-                          stages=TM.held_stages(topo, grid.position), data_rank=grid.replica)
+                          stages=TM.held_stages(topo, grid.position), data_rank=grid.replica,
+                          dtype=dtype)
 
 
 def shard(tree, cfg, topo, grid, moments=False):
@@ -141,12 +142,12 @@ def shard(tree, cfg, topo, grid, moments=False):
     return TM.grid_shard(tree, cfg, topo, grid.position, grid.replica, moments=moments)
 
 
-def train(cfg, topo, params=None, steps=STEPS):
-    """``steps`` train steps: losses (then step 1's batch's again, with
-    the trained params: ``step.loss``), params and Adam's moments after
-    them, and the moments after step 1."""
+def train(cfg, topo, params=None, steps=STEPS, dtype=torch.float32):
+    """``steps`` train steps from params in ``dtype``: losses (then step
+    1's batch's again, with the trained params: ``step.loss``), params and
+    Adam's moments after them, and the moments after step 1."""
     step = TM.make_train_step(cfg, topo, ShapeConfig("t", SEQ, BATCH, "train"), lr=LR)
-    params = own_params(cfg, topo) if params is None else params
+    params = own_params(cfg, topo, dtype=dtype) if params is None else params
     opt = step.optimizer.init(params)
     losses, first = [], None
     for i in range(steps):
@@ -229,7 +230,7 @@ def count_train(cfg, topo):
     """One train step of this rank (or process) counted under ``OpCounter``
     (``launch.dryrun.build_step`` on the CPU): aten FLOPs and bytes by op,
     kernel calls and work, collectives by kind."""
-    step, inputs = dryrun.build_step(cfg, COUNT_SHAPE, topo, device="cpu")
+    step, inputs = dryrun.build_step(cfg, COUNT_SHAPE, topo, device="cpu", dtype=torch.float32)
     return counts_of(dryrun.count_step(step, inputs))
 
 
@@ -267,6 +268,8 @@ def _cases(grid, D, jax_in):
         out[f"serve {arch}"] = serve(config(arch), topology(D, grid))
     if D == 2:
         out["decode long"] = decode_long(long_config(), long_topology(grid))
+        out["bf16 train"] = train(config("codeqwen1.5-7b"), topology(2, grid),
+                                  dtype=torch.bfloat16)
     if jax_in is not None:
         for name, arch, fields in JAX_TRAIN:
             cfg, topo = get_arch(arch, smoke=True), topology(2, grid, **fields)
@@ -511,7 +514,8 @@ def worlds():
                 for rank in range(4):
                     _, counter = dryrun.count_on_grid(
                         cfg, COUNT_SHAPE, pods=shape[0], data=shape[1], stages=shape[2],
-                        rank=rank, topology=lambda g, shape=shape: count_topology(shape, g))
+                        rank=rank, topology=lambda g, shape=shape: count_topology(shape, g),
+                        dtype=torch.float32)
                     meta[(name, rank)] = counts_of(counter)
             alone["meta counts"] = meta
         jax_out = None
@@ -569,6 +573,19 @@ def test_grid_training_bit_identical(worlds, case, arch, fields):
     for results in worlds["four"]:
         assert_train_equal(results[f"train {case}"], worlds["alone"][2][f"train {case}"],
                            config(arch), topo, results["place"], (case, results["place"]))
+
+
+def test_grid_bf16_training_bit_identical(worlds):
+    """dp 2 x D 2 at bf16 params (ZeRO-3's gathers and the gradients'
+    reduce-scatters in bf16, the loss and Adam's moments float32), 2 steps:
+    every rank's losses and shards equal the one-process step's bit for
+    bit."""
+    topo = topology(2)
+    for results in worlds["four"]:
+        got = results["bf16 train"]
+        assert all(p.dtype == torch.bfloat16 for p in tree_leaves(got["params"]))
+        assert_train_equal(got, worlds["alone"][2]["bf16 train"], config("codeqwen1.5-7b"), topo,
+                           results["place"], ("bf16", results["place"]))
 
 
 @pytest.mark.parametrize("case, arch, fields", PAIR_TRAIN)

@@ -13,7 +13,9 @@ softcap, deepseek's MoE, MLA and multi-token-prediction head, qwen2-vl's
 frontend rows and m-rope, the zamba2 hybrid's shared block; a padding
 slot; remat off; interleaved with 2 virtual stages a rank), and the
 prefill logits, the decode logits and tokens and every cache row after a
-prefill and 4 decode steps. The 2-rank ring also starts from the JAX
+prefill and 4 decode steps; on 2 ranks also codeqwen's training and
+serving at bf16 params (the reference's dtype: bf16 hops, float32 loss and
+moments). The 2-rank ring also starts from the JAX
 package's params and matches the reference's own 2-device steps, run in a
 subprocess on a 1x2 ``Auto`` mesh of forced host devices: gemma2-27b's
 train step (step-1 loss within 1e-5 relative, Adam's moments within 1e-5
@@ -89,18 +91,18 @@ def topology(stages, ring=None, schedule="fill_drain", num_virtual=1, remat=True
                        schedule=schedule, num_virtual=num_virtual, remat=remat, ring=ring)
 
 
-def own_params(cfg, topo, seed=0):
+def own_params(cfg, topo, seed=0, dtype=torch.float32):
     """This process's params: every stage in one process, a ring
     position's own rows (drawn from (seed, stage) alone) on a rank."""
     stages = None if topo.ring is None else TM.held_stages(topo, topo.ring.position)
-    return TM.init_params(cfg, seed=seed, num_stages=topo.num_stages, stages=stages)
+    return TM.init_params(cfg, seed=seed, num_stages=topo.num_stages, stages=stages, dtype=dtype)
 
 
-def train(cfg, topo, params=None, steps=STEPS):
-    """``steps`` train steps: losses, params and Adam's moments after them,
-    and the moments after step 1."""
+def train(cfg, topo, params=None, steps=STEPS, dtype=torch.float32):
+    """``steps`` train steps from params in ``dtype``: losses, params and
+    Adam's moments after them, and the moments after step 1."""
     step = TM.make_train_step(cfg, topo, ShapeConfig("t", SEQ, BATCH, "train"), lr=LR)
-    params = own_params(cfg, topo) if params is None else params
+    params = own_params(cfg, topo, dtype=dtype) if params is None else params
     opt = step.optimizer.init(params)
     losses, first = [], None
     for i in range(steps):
@@ -112,10 +114,11 @@ def train(cfg, topo, params=None, steps=STEPS):
     return {"losses": losses, "params": params, "mu": opt.mu, "nu": opt.nu, "first": first}
 
 
-def serve(cfg, topo, params=None):
+def serve(cfg, topo, params=None, dtype=torch.float32):
     """A prefill of ``PROMPT`` tokens, its cache spliced into the decode
-    cache, then ``DECODE`` greedy steps: every logit, token and cache."""
-    params = own_params(cfg, topo) if params is None else params
+    cache, then ``DECODE`` greedy steps (params and caches in ``dtype``):
+    every logit, token and cache."""
+    params = own_params(cfg, topo, dtype=dtype) if params is None else params
     prompt = torch.from_numpy(token_batch(batch=BATCH, seq=PROMPT, vocab=cfg.vocab_size,
                                           seed=0)[:, :PROMPT].astype(np.int64))
     pshape = ShapeConfig("p", PROMPT, BATCH, "prefill")
@@ -123,8 +126,9 @@ def serve(cfg, topo, params=None):
     prefill = TM.make_prefill_step(cfg, topo, pshape)
     step = TM.make_serve_step(cfg, topo, dshape)
     with torch.inference_mode():
-        logits, pcache = prefill(params, TM.init_cache(cfg, topo, pshape), {"tokens": prompt})
-        dcache = tserve.splice(TM.init_cache(cfg, topo, dshape), pcache)
+        logits, pcache = prefill(params, TM.init_cache(cfg, topo, pshape, dtype=dtype),
+                                 {"tokens": prompt})
+        dcache = tserve.splice(TM.init_cache(cfg, topo, dshape, dtype=dtype), pcache)
         tok = logits.argmax(-1).to(torch.int32)
         all_logits, tokens = [logits], [tok]
         for i in range(DECODE):
@@ -192,6 +196,8 @@ def _world_cases(world: int, jax_in):
         return out
     for arch in INTERLEAVED_ARCHS:
         out[f"interleaved {arch}"] = train(config(arch), topology(4, grid, "interleaved", 2))
+    out["bf16 train"] = train(config("codeqwen1.5-7b"), topology(2, grid), dtype=torch.bfloat16)
+    out["bf16 serve"] = serve(config("zamba2-7b"), topology(2, grid), dtype=torch.bfloat16)
     jtrain, jserve = jax_in
     topo = topology(2, grid)
     if jtrain is not None:
@@ -363,6 +369,9 @@ def worlds():
             for arch in INTERLEAVED_ARCHS:
                 alone[f"interleaved {arch}"] = train(config(arch),
                                                      topology(4, None, "interleaved", 2))
+            alone["bf16 train"] = train(config("codeqwen1.5-7b"), topology(2),
+                                        dtype=torch.bfloat16)
+            alone["bf16 serve"] = serve(config("zamba2-7b"), topology(2), dtype=torch.bfloat16)
         jax_out = None
         if jax_proc is not None:
             log, _ = jax_proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
@@ -445,6 +454,24 @@ def test_ring_interleaved_bit_identical(worlds, arch):
     for rank, results in enumerate(worlds["two"]):
         assert_train_equal(results[f"interleaved {arch}"], worlds["alone"][f"interleaved {arch}"],
                            topo, rank, (arch, rank))
+
+
+def test_ring_bf16_bit_identical(worlds):
+    """At bf16 params on 2 ranks (bf16 hops, float32 loss and moments):
+    codeqwen's 2 train steps (losses, params, moments) and zamba2's prefill
+    and decode (logits, tokens, every cache row: bf16 k/v and conv, float32
+    ssm state) equal one process's bit for bit."""
+    topo = topology(2)
+    for rank, results in enumerate(worlds["two"]):
+        got, want = results["bf16 train"], worlds["alone"]["bf16 train"]
+        assert all(p.dtype == torch.bfloat16 for p in tree_leaves(got["params"]))
+        assert all(m.dtype == torch.float32 for m in tree_leaves(got["mu"]))
+        assert_train_equal(got, want, topo, rank, ("bf16", rank))
+        got, want = results["bf16 serve"], worlds["alone"]["bf16 serve"]
+        assert torch.equal(got["logits"], want["logits"]), rank
+        assert torch.equal(got["tokens"], want["tokens"]), rank
+        for name in ("pcache", "dcache"):
+            assert trees_equal(got[name], rows_of(want[name], topo, rank)), (rank, name)
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
