@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA GPUs.
 
-    python3 chip_smoke.py                # phases 1-20 and 24 on one card (21 on 2+, 22-23 on 4)
+    python3 chip_smoke.py                # phases 1-20 and 24 on one card (21 on 2+, 22-23, 25 on 4)
     python3 chip_smoke.py --phases 21    # phase 1, then phase 21 on up to 4 cards
     python3 chip_smoke.py --phases 22    # phase 1, then phase 22 on 4 cards
     python3 chip_smoke.py --phases 23    # phase 1, then phase 23 on 4 cards
+    python3 chip_smoke.py --phases 25    # phase 1, then phase 25 on 4 cards
 
 Phases (each prints its seconds); any failure stops the run with a non-zero
 exit:
@@ -414,6 +415,50 @@ exit:
    replays: the kernel, its plain version, its bound at the bf16 rates, its
    ulps from the plain version and, for flash,
    ``scaled_dot_product_attention`` on the same bf16 tensors.
+
+25. The LM stage ring and the data axis at the reference's bf16 on four
+   cards (``phase_lm_bf16``): params, caches and activations bf16, Adam's
+   moments, Mamba's state, the loss and the logits float32, as phase 24 on
+   one card; the hops, ZeRO-3 gathers and MoE exchanges carry bf16. Through
+   ``chip_smoke.py --rank-worker lmbf16`` under ``torchrun``, each rank's
+   lines in ``build/phase25/``. First 25b-d's per-rank state is reckoned at
+   bf16 (params and gradients 2 bytes a value, the moments 4) against the
+   card, and 25d's training expert cut is the widest of 128, 96, 64, 48
+   whose state fits 0.7 of the card. 25a, cut depth, deterministic, bit for
+   bit on every rank against the same ``Topology`` at bf16 in one process
+   on one card of the host (losses, tokens, logits, and digests of every
+   params row, Adam-moment row, decode-cache row and data shard the rank
+   holds; the dtypes asserted): on the ring (D 4) phase 22a's cases
+   (codeqwen1.5-7b at 8 layers under fill_drain and interleaved,
+   qwen2.5-32b at 8 layers served, zamba2-7b at 24 slots trained and
+   served), on dp 2 x D 2 codeqwen at 8 layers with ZeRO-3 on and off,
+   arctic-480b at 2 layers and 8 experts under ``gathered`` and ``a2a``,
+   qwen2.5-32b at 8 layers served and the long-context decode (window 64,
+   81 steps), and codeqwen trained on pods 2 x D 2. 25b codeqwen1.5-7b at
+   its 32 layers on the ring at 22b's flags, 4 steps: losses finite and
+   alike on every rank, per rank the median step, tokens/s, peak, what the
+   card held after the first step beside the reckoning, a traced step's
+   busy share, NCCL time and hidden share, and the model-FLOP share of the
+   four cards' bf16 peak, beside 22b's fp32 figures. 25c qwen2.5-32b at its
+   64 layers on the ring at phase 8's flags: the prefill's logits within
+   ``BF16_VS_FP32_FRAC`` of the largest |logit| of the float32 ring prefill
+   from the same weights upcast, the decode at position 512 within
+   ``BF16_DECODE_FRAC`` of a fresh 513-row bf16 prefill's on the ring;
+   prefill_s, decode_s_per_tok, tokens_per_s, per rank the peak and the
+   traced prefill's and decode's busy share. 25d codeqwen1.5-7b at 32
+   layers with ZeRO-3 at dp 2 x D 2 at 23b's flags, 4 steps (per rank the
+   step, tokens/s, peak, NCCL time); arctic-480b at 2 layers served with
+   all 128 experts, the first decode within ``BF16_DECODE_FRAC`` of a fresh
+   prefill that drops no token, then trained 2 steps on the expert cut.
+   25e 23f at bf16: each rank's counted codeqwen step (8 layers) on dp 2 x
+   D 2 and pods 2 x D 2 op for op against ``dryrun.count_on_grid(...,
+   dtype=torch.bfloat16)`` in a fake world of 4, its peak increment within
+   10% of the allocator's. 25f every rank's first flash and SSD calls of
+   each leg within one bf16 ulp of the plain version, their launches
+   counted into the ``kernels`` line's ``... bf16`` entries; on one card
+   each new bf16 launch shape timed as 24g (flash 2 x 256 at 32 heads, 4 x
+   512 at GQA 40/8, 2 x 512 at GQA 56/8; SSD at zamba2's 2 x 256 training
+   call). On a machine with fewer cards phase 25 prints why it did not run.
 
 ``--phases`` (e.g. ``--phases 21``) runs phase 1, then the phases named (and
 those whose results they take), then the closing lines; the kernels line
@@ -4384,9 +4429,9 @@ def worker_stream(H, torch, rl):
 
 
 def rank_worker(leg: str) -> int:
-    """``chip_smoke.py --rank-worker ring4|ring2|lm4|lmdata`` under
-    torchrun: this rank's legs of phase 21 (``ring...``), 22 (``lm4``) or
-    23 (``lmdata``), its record in ``rank_dir(leg)``."""
+    """``chip_smoke.py --rank-worker ring4|ring2|lm4|lmdata|lmbf16`` under
+    torchrun: this rank's legs of phase 21 (``ring...``), 22 (``lm4``), 23
+    (``lmdata``) or 25 (``lmbf16``), its record in ``rank_dir(leg)``."""
     import torch
     import torch.distributed as dist
 
@@ -4411,7 +4456,15 @@ def rank_worker(leg: str) -> int:
     rl = RankLog(joined.rank, leg, torch.get_num_threads())
     refs = torch.load(rank_dir(leg) / "refs.pt", weights_only=False)
     try:
-        if leg == "lmdata":
+        if leg == "lmbf16":
+            bf16 = torch.bfloat16
+            worker_lm_bf16_cut(H, torch, rl, refs)
+            worker_lm_train_full(H, torch, rl, bf16)
+            worker_lm_serve_full(H, torch, rl, bf16)
+            worker_lm_data_train_full(H, torch, rl, bf16)
+            worker_lm_data_moe(H, torch, rl, refs["experts"], bf16)
+            worker_lm_data_count(H, torch, rl, ranks.RankGrid(2, 2), bf16)
+        elif leg == "lmdata":
             grid = ranks.RankGrid(2, LM_DATA_CARDS // 2)
             worker_lm_data_cut(H, torch, rl, refs, grid)
             worker_lm_data_long(H, torch, rl, refs, grid)
@@ -4470,8 +4523,10 @@ CARD_BYTES = 80e9  # one H100's memory
 
 
 def rank_dir(leg: str) -> Path:
-    """Where a worker leg's records go: phase 23's (``lmdata``), 22's
-    (``lm4``) or 21's."""
+    """Where a worker leg's records go: phase 25's (``lmbf16``), 23's
+    (``lmdata``), 22's (``lm4``) or 21's."""
+    if leg == "lmbf16":
+        return LM_BF16_DIR
     if leg == "lmdata":
         return LM_DATA_DIR
     return LM_RING_DIR if leg.startswith("lm") else RANKS_DIR
@@ -4479,7 +4534,8 @@ def rank_dir(leg: str) -> Path:
 
 def tree_digests(torch, tree, stages=None, prefix=""):
     """{path: (sum, weighted sum)} of a params-shaped tree's bits: each
-    leaf's words as int64, summed plain and weighted by position mod 65521
+    leaf's elements as integers of their width (``bits_digest``), summed
+    plain and weighted by position mod 65521
     (a changed bit changes them), in 2^24-element pieces on the leaf's
     device. ``blocks`` leaves are digested per row under ``path@stage``,
     row i being stage ``stages[i]`` (every row's own index when None)."""
@@ -4496,8 +4552,61 @@ def tree_digests(torch, tree, stages=None, prefix=""):
     return out
 
 
+def leaf_dtypes(tree) -> set:
+    """The dtypes of a tree's leaves, as strings."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    return {str(a.dtype) for a in tree_leaves(tree)}
+
+
+def cache_dtypes(cache, prefix="") -> dict:
+    """{leaf name: dtype} of a decode cache (a hybrid's ``mamba/ssm`` ...)."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out.update(cache_dtypes(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = str(v.dtype)
+    return out
+
+
+def cache_digests(torch, cache, stages=None, data=1, replica=None, seq=False):
+    """{``path@stage#r``: digest} of a decode cache's rows (leaves
+    (stages, micro, slots, b_mb, ...)): per stage row (``stages[i]`` for
+    row i, every row's own index when None) and, over a data axis of
+    ``data``, per replica: its micro-batch rows, or with ``seq`` its ring
+    slots of the attention leaves (``k``, ``v``, ``ckv``). In one process
+    (``replica`` None) every replica's part; on a rank its own."""
+    from repro_torch.models.transformer.model import _cut
+
+    out = {}
+
+    def walk(t, path):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, f"{path}{k}/")
+                continue
+            split = None if data == 1 else (3 if seq and k in ("k", "v", "ckv") else
+                                            None if seq else 2)
+            for i in range(v.shape[0]):
+                key = f"{path}{k}@{i if stages is None else stages[i]}"
+                if split is None:
+                    out[key] = bits_digest(torch, v[i])
+                elif replica is None:
+                    for r in range(data):
+                        out[f"{key}#{r}"] = bits_digest(torch, _cut(v[i], split, data, r))
+                else:
+                    out[f"{key}#{replica}"] = bits_digest(torch, v[i])
+
+    walk(cache, "")
+    return out
+
+
 def bits_digest(torch, t):
-    words = t.detach().contiguous().view(-1).view(torch.int32)
+    """(sum, weighted sum) of ``t``'s bits: its elements as signed integers
+    of their own width (int16 for bf16, int32 for float32), widened."""
+    width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    words = t.detach().contiguous().view(-1).view(width)
     total = weighted = 0
     for start in range(0, words.numel(), 1 << 24):
         w = words[start:start + (1 << 24)].to(torch.int64)
@@ -4507,11 +4616,12 @@ def bits_digest(torch, t):
     return total, weighted
 
 
-def lm_ring_case(H, torch, kind, arch, cut, flags, capture=None):
-    """One 22a case through the launchers' functions, in this process (one
-    card, no group) or on this rank (``serve``/``train_lm`` find the
-    group): what is held bit for bit, with the params' and moments' digests
-    per stage row (this rank's rows on a ring)."""
+def lm_ring_case(H, torch, kind, arch, cut, flags, capture=None, dtype=None):
+    """One 22a (25a at ``dtype`` bf16) case through the launchers'
+    functions, in this process (one card, no group) or on this rank
+    (``serve``/``train_lm`` find the group): what is held bit for bit, with
+    the params', moments' and decode cache's digests per stage row (this
+    rank's rows on a ring), and every leaf's dtype."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve as serve_lm
     from repro_torch.launch import train as train_launch
@@ -4523,21 +4633,36 @@ def lm_ring_case(H, torch, kind, arch, cut, flags, capture=None):
     with deterministic(torch), KernelCapture(limits) as cap:
         if kind == "train":
             args = train_launch.build_parser().parse_args([*LM_RING_TRAIN, "--arch", arch, *flags])
-            run = train_launch.train_lm(cfg, args)
+            run = train_launch.train_lm(cfg, args, dtype=dtype)
             topo = run.topo
             stages = None if topo.ring is None else held_stages(topo, topo.ring.position)
             got = {"losses": run.losses, "step_s": run.step_s,
                    "params": tree_digests(torch, run.params, stages),
                    "mu": tree_digests(torch, run.opt_state.mu, stages),
-                   "nu": tree_digests(torch, run.opt_state.nu, stages)}
+                   "nu": tree_digests(torch, run.opt_state.nu, stages),
+                   "dtypes": {"params": leaf_dtypes(run.params),
+                              "moments": leaf_dtypes(run.opt_state.mu) | leaf_dtypes(
+                                  run.opt_state.nu)}}
+            if dtype is not None:
+                # step 0's batch again with the trained params: the loss's dtype
+                again = run.step.loss(run.params, train_launch.lm_batch(cfg, args, 0, H.dev))
+                got["again"] = bits_digest(torch, again)
+                got["dtypes"]["loss"] = {str(again.dtype)}
         else:
             args = serve_lm.build_parser().parse_args(["--arch", arch, *LM_RING_SERVE, *flags])
-            run = serve_lm.serve(args, cfg)
+            run = serve_lm.serve(args, cfg, dtype=torch.float32 if dtype is None else dtype)
             gen = run.generation
+            topo = run.topo
+            stages = None if topo.ring is None else held_stages(topo, topo.ring.position)
             got = {"tokens": gen.tokens.tolist(), "prefill_s": gen.prefill_s,
                    "decode_s": gen.decode_s,
                    "logits": [bits_digest(torch, gen.prefill_logits),
-                              bits_digest(torch, gen.first_decode_logits)]}
+                              bits_digest(torch, gen.first_decode_logits)],
+                   "cache": cache_digests(torch, gen.cache, stages),
+                   "dtypes": {"params": leaf_dtypes(run.params),
+                              "cache": cache_dtypes(gen.cache),
+                              "logits": {str(gen.prefill_logits.dtype),
+                                         str(gen.first_decode_logits.dtype)}}}
     got.update(summary=run.summary, note=note, topo=repr(run.topo))
     del run
     gc.collect()
@@ -4583,18 +4708,32 @@ def lm_ring_timing(H, torch):
         H.timing.setdefault(name, record)
 
 
-def state_gb(cfg, topo, position, train):
-    """The fp32 GB ring position ``position`` holds before any activation:
-    its stage rows and every replicated leaf, times 4 (params, gradients,
-    Adam's two moments) when training."""
+def state_bytes(leaf, values, train, moment_values=None):
+    """Bytes of ``values`` of a params leaf (in its dtype) and, when
+    training, as many gradient values in that dtype and Adam's two float32
+    moments of ``moment_values`` (default ``values``)."""
+    size = leaf.element_size()
+    if not train:
+        return values * size
+    return 2 * values * size + 2 * 4 * (values if moment_values is None else moment_values)
+
+
+def state_gb(cfg, topo, position, train, dtype=None):
+    """The GB ring position ``position`` holds before any activation: its
+    stage rows and every replicated leaf, params (``dtype``, float32 by
+    default, leaf by leaf as ``init_params`` makes them) and, when
+    training, gradients at the params' dtype and Adam's two float32
+    moments."""
+    import torch
+
     from repro_torch.models.transformer.model import abstract_params, held_stages
     from repro_torch.train.optimizer import tree_leaves
 
-    meta = abstract_params(cfg, topo.num_stages)
+    meta = abstract_params(cfg, topo.num_stages, torch.float32 if dtype is None else dtype)
     share = len(held_stages(topo, position)) / topo.num_stages
-    n = sum(p.numel() * (share if path == "blocks" else 1)
+    n = sum(state_bytes(p, p.numel() * (share if path == "blocks" else 1), train)
             for path, tree in meta.items() for p in tree_leaves(tree))
-    return n * 4 * (4 if train else 1) / 1e9
+    return n / 1e9
 
 
 def lm_ring_predictions(H):
@@ -4692,16 +4831,8 @@ def worker_lm_cut(H, torch, rl, refs):
     and logits; this rank's kernel calls held against the plain version."""
     for tag, kind, arch, cut, flags in LM_RING_CUTS:
         got, cap = lm_ring_case(H, torch, kind, arch, cut, flags)
-        want = refs[tag]
         keys = ("losses", "params", "mu", "nu") if kind == "train" else ("tokens", "logits")
-        for key in keys:
-            mine = got[key]
-            ref = {k: want[key][k] for k in mine} if isinstance(mine, dict) else want[key]
-            if mine != ref:
-                bad = [k for k in mine if mine[k] != ref[k]][:4] if isinstance(mine, dict) \
-                    else mine
-                raise AssertionError(f"22a {tag} rank {rl.rank}: {key} not bit-identical to one "
-                                     f"card ({bad})")
+        held_bit_for_bit(f"22a {tag} rank {rl.rank}", got, refs[tag], keys)
         rl.launched(cap.launches)
         cap.compare(H, torch, f"22a {tag} rank {rl.rank}")
         rows = sum(1 for k in got["params"] if "@" in k) if kind == "train" else 0
@@ -4711,6 +4842,35 @@ def worker_lm_cut(H, torch, rl, refs):
                    f"tokens {len(got['tokens'])} x {len(got['tokens'][0])}, prefill and first "
                    "decode logits")
                 + f" bit-identical to one card; launches {cap.launches} [{H.card}]")
+
+
+def held_bit_for_bit(label, got, want, keys):
+    """Each of ``keys`` of a rank's case equal to the one-card case's; a
+    digest dict over this rank's rows only, each of which one card has."""
+    for key in keys:
+        mine = got[key]
+        if isinstance(mine, dict):
+            missing = [k for k in mine if k not in want[key]]
+            if missing:
+                raise AssertionError(f"{label}: {key} {missing[:4]} not in the one-card digests")
+            ref = {k: want[key][k] for k in mine}
+        else:
+            ref = want[key]
+        if mine != ref:
+            bad = [k for k in mine if mine[k] != ref[k]][:4] if isinstance(mine, dict) else mine
+            raise AssertionError(f"{label}: {key} not bit-identical to one card ({bad})")
+
+
+def held_launches(H, torch, rl, cap, label, bf16=False):
+    """A rank's kept kernel calls held against the plain version (the bf16
+    instances within ``BF16_ULPS``, ``compare_bf16_calls``) and its
+    launches counted (a bf16 launch under its instance's key)."""
+    if bf16:
+        compare_bf16_calls(H, cap, label)
+        rl.launched({BF16_KEYS[name]: n for name, n in cap.launches.items()})
+    else:
+        cap.compare(H, torch, label)
+        rl.launched(cap.launches)
 
 
 def rank_report_lines(H, rl, leg, reports):
@@ -4725,78 +4885,118 @@ def rank_report_lines(H, rl, leg, reports):
                 f"{rep['overlap_fraction']:.6f} of it [{H.card}]")
 
 
-def worker_lm_train_full(H, torch, rl):
-    """22b on this rank: codeqwen1.5-7b at its 32 layers, 8 a rank: losses
-    finite and every rank's alike, this rank's flash launches (forward and
-    recompute of its 8 layers x 4 micro-batches a step), the median step,
-    peak and tokens/s, and one traced step per rank."""
+def worker_lm_train_full(H, torch, rl, dtype=None):
+    """22b (25b at ``dtype`` bf16) on this rank: codeqwen1.5-7b at its 32
+    layers, 8 a rank: losses finite and every rank's alike, this rank's
+    flash launches (forward and recompute of its 8 layers x 4 micro-batches
+    a step), the median step, peak and tokens/s, and one traced step per
+    rank; at bf16 the model FLOPs over the median step as a share of the 4
+    cards' bf16 peak, beside 22b's fp32 figures."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.core.overlap_report import capture_rank_reports
     from repro_torch.launch.train import build_parser, lm_batch, train_lm
     from repro_torch.models.transformer.model import held_stages
+    from repro_torch.roofline import model_flops
 
+    bf16 = dtype is not None and dtype != torch.float32
+    tag = "25b" if bf16 else "22b"
     arch, flags = LM_RING_FULL_TRAIN
     args = build_parser().parse_args([*LM_RING_TRAIN, "--arch", arch, *flags])
     cfg = get_arch(arch, smoke=not args.full_arch)
+    held = []
     with KernelCapture({"flash_attention_kernel": LM_RING_CAPTURE}) as cap:
-        trained = train_lm(cfg, args)
+        trained = train_lm(cfg, args, dtype=dtype, on_step=lambda i, *_: held.append(
+            torch.cuda.memory_allocated(H.dev) if H.dev.type == "cuda" else 0))
     topo = trained.topo
     mine = active_slots(cfg, topo.num_stages, held_stages(topo, topo.ring.position))
     want = {k: 2 * n * args.chunks * args.steps for k, n in mine.items()}
     if cap.launches != want:
-        raise AssertionError(f"22b rank {rl.rank}: launches {cap.launches}, want {want}")
+        raise AssertionError(f"{tag} rank {rl.rank}: launches {cap.launches}, want {want}")
     losses = trained.losses
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, losses)
     if not all(map(math.isfinite, losses)) or any(x != losses for x in every):
-        raise AssertionError(f"22b rank {rl.rank}: losses {every}")
-    rl.launched(cap.launches)
-    cap.compare(H, torch, f"22b rank {rl.rank}")
+        raise AssertionError(f"{tag} rank {rl.rank}: losses {every}")
+    held_launches(H, torch, rl, cap, f"{tag} rank {rl.rank}", bf16)
     median = statistics.median(trained.step_s[1:])
     peak = trained.summary["peak_mem_gb"]
     batch = lm_batch(cfg, args, args.steps, H.dev)
     reports = capture_rank_reports(
         lambda: trained.step(trained.params, trained.opt_state, batch))
-    rl.data["22b"] = {"median_s": median, "peak_gb": peak, "losses": losses,
-                      "per_rank_peak": trained.summary["peak_mem_gb_per_rank"]}
-    rl.line(f"22b {arch} full width, {cfg.num_layers} layers, {trained.topo}: losses {losses} "
+    rl.data[tag] = {"median_s": median, "peak_gb": peak, "losses": losses,
+                    "per_rank_peak": trained.summary["peak_mem_gb_per_rank"]}
+    share = ""
+    if bf16:
+        flops = model_flops(cfg, ShapeConfig("t", args.seq, args.batch, "train"), training=True)
+        peak_rate = LM_RING_CARDS * CARD.bf16_flops
+        share = (f"; model FLOPs {flops:.6g} over the median {flops / median / peak_rate:.4f} "
+                 f"of {LM_RING_CARDS} cards' bf16 peak; beside {FP32_22B}")
+    reckoned = held_beside_reckoning(cfg, topo, topo.ring.position, dtype, held[0])
+    rl.line(f"{tag} {arch} full width, {cfg.num_layers} layers, "
+            f"{'bf16 params, ' if bf16 else ''}{trained.topo}: losses {losses} "
             f"(every rank alike); step s {trained.step_s}; median after the first {median:.6f} "
-            f"s, {args.batch * args.seq / median:.1f} tokens/s; peak {peak} GB; launches "
-            f"{cap.launches} [{H.card}]")
-    rank_report_lines(H, rl, "22b one train step", reports)
+            f"s, {args.batch * args.seq / median:.1f} tokens/s; peak {peak} GB; {reckoned}; "
+            f"launches {cap.launches}{share} [{H.card}]")
+    rank_report_lines(H, rl, f"{tag} one train step", reports)
     del trained, batch
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def worker_lm_serve_full(H, torch, rl):
-    """22c on this rank: qwen2.5-32b at its 64 layers, 16 a rank: the
-    prefill's flash launches (16 layers x 2 micro-batches), the first
-    decode's logits within 1e-3 of a fresh 513-row prefill's (itself traced
-    per rank), and 4 more decode steps traced per rank."""
+def worker_lm_serve_full(H, torch, rl, dtype=None):
+    """22c (25c at ``dtype`` bf16) on this rank: qwen2.5-32b at its 64
+    layers, 16 a rank: the prefill's flash launches (16 layers x 2
+    micro-batches), the first decode's logits within 1e-3 (bf16: within
+    ``BF16_DECODE_FRAC`` of the largest |logit|) of a fresh 513-row
+    prefill's (itself traced per rank), and 4 more decode steps traced per
+    rank. At bf16 the prefill's logits are also held within
+    ``BF16_VS_FP32_FRAC`` of the largest |logit| of the float32 ring
+    prefill from the same weights upcast."""
     import numpy as np
 
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.core.overlap_report import capture_rank_reports
     from repro_torch.launch.serve import build_parser, serve
     from repro_torch.models.transformer.model import (
-        _prefill, held_stages, init_cache, make_extras, make_serve_step)
+        _prefill, held_stages, init_cache, make_extras, make_prefill_step, make_serve_step)
+    from repro_torch.train.optimizer import tree_map
 
+    bf16 = dtype is not None and dtype != torch.float32
+    tag = "25c" if bf16 else "22c"
     arch, flags = LM_RING_FULL_SERVE
     args = build_parser().parse_args(["--arch", arch, *LM_RING_SERVE, *flags])
     cfg = get_arch(arch, smoke=not args.full_arch)
     with KernelCapture({"flash_attention_kernel": LM_RING_CAPTURE}) as cap:
-        served = serve(args, cfg)
+        served = serve(args, cfg, dtype=dtype if bf16 else torch.float32)
     topo, gen = served.topo, served.generation
     mine = active_slots(cfg, topo.num_stages, held_stages(topo, topo.ring.position))
     want = {k: n * args.chunks for k, n in mine.items()}
     if cap.launches != want:
-        raise AssertionError(f"22c rank {rl.rank}: launches {cap.launches}, want {want}")
-    rl.launched(cap.launches)
-    cap.compare(H, torch, f"22c rank {rl.rank}")
+        raise AssertionError(f"{tag} rank {rl.rank}: launches {cap.launches}, want {want}")
+    held_launches(H, torch, rl, cap, f"{tag} rank {rl.rank}", bf16)
     b, plen = served.prompt.shape[0], served.prompt_len
+    notes = []
+    if bf16:
+        pshape = ShapeConfig("fp32", plen, b, "prefill")
+        params32 = tree_map(lambda p: p.float(), served.params)
+        with torch.inference_mode():
+            logits32, _ = make_prefill_step(cfg, topo, pshape)(
+                params32, init_cache(cfg, topo, pshape, device=H.dev), served.batch())
+        del params32
+        scale = float(logits32.abs().max())
+        err = float((gen.prefill_logits - logits32).abs().max())
+        agree = int((gen.prefill_logits.argmax(-1) == logits32.argmax(-1)).sum())
+        if not err <= BF16_VS_FP32_FRAC * scale:
+            raise AssertionError(f"{tag} rank {rl.rank}: bf16 prefill logits {err:.4g} from the "
+                                 f"fp32 ring prefill's (limit {BF16_VS_FP32_FRAC} x {scale:.4g})")
+        notes.append(f"prefill vs the fp32 ring prefill from the same weights upcast: max |logit "
+                     f"diff| {err:.6g} = {err / scale:.5f} of the largest |logit| {scale:.6g} "
+                     f"(limit {BF16_VS_FP32_FRAC}), argmax agree {agree}/{b}")
+        del logits32
+        gc.collect()
+        torch.cuda.empty_cache()
     tok0 = torch.from_numpy(gen.tokens[:, 0]).to(H.dev, torch.int64)
     longer = {"tokens": torch.cat([served.prompt, tok0[:, None]], dim=1)}
     shape = ShapeConfig("check", plen + 1, b, "prefill")
@@ -4805,15 +5005,22 @@ def worker_lm_serve_full(H, torch, rl):
     def prefill():
         with torch.inference_mode():
             fresh.append(_prefill(cfg, topo, make_extras(cfg, topo.num_stages), served.params,
-                                  init_cache(cfg, topo, shape, device=H.dev), longer,
-                                  plen + 1)[0])
+                                  init_cache(cfg, topo, shape, device=H.dev,
+                                             dtype=served.params["embed"].dtype),
+                                  longer, plen + 1)[0])
 
     prefill_reports = capture_rank_reports(prefill)
     err = float((gen.first_decode_logits - fresh[0]).abs().max())
     agree = int((gen.first_decode_logits.argmax(-1) == fresh[0].argmax(-1)).sum())
-    if not err <= DECODE_VS_PREFILL_ATOL:
-        raise AssertionError(f"22c rank {rl.rank}: decode at position {plen} {err:.3g} from a "
-                             f"fresh {plen + 1}-row prefill (limit {DECODE_VS_PREFILL_ATOL})")
+    scale = float(fresh[0].abs().max())
+    limit = BF16_DECODE_FRAC * scale if bf16 else DECODE_VS_PREFILL_ATOL
+    if not err <= limit:
+        raise AssertionError(f"{tag} rank {rl.rank}: decode at position {plen} {err:.3g} from a "
+                             f"fresh {plen + 1}-row prefill (limit {limit:.4g})")
+    notes.append(f"decode vs fresh {plen + 1}-row prefill: max |logit diff| {err:.6g} "
+                 + (f"= {err / scale:.5f} of the largest |logit| {scale:.6g} (limit "
+                    f"{BF16_DECODE_FRAC})" if bf16 else f"(limit {DECODE_VS_PREFILL_ATOL})")
+                 + f", argmax agree {agree}/{b}")
     del fresh
     step = make_serve_step(cfg, topo, ShapeConfig("serve_decode", plen + args.decode_steps + 16,
                                                   b, "decode"))
@@ -4828,17 +5035,15 @@ def worker_lm_serve_full(H, torch, rl):
 
     decode_reports = capture_rank_reports(decode)
     summary = served.summary
-    rl.data["22c"] = {k: summary[k] for k in ("prefill_s", "decode_s_per_tok", "tokens_per_s",
-                                              "peak_mem_gb", "peak_mem_gb_per_rank", "params")}
-    rl.line(f"22c {arch} full width, {cfg.num_layers} layers ({summary['params']} params, fp32), "
-            f"{topo}: prefill_s {summary['prefill_s']}, decode_s_per_tok "
-            f"{summary['decode_s_per_tok']}, tokens_per_s {summary['tokens_per_s']}, peak "
-            f"{summary['peak_mem_gb']} GB, sample {summary['sample']}; decode vs fresh "
-            f"{plen + 1}-row prefill: max |logit diff| {err:.6g} (limit "
-            f"{DECODE_VS_PREFILL_ATOL}), argmax agree {agree}/{b}; launches {cap.launches} "
-            f"[{H.card}]")
-    rank_report_lines(H, rl, f"22c the fresh {plen + 1}-row prefill", prefill_reports)
-    rank_report_lines(H, rl, f"22c {LM_RING_DECODE_TRACED} decode steps", decode_reports)
+    rl.data[tag] = {k: summary[k] for k in ("prefill_s", "decode_s_per_tok", "tokens_per_s",
+                                            "peak_mem_gb", "peak_mem_gb_per_rank", "params")}
+    rl.line(f"{tag} {arch} full width, {cfg.num_layers} layers ({summary['params']} params, "
+            f"{'bf16' if bf16 else 'fp32'}), {topo}: prefill_s {summary['prefill_s']}, "
+            f"decode_s_per_tok {summary['decode_s_per_tok']}, tokens_per_s "
+            f"{summary['tokens_per_s']}, peak {summary['peak_mem_gb']} GB, sample "
+            f"{summary['sample']}; " + "; ".join(notes) + f"; launches {cap.launches} [{H.card}]")
+    rank_report_lines(H, rl, f"{tag} the fresh {plen + 1}-row prefill", prefill_reports)
+    rank_report_lines(H, rl, f"{tag} {LM_RING_DECODE_TRACED} decode steps", decode_reports)
     del served, gen, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -4880,11 +5085,12 @@ LM_DATA_CLI = (  # 23e: the launchers as a user starts them on 4 cards, 2 data r
 
 
 def lm_data_topology(fields, ring=None):
-    """A 23a case's Topology: 2 stages, 2 micro-batches, 2 data replicas."""
+    """A 23a (25a) case's Topology: 2 stages, 2 micro-batches, 2 data
+    replicas, or ``fields``' (``pods``: 2 pods of ``data`` replicas)."""
     from repro_torch.models.transformer.model import Topology
 
-    base = {"num_stages": 2, "num_micro": LM_DATA_MICRO, "loss_chunks": 4}
-    return Topology(data=2, ring=ring, **{**base, **fields})
+    base = {"num_stages": 2, "num_micro": LM_DATA_MICRO, "loss_chunks": 4, "data": 2}
+    return Topology(ring=ring, **{**base, **fields})
 
 
 def count_topology(grid_shape, ring=None):
@@ -4904,14 +5110,16 @@ def counts_of(counter):
             "kernel_bytes": dict(counter.kernel_bytes), "collectives": dict(counter.collectives)}
 
 
-def lm_data_counts(H, torch, reports):
-    """23f's check, in this process (no group; a fake world of 4 for each
-    count): each rank's card count of its step, on each grid, equal to the
-    same rank's count on meta op for op, and its peak increment within
-    ``PEAK_RTOL`` of the card allocator's."""
+def lm_data_counts(H, torch, reports, dtype=None):
+    """23f's check (25e's at ``dtype`` bf16), in this process (no group; a
+    fake world of 4 for each count): each rank's card count of its step, on
+    each grid, equal to the same rank's count on meta op for op, and its
+    peak increment within ``PEAK_RTOL`` of the card allocator's."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.launch.dryrun import count_on_grid
 
+    dtype = torch.float32 if dtype is None else dtype
+    tag = "23f" if dtype == torch.float32 else "25e"
     arch, cut = LM_DATA_COUNT
     cfg, _ = cut_config(get_arch(arch), cut)
     shape = ShapeConfig("23f", LM_DATA_SEQ, LM_DATA_BATCH, "train")
@@ -4921,19 +5129,20 @@ def lm_data_counts(H, torch, reports):
             got = rep["count"][label]
             _, meta = count_on_grid(cfg, shape, pods=pods, data=data, stages=D, rank=r,
                                     topology=lambda g, s=grid_shape: count_topology(s, g),
-                                    dtype=torch.float32)
+                                    dtype=dtype)
             want = counts_of(meta)
             if got["counts"] != want:
                 diff = {k: (got["counts"][k], want[k]) for k in want
                         if got["counts"][k] != want[k]}
-                raise AssertionError(f"23f {label} rank {r}: the card's count differs from "
+                raise AssertionError(f"{tag} {label} rank {r}: the card's count differs from "
                                      f"meta's: {str(diff)[:1500]}")
             if abs(got["ratio"] - 1.0) > PEAK_RTOL:
-                raise AssertionError(f"23f {label} rank {r}: the counter's peak increment is "
+                raise AssertionError(f"{tag} {label} rank {r}: the counter's peak increment is "
                                      f"{got['ratio']:.4f} of the card's (limit 1 +- "
                                      f"{PEAK_RTOL})")
             coll = {k: v for k, v in want["collectives"].items() if v}
-            log(f"[lm-data] 23f {label} rank {r} ({got['place']}): card count == meta count "
+            log(f"[lm-data] {tag} {label} rank {r} ({got['place']}, {str(dtype)[6:]}): card "
+                f"count == meta count "
                 f"in a fake world of 4, op for op: aten {sum(want['flops'].values())} FLOPs, "
                 f"{sum(want['bytes'].values())} B over {len(want['bytes'])} ops, kernel calls "
                 f"{want['calls']}, collectives {coll}; peak increment counter "
@@ -4978,10 +5187,12 @@ def grid_digests(torch, tree, cfg, topo, moments=False, position=None, replica=N
     return out
 
 
-def lm_data_case(H, torch, kind, arch, cut, fields, grid=None, capture=None):
-    """One 23a case at full width, cut depth: one process on one card
-    (``grid`` None, every replica) or this rank of the grid; what is held
-    bit for bit, with digests per stage row and data shard."""
+def lm_data_case(H, torch, kind, arch, cut, fields, grid=None, capture=None, dtype=None):
+    """One 23a (25a at ``dtype`` bf16) case at full width, cut depth: one
+    process on one card (``grid`` None, every replica and pod) or this rank
+    of the grid; what is held bit for bit, with digests per stage row and
+    data shard (caches too), and every leaf's dtype. A pod holds the same
+    rows as every other pod, so a rank's digests are its pod's."""
     from argparse import Namespace
 
     import numpy as np
@@ -4994,6 +5205,7 @@ def lm_data_case(H, torch, kind, arch, cut, fields, grid=None, capture=None):
 
     cfg, note = cut_config(get_arch(arch, smoke=False), cut)
     topo = lm_data_topology(fields, grid)
+    dtype = torch.float32 if dtype is None else dtype
     own, place = {}, {}
     if grid is not None:
         own = {"stages": held_stages(topo, grid.position), "data_rank": grid.replica}
@@ -5002,35 +5214,45 @@ def lm_data_case(H, torch, kind, arch, cut, fields, grid=None, capture=None):
     torch.cuda.reset_peak_memory_stats(H.dev)
     with deterministic(torch), KernelCapture(limits) as cap:
         params = init_params(cfg, seed=0, num_stages=topo.num_stages, device=H.dev, topo=topo,
-                             **own)
+                             dtype=dtype, **own)
         if kind == "train":
             args = Namespace(seq=LM_DATA_SEQ, batch=LM_DATA_BATCH, seed=0)
             step = make_train_step(cfg, topo, ShapeConfig("t", LM_DATA_SEQ, LM_DATA_BATCH,
                                                           "train"), lr=3e-4)
             opt = step.optimizer.init(params)
-            losses, step_s = [], []
+            losses, step_s, kinds = [], [], set()
             for i in range(2):
                 batch = lm_batch(cfg, args, i, H.dev)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 params, opt, m = step(params, opt, batch)
                 losses.append(float(m["loss"]))
+                kinds.add(str(m["loss"].dtype))
                 torch.cuda.synchronize()
                 step_s.append(time.perf_counter() - t0)
             got = {"losses": losses, "step_s": step_s,
                    "params": grid_digests(torch, params, cfg, topo, **place),
                    "mu": grid_digests(torch, opt.mu, cfg, topo, True, **place),
-                   "nu": grid_digests(torch, opt.nu, cfg, topo, True, **place)}
+                   "nu": grid_digests(torch, opt.nu, cfg, topo, True, **place),
+                   "dtypes": {"params": leaf_dtypes(params),
+                              "moments": leaf_dtypes(opt.mu) | leaf_dtypes(opt.nu),
+                              "loss": kinds}}
             del step, opt
         else:
             b, plen = 8, 512
             prompt = torch.from_numpy(token_batch(batch=b, seq=plen, vocab=cfg.vocab_size,
                                                   seed=0)[:, :-1][:, :plen].astype(np.int64))
             gen = generate(cfg, topo, params, prompt.to(H.dev), 16)
+            stages = None if grid is None else held_stages(topo, grid.position)
             got = {"tokens": gen.tokens.tolist(), "prefill_s": gen.prefill_s,
                    "decode_s": gen.decode_s,
                    "logits": [bits_digest(torch, gen.prefill_logits),
-                              bits_digest(torch, gen.first_decode_logits)]}
+                              bits_digest(torch, gen.first_decode_logits)],
+                   "cache": cache_digests(torch, gen.cache, stages, topo.data,
+                                          place.get("replica")),
+                   "dtypes": {"params": leaf_dtypes(params), "cache": cache_dtypes(gen.cache),
+                              "logits": {str(gen.prefill_logits.dtype),
+                                         str(gen.first_decode_logits.dtype)}}}
             del gen
     got.update(note=note, topo=repr(topo), peak=torch.cuda.max_memory_allocated(H.dev) / 1e9)
     del params
@@ -5039,12 +5261,13 @@ def lm_data_case(H, torch, kind, arch, cut, fields, grid=None, capture=None):
     return got, cap
 
 
-def lm_data_long(H, torch, grid=None):
+def lm_data_long(H, torch, grid=None, dtype=None):
     """23d: codeqwen1.5-7b at full width, ``long_context_window`` cut to
     64, one row decoded from an empty ring over positions 0-80 (teacher
     forced; the ring wraps after 64), the ring split over the data axis
-    (``Topology.seq_shard``): one process on one card, or this rank. One
-    process also runs the windowed prefill the last step is held to."""
+    (``Topology.seq_shard``): one process on one card, or this rank; params
+    and cache at ``dtype`` (float32 by default). One process also runs the
+    windowed prefill the last step is held to."""
     import numpy as np
 
     from repro_torch.configs import ShapeConfig, get_arch
@@ -5057,11 +5280,12 @@ def lm_data_long(H, torch, grid=None):
     topo = Topology(num_stages=2, num_micro=1, long_context=True, data=2, ring=grid)
     own = {} if grid is None else {"stages": held_stages(topo, grid.position),
                                    "data_rank": grid.replica}
-    params = init_params(cfg, seed=0, num_stages=2, device=H.dev, topo=topo, **own)
+    dtype = torch.float32 if dtype is None else dtype
+    params = init_params(cfg, seed=0, num_stages=2, device=H.dev, topo=topo, dtype=dtype, **own)
     shape = ShapeConfig("long", LONG_STEPS, 1, "decode")
     toks = torch.from_numpy(token_batch(batch=1, seq=LONG_STEPS, vocab=cfg.vocab_size, seed=0)[
         :, :LONG_STEPS].astype(np.int32)).to(H.dev)
-    cache = init_cache(cfg, topo, shape, device=H.dev)
+    cache = init_cache(cfg, topo, shape, dtype=dtype, device=H.dev)
     step = make_serve_step(cfg, topo, shape)
     tokens = []
     with deterministic(torch), torch.inference_mode():
@@ -5072,7 +5296,11 @@ def lm_data_long(H, torch, grid=None):
             tokens.append(int(tok[0]))
         torch.cuda.synchronize()
     got = {"tokens": tokens, "logits": bits_digest(torch, logits), "last": logits.cpu(),
-           "decode_s": time.perf_counter() - t0, "slots": cache["k"].shape[4]}
+           "decode_s": time.perf_counter() - t0, "slots": cache["k"].shape[4],
+           "cache": cache_digests(torch, cache, None if grid is None else own["stages"], 2,
+                                  None if grid is None else grid.replica, seq=True),
+           "dtypes": {"params": leaf_dtypes(params), "cache": cache_dtypes(cache),
+                      "logits": {str(logits.dtype)}}}
     del cache, step
     if grid is None:
         wcfg = dataclasses.replace(cfg, window_size=LONG_WINDOW)
@@ -5080,7 +5308,8 @@ def lm_data_long(H, torch, grid=None):
         pshape = ShapeConfig("check", LONG_STEPS, 1, "prefill")
         with torch.inference_mode():
             fresh, _ = make_prefill_step(wcfg, ptopo, pshape)(
-                params, init_cache(wcfg, ptopo, pshape, device=H.dev), {"tokens": toks})
+                params, init_cache(wcfg, ptopo, pshape, dtype=dtype, device=H.dev),
+                {"tokens": toks})
         got["fresh"] = fresh.cpu()
     del params
     gc.collect()
@@ -5131,16 +5360,19 @@ def lm_data_timing(H, torch):
         H.timing.setdefault(name, record)
 
 
-def data_state_gb(cfg, topo, position, train):
-    """The fp32 GB a rank at ring ``position`` holds before any activation
-    on a data axis of ``topo.data``: its stage rows of its shard of every
-    split leaf, every whole leaf, and when training the gradients and
-    Adam's two moments (``moment_specs``: the ``embed``/``head`` moments
-    split too)."""
+def data_state_gb(cfg, topo, position, train, dtype=None):
+    """The GB a rank at ring ``position`` holds before any activation on a
+    data axis of ``topo.data``: its stage rows of its shard of every split
+    leaf and every whole leaf, params at ``dtype`` (float32 by default, leaf
+    by leaf as ``init_params`` makes them), and when training the gradients
+    at the params' dtype and Adam's two float32 moments (``moment_specs``:
+    the ``embed``/``head`` moments split too)."""
+    import torch
+
     from repro_torch.models.transformer.model import abstract_params, held_stages, leaf_layout
     from repro_torch.train.optimizer import tree_leaves
 
-    meta = abstract_params(cfg, topo.num_stages)
+    meta = abstract_params(cfg, topo.num_stages, torch.float32 if dtype is None else dtype)
     layout = leaf_layout(cfg, topo)
     share = len(held_stages(topo, position)) / topo.num_stages
     n = 0.0
@@ -5150,29 +5382,29 @@ def data_state_gb(cfg, topo, position, train):
             rows = a.numel() * (share if key == "blocks" else 1)
             p = rows / (topo.data if dp is not None else 1)
             m = rows / (topo.data if dm is not None else 1)
-            n += 2 * p + 2 * m if train else p
-    return n * 4 / 1e9
+            n += state_bytes(a, p, train, m)
+    return n / 1e9
 
 
-def lm_data_moe_experts(H):
-    """23c's training cut: the most experts (of ``LM_DATA_MOE_EXPERTS``)
-    whose predicted per-rank state fits ``LM_DATA_MOE_FIT`` of the card."""
+def lm_data_moe_experts(H, choices=LM_DATA_MOE_EXPERTS, dtype=None, tag="23c"):
+    """23c's (25d's at ``dtype`` bf16) training cut: the most experts (of
+    ``choices``) whose predicted per-rank state fits ``LM_DATA_MOE_FIT`` of
+    the card."""
     from repro_torch.configs import get_arch
 
     arch, cut = LM_DATA_MOE
     preds = {}
-    for e in LM_DATA_MOE_EXPERTS:
+    for e in choices:
         cfg, _ = cut_config(get_arch(arch, smoke=False), {**cut, "num_experts": e})
-        preds[e] = max(data_state_gb(cfg, lm_data_topology({}), d, True) for d in range(2))
-    pick = next((e for e in LM_DATA_MOE_EXPERTS if preds[e] <= LM_DATA_MOE_FIT * CARD_BYTES / 1e9),
-                None)
-    log(f"[lm-data] 23c {arch} training, 2 layers, dp 2 x D 2: predicted fp32 params, gradients "
-        f"and Adam moments per rank " + ", ".join(f"{e} experts {g:.3f} GB" for e, g in
-                                                 preds.items())
+        preds[e] = max(data_state_gb(cfg, lm_data_topology({}), d, True, dtype) for d in range(2))
+    pick = next((e for e in choices if preds[e] <= LM_DATA_MOE_FIT * CARD_BYTES / 1e9), None)
+    log(f"[lm-data] {tag} {arch} training, 2 layers, dp 2 x D 2: predicted "
+        f"{'fp32' if dtype is None else str(dtype)[6:]} params and gradients, float32 Adam "
+        f"moments per rank " + ", ".join(f"{e} experts {g:.3f} GB" for e, g in preds.items())
         + f"; the widest within {LM_DATA_MOE_FIT} of the card's {CARD_BYTES / 1e9:.0f} GB: "
         f"{pick} [{H.card}]")
     if pick is None:
-        raise AssertionError(f"23c: no expert cut of {LM_DATA_MOE_EXPERTS} fits")
+        raise AssertionError(f"{tag}: no expert cut of {choices} fits")
     return pick
 
 
@@ -5276,23 +5508,8 @@ def worker_lm_data_cut(H, torch, rl, refs, grid):
     rank's kernel calls held against the plain version."""
     for tag, kind, arch, cut, fields in LM_DATA_CUTS:
         got, cap = lm_data_case(H, torch, kind, arch, cut, fields, grid)
-        want = refs[tag]
         keys = ("losses", "params", "mu", "nu") if kind == "train" else ("tokens", "logits")
-        for key in keys:
-            mine = got[key]
-            if isinstance(mine, dict):
-                missing = [k for k in mine if k not in want[key]]
-                if missing:
-                    raise AssertionError(f"23a {tag} rank {rl.rank}: {key} {missing[:4]} not in "
-                                         "the one-card digests")
-                ref = {k: want[key][k] for k in mine}
-            else:
-                ref = want[key]
-            if mine != ref:
-                bad = [k for k in mine if mine[k] != ref[k]][:4] if isinstance(mine, dict) \
-                    else mine
-                raise AssertionError(f"23a {tag} rank {rl.rank}: {key} not bit-identical to one "
-                                     f"card ({bad})")
+        held_bit_for_bit(f"23a {tag} rank {rl.rank}", got, refs[tag], keys)
         rl.launched(cap.launches)
         cap.compare(H, torch, f"23a {tag} rank {rl.rank}")
         leaves = len(got["params"]) if kind == "train" else 0
@@ -5326,12 +5543,12 @@ def worker_lm_data_long(H, torch, rl, refs, grid):
             f"[{H.card}]")
 
 
-def worker_lm_data_train_full(H, torch, rl):
-    """23b on this rank: codeqwen1.5-7b at its 32 layers, 16 a ring
-    position, ZeRO-3 over 2 replicas: losses finite and every rank's alike,
-    this rank's flash launches (forward and recompute of its 16 layers x 2
-    micro-batches a step), the median step, peak and tokens/s, one traced
-    step per rank."""
+def worker_lm_data_train_full(H, torch, rl, dtype=None):
+    """23b (25d at ``dtype`` bf16) on this rank: codeqwen1.5-7b at its 32
+    layers, 16 a ring position, ZeRO-3 over 2 replicas: losses finite and
+    every rank's alike, this rank's flash launches (forward and recompute
+    of its 16 layers x 2 micro-batches a step), the median step, peak and
+    tokens/s, one traced step per rank."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_arch
@@ -5339,51 +5556,61 @@ def worker_lm_data_train_full(H, torch, rl):
     from repro_torch.launch.train import build_parser, lm_batch, train_lm
     from repro_torch.models.transformer.model import held_stages
 
+    bf16 = dtype is not None and dtype != torch.float32
+    tag = "25d" if bf16 else "23b"
     arch, flags = LM_DATA_FULL_TRAIN
     args = build_parser().parse_args([*LM_DATA_TRAIN, "--arch", arch, *flags])
     cfg = get_arch(arch, smoke=not args.full_arch)
+    held = []
     with KernelCapture({"flash_attention_kernel": LM_RING_CAPTURE}) as cap:
-        trained = train_lm(cfg, args)
+        trained = train_lm(cfg, args, dtype=dtype, on_step=lambda i, *_: held.append(
+            torch.cuda.memory_allocated(H.dev) if H.dev.type == "cuda" else 0))
     topo = trained.topo
     mine = active_slots(cfg, topo.num_stages, held_stages(topo, topo.ring.position))
     want = {k: 2 * n * args.chunks * args.steps for k, n in mine.items()}
     if cap.launches != want:
-        raise AssertionError(f"23b rank {rl.rank}: launches {cap.launches}, want {want}")
+        raise AssertionError(f"{tag} rank {rl.rank}: launches {cap.launches}, want {want}")
     losses = trained.losses
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, losses)
     if not all(map(math.isfinite, losses)) or any(x != losses for x in every):
-        raise AssertionError(f"23b rank {rl.rank}: losses {every}")
-    rl.launched(cap.launches)
-    cap.compare(H, torch, f"23b rank {rl.rank}")
+        raise AssertionError(f"{tag} rank {rl.rank}: losses {every}")
+    held_launches(H, torch, rl, cap, f"{tag} rank {rl.rank}", bf16)
     median = statistics.median(trained.step_s[1:])
     peak = trained.summary["peak_mem_gb"]
     batch = lm_batch(cfg, args, args.steps, H.dev)
     reports = capture_rank_reports(
         lambda: trained.step(trained.params, trained.opt_state, batch))
-    rl.data["23b"] = {"median_s": median, "peak_gb": peak, "losses": losses,
-                      "per_rank_peak": trained.summary["peak_mem_gb_per_rank"]}
-    rl.line(f"23b {arch} full width, {cfg.num_layers} layers, {trained.topo}: losses {losses} "
+    rl.data[tag] = {"median_s": median, "peak_gb": peak, "losses": losses,
+                    "per_rank_peak": trained.summary["peak_mem_gb_per_rank"]}
+    reckoned = held_beside_reckoning(cfg, topo, topo.ring.position, dtype, held[0])
+    rl.line(f"{tag} {arch} full width, {cfg.num_layers} layers, "
+            f"{'bf16 params (ZeRO-3 gathers 2 bytes a value), ' if bf16 else ''}"
+            f"{trained.topo}: losses {losses} "
             f"(every rank alike); step s {trained.step_s}; median after the first {median:.6f} "
-            f"s, {args.batch * args.seq / median:.1f} tokens/s; peak {peak} GB; launches "
-            f"{cap.launches} [{H.card}]")
-    rank_report_lines(H, rl, "23b one train step", reports)
+            f"s, {args.batch * args.seq / median:.1f} tokens/s; peak {peak} GB; {reckoned}; "
+            f"launches {cap.launches}{f'; beside {FP32_23B}' if bf16 else ''} [{H.card}]")
+    rank_report_lines(H, rl, f"{tag} one train step", reports)
     del trained, batch
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def worker_lm_data_count(H, torch, rl, grid):
-    """23f on this rank: codeqwen1.5-7b at full width, cut to 8 layers, one
-    train step on the card under ``OpCounter`` (``dryrun.build_step``:
-    seed-0 params, this rank's shard) on the dp 2 x D 2 grid and on a pods 2
-    x D 2 grid of the same ranks; its counts and its peak increment over
-    the step's entry beside the allocator's, for the parent to hold against
-    meta."""
+def worker_lm_data_count(H, torch, rl, grid, dtype=None):
+    """23f (25e at ``dtype`` bf16) on this rank: codeqwen1.5-7b at full
+    width, cut to 8 layers, one train step on the card under ``OpCounter``
+    (``dryrun.build_step``: seed-0 params, this rank's shard) on the dp 2 x
+    D 2 grid and on a pods 2 x D 2 grid of the same ranks; its counts and
+    its peak increment over the step's entry beside the allocator's, for
+    the parent to hold against meta."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.core import ranks
     from repro_torch.launch.dryrun import build_step, count_step
 
+    dtype = torch.float32 if dtype is None else dtype
+    tag = "23f" if dtype == torch.float32 else "25e"
+    key = "flash_attention_kernel" if dtype == torch.float32 else BF16_KEYS[
+        "flash_attention_kernel"]
     arch, cut = LM_DATA_COUNT
     cfg, _ = cut_config(get_arch(arch), cut)
     shape = ShapeConfig("23f", LM_DATA_SEQ, LM_DATA_BATCH, "train")
@@ -5393,7 +5620,7 @@ def worker_lm_data_count(H, torch, rl, grid):
         pods, data, D = grid_shape
         g = grid if pods == 1 else ranks.RankGrid(data, D, pods=pods)
         topo = count_topology(grid_shape, g)
-        step, inputs = build_step(cfg, shape, topo, device=H.dev, dtype=torch.float32)
+        step, inputs = build_step(cfg, shape, topo, device=H.dev, dtype=dtype)
         torch.cuda.synchronize()
         before = flash.launches
         torch.cuda.reset_peak_memory_stats()
@@ -5406,15 +5633,15 @@ def worker_lm_data_count(H, torch, rl, grid):
         counted_inc = card.peak_bytes - card.entry_bytes
         launched = flash.launches - before
         if H.dev.type == "cuda" and launched != card.kernel_calls.get("flash_attention_kernel", 0):
-            raise AssertionError(f"23f {label} rank {rl.rank}: the counter saw "
+            raise AssertionError(f"{tag} {label} rank {rl.rank}: the counter saw "
                                  f"{dict(card.kernel_calls)}, flash launched {launched}")
-        rl.launched({"flash_attention_kernel": launched})
+        rl.launched({key: launched})
         place = f"pod {g.pod}, replica {g.replica}, position {g.position}"
         out[label] = {"counts": counts_of(card), "ratio": counted_inc / card_inc,
                       "counted_gb": counted_inc / 1e9, "card_gb": card_inc / 1e9,
                       "count_s": count_s, "place": place}
-        rl.line(f"23f {label}, {place}: one step counted on the card in {count_s:.3f} s, flash "
-                f"launches {launched}, collectives "
+        rl.line(f"{tag} {label}, {place}, {str(dtype)[6:]} params: one step counted on the card "
+                f"in {count_s:.3f} s, flash launches {launched}, collectives "
                 f"{ {k: v for k, v in card.collectives.items() if v} } [{H.card}]")
         del step, inputs, card
         gc.collect()
@@ -5422,34 +5649,36 @@ def worker_lm_data_count(H, torch, rl, grid):
     rl.data["count"] = out
 
 
-def worker_lm_data_moe(H, torch, rl, experts):
-    """23c on this rank: arctic-480b cut to 2 layers, one a ring position,
-    served with all 128 experts (64 a rank), every expert taking all of a
-    call's tokens (``no_expert_drops``: the second layer's cache depends on
-    the first's MoE): the prefill's flash launches, the first decode's
-    logits within 1e-3 of a fresh prefill's that drops no token (and the
-    gap to one at the reference's capacity); then trained 2 steps with
-    ``experts`` experts."""
+def worker_lm_data_moe(H, torch, rl, experts, dtype=None):
+    """23c (25d at ``dtype`` bf16) on this rank: arctic-480b cut to 2
+    layers, one a ring position, served with all 128 experts (64 a rank),
+    every expert taking all of a call's tokens (``no_expert_drops``: the
+    second layer's cache depends on the first's MoE): the prefill's flash
+    launches, the first decode's logits within 1e-3 (bf16: within
+    ``BF16_DECODE_FRAC`` of the largest |logit|) of a fresh prefill's that
+    drops no token (and the gap to one at the reference's capacity); then
+    trained 2 steps with ``experts`` experts."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.launch import serve as serve_lm
     from repro_torch.launch import train as train_launch
     from repro_torch.models.transformer.model import (
         _prefill, held_stages, init_cache, make_extras)
 
+    bf16 = dtype is not None and dtype != torch.float32
+    tag = "25d" if bf16 else "23c"
     arch, cut = LM_DATA_MOE
     args = serve_lm.build_parser().parse_args(["--arch", arch, *LM_SERVE_ARGS, "--stages", "2"])
     cfg, note = cut_config(get_arch(arch, smoke=False), cut)
     # 2 layers: the second's cache depends on the first's MoE, so the run
     # takes every token at every expert, as the prefill it is held to does
     with no_expert_drops(), KernelCapture({"flash_attention_kernel": LM_RING_CAPTURE}) as cap:
-        served = serve_lm.serve(args, cfg)
+        served = serve_lm.serve(args, cfg, dtype=dtype if bf16 else torch.float32)
     topo, gen = served.topo, served.generation
     mine = active_slots(cfg, topo.num_stages, held_stages(topo, topo.ring.position))
     want = {k: n * args.chunks for k, n in mine.items()}
     if cap.launches != want:
-        raise AssertionError(f"23c rank {rl.rank}: launches {cap.launches}, want {want}")
-    rl.launched(cap.launches)
-    cap.compare(H, torch, f"23c serve rank {rl.rank}")
+        raise AssertionError(f"{tag} rank {rl.rank}: launches {cap.launches}, want {want}")
+    held_launches(H, torch, rl, cap, f"{tag} serve rank {rl.rank}", bf16)
     b, plen = served.prompt.shape[0], served.prompt_len
     tok0 = torch.from_numpy(gen.tokens[:, 0]).to(H.dev, torch.int64)
     longer = {"tokens": torch.cat([served.prompt, tok0[:, None]], dim=1)}
@@ -5458,47 +5687,72 @@ def worker_lm_data_moe(H, torch, rl, experts):
     def fresh():
         with torch.inference_mode():
             return _prefill(cfg, topo, make_extras(cfg, topo.num_stages), served.params,
-                            init_cache(cfg, topo, shape, device=H.dev), longer, plen + 1)[0]
+                            init_cache(cfg, topo, shape, device=H.dev,
+                                       dtype=served.params["embed"].dtype),
+                            longer, plen + 1)[0]
 
     with no_expert_drops():
         whole = fresh()
     dropping = fresh()
     err = float((gen.first_decode_logits - whole).abs().max())
     gap = float((gen.first_decode_logits - dropping).abs().max())
-    if not err <= DECODE_VS_PREFILL_ATOL:
-        raise AssertionError(f"23c rank {rl.rank}: decode at position {plen} {err:.3g} from a "
-                             f"fresh {plen + 1}-row prefill that drops no token")
+    scale = float(whole.abs().max())
+    limit = BF16_DECODE_FRAC * scale if bf16 else DECODE_VS_PREFILL_ATOL
+    if not err <= limit:
+        raise AssertionError(f"{tag} rank {rl.rank}: decode at position {plen} {err:.3g} from a "
+                             f"fresh {plen + 1}-row prefill that drops no token (limit "
+                             f"{limit:.4g})")
     summary = served.summary
-    rl.data["23c serve"] = {k: summary[k] for k in ("prefill_s", "decode_s_per_tok",
-                                                    "tokens_per_s", "peak_mem_gb", "params")}
-    rl.line(f"23c {arch} full width{note}, all {cfg.num_experts} experts "
-            f"({cfg.num_experts // 2} a rank) taking every token, {topo}: prefill_s {summary['prefill_s']}, "
+    rl.data[f"{tag} serve"] = {k: summary[k] for k in ("prefill_s", "decode_s_per_tok",
+                                                       "tokens_per_s", "peak_mem_gb", "params")}
+    rl.line(f"{tag} {arch} full width{note}, all {cfg.num_experts} experts "
+            f"({cfg.num_experts // 2} a rank) taking every token, "
+            f"{'bf16 params, ' if bf16 else ''}{topo}: prefill_s {summary['prefill_s']}, "
             f"decode_s_per_tok {summary['decode_s_per_tok']}, tokens_per_s "
             f"{summary['tokens_per_s']}, peak {summary['peak_mem_gb']} GB; decode vs a fresh "
-            f"{plen + 1}-row prefill dropping no token: max |logit diff| {err:.6g} (limit "
-            f"{DECODE_VS_PREFILL_ATOL}); vs one at the reference's capacity {gap:.6g}; launches "
-            f"{cap.launches} [{H.card}]")
+            f"{plen + 1}-row prefill dropping no token: max |logit diff| {err:.6g} "
+            + (f"= {err / scale:.5f} of the largest |logit| {scale:.6g} (limit "
+               f"{BF16_DECODE_FRAC})" if bf16 else f"(limit {DECODE_VS_PREFILL_ATOL})")
+            + f"; vs one at the reference's capacity {gap:.6g}; launches {cap.launches} "
+            f"[{H.card}]")
     del served, gen, whole, dropping
     gc.collect()
     torch.cuda.empty_cache()
     targs = train_launch.build_parser().parse_args(
         [*LM_DATA_TRAIN, "--arch", arch, "--stages", "2", "--steps", "2"])
     tcfg, tnote = cut_config(get_arch(arch, smoke=False), {**cut, "num_experts": experts})
+    held = []
     with KernelCapture({"flash_attention_kernel": LM_RING_CAPTURE}) as cap:
-        trained = train_launch.train_lm(tcfg, targs)
+        trained = train_launch.train_lm(tcfg, targs, dtype=dtype, on_step=lambda i, *_: held.append(
+            torch.cuda.memory_allocated(H.dev) if H.dev.type == "cuda" else 0))
     want = {k: 2 * n * targs.chunks * targs.steps for k, n in mine.items()}
     if cap.launches != want or not all(map(math.isfinite, trained.losses)):
-        raise AssertionError(f"23c rank {rl.rank}: launches {cap.launches} (want {want}), "
+        raise AssertionError(f"{tag} rank {rl.rank}: launches {cap.launches} (want {want}), "
                              f"losses {trained.losses}")
-    rl.launched(cap.launches)
-    cap.compare(H, torch, f"23c train rank {rl.rank}")
-    rl.data["23c train"] = {"step_s": trained.step_s, "peak_gb": trained.summary["peak_mem_gb"]}
-    rl.line(f"23c {arch} trained{tnote} ({experts // 2} experts a rank), {trained.topo}: losses "
-            f"{trained.losses}, step s {trained.step_s}, peak {trained.summary['peak_mem_gb']} "
-            f"GB; launches {cap.launches} [{H.card}]")
+    held_launches(H, torch, rl, cap, f"{tag} train rank {rl.rank}", bf16)
+    reckoned = held_beside_reckoning(tcfg, trained.topo, trained.topo.ring.position,
+                                     dtype, held[0])
+    rl.data[f"{tag} train"] = {"step_s": trained.step_s,
+                               "peak_gb": trained.summary["peak_mem_gb"]}
+    rl.line(f"{tag} {arch} trained{tnote} ({experts // 2} experts a rank), "
+            f"{'bf16 params, ' if bf16 else ''}{trained.topo}: losses {trained.losses}, step s "
+            f"{trained.step_s}, peak {trained.summary['peak_mem_gb']} GB; {reckoned}; launches "
+            f"{cap.launches} [{H.card}]")
     del trained
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def held_beside_reckoning(cfg, topo, position, dtype, held_bytes):
+    """What the card held after a rank's first train step (params and
+    Adam's moments; the step's gradients freed) beside the reckoning
+    (``data_state_gb``, or ``state_gb`` on a ring of one replica)."""
+    reckon = data_state_gb if topo.data > 1 else state_gb
+    total = reckon(cfg, topo, position, True, dtype)
+    params = reckon(cfg, topo, position, False, dtype)
+    return (f"memory_allocated after step 0 {held_bytes / 1e9:.3f} GB beside the reckoning's "
+            f"params and moments {total - params:.3f} GB (params, gradients and moments "
+            f"{total:.3f} GB)")
 
 
 # ------------------------------------------- the reference's dtype (phase 24) --
@@ -5875,20 +6129,22 @@ BF16_SSD_SHAPES = (  # 24g: (label, launches, b, s, h, p, n)
 )
 
 
-def time_bf16(H, torch):
-    """24g: each bf16 launch shape of 24a-24e timed with CUDA events over
-    CUDA-graph replays (``Harness.time_ms``, as phase 5): the kernel, its
-    plain version on the same bf16 inputs, the bound at the bf16 rates
-    (flash: 2 bytes a value, one bf16 product an operation; SSD: x, B, C, y
-    2 bytes a value, its fp32 math 3xTF32), the distance from the plain
-    version in bf16 ulps, and for flash ``scaled_dot_product_attention`` on
-    the same bf16 tensors."""
+def time_bf16(H, torch, tag="24g", flash_shapes=BF16_FLASH_SHAPES, ssd_shapes=BF16_SSD_SHAPES):
+    """24g (25f with phase 25's shapes): each bf16 launch shape timed with
+    CUDA events over CUDA-graph replays (``Harness.time_ms``, as phase 5):
+    the kernel, its plain version on the same bf16 inputs, the bound at the
+    bf16 rates (flash: 2 bytes a value, one bf16 product an operation; SSD:
+    x, B, C, y 2 bytes a value, its fp32 math 3xTF32), the distance from
+    the plain version in bf16 ulps, and for flash
+    ``scaled_dot_product_attention`` on the same bf16 tensors. The first
+    shape of each kernel is its ``kernels`` line entry, unless an earlier
+    phase of the run timed one."""
     from repro_torch.kernels.flash.ref import flash_attention_ref
     from repro_torch.kernels.ssd.ref import ssd_chunk_scan
 
-    for i, (label, launches, b, s, h, kv, hd, hd_v) in enumerate(BF16_FLASH_SHAPES):
+    for i, (label, launches, b, s, h, kv, hd, hd_v) in enumerate(flash_shapes):
         q, k, v = flash_inputs(H, b, s, h, kv, hd, hd_v=hd_v, dtype=torch.bfloat16)
-        compare_bf16_flash(H, f"24g {label}", q, k, v)
+        compare_bf16_flash(H, f"{tag} {label}", q, k, v)
         ms = H.time_ms(lambda: H.FK.flash_attention_kernel(q, k, v))
         plain_ms = H.time_ms(lambda: flash_attention_ref(q, k, v))
         library = sdpa_call(torch, q, k, v)
@@ -5897,23 +6153,23 @@ def time_bf16(H, torch):
         record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                   "library_ms": library_ms}
         if i == 0:
-            H.timing[BF16_KEYS["flash_attention_kernel"]] = record
+            H.timing.setdefault(BF16_KEYS["flash_attention_kernel"], record)
         log(f"[timing] flash_attention_kernel bf16 {label} (B {b} x S {s}, {h}/{kv} heads, hd "
             f"{hd}/{hd_v}, causal): kernel {ms:.6f} ms ({launches}), plain {plain_ms:.6f} ms, "
             f"scaled_dot_product_attention bf16 {library_ms:.6f} ms, bound {bound_ms:.6f} ms "
             f"({bound_by}: {nbytes} B, {ops} ops as bf16 products at {CARD.bf16_flops:.3g}/s), "
             f"share of bound {bound_ms / ms:.3f} [{H.card}]")
-    for i, (label, launches, b, s, h, p, n) in enumerate(BF16_SSD_SHAPES):
+    for i, (label, launches, b, s, h, p, n) in enumerate(ssd_shapes):
         x, dt, loga, B, C = ssd_inputs(H, b, s, h, p, n)
         x, B, C = (a.to(torch.bfloat16) for a in (x, B, C))
-        compare_bf16_ssd(H, f"24g {label}", x, dt, loga, B, C, 128)
+        compare_bf16_ssd(H, f"{tag} {label}", x, dt, loga, B, C, 128)
         ms = H.time_ms(lambda: H.DK.ssd_kernel(x, dt, loga, B, C, chunk=128))
         plain_ms = H.time_ms(lambda: ssd_chunk_scan(x, dt, loga, B, C, chunk=128))
         bound_ms, bound_by, nbytes, ops, _ = ssd_bound(x, B, 128)
         if i == 0:
-            H.timing[BF16_KEYS["ssd_kernel"]] = {
+            H.timing.setdefault(BF16_KEYS["ssd_kernel"], {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None}
+                "library_ms": None})
         log(f"[timing] ssd_kernel bf16 {label} (b {b} x S {s}, {h} heads, P {p}, N {n}, chunk "
             f"128; x, B, C, y bf16): kernel {ms:.6f} ms ({launches}), plain {plain_ms:.6f} ms, "
             f"library none, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} ops as "
@@ -5958,6 +6214,205 @@ def phase_bf16(H, torch):
     time_bf16(H, torch)
 
 
+# ------------------------------- phase 25: the four-card LM paths at bf16 --
+
+LM_BF16_CARDS = 4  # phase 25: the ring (D 4), the grid (dp 2 x D 2) and pods 2 x D 2
+LM_BF16_DIR = ROOT / "build" / "phase25"
+PHASE25_SKIP = "phase 25 needs 4 cards (run it on a host with 4 cards)"
+LM_BF16_GRID_CUTS = (  # 25a: (tag, kind, arch, cut, Topology fields) on the grid and the pods
+    ("codeqwen zero3", "train", "codeqwen1.5-7b", {"num_layers": 8}, {}),
+    ("codeqwen zero1", "train", "codeqwen1.5-7b", {"num_layers": 8}, {"zero3": False}),
+    ("arctic gathered", "train", "arctic-480b", {"num_layers": 2, "num_experts": 8}, {}),
+    ("arctic a2a", "train", "arctic-480b", {"num_layers": 2, "num_experts": 8},
+     {"moe_mode": "a2a"}),
+    ("qwen2.5 serve", "serve", "qwen2.5-32b", {"num_layers": 8}, {}),
+    ("codeqwen pods", "train", "codeqwen1.5-7b", {"num_layers": 8}, {"pods": 2, "data": 1}),
+)
+LM_BF16_MOE_EXPERTS = (128, 96, 64, 48)  # 25d's training: the widest cut whose bf16 state fits
+# the fp32 runs 25b and 25d are read beside (PERF.md §5, four NVIDIA H100 80GB HBM3 at 700 W)
+FP32_22B = ("22b at fp32 (PR 25's four-card runs): 1.547-1.580 s a step, NCCL 0.35-0.45 of it, "
+            "peak 43.9-45.4 GB a rank")
+FP32_23B = ("23b at fp32 (PR 26's four-card runs): 1.683347-1.684076 s a step, NCCL 0.409-0.452 "
+            "of it, peak 42.806 GB a rank")
+LM_BF16_FLASH_SHAPES = (  # 25f: (label, the launches a rank makes, b, s, h, kv, hd, hd_v)
+    ("codeqwen ring training (25b)", "64 a step on each rank", 2, 256, 32, 32, 128, 128),
+    ("qwen2.5-32b ring prefill (25c)", "32 in each rank's prefill", 4, 512, 40, 8, 128, 128),
+    ("arctic data-axis prefill (25d)", "2 in each rank's prefill", 2, 512, 56, 8, 128, 128),
+)
+LM_BF16_SSD_SHAPES = (  # 25f: (label, launches, b, s, h, p, n)
+    ("zamba2 ring training (25a)", "24 a step on each rank", 2, 256, 112, 64, 64),
+)
+
+
+def lm_bf16_predictions(H):
+    """25b-d's per-rank state at bf16 (params and gradients at the params'
+    dtype, Adam's moments float32) against the card, printed before the run
+    (a leg that cannot fit stops here); returns 25d's training expert cut,
+    the widest of ``LM_BF16_MOE_EXPERTS`` whose state fits
+    ``LM_DATA_MOE_FIT`` of the card."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer.model import Topology
+
+    bf16 = torch.bfloat16
+    legs = (("25b", "codeqwen1.5-7b", {}, Topology(num_stages=4, num_micro=4), True),
+            ("25c", "qwen2.5-32b", {}, Topology(num_stages=4, num_micro=2), False),
+            ("25d codeqwen", "codeqwen1.5-7b", {}, lm_data_topology({}), True),
+            ("25d arctic serve", *LM_DATA_MOE, lm_data_topology({}), False))
+    for leg, arch, cut, topo, train in legs:
+        cfg, note = cut_config(get_arch(arch, smoke=False), cut)
+        reckon = data_state_gb if topo.data > 1 else state_gb
+        gbs = [reckon(cfg, topo, d, train, bf16) for d in range(topo.num_stages)]
+        log(f"[lm-bf16] {leg} {arch}{note}, {topo.data} x {topo.num_stages}: bf16 "
+            f"{'params and gradients, float32 Adam moments' if train else 'weights'} per rank "
+            + ", ".join(f"{g:.3f}" for g in gbs) + f" GB of the card's {CARD_BYTES / 1e9:.0f} "
+            f"[{H.card}]")
+        if max(gbs) > 0.9 * CARD_BYTES / 1e9:
+            raise AssertionError(f"{leg}: a rank's state {max(gbs):.1f} GB would not fit")
+    return lm_data_moe_experts(H, LM_BF16_MOE_EXPERTS, bf16, "25d")
+
+
+def dtypes_note(kinds) -> str:
+    """A case's dtypes, short: each kind's, a cache's by leaf."""
+    short = lambda k: k.replace("torch.", "")
+    return ", ".join(f"{key} " + ("/".join(sorted(map(short, v))) if isinstance(v, set) else
+                                  " ".join(f"{p}:{short(d)}" for p, d in sorted(v.items())))
+                     for key, v in kinds.items())
+
+
+def check_bf16_dtypes(torch, label, cfg, got):
+    """25a's dtypes: params as ``init_params`` makes them at bf16 (the
+    reference's leaf dtypes), Adam's moments, the loss and the logits
+    float32, every cache leaf bf16 but Mamba's ``ssm`` state (float32)."""
+    from repro_torch.models.transformer.model import abstract_params
+
+    kinds = got["dtypes"]
+    want = leaf_dtypes(abstract_params(cfg, 1, torch.bfloat16))
+    bad = []
+    if kinds["params"] != want or "torch.bfloat16" not in want:
+        bad.append(f"params {kinds['params']} (want {want})")
+    for key in ("moments", "loss", "logits"):
+        if key in kinds and kinds[key] != {"torch.float32"}:
+            bad.append(f"{key} {kinds[key]}")
+    for path, kind in kinds.get("cache", {}).items():
+        if kind != ("torch.float32" if path.endswith("ssm") else "torch.bfloat16"):
+            bad.append(f"cache {path} {kind}")
+    if bad:
+        raise AssertionError(f"{label}: dtypes " + "; ".join(bad))
+
+
+def lm_bf16_references(H, torch, experts):
+    """25a on one card (``H.dev``), deterministic, bf16 params: the ring's
+    cases at their Topology in one process, the grid's and the pods' with
+    every replica and pod in this process, and the long-context decode;
+    saved for the rank workers with 25d's training cut (``experts``)."""
+    from repro_torch.configs import get_arch
+
+    bf16 = torch.bfloat16
+    refs = {"experts": experts, "ring": {}, "grid": {}}
+    cases = [("ring", c) for c in LM_RING_CUTS] + [("grid", c) for c in LM_BF16_GRID_CUTS]
+    for where, (tag, kind, arch, cut, flags) in cases:
+        t0 = time.perf_counter()
+        case = lm_ring_case if where == "ring" else lm_data_case
+        got, _ = case(H, torch, kind, arch, cut, flags, capture={}, dtype=bf16)
+        check_bf16_dtypes(torch, f"25a one card, {where} {tag}", cut_config(
+            get_arch(arch, smoke=False), cut)[0], got)
+        refs[where][tag] = got
+        what = (f"losses {got['losses']}" if kind == "train" else
+                f"tokens[0] {got['tokens'][0]}, prefill {got['prefill_s']:.6f} s, decode "
+                f"{got['decode_s'] / 16:.6f} s a token")
+        log(f"[lm-bf16] 25a one card, {where} {tag}{got['note']}, {got['topo']}, bf16: {what}; "
+            f"{time.perf_counter() - t0:.1f} s [{H.card}]")
+    t0 = time.perf_counter()
+    refs["long"] = long = lm_data_long(H, torch, dtype=bf16)
+    check_bf16_dtypes(torch, "25a one card, long", get_arch("codeqwen1.5-7b", smoke=False), long)
+    log(f"[lm-bf16] 25a one card: codeqwen1.5-7b long_context_window -> {LONG_WINDOW}, "
+        f"{LONG_STEPS} steps of one row, 2 replicas in one process, bf16: "
+        f"{long['decode_s'] / LONG_STEPS * 1e3:.3f} ms a step, tokens {long['tokens'][-8:]} "
+        f"(last 8); {time.perf_counter() - t0:.1f} s [{H.card}]")
+    torch.save(refs, LM_BF16_DIR / "refs.pt")
+    return refs
+
+
+def phase_lm_bf16(H, torch):
+    """Phase 25: the LM stage ring and data axis at the reference's bf16 on
+    four cards. 25a cut-depth cases bit for bit on every rank against one
+    card (the ring, the dp 2 x D 2 grid, pods 2 x D 2, the long-context
+    decode), dtypes asserted; 25b codeqwen1.5-7b trained at its 32 layers
+    on the ring; 25c qwen2.5-32b served at its 64 layers on the ring; 25d
+    codeqwen1.5-7b trained at 32 layers with ZeRO-3 and arctic-480b served
+    with 128 experts and trained on the widest expert cut that fits; 25e a
+    counted step per rank against meta; 25f the kernels' bf16 instances
+    held on every rank's calls and timed at the new launch shapes. Returns
+    what did not run, having printed it ("" when all of it ran)."""
+    n = torch.cuda.device_count()
+    if n < LM_BF16_CARDS:
+        log(f"[lm-bf16] not run: {PHASE25_SKIP} (this machine has {n})")
+        return f"phase 25 not run ({PHASE25_SKIP})"
+    shutil.rmtree(LM_BF16_DIR, ignore_errors=True)
+    LM_BF16_DIR.mkdir(parents=True)
+    experts = lm_bf16_predictions(H)
+    lm_bf16_references(H, torch, experts)
+    time_bf16(H, torch, "25f", LM_BF16_FLASH_SHAPES, LM_BF16_SSD_SHAPES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reports = run_rank_worker(H, torch, LM_BF16_CARDS, "lmbf16")
+    lm_data_counts(H, torch, reports, torch.bfloat16)
+    return ""
+
+
+# ---------------------------------------------- phase 25: the rank worker --
+
+
+def worker_lm_bf16_cut(H, torch, rl, refs):
+    """25a on this rank, bf16 params: the ring's cases (``train_lm`` and
+    ``serve`` join the ring of 4 themselves), the grid's on dp 2 x D 2 and
+    the pods case on pods 2 x D 2, and the long-context decode, each bit
+    for bit against the one-card case of ``refs`` (losses, tokens, logits,
+    digests of this rank's rows and shards of the params, Adam's moments
+    and the decode cache), its dtypes asserted, its kernel calls held
+    within one bf16 ulp."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import ranks
+
+    bf16 = torch.bfloat16
+    grids = {1: ranks.RankGrid(2, 2), 2: ranks.RankGrid(1, 2, pods=2)}
+    cases = [("ring", c) for c in LM_RING_CUTS] + [("grid", c) for c in LM_BF16_GRID_CUTS]
+    for where, (tag, kind, arch, cut, flags) in cases:
+        label = f"25a {where} {tag} rank {rl.rank}"
+        if where == "ring":
+            got, cap = lm_ring_case(H, torch, kind, arch, cut, flags, dtype=bf16)
+            keys = ("losses", "again", "params", "mu", "nu") if kind == "train" else (
+                "tokens", "logits", "cache")
+        else:
+            grid = grids[flags.get("pods", 1)]
+            got, cap = lm_data_case(H, torch, kind, arch, cut, flags, grid, dtype=bf16)
+            keys = ("losses", "params", "mu", "nu") if kind == "train" else (
+                "tokens", "logits", "cache")
+        check_bf16_dtypes(torch, label, cut_config(get_arch(arch, smoke=False), cut)[0], got)
+        held_bit_for_bit(label, got, refs[where][tag], keys)
+        held_launches(H, torch, rl, cap, label, bf16=True)
+        trees = [k for k in keys if isinstance(got[k], dict)]
+        digests = sum(len(got[k]) for k in trees)
+        rl.line(f"25a {where} {tag}{got['note']}, {got['topo']}, bf16: "
+                + (f"losses {got['losses']}" if kind == "train" else
+                   f"tokens {len(got['tokens'])} x {len(got['tokens'][0])}, prefill and first "
+                   "decode logits")
+                + f" and {digests} row and shard digests of {', '.join(trees)} bit-identical "
+                f"to one card; dtypes {dtypes_note(got['dtypes'])}; launches {cap.launches} "
+                f"[{H.card}]")
+    got = lm_data_long(H, torch, grids[1], dtype=bf16)
+    want = refs["long"]
+    label = f"25a long rank {rl.rank}"
+    check_bf16_dtypes(torch, label, get_arch("codeqwen1.5-7b", smoke=False), got)
+    held_bit_for_bit(label, got, want, ("tokens", "logits", "cache"))
+    rl.line(f"25a codeqwen1.5-7b full width, long_context_window -> {LONG_WINDOW}, {LONG_STEPS} "
+            f"steps of one row, {got['slots']} of the ring's {2 * got['slots']} slots on this "
+            f"rank, bf16: tokens, last logits and this rank's cache slots bit-identical to one "
+            f"card; {got['decode_s'] / LONG_STEPS * 1e3:.3f} ms a step [{H.card}]")
+
+
 # a phase and the phases whose results it takes
 PHASE_NEEDS = {"5": ("4",), "12": ("6",), "21": ("3",)}
 
@@ -5968,9 +6423,9 @@ def parse_phases(text):
     if text is None:
         return None
     phases = {p.strip() for p in text.split(",") if p.strip()}
-    unknown = phases - {str(n) for n in range(2, 25)}
+    unknown = phases - {str(n) for n in range(2, 26)}
     if unknown:
-        raise SystemExit(f"--phases: no phase {sorted(unknown)}; phases are 2-24")
+        raise SystemExit(f"--phases: no phase {sorted(unknown)}; phases are 2-25")
     for p in list(phases):
         phases.update(PHASE_NEEDS.get(p, ()))
     return phases
@@ -5983,7 +6438,7 @@ def main() -> int:
                          "build), e.g. 21; default: every phase")
     ap.add_argument("--rank-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.rank_worker is not None:  # one rank of phase 21-23, started by torchrun
+    if args.rank_worker is not None:  # one rank of phases 21-23 or 25, started by torchrun
         return rank_worker(args.rank_worker)
     phases = parse_phases(args.phases)
     import torch
@@ -6047,14 +6502,14 @@ def main() -> int:
         })
     log("[compare] largest share of the tolerance used, per kernel: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
-    # phases 21-23 run only where the cards are: "" when run, else why not
+    # phases 21-23 and 25 run only where the cards are: "" when run, else why not
     ran = [p for p, note in not_run.items() if note == ""]
     skipped = [note for note in not_run.values() if note]
     if phases is None:
         names = f"all {21 + len(ran)} phases"
     else:
         names = "phases " + ", ".join(
-            ["1", *sorted(phases - {"21", "22", "23"}, key=int), *sorted(ran)])
+            ["1", *sorted(phases - {"21", "22", "23", "25"}, key=int), *sorted(ran, key=int)])
     log(f"[done] {names} passed in {time.perf_counter() - t_start:.1f} s"
         + "".join(f"; {note}" for note in skipped))
     log(f"[card] {card_line}")
@@ -6066,9 +6521,9 @@ def main() -> int:
 
 
 def run_phases(H, torch, phases=None):
-    """Phases 2-24 (or those of ``phases``), each timed. Returns, for each
-    of phases 21-23 that was asked for, what of it did not run ("" when all
-    of it ran)."""
+    """Phases 2-25 (or those of ``phases``), each timed. Returns, for each
+    of phases 21-23 and 25 that was asked for, what of it did not run (""
+    when all of it ran)."""
 
     def phase(label, fn, *args):
         if phases is not None and label.rstrip("abc") not in phases:
@@ -6129,6 +6584,8 @@ def run_phases(H, torch, phases=None):
     not_run["22"] = phase("22", phase_lm_ring)
     torch.cuda.empty_cache()
     not_run["23"] = phase("23", phase_lm_data)
+    torch.cuda.empty_cache()
+    not_run["25"] = phase("25", phase_lm_bf16)
     return {p: note for p, note in not_run.items() if note is not None}
 
 

@@ -167,9 +167,11 @@ class Served:
         return prompt_batch(self.prompt, self.frontend_embeds)
 
 
-def serve(args, cfg: ArchConfig | None = None) -> Served:
+def serve(args, cfg: ArchConfig | None = None, dtype=torch.float32) -> Served:
     """Build the model on ``--device``, serve one batch, summarize. ``cfg``:
-    a built config (a caller may cut its depth), else ``--arch``'s. Under
+    a built config (a caller may cut its depth), else ``--arch``'s.
+    ``dtype``: the params' and so the caches' (float32, the launcher's, by
+    default; ``torch.bfloat16`` is the reference's own). Under
     torchrun this rank joins the ``--stages`` ring (``Served.joined``; the
     caller leaves it) and holds its own stage's rows of its data shard."""
     cfg = get_arch(args.arch, smoke=not args.full_arch) if cfg is None else cfg
@@ -183,7 +185,7 @@ def serve(args, cfg: ArchConfig | None = None) -> Served:
                     data=1 if grid is None else grid.dp, ring=grid)
     params = init_params(cfg, seed=args.seed, num_stages=stages, device=device, topo=topo,
                          stages=None if grid is None else held_stages(topo, grid.position),
-                         data_rank=None if grid is None else grid.replica)
+                         data_rank=None if grid is None else grid.replica, dtype=dtype)
     s_front = frontend_rows(cfg, args.prompt_len)
     n_text = args.prompt_len - s_front
     prompt = torch.from_numpy(token_batch(
@@ -191,7 +193,7 @@ def serve(args, cfg: ArchConfig | None = None) -> Served:
     )[:, :-1][:, :n_text].astype(np.int64)).to(device)
     frontend = torch.from_numpy(frontend_embeds(
         batch=args.batch, seq=s_front, d_model=cfg.d_model, seed=args.seed,
-    )).to(device) if s_front else None
+    )).to(device, dtype) if s_front else None
 
     gen = generate(cfg, topo, params, prompt, args.decode_steps, frontend)
     n_tokens = int(gen.tokens.size)

@@ -400,13 +400,16 @@ def lm_batch(cfg, args, step: int, device):
     return batch
 
 
-def train_lm(cfg, args, on_step=None) -> TrainedLM:
+def train_lm(cfg, args, on_step=None, dtype=None) -> TrainedLM:
     """Train ``cfg`` (a built config; a caller may cut its depth) as the
     ``--mode lm`` flags say. ``on_step(i, params, opt_state, loss)`` is
-    called after each step. Under torchrun this rank joins the rank grid
-    (``core.cli.join_lm_ring``; ``TrainedLM.joined``, which the caller
-    leaves) and trains its own stage's rows of its data shard: ``params``
-    and ``opt_state`` are its shard, the losses every rank's alike."""
+    called after each step. ``dtype``: the params' (float32, the
+    launcher's, by default; ``torch.bfloat16`` is the reference's own, its
+    activations and hops bf16, Adam's moments and the loss float32). Under
+    torchrun this rank joins the rank grid (``core.cli.join_lm_ring``;
+    ``TrainedLM.joined``, which the caller leaves) and trains its own
+    stage's rows of its data shard: ``params`` and ``opt_state`` are its
+    shard, the losses every rank's alike."""
     import torch
 
     from repro_torch.configs import ShapeConfig
@@ -460,7 +463,8 @@ def train_lm(cfg, args, on_step=None) -> TrainedLM:
                            lr=args.lr)
     params = init_params(cfg, seed=args.seed, num_stages=stages, device=device, topo=topo,
                          stages=None if grid is None else held_stages(topo, grid.position),
-                         data_rank=None if grid is None else grid.replica)
+                         data_rank=None if grid is None else grid.replica,
+                         dtype=torch.float32 if dtype is None else dtype)
     opt_state = step.optimizer.init(params)
 
     losses, times = [], []

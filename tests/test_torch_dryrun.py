@@ -432,7 +432,8 @@ def _leaf_paths(tree, path=()):
     return out
 
 
-def test_grid_collective_bytes_equal_the_closed_form():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_grid_collective_bytes_equal_the_closed_form(dtype):
     """Rank 0 of a data 2 x 2-stage grid (position 0, replica 0), the smoke
     codeqwen1.5-7b train step at 2 micro-batches with remat, counted on
     meta: every collective kind equals a closed form over the leaf layout.
@@ -444,25 +445,27 @@ def test_grid_collective_bytes_equal_the_closed_form():
     ``head`` gradients reduce-scattered (all-to-all) and their updated rows
     all-gathered back, ``final_ln``'s gradient all-gathered; the loss
     broadcast from the last position (an all-reduce of 4 bytes). Position 0
-    sends each micro-batch's activations once (collective-permute)."""
+    sends each micro-batch's activations once (collective-permute). At
+    bf16 params (the reference's default dtype) the params, gradients,
+    gathered shards and the wire take 2 bytes a value, the loss 4."""
     cfg = get_arch("codeqwen1.5-7b", smoke=True)
     shape = ShapeConfig("t", S, B, "train")
     topo, counter = dryrun.count_on_grid(
         cfg, shape, pods=1, data=2, stages=2, rank=0,
         topology=lambda g: TM.Topology(num_stages=2, num_micro=MICRO, data=2, ring=g),
-        dtype=torch.float32)
-    full = TM.abstract_params(cfg, 2)
+        dtype=dtype)
+    full = TM.abstract_params(cfg, 2, dtype)
     layout = TM.leaf_layout(cfg, topo)
     per = TM.stacked_shape_plan(cfg, 2)["per_stage"]
     blocks = _leaf_paths(full["blocks"])
     gather, dims = _leaf_paths(layout.gather["blocks"]), _leaf_paths(layout.params["blocks"])
-    slot = {p: a.numel() // (2 * per) * 4 for p, a in blocks.items()}
+    slot = {p: a.numel() // (2 * per) * a.element_size() for p, a in blocks.items()}
     gathered = sum(b for p, b in slot.items() if gather[p])
     whole = sum(b for p, b in slot.items() if dims[p] is None)
-    tops = {k: full[k].numel() * 4 for k in full if k != "blocks"}
+    tops = {k: full[k].numel() * full[k].element_size() for k in full if k != "blocks"}
     zero1 = [k for k in tops if layout.moments[k] is not None]
     assert sorted(zero1) == ["embed", "head"]
-    wire = (B // 2) // MICRO * S * cfg.d_model * 4
+    wire = (B // 2) // MICRO * S * cfg.d_model * dtype.itemsize
     want = {
         "all-gather": per * MICRO * 2 * gathered + per * 2 * whole
         + sum(tops[k] for k in zero1) + 2 * sum(tops[k] for k in tops if k not in zero1),

@@ -464,6 +464,24 @@ def test_flash_kernel_bf16_within_one_ulp_on_card(cuda, b, s, h, kv, hd, hd_v, w
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv", [
+    (2, 256, 32, 32),  # codeqwen1.5-7b's training launch on the stage ring and the data axis
+    (4, 512, 40, 8),  # qwen2.5-32b's prefill launch on the stage ring
+    (2, 512, 56, 8),  # arctic-480b's prefill launch on the data axis (a replica's 2 rows)
+])
+def test_flash_kernel_bf16_ring_and_grid_launches_within_one_ulp_on_card(cuda, b, s, h, kv):
+    """The bf16 instance at the launch shapes the four-card bf16 paths give
+    it (hd 128, causal) against the plain version on the same bf16 inputs:
+    at most one bf16 ulp apart."""
+    q, k, v = _flash_inputs(cuda, b, s, h, kv, 128, dtype=torch.bfloat16, seed=b + h)
+    before = FK.flash_attention_kernel.launches
+    got = FK.flash_attention_kernel(q, k, v)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_kernel.launches == before + 1 and got.dtype == torch.bfloat16
+    assert float(bf16_ulps(got, flash_attention_ref(q, k, v)).max()) <= 1.0
+
+
+@pytest.mark.gpu
 def test_flash_kernel_bf16_masked_by_positions_within_one_ulp_on_card(cuda):
     """qwen2-vl's prefill launch in bf16: masked by the t-row."""
     q, k, v = _flash_inputs(cuda, 4, 512, 12, 2, 128, dtype=torch.bfloat16, seed=3)

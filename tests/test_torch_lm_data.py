@@ -16,12 +16,18 @@ each rank's shard of the params and of Adam's moments (codeqwen with ZeRO-3
 on and off and interleaved, zamba2's shared block, arctic's MoE gathered
 and a2a, deepseek's MLA and multi-token-prediction head), the prefill and
 decode logits, tokens and cache shards, the sequence-sharded
-long-context decode, and codeqwen's training at bf16 params. The same 4-rank grid also starts from params given to
+long-context decode, and at bf16 params (the reference's dtype) codeqwen's
+training, arctic's serving under ``a2a`` and the long-context decode. The
+same 4-rank grid also starts from params given to
 the reference's dp 2 steps, run in a subprocess on an ``Auto`` (2, 2) mesh
 of 4 forced host devices: losses and Adam's first moments at
 ``tests/test_torch_lm_train.py``'s tolerances, greedy tokens equal, and
 the 24-step decode over a 16-slot long-context ring split over the data
-axis (tokens equal, the same ring slots written). In one process: the
+axis (tokens equal, the same ring slots written), and codeqwen's first
+train step at bf16 against the reference's at its default
+``dtype=jnp.bfloat16`` from the same values rounded to bf16 (the loss
+within 5e-4 relative, Adam's first moment within 0.05 of each leaf's
+largest entry, ``tests/test_torch_bf16_steps.py``'s limits). In one process: the
 dense dp 2 step against dp 1 at those tolerances, the sharded draws, the
 collectives, and the leaf layout of every arch at full size against the
 reference's ``param_layout`` and ``moment_specs``, exactly. Every rank and
@@ -74,6 +80,7 @@ GROUP_TIMEOUT_S = 60.0
 SEQ, BATCH, MICRO, LOSS_CHUNKS, LR, STEPS = 32, 8, 2, 4, 3e-4, 2
 PROMPT, DECODE, LONG, WINDOW = 32, 4, 24, 16
 LOSS_RTOL, MOMENT_TOL, LOSSES_ATOL = 1e-5, 1e-5, 1e-4  # tests/test_torch_lm_train.py's
+BF16_LOSS_RTOL, BF16_MU_FRAC = 5e-4, 0.05  # tests/test_torch_bf16_steps.py's
 # (case, arch, Topology fields): the 4-rank grid's training cases
 GRID_TRAIN = [
     ("codeqwen zero3", "codeqwen1.5-7b", {}),
@@ -161,10 +168,11 @@ def train(cfg, topo, params=None, steps=STEPS, dtype=torch.float32):
             "first": first}
 
 
-def serve(cfg, topo, params=None, prompt=None):
+def serve(cfg, topo, params=None, prompt=None, dtype=torch.float32):
     """A prefill of ``PROMPT`` tokens, its cache spliced into the decode
-    cache, then ``DECODE`` greedy steps: every logit, token and cache."""
-    params = own_params(cfg, topo) if params is None else params
+    cache, then ``DECODE`` greedy steps (params and caches in ``dtype``):
+    every logit, token and cache."""
+    params = own_params(cfg, topo, dtype=dtype) if params is None else params
     if prompt is None:
         prompt = token_batch(batch=BATCH, seq=PROMPT, vocab=cfg.vocab_size, seed=0)[:, :PROMPT]
     prompt = torch.from_numpy(prompt.astype(np.int64))
@@ -173,8 +181,9 @@ def serve(cfg, topo, params=None, prompt=None):
     prefill = TM.make_prefill_step(cfg, topo, pshape)
     step = TM.make_serve_step(cfg, topo, dshape)
     with torch.inference_mode():
-        logits, pcache = prefill(params, TM.init_cache(cfg, topo, pshape), {"tokens": prompt})
-        dcache = tserve.splice(TM.init_cache(cfg, topo, dshape), pcache)
+        logits, pcache = prefill(params, TM.init_cache(cfg, topo, pshape, dtype=dtype),
+                                 {"tokens": prompt})
+        dcache = tserve.splice(TM.init_cache(cfg, topo, dshape, dtype=dtype), pcache)
         tok = logits.argmax(-1).to(torch.int32)
         all_logits, tokens = [logits], [tok]
         for i in range(DECODE):
@@ -189,14 +198,15 @@ def long_config():
     return dataclasses.replace(get_arch("codeqwen1.5-7b", smoke=True), long_context_window=WINDOW)
 
 
-def decode_long(cfg, topo, params=None, steps=LONG):
+def decode_long(cfg, topo, params=None, steps=LONG, dtype=torch.float32):
     """``steps`` greedy decode steps of one row from a zero cache, every
     layer on its long-context window over a ring split over the data axis
-    (``Topology.seq_shard``): every step's logits and tokens, the cache."""
-    params = own_params(cfg, topo) if params is None else params
+    (``Topology.seq_shard``), params and cache in ``dtype``: every step's
+    logits and tokens, the cache."""
+    params = own_params(cfg, topo, dtype=dtype) if params is None else params
     shape = ShapeConfig("d", steps, 1, "decode")
     step = TM.make_serve_step(cfg, topo, shape)
-    cache = TM.init_cache(cfg, topo, shape)
+    cache = TM.init_cache(cfg, topo, shape, dtype=dtype)
     tok = torch.zeros(1, dtype=torch.int32)
     logits, tokens = [], []
     with torch.inference_mode():
@@ -251,6 +261,12 @@ def jax_params():
     return out
 
 
+def as_dtypes(tree, like):
+    """``tree``'s values cast to the dtypes of ``like``'s leaves at the same
+    paths (float32 to bf16 rounds to nearest even, as JAX's ``astype``)."""
+    return tree_map(lambda a, b: a.to(b.dtype), tree, like)
+
+
 def jax_prompt():
     vocab = get_arch("codeqwen1.5-7b", smoke=True).vocab_size
     return token_batch(batch=BATCH, seq=PROMPT + 1, vocab=vocab, seed=0)[:, :PROMPT]
@@ -270,6 +286,10 @@ def _cases(grid, D, jax_in):
         out["decode long"] = decode_long(long_config(), long_topology(grid))
         out["bf16 train"] = train(config("codeqwen1.5-7b"), topology(2, grid),
                                   dtype=torch.bfloat16)
+        out["bf16 serve a2a"] = serve(config("arctic-480b", num_experts=8),
+                                      topology(2, grid, moe_mode="a2a"), dtype=torch.bfloat16)
+        out["bf16 decode long"] = decode_long(long_config(), long_topology(grid),
+                                              dtype=torch.bfloat16)
     if jax_in is not None:
         for name, arch, fields in JAX_TRAIN:
             cfg, topo = get_arch(arch, smoke=True), topology(2, grid, **fields)
@@ -279,6 +299,9 @@ def _cases(grid, D, jax_in):
         own = shard(params_from_jax(jax_in["codeqwen1.5-7b"]), cfg, topo, grid)
         out["jax serve"] = serve(cfg, topo, own, jax_prompt())["tokens"]
         out["jax long"] = decode_long(long_config(), long_topology(grid), own)
+        whole = as_dtypes(params_from_jax(jax_in["codeqwen1.5-7b"]),
+                          TM.abstract_params(cfg, 2, torch.bfloat16))
+        out["jax bf16"] = train(cfg, topo, shard(whole, cfg, topo, grid))
     return out
 
 
@@ -393,6 +416,19 @@ for name, arch, fields in inputs["train"]:
         if i == 0:
             res["mu"] = tree(opt.mu)
     out[name] = res
+# the dp 2 step at the reference's default dtype (bf16 params, float32 moments
+# and loss) from the same values rounded to bf16
+cfg = get_arch("codeqwen1.5-7b", smoke=True)
+topo = JM.Topology(num_stages=2, fsdp_size=2, num_micro=MICRO, loss_chunks=LOSS_CHUNKS)
+art = JM.make_train_step(cfg, topo, ShapeConfig("t", SEQ, BATCH, "train"), mesh, lr=LR)
+params = jax.tree_util.tree_map(lambda a, s: jnp.asarray(a).astype(s.dtype),
+                                inputs["params"]["codeqwen1.5-7b"], JM._abstract_params(cfg, topo))
+opt = art.meta["optimizer"].init(params)
+batch = {{"tokens": jnp.asarray(token_batch(batch=BATCH, seq=SEQ, vocab=cfg.vocab_size, seed=0,
+                                           step=0))}}
+params, opt, m = jax.jit(art.fn).lower(params, opt, batch).compile(compiler_options=JIT)(
+    params, opt, batch)
+out["bf16"] = {{"loss": float(m["loss"]), "mu": tree(opt.mu)}}
 # the pod axis: (pod 2, data 1, model 2), the batch split over (pod, data)
 try:
     cfg = get_arch("codeqwen1.5-7b", smoke=True)
@@ -588,6 +624,37 @@ def test_grid_bf16_training_bit_identical(worlds):
                            results["place"], ("bf16", results["place"]))
 
 
+def test_grid_bf16_serving_bit_identical(worlds):
+    """arctic's MoE at 8 experts under ``a2a`` on dp 2 x D 2 at bf16 params
+    and caches (the exchange's buffers bf16, the logits float32): a prefill
+    and 4 decode steps, every rank's logits and tokens and its rows of the
+    caches equal one process's bit for bit."""
+    want = worlds["alone"][2]["bf16 serve a2a"]
+    for results in worlds["four"]:
+        got, (position, replica) = results["bf16 serve a2a"], results["place"]
+        assert got["logits"].dtype == torch.float32
+        assert torch.equal(got["logits"], want["logits"]), results["place"]
+        assert torch.equal(got["tokens"], want["tokens"]), results["place"]
+        for name in ("pcache", "dcache"):
+            assert {a.dtype for a in tree_leaves(got[name])} == {torch.bfloat16}
+            mine = cache_shard(want[name], topology(2), position, replica, seq=False)
+            assert trees_equal(got[name], mine), (results["place"], name)
+
+
+def test_grid_bf16_long_context_decode_bit_identical(worlds):
+    """The sequence-sharded long-context decode at bf16 params and cache:
+    every step's logits and tokens and each rank's ring slots equal one
+    process's bit for bit."""
+    want = worlds["alone"][2]["bf16 decode long"]
+    for results in worlds["four"]:
+        got, (position, replica) = results["bf16 decode long"], results["place"]
+        assert torch.equal(got["logits"], want["logits"]), results["place"]
+        assert torch.equal(got["tokens"], want["tokens"]), results["place"]
+        assert {a.dtype for a in tree_leaves(got["cache"])} == {torch.bfloat16}
+        mine = cache_shard(want["cache"], long_topology(), position, replica, seq=True)
+        assert trees_equal(got["cache"], mine), results["place"]
+
+
 @pytest.mark.parametrize("case, arch, fields", PAIR_TRAIN)
 def test_pair_training_bit_identical(worlds, case, arch, fields):
     """dp 2 x D 1: each rank is one whole stage of one replica."""
@@ -657,6 +724,32 @@ def test_grid_matches_jax_dp2_train(worlds, case, arch, fields):
             a = mine[path]
             assert a.shape == b.shape, path
             assert float((a - b).abs().max()) <= MOMENT_TOL * float(b.abs().max()), path
+
+
+def test_grid_bf16_matches_jax_dp2_train(worlds):
+    """From the same values rounded to bf16, the dp 2 x D 2 grid's first
+    bf16 train step against the reference's dp 2 step at its default
+    ``dtype=jnp.bfloat16``: the loss within ``BF16_LOSS_RTOL`` relative,
+    and every rank's shard of Adam's first moment (float32 on both sides)
+    within ``BF16_MU_FRAC`` of each leaf's largest entry."""
+    if worlds["jax"] is None:
+        pytest.skip("JAX is not installed")
+    want = worlds["jax"]["bf16"]
+    cfg, topo = get_arch("codeqwen1.5-7b", smoke=True), topology(2)
+    for results in worlds["four"]:
+        got = results["jax bf16"]
+        assert all(p.dtype == torch.bfloat16 for p in tree_leaves(got["params"]))
+        loss = float(got["losses"][0])
+        assert abs(loss - want["loss"]) <= BF16_LOSS_RTOL * abs(want["loss"])
+        position, replica = results["place"]
+        ref = _flat(TM.grid_shard(params_from_jax(want["mu"]), cfg, topo, position, replica,
+                                  moments=True))
+        mine = _flat(got["first"])
+        assert set(mine) == set(ref)
+        for path, b in ref.items():
+            a = mine[path]
+            assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape, path
+            assert float((a - b).abs().max()) <= BF16_MU_FRAC * float(b.abs().max()), path
 
 
 def test_grid_matches_jax_dp2_greedy_decode(worlds):

@@ -13,8 +13,9 @@ softcap, deepseek's MoE, MLA and multi-token-prediction head, qwen2-vl's
 frontend rows and m-rope, the zamba2 hybrid's shared block; a padding
 slot; remat off; interleaved with 2 virtual stages a rank), and the
 prefill logits, the decode logits and tokens and every cache row after a
-prefill and 4 decode steps; on 2 ranks also codeqwen's training and
-serving at bf16 params (the reference's dtype: bf16 hops, float32 loss and
+prefill and 4 decode steps; on 2 ranks also codeqwen's training (fill_drain
+and interleaved, 2 virtual stages a rank) and zamba2's serving at bf16
+params (the reference's dtype: bf16 hops, float32 loss and
 moments). The 2-rank ring also starts from the JAX
 package's params and matches the reference's own 2-device steps, run in a
 subprocess on a 1x2 ``Auto`` mesh of forced host devices: gemma2-27b's
@@ -198,6 +199,8 @@ def _world_cases(world: int, jax_in):
         out[f"interleaved {arch}"] = train(config(arch), topology(4, grid, "interleaved", 2))
     out["bf16 train"] = train(config("codeqwen1.5-7b"), topology(2, grid), dtype=torch.bfloat16)
     out["bf16 serve"] = serve(config("zamba2-7b"), topology(2, grid), dtype=torch.bfloat16)
+    out["bf16 interleaved"] = train(config("codeqwen1.5-7b"), topology(4, grid, "interleaved", 2),
+                                    dtype=torch.bfloat16)
     jtrain, jserve = jax_in
     topo = topology(2, grid)
     if jtrain is not None:
@@ -372,6 +375,9 @@ def worlds():
             alone["bf16 train"] = train(config("codeqwen1.5-7b"), topology(2),
                                         dtype=torch.bfloat16)
             alone["bf16 serve"] = serve(config("zamba2-7b"), topology(2), dtype=torch.bfloat16)
+            alone["bf16 interleaved"] = train(config("codeqwen1.5-7b"),
+                                              topology(4, None, "interleaved", 2),
+                                              dtype=torch.bfloat16)
         jax_out = None
         if jax_proc is not None:
             log, _ = jax_proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
@@ -472,6 +478,20 @@ def test_ring_bf16_bit_identical(worlds):
         assert torch.equal(got["tokens"], want["tokens"]), rank
         for name in ("pcache", "dcache"):
             assert trees_equal(got[name], rows_of(want[name], topo, rank)), (rank, name)
+
+
+def test_ring_bf16_interleaved_bit_identical(worlds):
+    """codeqwen at bf16 params on 2 ranks of 2 virtual stages each (the
+    interleaved ring's bf16 hops): 2 train steps' losses, each rank's rows
+    of the params (bf16) and of Adam's moments (float32) equal the
+    one-process interleaved step's bit for bit."""
+    topo = topology(4, None, "interleaved", 2)
+    want = worlds["alone"]["bf16 interleaved"]
+    for rank, results in enumerate(worlds["two"]):
+        got = results["bf16 interleaved"]
+        assert all(p.dtype == torch.bfloat16 for p in tree_leaves(got["params"]))
+        assert all(m.dtype == torch.float32 for m in tree_leaves(got["mu"]))
+        assert_train_equal(got, want, topo, rank, ("bf16 interleaved", rank))
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
