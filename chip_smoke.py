@@ -500,6 +500,7 @@ os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
 os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
 ROOT = Path(__file__).resolve().parent
+SMOKE_LIMIT_S = 1200  # the whole one-card run, the kernels' build included
 ATOL = RTOL = 1e-5
 GCN_MATCH_ATOL = 2e-4  # benchmarks/fig3.py: bucket concat reorders f32 edge sums
 # the two backends' reduced gradients, per leaf: max |diff| over max |grad|
@@ -2699,6 +2700,7 @@ def phase_compare_lm(H, torch):
                                  "arange(S) differ from the index path")
         log(f"[compare] flash_attention_kernel S={s} hd={hd} win={window} {str(dtype)[6:]}: "
             "null-pointer (index) launch == positions arange(S), bit for bit")
+    compare_bf16_wgmma_edges(H, torch)
     compare_ssd(H, "mamba2-130m prefill launch shape", *ssd_inputs(H, 4, 512, 24, 64, 128), 128)
     for s in (512, 256):  # zamba2's mixer: 112 heads, state 64
         compare_ssd(H, f"zamba2 112 heads N 64, b 4 S {s}", *ssd_inputs(H, 4, s, 112, 64, 64), 128)
@@ -2713,6 +2715,55 @@ def phase_compare_lm(H, torch):
     x, dt, loga, B, C = ssd_inputs(H, 2, 512, 24, 64, 128)
     compare_ssd(H, "strong decay, loga x 40", x, dt, (loga * 40.0).contiguous(), B, C, 128)
     compare_ssd(H, "b h chunks 45", *ssd_inputs(H, 3, 300, 5, 64, 128), 128)
+
+
+def compare_bf16_route(H, label, q, k, v, route="wgmma", **kw):
+    """Two bf16 flash launches that must take ``route`` (``kernel.route``):
+    the same bits both times, and within one bf16 ulp of the plain version
+    (``compare_bf16_flash``)."""
+    fk = H.FK.flash_attention_kernel
+    before = fk.wgmma_launches
+    got = fk(q, k, v, **kw)
+    again = fk(q, k, v, **kw)
+    H.torch.cuda.synchronize()
+    wgmma = fk.wgmma_launches - before
+    if wgmma != (2 if route == "wgmma" else 0):
+        raise AssertionError(f"{label}: {wgmma} of 2 launches on the wgmma instances, want the "
+                             f"{route} instance")
+    if not H.torch.equal(got, again):
+        raise AssertionError(f"{label}: a second launch gave other bits")
+    compare_bf16_flash(H, f"{label} [{route}, relaunch same bits]", q, k, v, out=got, **kw)
+
+
+def compare_bf16_wgmma_edges(H, torch):
+    """The bf16 wgmma instances' edges: S around the 64-row
+    warpgroups, the 128-row blocks and the 64-key tiles at each head-dim
+    instance (zamba2's 112, MLA's 192/128), a window crossing tile edges,
+    softcap 50, GQA 40/8 and 56/8, positions with a frontend prefix at t =
+    0; then what TMA cannot describe (hd 100; a base off 16 bytes) on the
+    mma.sync instance."""
+    bf16 = torch.bfloat16
+    for hd, hd_v in ((64, 64), (112, 112), (128, 128), (192, 128), (256, 256)):
+        for s in (1, 63, 64, 65, 127, 128, 129, 513):
+            compare_bf16_route(H, f"wgmma S {s} hd/hd_v {hd}/{hd_v}",
+                               *flash_inputs(H, 2, s, 8, 4, hd, hd_v=hd_v, dtype=bf16))
+    compare_bf16_route(H, "wgmma window 100 crossing tile edges",
+                       *flash_inputs(H, 2, 300, 8, 4, 128, dtype=bf16), window=100)
+    compare_bf16_route(H, "wgmma softcap 50", *flash_inputs(H, 2, 256, 8, 4, 128, dtype=bf16),
+                       softcap=50.0)
+    for h in (40, 56):
+        compare_bf16_route(H, f"wgmma GQA {h}/8", *flash_inputs(H, 2, 512, h, 8, 128, dtype=bf16))
+    for s, s_front, window in ((300, 100, 0), (257, 33, 20)):
+        pos = frontend_t_row(H, s, s_front)
+        compare_bf16_route(H, f"wgmma prefix {s_front} of {s}, window {window}",
+                           *flash_inputs(H, 2, s, 8, 2, 128, dtype=bf16), window=window,
+                           q_pos=pos, kv_pos=pos)
+    compare_bf16_route(H, "hd 100", *flash_inputs(H, 2, 200, 8, 4, 100, dtype=bf16),
+                       route="mma.sync")
+    q, k, v = flash_inputs(H, 2, 200, 8, 4, 128, dtype=bf16)
+    flat = torch.empty(q.numel() + 1, dtype=bf16, device=H.dev)
+    compare_bf16_route(H, "q's base 2 bytes past 16-byte alignment",
+                       flat[1:].view(q.shape).copy_(q), k, v, route="mma.sync")
 
 
 def time_flash(H, torch, label, q, k, v, pos=None, position_path_too=False):
@@ -2916,7 +2967,8 @@ class KernelCapture:
     kernels) through recorders while a main path runs: each wrapper's count
     starts at 0, the first ``limits[name]`` calls' (args, kwargs, output)
     are kept in ``captured[name]``, and ``launches[name]`` holds the count
-    on exit."""
+    on exit (``wgmma[name]``: the flash launches that took the bf16 wgmma
+    instances)."""
 
     def __init__(self, limits: dict):
         from repro_torch.kernels.flash import ops as flash_ops
@@ -2930,6 +2982,7 @@ class KernelCapture:
         self.limits = limits
         self.captured = {name: [] for name in limits}
         self.launches = {}
+        self.wgmma = {}
 
     def __enter__(self):
         self.wrappers = {}
@@ -2946,6 +2999,8 @@ class KernelCapture:
                 return out
 
             wrapper.launches = 0
+            if hasattr(wrapper, "wgmma_launches"):
+                wrapper.wgmma_launches = 0
             setattr(self.ops[name], name, record)
         return self
 
@@ -2953,6 +3008,7 @@ class KernelCapture:
         for name, wrapper in self.wrappers.items():
             setattr(self.ops[name], name, wrapper)
             self.launches[name] = wrapper.launches
+            self.wgmma[name] = getattr(wrapper, "wgmma_launches", 0)
         return False
 
     def compare(self, H, torch, label):
@@ -3475,12 +3531,16 @@ def counted_on_card_and_meta(H, torch, label, cfg, topo, shape, dtype=None):
     wrappers = {"flash_attention_kernel": H.FK.flash_attention_kernel,
                 "ssd_kernel": H.DK.ssd_kernel}
     before = {name: w.launches for name, w in wrappers.items()}
+    wgmma_before = H.FK.flash_attention_kernel.wgmma_launches
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     card = count_step(step, inputs)
     torch.cuda.synchronize()
     card_total = torch.cuda.max_memory_allocated()
     launched = {name: w.launches - before[name] for name, w in wrappers.items()}
+    if dtype == torch.bfloat16:
+        count_wgmma(H, label, launched["flash_attention_kernel"],
+                    H.FK.flash_attention_kernel.wgmma_launches - wgmma_before)
     meta_step, meta_inputs = build_step(cfg, shape, topo, device="meta", dtype=dtype)
     meta = count_step(meta_step, meta_inputs)
     del meta_step, meta_inputs
@@ -4867,7 +4927,10 @@ def held_launches(H, torch, rl, cap, label, bf16=False):
     launches counted (a bf16 launch under its instance's key)."""
     if bf16:
         compare_bf16_calls(H, cap, label)
-        rl.launched({BF16_KEYS[name]: n for name, n in cap.launches.items()})
+        flash = "flash_attention_kernel"
+        count_wgmma(H, label, cap.launches.get(flash, 0), cap.wgmma.get(flash, 0))
+        rl.launched({**{BF16_KEYS[name]: n for name, n in cap.launches.items()},
+                     WGMMA_KEY: cap.wgmma.get(flash, 0)})
     else:
         cap.compare(H, torch, label)
         rl.launched(cap.launches)
@@ -5622,7 +5685,7 @@ def worker_lm_data_count(H, torch, rl, grid, dtype=None):
         topo = count_topology(grid_shape, g)
         step, inputs = build_step(cfg, shape, topo, device=H.dev, dtype=dtype)
         torch.cuda.synchronize()
-        before = flash.launches
+        before, wgmma_before = flash.launches, flash.wgmma_launches
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
@@ -5636,6 +5699,10 @@ def worker_lm_data_count(H, torch, rl, grid, dtype=None):
             raise AssertionError(f"{tag} {label} rank {rl.rank}: the counter saw "
                                  f"{dict(card.kernel_calls)}, flash launched {launched}")
         rl.launched({key: launched})
+        if dtype == torch.bfloat16:
+            wgmma = flash.wgmma_launches - wgmma_before
+            count_wgmma(H, f"{tag} {label} rank {rl.rank}", launched, wgmma)
+            rl.launched({WGMMA_KEY: wgmma})
         place = f"pod {g.pod}, replica {g.replica}, position {g.position}"
         out[label] = {"counts": counts_of(card), "ratio": counted_inc / card_inc,
                       "counted_gb": counted_inc / 1e9, "card_gb": card_inc / 1e9,
@@ -5769,6 +5836,9 @@ BF16_DECODE_FRAC = 0.10
 BF16_ULPS = 1.0  # the bf16 instances against their plain version (kernels.bf16_ulps)
 BF16_KEYS = {"flash_attention_kernel": "flash_attention_kernel bf16",
              "ssd_kernel": "ssd_kernel bf16"}
+# the bf16 flash launches of phases 24 and 25 that took the wgmma instances
+# (``kernel.route``): every one must
+WGMMA_KEY = "flash_attention_kernel bf16 wgmma"
 BF16_TRAIN = ["--seq", "256", "--batch", "8", "--lr", "3e-4"]  # phase 16's run_lm defaults
 
 
@@ -5845,11 +5915,23 @@ def compare_bf16_calls(H, cap, label):
 
 def count_bf16(H, cap, want, what):
     """Hold the wrappers' launches in ``cap`` to ``want`` ({kernel: n}) and
-    add them to the bf16 instances' main-path counts."""
+    add them to the bf16 instances' main-path counts; every flash launch
+    must have taken the wgmma instances (``count_wgmma``)."""
     for name, n in want.items():
         if cap.launches[name] != n:
             raise AssertionError(f"{what}: {name} launched {cap.launches[name]} times, want {n}")
         H.launches[BF16_KEYS[name]] = H.launches.get(BF16_KEYS[name], 0) + n
+        if name == "flash_attention_kernel":
+            count_wgmma(H, what, n, cap.wgmma[name])
+
+
+def count_wgmma(H, what, launched, wgmma):
+    """Hold the ``wgmma`` launches (bf16 flash on the wgmma instances) to
+    all ``launched`` bf16 flash launches of a main path, and count them."""
+    if wgmma != launched:
+        raise AssertionError(f"{what}: {launched} bf16 flash launches, {wgmma} of them on the "
+                             "wgmma instances; every one must take them")
+    H.launches[WGMMA_KEY] = H.launches.get(WGMMA_KEY, 0) + wgmma
 
 
 def bf16_prompt(torch, cfg, args, dev):
@@ -6116,6 +6198,18 @@ def train_bf16_bit_identical(H, torch, tag, arch, steps, cut):
     torch.cuda.empty_cache()
 
 
+# the bf16 mma.sync instance's times at 24g's and 25f's shapes before the
+# wgmma instances (PERF.md §6, one NVIDIA H100 80GB HBM3 at 700 W), printed
+# beside this run's
+BF16_FLASH_BEFORE_MS = {
+    "codeqwen prefill (24a)": "0.174870-0.177679",
+    "codeqwen training (24d)": "0.059600-0.060142",
+    "zamba2 prefill (24c)": "0.163731-0.165363",
+    "deepseek MLA prefill (24e)": "0.805423-0.808020",
+    "codeqwen ring training (25b)": "0.036956-0.037249",
+    "qwen2.5-32b ring prefill (25c)": "0.220424-0.221049",
+    "arctic data-axis prefill (25d)": "0.158594-0.158951",
+}
 BF16_FLASH_SHAPES = (  # 24g: (label, the launches on 24a-24e's paths, b, s, h, kv, hd, hd_v)
     ("codeqwen prefill (24a)", "64 in 24a's prefill", 4, 512, 32, 32, 128, 128),
     ("codeqwen training (24d)", "32 a step", 4, 256, 32, 32, 128, 128),
@@ -6138,7 +6232,8 @@ def time_bf16(H, torch, tag="24g", flash_shapes=BF16_FLASH_SHAPES, ssd_shapes=BF
     the plain version in bf16 ulps, and for flash
     ``scaled_dot_product_attention`` on the same bf16 tensors. The first
     shape of each kernel is its ``kernels`` line entry, unless an earlier
-    phase of the run timed one."""
+    phase of the run timed one. Flash prints the instance each shape takes
+    (``kernel.route``) and the mma.sync instance's time before it."""
     from repro_torch.kernels.flash.ref import flash_attention_ref
     from repro_torch.kernels.ssd.ref import ssd_chunk_scan
 
@@ -6154,8 +6249,10 @@ def time_bf16(H, torch, tag="24g", flash_shapes=BF16_FLASH_SHAPES, ssd_shapes=BF
                   "library_ms": library_ms}
         if i == 0:
             H.timing.setdefault(BF16_KEYS["flash_attention_kernel"], record)
+        route = H.FK.route(q.dtype, hd, hd_v, all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
         log(f"[timing] flash_attention_kernel bf16 {label} (B {b} x S {s}, {h}/{kv} heads, hd "
-            f"{hd}/{hd_v}, causal): kernel {ms:.6f} ms ({launches}), plain {plain_ms:.6f} ms, "
+            f"{hd}/{hd_v}, causal): kernel {ms:.6f} ms on the {route} instance (mma.sync before: "
+            f"{BF16_FLASH_BEFORE_MS[label]} ms) ({launches}), plain {plain_ms:.6f} ms, "
             f"scaled_dot_product_attention bf16 {library_ms:.6f} ms, bound {bound_ms:.6f} ms "
             f"({bound_by}: {nbytes} B, {ops} ops as bf16 products at {CARD.bf16_flops:.3g}/s), "
             f"share of bound {bound_ms / ms:.3f} [{H.card}]")
@@ -6500,6 +6597,11 @@ def main() -> int:
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
         })
+        if key == BF16_KEYS["flash_attention_kernel"]:  # every one on the wgmma instances
+            if H.launches.get(WGMMA_KEY, 0) != H.launches[key]:
+                raise AssertionError(f"{key}: {H.launches[key]} launches, "
+                                     f"{H.launches.get(WGMMA_KEY, 0)} on the wgmma instances")
+            kernels[-1]["wgmma_launches"] = H.launches[WGMMA_KEY]
     log("[compare] largest share of the tolerance used, per kernel: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(H.used.items())))
     # phases 21-23 and 25 run only where the cards are: "" when run, else why not
@@ -6510,7 +6612,7 @@ def main() -> int:
     else:
         names = "phases " + ", ".join(
             ["1", *sorted(phases - {"21", "22", "23", "25"}, key=int), *sorted(ran, key=int)])
-    log(f"[done] {names} passed in {time.perf_counter() - t_start:.1f} s"
+    log(f"[done] {names} passed in {time.perf_counter() - t_start:.1f} s (limit {SMOKE_LIMIT_S} s)"
         + "".join(f"; {note}" for note in skipped))
     log(f"[card] {card_line}")
     log(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@ key positions are 0-based row indices, or the int32 vectors ``q_pos`` (Sq,)
 and ``kv_pos`` (Skv,) on the tensors' device, both non-decreasing (key j is
 seen by row i when ``kv_pos[j] <= q_pos[i]``, and within the window of
 ``q_pos[i]``). On CUDA tensors it launches
-``csrc/flash.cu`` (and counts the launch in ``.launches``); on CPU tensors
+``csrc/flash.cu`` (and counts the launch in ``.launches``, and a launch of
+the bf16 wgmma instances in ``.wgmma_launches`` too; ``route`` says which
+instance a launch takes); on CPU tensors
 it returns the plain version ``ref.flash_attention_ref``, whose KV block is
 ``kv_block`` (the kernel tiles KV by 16, 32 or 64 keys whatever it is); on
 meta tensors it checks and allocates as for a launch and returns the output
@@ -40,6 +42,17 @@ from repro_torch.models.transformer.attention import softmax_scale
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash.cu"
 MAX_HEAD_DIM = 256  # the kernel's shared-memory tiles fit up to 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {"fp32": 0, "mma.sync": 0, "wgmma": 1}  # flash_forward's route argument
+
+
+def route(dtype: torch.dtype, hd: int, hd_v: int, aligned: bool = True) -> str:
+    """The instance a launch takes: ``"fp32"`` (3xTF32 on mma.sync) for
+    float32; for bfloat16 ``"wgmma"`` (TMA ring, warpgroup MMAs) where TMA
+    can describe the tensors — head dims multiples of 8 (16-byte strides)
+    and ``aligned`` (every base 16-byte aligned) — else ``"mma.sync"``."""
+    if dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if hd % 8 == 0 and hd_v % 8 == 0 and aligned else "mma.sync"
 
 
 def check_order(name: str, pos: torch.Tensor) -> None:
@@ -57,7 +70,7 @@ def library() -> BuiltLibrary:
     built = load_library("flash", [SOURCE])
     fn = built.lib.flash_forward
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return built
@@ -125,6 +138,9 @@ def _flash(q, k, v, window, softcap, kv_block, q_pos, kv_pos, ordered):
         raise ValueError("no keys: Skv = 0")
     if q.is_meta:
         return out
+    # the fresh output is aligned; kv_pos goes through TMA, q_pos does not
+    bases = (q, k, v) if kv_pos is None else (q, k, v, kv_pos)
+    which = route(q.dtype, hd, hd_v, all(t.data_ptr() % 16 == 0 for t in bases))
     lib = library().lib
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -132,12 +148,16 @@ def _flash(q, k, v, window, softcap, kv_block, q_pos, kv_pos, ordered):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if q_pos is None else q_pos.data_ptr(),
             None if kv_pos is None else kv_pos.data_ptr(), DTYPES[q.dtype],
-            b, sq, skv, h, kv, hd, hd_v, softmax_scale(hd), int(window), float(softcap), stream,
+            b, sq, skv, h, kv, hd, hd_v, softmax_scale(hd), int(window), float(softcap),
+            ROUTES[which], stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"flash kernel launch failed ({which}): cudaError_t {err}")
     flash_attention_kernel.launches += 1
+    if which == "wgmma":
+        flash_attention_kernel.wgmma_launches += 1
     return out
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.wgmma_launches = 0

@@ -7,7 +7,9 @@ flash op itself (its Pallas kernel in interpret mode), the JAX
 oracle. Inputs are numpy draws from a seed, handed to both frameworks.
 Tolerance 1e-5 (float32; the blocked and naive forms sum in other orders).
 The CUDA kernel itself is held against the plain version on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``); here its numeric schemes
+(3xTF32 for fp32, P split into two bf16 parts for bf16) are emulated with
+numpy, and its choice of instance (``kernel.route``) is held for every arch.
 """
 
 import jax
@@ -19,6 +21,8 @@ import torch
 from repro.kernels.flash.ops import flash_attention as jax_flash
 from repro.kernels.flash.ref import naive_attention as jax_naive
 from repro.models.transformer.attention import blocked_attention as jax_blocked
+from repro_torch.configs import get_arch, list_archs
+from repro_torch.kernels import bf16_ulps
 from repro_torch.kernels.flash import kernel as K
 from repro_torch.kernels.flash.ops import flash_attention
 from repro_torch.kernels.flash.ref import flash_attention_ref
@@ -167,6 +171,47 @@ def test_three_tf32_split_holds_plain_version(passes):
         assert not np.allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
+# The bf16 instances take S = Q.K^T exactly (bf16 products, fp32 sums), p =
+# exp(s scale - m) (the kernel's ex2.approx of it), and multiply P.V as two
+# bf16 products, lo.V and hi.V, with hi = bf16(p) and lo = bf16(p - hi),
+# so that P stays fp32-accurate as the TPU kernel keeps it. Emulated here
+# (products summed in float64), the split holds the plain version on the same
+# bf16 inputs within one bf16 ulp (``kernels.bf16_ulps``); P rounded to bf16
+# once must not.
+
+
+def _bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).bfloat16().float().numpy()
+
+
+def _emulated_bf16_attention(q, k, v, split):
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    scale = np.float32(1.0 / np.sqrt(hd))
+    causal = np.tril(np.ones((s, s), dtype=bool))
+    out = np.empty((b, s, h, v.shape[-1]), dtype=np.float32)
+    for bi in range(b):
+        for hi in range(h):
+            kv = hi // (h // kvh)
+            sc = (q[bi, :, hi].astype(np.float64) @ k[bi, :, kv].T.astype(np.float64))
+            x = np.where(causal, sc.astype(np.float32) * scale, np.float32(-2e38))
+            p = np.where(causal, np.exp(x - x.max(axis=1, keepdims=True)), np.float32(0.0))
+            high = _bf16(p)
+            parts = [_bf16(p - high), high] if split else [high]
+            o = sum(part.astype(np.float64) @ v[bi, :, kv].astype(np.float64) for part in parts)
+            out[bi, :, hi] = o / p.astype(np.float32).sum(axis=1, keepdims=True)
+    return torch.from_numpy(out).bfloat16()
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_bf16_split_holds_plain_version(split):
+    q, k, v = (_bf16(a) for a in qkv(1, 512, 2, 1, 128, seed=12))
+    got = _emulated_bf16_attention(q, k, v, split)
+    ulps = float(bf16_ulps(got, flash_attention_ref(*(torch.from_numpy(a).bfloat16()
+                                                      for a in (q, k, v)))).max())
+    assert (ulps <= 1.0) == split
+
+
 def test_order_check_refuses_decreasing_positions():
     """``check_order`` takes repeated and rising positions (an m-rope t-row)
     and a vector of one, and refuses a decrease anywhere."""
@@ -177,3 +222,44 @@ def test_order_check_refuses_decreasing_positions():
     for bad in ([1, 0], [0, 0, 1, 2, 1], [0, 1, 2, 3, 4, 5, 6, -1]):
         with pytest.raises(ValueError, match="kv_pos decreases"):
             check_order("kv_pos", torch.tensor(bad, dtype=torch.int32))
+
+
+# ------------------------------------------------- the instance a launch takes --
+# (heads, kv heads, hd, hd_v) of every registered arch's attention launches at
+# full width (MLA: q/k nope + rope, v its own dim), None without attention
+ATTENTION_DIMS = {
+    "arctic-480b": (56, 8, 128, 128), "codeqwen1.5-7b": (32, 32, 128, 128),
+    "deepseek-v3-671b": (128, 128, 192, 128), "gemma2-27b": (32, 16, 128, 128),
+    "glm4-9b": (32, 2, 128, 128), "mamba2-130m": None, "musicgen-large": (32, 32, 64, 64),
+    "qwen2-vl-2b": (12, 2, 128, 128), "qwen2.5-32b": (40, 8, 128, 128),
+    "zamba2-7b": (32, 32, 112, 112),
+}
+
+
+def _attention_dims(cfg):
+    if cfg.attn_kind == "none":
+        return None
+    if cfg.attn_kind == "mla":
+        return (cfg.num_heads, cfg.num_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                cfg.v_head_dim)
+    return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.head_dim
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_route_of_every_arch(arch):
+    """Every arch's bf16 attention launch at full width takes the wgmma
+    instances (TMA takes head dims that are multiples of 8 from aligned
+    bases); the same dims from a misaligned base, or an hd TMA cannot
+    stride, take mma.sync; float32 takes the fp32 instances."""
+    dims = _attention_dims(get_arch(arch))
+    assert dims == ATTENTION_DIMS[arch]
+    if dims is None:  # no attention layer: no flash launch to route
+        assert get_arch(arch).num_heads == 0
+        return
+    h, kv, hd, hd_v = dims
+    assert h % kv == 0 and max(hd, hd_v) <= K.MAX_HEAD_DIM
+    assert K.route(torch.bfloat16, hd, hd_v) == "wgmma"
+    assert K.route(torch.bfloat16, hd, hd_v, aligned=False) == "mma.sync"
+    assert K.route(torch.bfloat16, hd + 4, hd_v) == "mma.sync"
+    assert K.route(torch.bfloat16, hd, hd_v - 2) == "mma.sync"
+    assert K.route(torch.float32, hd, hd_v) == "fp32"

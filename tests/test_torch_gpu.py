@@ -439,6 +439,19 @@ def test_flash_kernel_bf16_on_card(cuda):
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
+def _held_on_wgmma(q, k, v, **kw):
+    """Two launches that must take the bf16 wgmma instances: the same bits
+    both times, within one bf16 ulp of the plain version."""
+    fn = FK.flash_attention_kernel
+    before = (fn.launches, fn.wgmma_launches)
+    got = fn(q, k, v, **kw)
+    again = fn(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches - before[0], fn.wgmma_launches - before[1]) == (2, 2)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    assert float(bf16_ulps(got, flash_attention_ref(q, k, v, **kw)).max()) <= 1.0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,h,kv,hd,hd_v,window,cap", [
     (4, 512, 32, 32, 128, None, 0, 0.0),  # codeqwen1.5-7b's prefill launch
@@ -451,16 +464,11 @@ def test_flash_kernel_bf16_on_card(cuda):
     (2, 513, 8, 1, 64, None, 0, 0.0),
 ])
 def test_flash_kernel_bf16_within_one_ulp_on_card(cuda, b, s, h, kv, hd, hd_v, window, cap):
-    """The bf16 instance (P . V from P's bf16 high and low parts) against
-    the plain version on the same bf16 inputs, which computes in float32
-    and rounds once: at most one bf16 ulp apart."""
+    """The bf16 wgmma instances (P . V from P's bf16 high and low parts)
+    against the plain version on the same bf16 inputs, which computes in
+    float32 and rounds once: at most one bf16 ulp apart."""
     q, k, v = _flash_inputs(cuda, b, s, h, kv, hd, hd_v, dtype=torch.bfloat16, seed=s + hd)
-    before = FK.flash_attention_kernel.launches
-    got = FK.flash_attention_kernel(q, k, v, window=window, softcap=cap)
-    torch.cuda.synchronize()
-    assert FK.flash_attention_kernel.launches == before + 1 and got.dtype == torch.bfloat16
-    want = flash_attention_ref(q, k, v, window=window, softcap=cap)
-    assert float(bf16_ulps(got, want).max()) <= 1.0
+    _held_on_wgmma(q, k, v, window=window, softcap=cap)
 
 
 @pytest.mark.gpu
@@ -470,15 +478,11 @@ def test_flash_kernel_bf16_within_one_ulp_on_card(cuda, b, s, h, kv, hd, hd_v, w
     (2, 512, 56, 8),  # arctic-480b's prefill launch on the data axis (a replica's 2 rows)
 ])
 def test_flash_kernel_bf16_ring_and_grid_launches_within_one_ulp_on_card(cuda, b, s, h, kv):
-    """The bf16 instance at the launch shapes the four-card bf16 paths give
-    it (hd 128, causal) against the plain version on the same bf16 inputs:
-    at most one bf16 ulp apart."""
+    """The bf16 wgmma instances at the launch shapes the four-card bf16
+    paths give them (hd 128, causal; GQA 40/8 and 56/8) against the plain
+    version on the same bf16 inputs: at most one bf16 ulp apart."""
     q, k, v = _flash_inputs(cuda, b, s, h, kv, 128, dtype=torch.bfloat16, seed=b + h)
-    before = FK.flash_attention_kernel.launches
-    got = FK.flash_attention_kernel(q, k, v)
-    torch.cuda.synchronize()
-    assert FK.flash_attention_kernel.launches == before + 1 and got.dtype == torch.bfloat16
-    assert float(bf16_ulps(got, flash_attention_ref(q, k, v)).max()) <= 1.0
+    _held_on_wgmma(q, k, v)
 
 
 @pytest.mark.gpu
@@ -489,6 +493,52 @@ def test_flash_kernel_bf16_masked_by_positions_within_one_ulp_on_card(cuda):
     got = FK.flash_attention_kernel(q, k, v, q_pos=pos, kv_pos=pos)
     want = flash_attention_ref(q, k, v, q_pos=pos, kv_pos=pos)
     assert float(bf16_ulps(got, want).max()) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 513])
+@pytest.mark.parametrize("hd,hd_v", [(64, 64), (112, 112), (128, 128), (192, 128), (256, 256)])
+def test_flash_kernel_bf16_wgmma_tilings_on_card(cuda, s, hd, hd_v):
+    """The wgmma instances around their 64-row warpgroups, 128-row blocks
+    and 64-key tiles, at each head-dim instance (zamba2's 112, MLA's
+    192/128: boxes part past hd filled with 0 by TMA)."""
+    _held_on_wgmma(*_flash_inputs(cuda, 2, s, 8, 4, hd, hd_v, dtype=torch.bfloat16, seed=s + hd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,h,kv,window,cap,s_front", [
+    (300, 8, 4, 100, 0.0, 0),  # a window crossing KV tile and warpgroup edges
+    (256, 8, 4, 0, 50.0, 0),  # softcap 50
+    (300, 8, 2, 0, 0.0, 100),  # positions: a frontend prefix sharing t = 0
+    (257, 8, 2, 20, 0.0, 33),  # positions and a window
+])
+def test_flash_kernel_bf16_wgmma_masks_on_card(cuda, s, h, kv, window, cap, s_front):
+    q, k, v = _flash_inputs(cuda, 2, s, h, kv, 128, dtype=torch.bfloat16, seed=s + h)
+    pos = _t_row(cuda, s, s_front) if s_front else None
+    _held_on_wgmma(q, k, v, window=window, softcap=cap, q_pos=pos, kv_pos=pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,offset", [(100, 0), (128, 1)])
+def test_flash_kernel_bf16_mma_sync_by_shape_on_card(cuda, hd, offset):
+    """What TMA cannot describe (hd not a multiple of 8; q's base not
+    16-byte aligned) takes the mma.sync instance, by shape: within one ulp,
+    no wgmma launch. The C entry refuses the wgmma instance for it."""
+    q, k, v = _flash_inputs(cuda, 2, 200, 8, 4, hd, dtype=torch.bfloat16, seed=hd)
+    flat = torch.empty(q.numel() + offset, dtype=q.dtype, device=cuda)
+    q = flat[offset:].view(q.shape).copy_(q)
+    assert FK.route(q.dtype, hd, hd, q.data_ptr() % 16 == 0) == "mma.sync"
+    fn = FK.flash_attention_kernel
+    before = (fn.launches, fn.wgmma_launches)
+    got = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert (fn.launches - before[0], fn.wgmma_launches - before[1]) == (1, 0)
+    assert float(bf16_ulps(got, flash_attention_ref(q, k, v)).max()) <= 1.0
+    out = torch.empty_like(got)
+    err = FK.library().lib.flash_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None, 1, 2, 200, 200, 8, 4,
+        hd, hd, 1.0, 0, 0.0, FK.ROUTES["wgmma"], torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue
 
 
 @pytest.mark.gpu
